@@ -13,15 +13,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``sm_90a`` (in parallel), with ptxas' register / shared-memory report.
 3. Each kernel against its plain PyTorch version on the card, at several
    shapes, main-path shapes included, with the tolerances below.
-4. The main path at full width: 8 Gaussian blobs, n = 2^24 rows x f = 32
-   float32 (2 GiB; ``bench.py``'s k, f and iteration count at 32x its rows),
-   ``mean``/``std`` along axis 0, standardize, ``KMeans(8, init=8 rows of z,
-   max_iter=30, tol=None).fit``, ``predict`` on 2^20 held-out rows. Kernel
-   launch counts are zeroed just before and read just after, and the fit is
-   held against the same fit through the plain versions.
-5. Timing with CUDA events (median of 25 single launches after warm-up):
-   kernel, plain version, one-call library yardstick where one exists, and
-   the bound of each kernel at its main-path shape.
+4. Three paths at full width, each with its kernel launch counts zeroed
+   just before and read just after, and held against the same path
+   through the plain versions:
+   - KMeans: 8 Gaussian blobs, n = 2^24 rows x f = 32 float32 (2 GiB;
+     ``bench.py``'s k, f and iteration count at 32x its rows),
+     ``mean``/``std`` along axis 0, standardize, ``KMeans(8, init=8 rows
+     of z, max_iter=30, tol=None).fit``, ``predict`` on 2^20 held-out rows;
+   - kNN: ``KNeighborsClassifier(n_neighbors=5).fit`` on the first 2^22
+     standardized rows (512 MiB) with the fit's labels, ``predict`` on 2^13
+     held-out standardized rows;
+   - kernel ridge: ``K = rbf(X, X, sigma=sqrt(32)) + eye(1024)`` over the
+     first 1024 standardized rows, ``L = cholesky(K)``, then
+     ``alpha = solve_triangular(L.T, solve_triangular(L, y, lower=True))``.
+5. Timing with CUDA events (median of single launches after warm-up; the
+   repetitions are named per kernel): kernel, plain version, one-call
+   library yardstick where one exists, and the bound of each kernel at its
+   main-path shape.
 
 The line before last is one JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -47,6 +55,20 @@ SUMS_RTOL = 1e-5                    # sums: relative to the largest |sum|
 INERTIA_RTOL = 1e-4                 # inertia: one sum over all rows
 TIE_RTOL = 1e-5                     # labels may differ only where the two smallest d2 are this close
 CENTERS_RTOL = 1e-4                 # fitted centroids, kernel fit vs plain fit, relative to max |c|
+# kNN: distances as heat_tpu's own kNN tests hold them; an index may differ
+# only where the plain version's distances of the two rows are within
+# KNN_TIE_RTOL of each other, relative to (d + 1): the card, cuBLAS and XLA
+# round (x2 + y2) - 2 xy differently in the last bits
+KNN_RTOL, KNN_ATOL = 1e-4, 1e-5
+KNN_TIE_RTOL = 1e-5
+# Cholesky, kernel vs plain version: the same steps with float32 sums of up
+# to n terms in another order (fmaf chains vs cuBLAS), relative to max |L|
+CHOL_ATOL_REL = 2e-5
+# kernel ridge: ||L L^T - K||max / ||K||max is float32 Cholesky's backward
+# error, c n eps ~ 1e-4 at n = 1024 in the worst case; ||K a - y|| / ||y|| is
+# that error times the condition of K (at most 1 + ||rbf|| ~ 1e3 here)
+RIDGE_RECON_RTOL = 1e-4
+RIDGE_SOLVE_RTOL = 1e-2
 
 # ---- the card's peaks (NVIDIA H100 SXM data sheet) --------------------------
 HBM_BYTES_PER_S = 3.35e12
@@ -54,11 +76,39 @@ FP32_FLOP_PER_S = 67e12
 
 N_MAIN, F_MAIN, K_MAIN, ITERS = 1 << 24, 32, 8, 30
 N_PREDICT = 1 << 20
+N_TRAIN, N_QUERY, KNN_K = 1 << 22, 1 << 13, 5  # kNN path
+N_RIDGE = 1024                                 # kernel-ridge path: heat_tpu's MAX_FUSED_N
 
 
 def check(cond, msg):
     if not cond:
         raise RuntimeError("chip_smoke check failed: " + msg)
+
+
+def knn_check(x, y, d, i, d0, i0):
+    """Distances within KNN_RTOL/KNN_ATOL and indices equal outside
+    near-ties; returns (max abs distance error, differing entries)."""
+    import torch
+
+    from heat_tpu_torch.spatial.distance import _quadratic_expand
+
+    e = (d - d0).abs()
+    check(bool((e <= KNN_ATOL + KNN_RTOL * d0.abs()).all()), f"kNN distances differ by up to {e.max().item()}")
+    diff = i != i0
+    rows = torch.nonzero(diff.any(dim=1)).flatten()
+    for r0 in range(0, rows.numel(), 64):
+        rr = rows[r0 : r0 + 64]
+        full = _quadratic_expand(x[rr], y)
+        dk, dp = torch.gather(full, 1, i[rr].long()), torch.gather(full, 1, i0[rr].long())
+        check(bool(((dk - dp).abs() <= KNN_TIE_RTOL * (dp.abs() + 1.0)).all()), "kNN indices differ outside near-ties")
+    return e.max().item(), int(diff.sum())
+
+
+def spd(n, gen, dev):
+    import torch
+
+    g = torch.randn(n, n, device=dev, generator=gen, dtype=torch.float64)
+    return (g @ g.T / n + torch.eye(n, device=dev, dtype=torch.float64)).to(torch.float32)
 
 
 def main() -> int:
@@ -69,7 +119,10 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     import heat_tpu_torch as ht
-    from heat_tpu_torch.core.kernels import _build, assign_stats, chunk_moments, forced_mode, lloyd_local, moments_local
+    from heat_tpu_torch.core.kernels import (
+        _build, assign_stats, chol_block_size, chol_panels, cholesky_local, chunk_moments, forced_mode, knn_tiles,
+        lloyd_local, moments_local, nearest_neighbors_local,
+    )
     from heat_tpu_torch.spatial.distance import _quadratic_expand
 
     check(os.path.dirname(os.path.abspath(ht.__file__)) == os.path.join(ROOT, "heat_tpu_torch"),
@@ -98,7 +151,7 @@ def main() -> int:
         for line in info.ptxas:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"[build]   {line}")
-    check(set(built) >= {"moments", "lloyd"}, f"built {sorted(built)}")
+    check(set(built) >= {"moments", "lloyd", "topk_distance", "panel_update"}, f"built {sorted(built)}")
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -148,6 +201,43 @@ def main() -> int:
         if n == N_MAIN:
             errors["lloyd_fused"] = max(e_sums, e_in)
         del x, d2
+    for n, m, f, k in [(N_QUERY, N_TRAIN, F_MAIN, KNN_K), (1000, 3000, 7, 1), (37, 999, 16, 7), (128, 64, 32, 64)]:
+        x = torch.randn(n, f, device=dev, generator=gen)
+        y = torch.randn(m, f, device=dev, generator=gen)
+        d, i = nearest_neighbors_local(x, y, k)
+        d0, i0 = knn_tiles(x, y, k)
+        torch.cuda.synchronize()
+        check(tuple(i.shape) == (n, k) and i.dtype == torch.int32 and bool(((i >= 0) & (i < m)).all()), "kNN indices")
+        e_d, ndiff = knn_check(x, y, d, i, d0, i0)
+        again = nearest_neighbors_local(x, y, k)
+        check(torch.equal(again[0], d) and torch.equal(again[1], i), f"kNN not bit-identical from run to run at {(n, m, f, k)}")
+        print(f"[check] topk_distance n={n} m={m} f={f} k={k}: distances max abs {e_d:.3e}, indices differ on {ndiff} "
+              f"entries (all near-ties), bit-identical rerun", flush=True)
+        if n == N_QUERY:
+            errors["topk_distance"] = e_d
+        del x, y, d, i, d0, i0, again
+    for n in (N_RIDGE, 1000, 129, 1):
+        a = spd(n, gen, dev)
+        L = cholesky_local(a)
+        L0 = chol_panels(a, chol_block_size(n))
+        torch.cuda.synchronize()
+        e_l = (L - L0).abs().max().item()
+        check(e_l <= CHOL_ATOL_REL * L0.abs().max().item(), f"chol vs plain at n={n}: {e_l}")
+        check(bool((torch.triu(L, 1) == 0).all()), f"chol upper triangle not zero at n={n}")
+        check(torch.equal(cholesky_local(a), L), f"chol not bit-identical from run to run at n={n}")
+        recon = (L.double() @ L.double().T - a.double()).abs().max().item() / a.abs().max().item()
+        print(f"[check] chol_panel_fused n={n}: vs plain max abs {e_l:.3e} (max |L| {L0.abs().max().item():.3e}), "
+              f"||L L^T - A||max/||A||max {recon:.3e}, upper zero, bit-identical rerun", flush=True)
+        if n == N_RIDGE:
+            errors["chol_panel_fused"] = e_l
+    a = spd(N_RIDGE, gen, dev)
+    a[700, 700] = -50.0  # not positive definite from pivot 700 on: NaN, never an error
+    L, L0 = cholesky_local(a), chol_panels(a, chol_block_size(N_RIDGE))
+    check(torch.equal(torch.isnan(L), torch.isnan(L0)) and bool(torch.isnan(L[700:, 700]).all())
+          and bool(torch.isfinite(L[:, :700]).all()), "chol NaN pattern of a non-SPD matrix vs plain")
+    print(f"[check] chol_panel_fused non-SPD n={N_RIDGE}: NaN mask equal to the plain version's "
+          f"({int(torch.isnan(L).sum())} NaN entries, columns >= 700)", flush=True)
+    del a, L, L0
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------ 4. main path
@@ -220,11 +310,80 @@ def main() -> int:
     print(f"[main] vs plain fit: labels differ on {int(ldiff.sum())} rows ({int(near.sum())} near-tie rows), "
           f"centroids max abs {cdiff:.3e}, inertia {km.inertia_:.6e} vs {km0.inertia_:.6e}; plain fit {fit_plain_s:.3f} s",
           flush=True)
+    zq = ((x_new - mu) / sd)[:N_QUERY]
+    member_q = member[N_MAIN : N_MAIN + N_QUERY]
     del d2, two, near, ldiff, lab0, km0, mu0, sd0, x_new, pred
     torch.cuda.empty_cache()
 
+    # the kNN path: label new points by the fit's clusters
+    train, train_labels = z[:N_TRAIN], km.labels_[:N_TRAIN]
+    torch.cuda.synchronize()
+    ht.kernels.reset_kernel_stats()
+    t0 = time.perf_counter()
+    clf = ht.classification.KNeighborsClassifier(n_neighbors=KNN_K).fit(train, train_labels)
+    knn_pred = clf.predict(zq)
+    torch.cuda.synchronize()
+    knn_s = time.perf_counter() - t0
+    launches["topk_distance"] = ht.LAUNCHES["topk_distance"]
+    stats = dict(ht.KERNEL_STATS)
+    print(f"[knn] launches {dict(ht.LAUNCHES)} KERNEL_STATS {stats}; fit+predict {knn_s:.3f} s "
+          f"({N_QUERY} queries x {N_TRAIN} training rows x f={F_MAIN}, k={KNN_K})", flush=True)
+    check(stats.get("topk_distance.cuda") == 1 and "topk_distance.torch" not in stats
+          and "topk_distance.fallback" not in stats, f"kNN dispatch {stats}")
+    check(launches["topk_distance"] == 1, f"topk_distance launches {launches['topk_distance']}")
+    check(knn_pred.shape == (N_QUERY,) and knn_pred.split == 0 and knn_pred.larray.dtype == torch.int64, "kNN predict meta")
+    knn_acc = (knn_pred.larray == member_q).float().mean().item()
+    check(knn_acc > 0.999, f"kNN predict accuracy against the blobs {knn_acc}")
+    with forced_mode("topk_distance", "torch"):
+        t0 = time.perf_counter()
+        knn_pred0 = clf.predict(zq)
+        torch.cuda.synchronize()
+        knn_plain_s = time.perf_counter() - t0
+        dq0, iq0 = ht.spatial.nearest_neighbors(zq, train, KNN_K)
+    dq, iq = ht.spatial.nearest_neighbors(zq, train, KNN_K)
+    e_q, nd_q = knn_check(zq.larray, train.larray, dq.larray, iq.larray, dq0.larray, iq0.larray)
+    pdiff = knn_pred.larray != knn_pred0.larray
+    check(not bool((pdiff & ~(iq.larray != iq0.larray).any(dim=1)).any()),
+          "kNN labels differ from the plain predict where the neighbours are the same")
+    print(f"[knn] accuracy against the blobs {knn_acc:.6f}; vs plain predict ({knn_plain_s:.3f} s): labels differ on "
+          f"{int(pdiff.sum())} rows, neighbour indices on {nd_q} entries (near-ties only), distances max abs {e_q:.3e}",
+          flush=True)
+    del dq, iq, dq0, iq0, knn_pred0
+
+    # the kernel-ridge path: Cholesky of an RBF Gram matrix, two triangular solves
+    X = z[:N_RIDGE]
+    yv = ht.array(torch.randn(N_RIDGE, device=dev, generator=gen), split=0)
+    torch.cuda.synchronize()
+    ht.kernels.reset_kernel_stats()
+    t0 = time.perf_counter()
+    K = ht.spatial.rbf(X, X, sigma=F_MAIN ** 0.5) + 1.0 * ht.eye(N_RIDGE)
+    L = ht.linalg.cholesky(K)
+    alpha = ht.linalg.solve_triangular(L.T, ht.linalg.solve_triangular(L, yv, lower=True), lower=False)
+    torch.cuda.synchronize()
+    ridge_s = time.perf_counter() - t0
+    launches["chol_panel_fused"] = ht.LAUNCHES["chol_panel_fused"]
+    stats = dict(ht.KERNEL_STATS)
+    print(f"[ridge] launches {dict(ht.LAUNCHES)} KERNEL_STATS {stats}; rbf+eye+cholesky+2 solves {ridge_s:.4f} s "
+          f"at n={N_RIDGE}", flush=True)
+    check(stats.get("chol_panel_fused.cuda") == 1 and launches["chol_panel_fused"] == 1, f"ridge dispatch {stats}")
+    Kt, Lt, at = K.larray, L.larray, alpha.larray
+    check(L.shape == (N_RIDGE, N_RIDGE) and L.split == K.split and alpha.shape == (N_RIDGE,), "ridge shapes / split")
+    check(bool(torch.isfinite(Lt).all()) and bool((torch.triu(Lt, 1) == 0).all()), "ridge L finite and lower")
+    recon = (Lt.double() @ Lt.double().T - Kt.double()).abs().max().item() / Kt.abs().max().item()
+    resid = (torch.linalg.norm(Kt.double() @ at.double() - yv.larray.double()) / torch.linalg.norm(yv.larray.double())).item()
+    check(recon <= RIDGE_RECON_RTOL, f"||L L^T - K||max/||K||max = {recon}")
+    check(resid <= RIDGE_SOLVE_RTOL, f"||K alpha - y||/||y|| = {resid}")
+    with forced_mode("chol_panel_fused", "torch"):
+        L0 = ht.linalg.cholesky(K).larray
+    e_L = (Lt - L0).abs().max().item()
+    check(e_L <= CHOL_ATOL_REL * L0.abs().max().item(), f"ridge L vs plain L: {e_L}")
+    check(torch.equal(ht.linalg.cholesky(K).larray, Lt), "ridge L not bit-identical from run to run")
+    print(f"[ridge] ||L L^T - K||max/||K||max {recon:.3e}; ||K alpha - y||/||y|| {resid:.3e}; L vs plain L max abs "
+          f"{e_L:.3e}; L bit-identical on rerun", flush=True)
+
     # --------------------------------------------------------------- 5. timing
     def time_ms(fn, reps=25, warm=3):
+        # the median of `reps` single launches after `warm` unmeasured ones
         for _ in range(warm):
             fn()
         torch.cuda.synchronize()
@@ -262,6 +421,37 @@ def main() -> int:
         "source": "heat_tpu_torch/core/kernels/csrc/lloyd.cu",
         "replaces": "heat_tpu/core/kernels/lloyd.py:52",
     }
+    ta, tq = train.larray, zq.larray
+    rows["topk_distance"] = {
+        # 5 launches of a kernel near 0.1 s; the plain version takes seconds: 2 after 1 warm-up
+        "ms": time_ms(lambda: nearest_neighbors_local(tq, ta, KNN_K), reps=5, warm=1),
+        "plain_ms": time_ms(lambda: knn_tiles(tq, ta, KNN_K), reps=2, warm=1),
+        "library_ms": None,  # no single PyTorch call computes a top-k of distances without the matrix
+        # read x and y once, write d and idx; 2 n m f flops for the distances
+        "bytes": (N_QUERY + N_TRAIN) * F_MAIN * 4 + N_QUERY * KNN_K * 8,
+        "ops": 2 * N_QUERY * N_TRAIN * F_MAIN,
+        "source": "heat_tpu_torch/core/kernels/csrc/topk_distance.cu",
+        "replaces": "heat_tpu/core/kernels/topk_distance.py:65",
+    }
+
+    def materialized_topk():
+        # the (n, m) matrix is 128 GiB at this shape: 16 slices of 512 query rows
+        for r0 in range(0, N_QUERY, 512):
+            torch.topk(_quadratic_expand(tq[r0 : r0 + 512], ta), KNN_K, dim=1, largest=False)
+
+    mat_ms = time_ms(materialized_topk, reps=2, warm=1)
+    print(f"[time] materializing _quadratic_expand + topk over the kNN path's shape (16 slices of 512 query rows): "
+          f"{mat_ms:.4f} ms (context only; not a library_ms)", flush=True)
+    rows["chol_panel_fused"] = {
+        "ms": time_ms(lambda: cholesky_local(Kt)),
+        "plain_ms": time_ms(lambda: chol_panels(Kt, chol_block_size(N_RIDGE)), reps=5, warm=1),
+        "library_ms": time_ms(lambda: torch.linalg.cholesky(Kt)),
+        # read A once, write L once; n^3 / 3 flops
+        "bytes": 2 * N_RIDGE * N_RIDGE * 4,
+        "ops": N_RIDGE ** 3 / 3,
+        "source": "heat_tpu_torch/core/kernels/csrc/panel_update.cu",
+        "replaces": "heat_tpu/core/kernels/panel_update.py:95",
+    }
     t0 = time.perf_counter()
     ht.cluster.KMeans(n_clusters=K_MAIN, init=z[:K_MAIN], max_iter=ITERS, tol=None).fit(z)
     torch.cuda.synchronize()
@@ -269,7 +459,7 @@ def main() -> int:
     print(f"[time] warm fit {warm_fit_s:.4f} s ({ITERS / warm_fit_s:.1f} iterations/s, {ITERS + 1} lloyd launches)", flush=True)
 
     kernels = []
-    for name in ("moments_onepass", "lloyd_fused"):
+    for name in ("moments_onepass", "lloyd_fused", "topk_distance", "chol_panel_fused"):
         r = rows[name]
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = r["ops"] / FP32_FLOP_PER_S * 1e3

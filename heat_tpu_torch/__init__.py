@@ -6,11 +6,18 @@ kernels. Arrays live on the first CUDA card unless the caller asks for the
 CPU (``use_device("cpu")`` or ``device="cpu"``). This package imports
 nothing of JAX or of ``heat_tpu``.
 
-This slice covers the main path: factories and arithmetic, ``mean``/
-``var``/``std`` over the ``moments_onepass`` kernel, ``cdist`` and
-``KMeans`` over the ``lloyd_fused`` kernel, on one card.
+The port goes slice by slice, on one card so far:
+
+1. the main path: factories and arithmetic, ``mean``/``var``/``std`` over
+   the ``moments_onepass`` kernel, ``cdist`` and ``KMeans`` over the
+   ``lloyd_fused`` kernel;
+2. kNN predict: ``spatial.nearest_neighbors`` and
+   ``classification.KNeighborsClassifier`` over the ``topk_distance``
+   kernel; and the Cholesky path: ``eye``, ``spatial.rbf``, ``matmul``/
+   ``transpose``, ``linalg.cholesky`` over the ``chol_panel_fused`` kernel
+   and ``linalg.solve_triangular``.
 """
 from .core import *
-from .core import kernels, random
-from . import cluster, convert, spatial
+from .core import kernels, linalg, random
+from . import classification, cluster, convert, spatial
 from .core.kernels import KERNEL_STATS, LAUNCHES

@@ -10,11 +10,12 @@ from typing import Optional
 
 import numpy as np
 
+from .classification.kneighborsclassifier import KNeighborsClassifier
 from .cluster.kmeans import KMeans
 from .core import factories
 from .core.dndarray import DNDarray
 
-__all__ = ["array_from_numpy", "from_heat_tpu_state"]
+__all__ = ["array_from_numpy", "from_heat_tpu_state", "knn_from_heat_tpu"]
 
 
 def array_from_numpy(a, split: Optional[int] = None, device=None, comm=None) -> DNDarray:
@@ -30,3 +31,18 @@ def from_heat_tpu_state(d: dict, device=None, comm=None) -> KMeans:
     if missing:
         raise KeyError(f"not a KMeans state dictionary: missing {sorted(missing)}")
     return KMeans().load_state_dict(d, comm=comm, device=device)
+
+
+def knn_from_heat_tpu(x, y, n_neighbors: int = 5, split: Optional[int] = None, device=None, comm=None) -> KNeighborsClassifier:
+    """A fitted port :class:`KNeighborsClassifier` from the training set
+    and labels of a ``heat_tpu`` classifier, as numpy arrays (``clf.x.numpy()``,
+    ``clf.y.numpy()``): a kNN classifier's only state is its training set.
+    ``split`` is the training set's split axis."""
+    x, y = np.asarray(x), np.asarray(y)
+    if x.ndim != 2 or y.ndim != 1 or x.shape[0] != y.shape[0]:
+        raise ValueError(f"need an (n, f) training set and n labels, got {x.shape} and {y.shape}")
+    clf = KNeighborsClassifier(n_neighbors=n_neighbors)
+    return clf.fit(
+        array_from_numpy(x, split=split, device=device, comm=comm),
+        array_from_numpy(y, split=split, device=device, comm=comm),
+    )

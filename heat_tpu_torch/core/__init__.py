@@ -10,5 +10,8 @@ from .stride_tricks import *
 from .sanitation import *
 from .arithmetics import *
 from .statistics import *
+from . import linalg
+from .linalg.basics import *
 from . import kernels
 from . import random
+from .base import *

@@ -4,7 +4,7 @@ from __future__ import annotations
 import inspect
 from typing import Dict, List
 
-__all__ = ["BaseEstimator", "ClusteringMixin", "is_clusterer", "is_estimator"]
+__all__ = ["BaseEstimator", "ClassificationMixin", "ClusteringMixin", "is_classifier", "is_clusterer", "is_estimator"]
 
 
 class BaseEstimator:
@@ -53,6 +53,22 @@ class BaseEstimator:
         return f"{self.__class__.__name__}({params})"
 
 
+class ClassificationMixin:
+    """Mixin for classifiers."""
+
+    _estimator_type = "classifier"
+
+    def fit(self, x, y):
+        raise NotImplementedError()
+
+    def fit_predict(self, x, y):
+        self.fit(x, y)
+        return self.predict(x)
+
+    def predict(self, x):
+        raise NotImplementedError()
+
+
 class ClusteringMixin:
     """Mixin for clusterers."""
 
@@ -68,6 +84,10 @@ class ClusteringMixin:
 
 def is_estimator(estimator) -> bool:
     return isinstance(estimator, BaseEstimator)
+
+
+def is_classifier(estimator) -> bool:
+    return getattr(estimator, "_estimator_type", None) == "classifier"
 
 
 def is_clusterer(estimator) -> bool:

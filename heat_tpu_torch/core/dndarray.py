@@ -116,6 +116,13 @@ class DNDarray:
         return self.gshape
 
     @property
+    def T(self) -> "DNDarray":
+        """The transpose; the split axis moves with its dimension."""
+        from .linalg import transpose
+
+        return transpose(self)
+
+    @property
     def lshape(self) -> Tuple[int, ...]:
         """Shape of this process's shard (the ceil-div chunk of its rank)."""
         return self.__comm.chunk(self.gshape, self.__split)[1]
@@ -240,6 +247,11 @@ class DNDarray:
         from . import arithmetics
 
         return arithmetics.pow(other, self)
+
+    def __matmul__(self, other):
+        from .linalg import matmul
+
+        return matmul(self, other)
 
     def __neg__(self):
         from . import arithmetics

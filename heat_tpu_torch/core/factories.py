@@ -21,6 +21,7 @@ __all__ = [
     "array",
     "empty",
     "empty_like",
+    "eye",
     "full",
     "full_like",
     "ones",
@@ -108,6 +109,19 @@ def full(shape, fill_value, dtype=None, split=None, device=None, comm=None) -> D
         shape, dtype, split, device, comm,
         lambda s, d, dev: torch.full(s, fill_value, dtype=d, device=dev),
     )
+
+
+def eye(shape, dtype=types.float32, split=None, device=None, comm=None, order="C") -> DNDarray:
+    """Ones on the main diagonal, zeros elsewhere. ``shape`` is n (square)
+    or (n,) or (n, m)."""
+    if order != "C":
+        raise NotImplementedError("only C-order memory layout is supported")
+    if isinstance(shape, (int, np.integer)):
+        n, m = int(shape), int(shape)
+    else:
+        shape = tuple(shape)
+        n, m = (int(shape[0]), int(shape[0])) if len(shape) == 1 else (int(shape[0]), int(shape[1]))
+    return _build((n, m), dtype, split, device, comm, lambda s, d, dev: torch.eye(s[0], s[1], dtype=d, device=dev))
 
 
 def _like_meta(a: DNDarray, dtype, split, device, comm):

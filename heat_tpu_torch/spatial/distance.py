@@ -1,9 +1,12 @@
-"""Pairwise distances (counterpart of ``heat_tpu/spatial/distance.py:30-190``).
+"""Pairwise distances (counterpart of ``heat_tpu/spatial/distance.py``).
 
 ``cdist`` in its two forms: the exact form (differences, squared, summed,
 square-rooted — chunked over ``y`` so the (n, chunk, f) temporary stays
 bounded) and the quadratic expansion ``|x|² + |y|² − 2 x yᵀ``, one matrix
-product. At world size 1 both run on the local tensors.
+product; ``rbf``, the Gaussian kernel over the expansion; and
+``nearest_neighbors``, the k nearest rows without the distance matrix,
+over the ``topk_distance`` kernel. At world size 1 all run on the local
+tensors.
 """
 from __future__ import annotations
 
@@ -14,7 +17,7 @@ import torch
 from ..core import types
 from ..core.dndarray import DNDarray
 
-__all__ = ["cdist"]
+__all__ = ["cdist", "nearest_neighbors", "rbf"]
 
 # cap on the (n, chunk, f) broadcast temporary of the exact form, in elements
 _EXACT_TEMP_ELEMS = 1 << 26
@@ -49,6 +52,11 @@ def _sqrt_quadratic_expand(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(_quadratic_expand(x, y))
 
 
+def _gaussian(x: torch.Tensor, y: torch.Tensor, sigma: float) -> torch.Tensor:
+    d2 = _quadratic_expand(x, y)
+    return torch.exp(-d2 / (2.0 * sigma * sigma))
+
+
 def _dist(x: DNDarray, y: Optional[DNDarray], metric: Callable) -> DNDarray:
     if x.ndim != 2:
         raise NotImplementedError(f"Input x must be a 2D DNDarray, got {x.ndim}-D")
@@ -73,3 +81,44 @@ def cdist(X: DNDarray, Y: Optional[DNDarray] = None, quadratic_expansion: bool =
     matrix-product form; the default is the exact form."""
     metric = _sqrt_quadratic_expand if quadratic_expansion else _euclidian
     return _dist(X, Y, metric)
+
+
+def rbf(
+    X: DNDarray, Y: Optional[DNDarray] = None, sigma: float = 1.0, quadratic_expansion: bool = False
+) -> DNDarray:
+    """Gaussian RBF kernel matrix ``exp(−d² / (2σ²))`` between the rows of
+    ``X`` and ``Y`` (``Y`` defaults to ``X``). d² always comes from the
+    quadratic expansion, as in ``heat_tpu``; ``quadratic_expansion`` is
+    accepted for the same signature."""
+    return _dist(X, Y, lambda a, b: _gaussian(a, b, sigma))
+
+
+def nearest_neighbors(x: DNDarray, y: DNDarray, k: int):
+    """k nearest rows of ``y`` for every row of ``x``, without the (n, m)
+    distance matrix.
+
+    ``x.split`` must be 0 or None; ``y`` is replicated (a split ``y`` is
+    resplit first). Returns ``(d2, idx)``: (n, k) squared distances
+    (ascending, float32) and row indices into ``y`` (int32), both with
+    ``x``'s split. The ``topk_distance`` kernel runs for tensors on a
+    card, its plain version for tensors on the CPU; the decision is
+    recorded in ``KERNEL_STATS``."""
+    from ..core.kernels import TOPK_KERNEL, dispatch_mode, knn_tiles, nearest_neighbors_local, record_dispatch
+
+    if x.ndim != 2 or y.ndim != 2:
+        raise NotImplementedError("nearest_neighbors expects 2-D operands")
+    if y.split is not None:
+        y = y.resplit(None)
+    if x.split not in (None, 0):
+        raise NotImplementedError("nearest_neighbors: x must be split=0 or replicated")
+    xa = x.larray.to(torch.float32)
+    ya = y._logical().to(torch.float32)
+    mode = dispatch_mode(TOPK_KERNEL, xa)
+    record_dispatch(TOPK_KERNEL, mode)
+    if mode == "cuda":
+        d, idx = nearest_neighbors_local(xa, ya, k)
+    else:
+        d, idx = knn_tiles(xa, ya, k)
+    dist = DNDarray(d, dtype=types.float32, split=x.split, device=x.device, comm=x.comm)
+    indices = DNDarray(idx, dtype=types.int32, split=x.split, device=x.device, comm=x.comm)
+    return dist, indices

@@ -50,6 +50,14 @@ def test_cpu_slice_runs_without_jax_in_a_fresh_process():
         "z = (x - ht.mean(x, axis=0)) / ht.std(x, axis=0)",
         "km = ht.cluster.KMeans(n_clusters=2, init=z[:2], max_iter=3, tol=None).fit(z)",
         "assert km.predict(z).shape == (64,) and ht.spatial.cdist(z[:4]).shape == (4, 4)",
+        "clf = ht.classification.KNeighborsClassifier(n_neighbors=3).fit(z, km.labels_)",
+        "assert (clf.predict(z).numpy() == km.labels_.numpy()).mean() > 0.9",
+        "K = ht.spatial.rbf(z, z, sigma=3 ** 0.5) + ht.eye(64, device='cpu')",
+        "L = ht.linalg.cholesky(K)",
+        "y = ht.ones(64, device='cpu')",
+        "alpha = ht.linalg.solve_triangular(L.T, ht.linalg.solve_triangular(L, y, lower=True), lower=False)",
+        "assert float((K @ alpha - y).larray.abs().max()) < 1e-4",
+        "assert ht.KERNEL_STATS.get('topk_distance.fallback') == 1 and ht.KERNEL_STATS.get('chol_panel_fused.torch') == 1",
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'heat_tpu'))",
         "print('LEAKED', bad) if bad else print('CLEAN')",
     ])
@@ -66,7 +74,7 @@ def test_default_device_is_the_card():
 
 def test_no_card_and_no_cpu_request_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for make in (lambda: htt.zeros((2, 2)), lambda: htt.array([1.0, 2.0]), lambda: htt.random.randn(3)):
+    for make in (lambda: htt.zeros((2, 2)), lambda: htt.array([1.0, 2.0]), lambda: htt.random.randn(3), lambda: htt.eye(3)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
     assert htt.zeros((2, 2), device="cpu").device is htt.cpu  # an explicit CPU request works

@@ -5,7 +5,11 @@ On the CPU each wrapper runs its kernel's plain version; those are held
 against ``heat_tpu``'s kernels run in Pallas interpret mode (as heat_tpu's
 own tests run them), on the same numpy inputs, at the tolerances heat_tpu
 states for these functions (``docs/PERFORMANCE.md``): means 2e-6, M2 2e-4,
-labels and counts exact, sums and inertia 1e-5 relative.
+labels and counts exact, sums and inertia 1e-5 relative; kNN distances
+rtol 1e-4 / atol 1e-5 with indices exact outside near-ties. heat_tpu's
+Cholesky kernel cannot run in interpret mode on this JAX (``pl.load`` is
+gone), so the plain Cholesky is held against ``np.linalg.cholesky`` in
+float64 (tests/test_torch_linalg.py).
 
 Tests marked ``gpu`` need a CUDA card and the CUDA toolkit; the ``cuda``
 fixture decides at run time and skips them here. On a card:
@@ -22,18 +26,32 @@ from heat_tpu_torch.core.kernels import (
     KERNELS,
     LAUNCHES,
     MAX_F,
+    MAX_FUSED_N,
+    MAX_K,
     MAX_KF,
     _build,
     assign_stats,
+    chol_block_size,
+    chol_panels,
+    cholesky_local,
     chunk_moments,
     dispatch_mode,
     forced_mode,
+    knn_tiles,
     lloyd_local,
     merge_moments,
     moments_local,
+    nearest_neighbors_local,
     record_dispatch,
     reset_kernel_stats,
 )
+from heat_tpu_torch.spatial.distance import _quadratic_expand
+
+# kNN: an index may differ from the reference only where the two rows'
+# distances (both by the plain version's arithmetic) are this close,
+# relative to (d + 1): float32 rounding of (x2 + y2) - 2 xy differs between
+# the card, torch's matmul and XLA's dot in the last bits
+KNN_TIE_RTOL = 1e-5
 
 
 def _blobs(seed, n, f, k, scale=10.0):
@@ -56,10 +74,30 @@ def ref():
 
 @pytest.fixture
 def cuda():
-    """A CUDA device, or a skip when this machine has none."""
+    """A CUDA device, or a skip when this machine has none. TF32 is off:
+    the plain versions' matrix products run in full float32."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the hand-written kernels have no CPU or interpret mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda", 0)
+
+
+def _knn_ties_only(x, y, d, idx, d0, idx0):
+    """Distances agree (rtol 1e-4, atol 1e-5) and indices differ only at
+    near-ties: where they differ, the plain version's distances of the two
+    rows are within ``KNN_TIE_RTOL``. Returns the number of differing
+    entries."""
+    np.testing.assert_allclose(np.asarray(d.cpu()), np.asarray(d0.cpu()), rtol=1e-4, atol=1e-5)
+    diff = idx.long().cpu() != idx0.long().cpu()
+    rows = torch.nonzero(diff.any(dim=1)).flatten().tolist()
+    for r0 in range(0, len(rows), 64):
+        rr = torch.tensor(rows[r0 : r0 + 64], device=x.device)
+        full = _quadratic_expand(x[rr].float(), y.float())
+        dk = torch.gather(full, 1, idx[rr].long())
+        dp = torch.gather(full, 1, idx0[rr].long())
+        assert bool(((dk - dp).abs() <= KNN_TIE_RTOL * (dp.abs() + 1.0)).all()), "indices differ outside near-ties"
+    return int(diff.sum())
 
 
 # ------------------------------------------------------------------ moments
@@ -128,9 +166,84 @@ def test_lloyd_local_validation():
         lloyd_local(torch.zeros((0, 3)), torch.zeros((2, 3)))
 
 
+# -------------------------------------------------------------------- top-k
+@pytest.mark.parametrize(
+    "n,m,f,k,tile_m",
+    [(64, 200, 8, 5, 128), (130, 512, 32, 1, 256), (37, 999, 16, 7, 128), (16, 20, 4, 20, 128), (33, 300, 3, 300, 256)],
+)
+def test_knn_plain_matches_heat_tpu_kernel(n, m, f, k, tile_m):
+    jnp = pytest.importorskip("jax.numpy")
+    from heat_tpu.core.kernels import topk_distance as jax_topk
+
+    rng = np.random.default_rng(n + m)
+    x = rng.normal(size=(n, f)).astype(np.float32)
+    y = rng.normal(size=(m, f)).astype(np.float32)
+    d_j, i_j = jax_topk.nearest_neighbors(jnp.asarray(x), jnp.asarray(y), k, tile_m=tile_m, interpret=True)
+    xt, yt = torch.from_numpy(x), torch.from_numpy(y)
+    for tm in (tile_m, 128, 384):  # the plain version's tiling does not change its answer
+        d, i = knn_tiles(xt, yt, k, tile_m=tm)
+        assert d.dtype == torch.float32 and i.dtype == torch.int32 and tuple(i.shape) == (n, k)
+        _knn_ties_only(xt, yt, d, i, torch.from_numpy(np.array(d_j)), torch.from_numpy(np.array(i_j)))
+    d, i = nearest_neighbors_local(xt, yt, k)  # the wrapper on a CPU tensor is the plain version
+    assert torch.equal(i, knn_tiles(xt, yt, k)[1])
+
+
+def test_knn_local_validation():
+    x, y = torch.zeros((4, 3)), torch.zeros((5, 3))
+    for bad_k in (0, 6, -1):
+        with pytest.raises(ValueError, match="k="):
+            nearest_neighbors_local(x, y, bad_k)
+        with pytest.raises(ValueError, match="k="):
+            knn_tiles(x, y, bad_k)
+    with pytest.raises(ValueError):
+        nearest_neighbors_local(torch.zeros((4, 3)), torch.zeros((5, 2)), 1)
+    with pytest.raises(ValueError):
+        nearest_neighbors_local(torch.zeros(4), torch.zeros((5, 4)), 1)
+
+
+# ------------------------------------------------------------------- chol
+@pytest.mark.parametrize("n,bs", [(1, 8), (8, 8), (129, 128), (300, 64)])
+def test_chol_plain_matches_float64(n, bs):
+    rng = np.random.default_rng(n)
+    g = rng.normal(size=(n, n))
+    a = (g @ g.T / n + np.eye(n)).astype(np.float32)
+    L = chol_panels(torch.from_numpy(a), bs)
+    assert L.dtype == torch.float32 and bool((torch.triu(L, 1) == 0).all())
+    np.testing.assert_allclose(L.numpy(), np.linalg.cholesky(a.astype(np.float64)), rtol=2e-4, atol=2e-5)
+    assert torch.equal(cholesky_local(torch.from_numpy(a), bs), L)
+
+
+def test_chol_block_size_follows_heat_tpu():
+    assert [chol_block_size(n) for n in (1, 8, 9, 100, 129, 1024)] == [8, 8, 16, 104, 128, 128]
+
+
+def test_chol_local_validation():
+    with pytest.raises(ValueError, match="square"):
+        cholesky_local(torch.zeros((3, 4)))
+    with pytest.raises(ValueError, match="MAX_FUSED_N"):
+        cholesky_local(torch.zeros((MAX_FUSED_N + 1, MAX_FUSED_N + 1)))
+
+
+def _indefinite(n, jf, seed=0):
+    """An SPD matrix whose pivot ``jf`` is made clearly negative."""
+    rng = np.random.default_rng(seed)
+    g = rng.normal(size=(n, n))
+    a = g @ g.T / n + np.eye(n)
+    a[jf, jf] = -50.0
+    return a.astype(np.float32)
+
+
+@pytest.mark.parametrize("n,jf", [(40, 0), (40, 17), (300, 200)])
+def test_chol_plain_nan_from_failing_pivot(n, jf):
+    L = chol_panels(torch.from_numpy(_indefinite(n, jf)), chol_block_size(n)).numpy()
+    i, j = np.indices((n, n))
+    np.testing.assert_array_equal(np.isnan(L), (i >= j) & (j >= jf))
+    assert np.isfinite(L[:, :jf]).all() and (np.triu(L, 1) == 0).all()
+
+
 # ---------------------------------------------------------------- dispatch
 def test_registry_and_dispatch_modes():
-    assert set(KERNELS) == {"moments_onepass", "lloyd_fused"}
+    assert set(KERNELS) == {"moments_onepass", "lloyd_fused", "topk_distance", "chol_panel_fused"}
     for spec in KERNELS.values():
         assert spec["comparator"] and spec["roofline"] and spec["replaces"].startswith("heat_tpu/core/kernels/")
     t = torch.zeros(3)
@@ -152,7 +265,10 @@ def test_kernel_stats_and_launch_counters():
     record_dispatch("lloyd_fused", "torch")
     moments_local(torch.ones((8, 2)))
     assert KERNEL_STATS == {"dispatches": 1, "lloyd_fused.torch": 1}
-    assert LAUNCHES == {"moments_onepass": 0, "lloyd_fused": 0}  # the plain version is no launch
+    knn_tiles(torch.ones((4, 2)), torch.ones((5, 2)), 2)
+    chol_panels(torch.eye(3))
+    # the plain versions are no launch
+    assert LAUNCHES == {"moments_onepass": 0, "lloyd_fused": 0, "topk_distance": 0, "chol_panel_fused": 0}
     reset_kernel_stats()
     assert KERNEL_STATS == {"dispatches": 0}
 
@@ -171,7 +287,7 @@ def test_build_key_covers_sources_and_flags(monkeypatch):
     assert key == _build._digest() and len(key) == 16
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ["-lineinfo"])
     assert _build._digest() != key
-    assert {p.stem for p in _build.CSRC.glob("*.cu")} == {"moments", "lloyd"}
+    assert {p.stem for p in _build.CSRC.glob("*.cu")} == {"moments", "lloyd", "topk_distance", "panel_update"}
 
 
 def test_build_report_keeps_register_and_spill_lines():
@@ -227,3 +343,73 @@ def test_lloyd_kernel_limits_raise(cuda):
         lloyd_local(torch.zeros((16, MAX_F + 1), device=cuda), torch.zeros((2, MAX_F + 1), device=cuda))
     with pytest.raises(ValueError, match="k \\* f"):
         lloyd_local(torch.zeros((16, 64), device=cuda), torch.zeros((MAX_KF // 64 + 1, 64), device=cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "n,m,f,k",
+    [(1000, 3000, 7, 1), (37, 999, 16, 7), (50, 50, 5, 50), (300, 5000, 70, 64), (2048, 100_003, 32, 5), (5, 64, 1, 3)],
+)
+def test_topk_kernel_matches_plain(cuda, n, m, f, k):
+    g = torch.Generator(device=cuda).manual_seed(n + m)
+    x = torch.randn(n, f, device=cuda, generator=g)
+    y = torch.randn(m, f, device=cuda, generator=g)
+    before = LAUNCHES["topk_distance"]
+    d, i = nearest_neighbors_local(x, y, k)
+    assert LAUNCHES["topk_distance"] == before + 1
+    d0, i0 = knn_tiles(x, y, k)
+    torch.cuda.synchronize()
+    assert d.dtype == torch.float32 and i.dtype == torch.int32 and tuple(d.shape) == (n, k)
+    assert bool((i >= 0).all() and (i < m).all())
+    _knn_ties_only(x, y, d, i, d0, i0)
+    again = nearest_neighbors_local(x, y, k)
+    assert torch.equal(again[0], d) and torch.equal(again[1], i)  # no atomics: same bits every run
+
+
+@pytest.mark.gpu
+def test_topk_kernel_limits_raise(cuda):
+    x, y = torch.zeros((8, 4), device=cuda), torch.zeros((100, 4), device=cuda)
+    with pytest.raises(ValueError, match="MAX_K"):
+        nearest_neighbors_local(x, y, MAX_K + 1)
+    with pytest.raises(ValueError, match="k="):
+        nearest_neighbors_local(x, y, 101)
+
+
+def _spd(n, seed):
+    rng = np.random.default_rng(seed)
+    g = rng.normal(size=(n, n))
+    return (g @ g.T / n + np.eye(n)).astype(np.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 129, 1000, 1024])
+def test_chol_kernel_matches_plain(cuda, n):
+    a = torch.from_numpy(_spd(n, n)).to(cuda)
+    before = LAUNCHES["chol_panel_fused"]
+    L = cholesky_local(a)
+    assert LAUNCHES["chol_panel_fused"] == before + 1
+    L0 = chol_panels(a, chol_block_size(n))
+    torch.cuda.synchronize()
+    assert bool((torch.triu(L, 1) == 0).all())
+    # float32 sums in another order (fmaf chains vs torch's matmul): relative to max |L|
+    torch.testing.assert_close(L, L0, rtol=0.0, atol=2e-5 * float(L0.abs().max()))
+    assert torch.equal(cholesky_local(a), L)  # same bits every run
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,jf", [(40, 17), (300, 200), (1024, 700)])
+def test_chol_kernel_nan_mask_matches_plain(cuda, n, jf):
+    a = torch.from_numpy(_indefinite(n, jf)).to(cuda)
+    L = cholesky_local(a)
+    L0 = chol_panels(a, chol_block_size(n))
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(L), torch.isnan(L0))
+    assert bool(torch.isnan(L[jf:, jf]).all()) and bool((torch.triu(L, 1) == 0).all())
+
+
+@pytest.mark.gpu
+def test_chol_kernel_limits_raise(cuda):
+    with pytest.raises(ValueError, match="MAX_FUSED_N"):
+        cholesky_local(torch.zeros((MAX_FUSED_N + 1, MAX_FUSED_N + 1), device=cuda))
+    with pytest.raises(ValueError, match="square"):
+        cholesky_local(torch.zeros((4, 5), device=cuda))
