@@ -22,14 +22,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      of z, max_iter=30, tol=None).fit``, ``predict`` on 2^20 held-out rows;
    - kNN: ``KNeighborsClassifier(n_neighbors=5).fit`` on the first 2^22
      standardized rows (512 MiB) with the fit's labels, ``predict`` on 2^13
-     held-out standardized rows;
+     held-out standardized rows; then ``spatial.nearest_neighbors`` at
+     k = 100 (above the kernel's shared-memory lists) on the same data;
    - kernel ridge: ``K = rbf(X, X, sigma=sqrt(32)) + eye(1024)`` over the
      first 1024 standardized rows, ``L = cholesky(K)``, then
      ``alpha = solve_triangular(L.T, solve_triangular(L, y, lower=True))``.
 5. Timing with CUDA events (median of single launches after warm-up; the
    repetitions are named per kernel): kernel, plain version, one-call
    library yardstick where one exists, and the bound of each kernel at its
-   main-path shape.
+   main-path shape (bytes over 3.35 TB/s or float32 flops over 67
+   TFLOP/s). ``[design]`` lines name each redesigned kernel's launch plan.
 
 The line before last is one JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -123,6 +125,7 @@ def main() -> int:
         _build, assign_stats, chol_block_size, chol_panels, cholesky_local, chunk_moments, forced_mode, knn_tiles,
         lloyd_local, moments_local, nearest_neighbors_local,
     )
+    from heat_tpu_torch.core.kernels import panel_update, topk_distance
     from heat_tpu_torch.spatial.distance import _quadratic_expand
 
     check(os.path.dirname(os.path.abspath(ht.__file__)) == os.path.join(ROOT, "heat_tpu_torch"),
@@ -201,7 +204,12 @@ def main() -> int:
         if n == N_MAIN:
             errors["lloyd_fused"] = max(e_sums, e_in)
         del x, d2
-    for n, m, f, k in [(N_QUERY, N_TRAIN, F_MAIN, KNN_K), (1000, 3000, 7, 1), (37, 999, 16, 7), (128, 64, 32, 64)]:
+    knn_shapes = [(N_QUERY, N_TRAIN, F_MAIN, KNN_K), (1000, 3000, 7, 1), (37, 999, 16, 7), (128, 64, 32, 64),
+                  # lists in scratch above MAX_K, and k = m
+                  (1000, 20_000, 32, 65), (1000, 20_000, 32, 200), (300, 5000, 7, 1000), (70, 333, 70, 333)]
+    # n and m off the 128-row query block and the 64-row y tile, on both copy variants and over one chunk
+    knn_shapes += [(N_QUERY + 3, 100_003, f, KNN_K) for f in (1, 7, 32, 70)]
+    for n, m, f, k in knn_shapes:
         x = torch.randn(n, f, device=dev, generator=gen)
         y = torch.randn(m, f, device=dev, generator=gen)
         d, i = nearest_neighbors_local(x, y, k)
@@ -213,10 +221,18 @@ def main() -> int:
         check(torch.equal(again[0], d) and torch.equal(again[1], i), f"kNN not bit-identical from run to run at {(n, m, f, k)}")
         print(f"[check] topk_distance n={n} m={m} f={f} k={k}: distances max abs {e_d:.3e}, indices differ on {ndiff} "
               f"entries (all near-ties), bit-identical rerun", flush=True)
-        if n == N_QUERY:
+        if n == N_QUERY and m == N_TRAIN:
             errors["topk_distance"] = e_d
         del x, y, d, i, d0, i0, again
-    for n in (N_RIDGE, 1000, 129, 1):
+    sms, knn_per_sm = topk_distance._occupancy(0, F_MAIN, KNN_K)
+    nseg, seg_len = topk_distance.knn_plan(N_QUERY, N_TRAIN, KNN_K, sms, knn_per_sm)
+    print(f"[design] topk_distance: product route fp32 (CUDA cores; 4 query rows x 16 y rows per thread), 3 CUDA kernels per call "
+          f"(row norms, partial, merge); at n={N_QUERY} m={N_TRAIN} f={F_MAIN} k={KNN_K}: "
+          f"{-(-N_QUERY // topk_distance._ROWS)} query blocks of {topk_distance._ROWS} rows x {nseg} y-segments of "
+          f"{seg_len} rows = {-(-N_QUERY // topk_distance._ROWS) * nseg} blocks ({knn_per_sm} blocks/SM x {sms} SMs); "
+          f"y tiles of {topk_distance._YT} rows x 32 columns through 3 cp.async stages (16-byte copies when f % 4 == 0); "
+          f"per-row lists in shared memory for k <= {topk_distance.MAX_K}, in the scratch above", flush=True)
+    for n in (N_RIDGE, 1000, 129, 33, 32, 31, 1):
         a = spd(n, gen, dev)
         L = cholesky_local(a)
         L0 = chol_panels(a, chol_block_size(n))
@@ -230,14 +246,20 @@ def main() -> int:
               f"||L L^T - A||max/||A||max {recon:.3e}, upper zero, bit-identical rerun", flush=True)
         if n == N_RIDGE:
             errors["chol_panel_fused"] = e_l
-    a = spd(N_RIDGE, gen, dev)
-    a[700, 700] = -50.0  # not positive definite from pivot 700 on: NaN, never an error
-    L, L0 = cholesky_local(a), chol_panels(a, chol_block_size(N_RIDGE))
-    check(torch.equal(torch.isnan(L), torch.isnan(L0)) and bool(torch.isnan(L[700:, 700]).all())
-          and bool(torch.isfinite(L[:, :700]).all()), "chol NaN pattern of a non-SPD matrix vs plain")
-    print(f"[check] chol_panel_fused non-SPD n={N_RIDGE}: NaN mask equal to the plain version's "
-          f"({int(torch.isnan(L).sum())} NaN entries, columns >= 700)", flush=True)
-    del a, L, L0
+    for jf in (700, 704):  # 704 sits on a 32-wide panel's edge
+        a = spd(N_RIDGE, gen, dev)
+        a[jf, jf] = -50.0  # not positive definite from pivot jf on: NaN, never an error
+        L, L0 = cholesky_local(a), chol_panels(a, chol_block_size(N_RIDGE))
+        check(torch.equal(torch.isnan(L), torch.isnan(L0)) and bool(torch.isnan(L[jf:, jf]).all())
+              and bool(torch.isfinite(L[:, :jf]).all()), f"chol NaN pattern of a non-SPD matrix vs plain (pivot {jf})")
+        print(f"[check] chol_panel_fused non-SPD n={N_RIDGE}: NaN mask equal to the plain version's "
+              f"({int(torch.isnan(L).sum())} NaN entries, columns >= {jf})", flush=True)
+        del a, L, L0
+    sms, chol_per_sm = panel_update._occupancy(0)
+    print(f"[design] chol_panel_fused: 1 CUDA kernel per call (one cudaLaunchCooperativeKernel), "
+          f"cooperative grid {panel_update.chol_grid(N_RIDGE, sms, chol_per_sm)} blocks x {panel_update._THREADS} threads "
+          f"at n={N_RIDGE} ({chol_per_sm} blocks/SM x {sms} SMs co-resident), panels of {panel_update._PANEL} columns, "
+          f"{-(-N_RIDGE // panel_update._PANEL) + 1} grid barriers (look-ahead: one per panel)", flush=True)
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------ 4. main path
@@ -349,6 +371,28 @@ def main() -> int:
           f"{int(pdiff.sum())} rows, neighbour indices on {nd_q} entries (near-ties only), distances max abs {e_q:.3e}",
           flush=True)
     del dq, iq, dq0, iq0, knn_pred0
+    # k above the kernel's shared-memory lists: heat_tpu answers any k <= m, and so does the port on a card.
+    # At k = 100 some ranks hold rows whose distances differ by two roundings of |x|^2 + |y|^2 (about 64
+    # here), more than KNN_TIE_RTOL of d + 1; so an index may differ where the plain version's distances
+    # of the two rows agree within the distance tolerance, and the entries past KNN_TIE_RTOL are counted.
+    dq, iq = ht.spatial.nearest_neighbors(zq, train, 100)
+    dq0, iq0 = knn_tiles(zq.larray, train.larray, 100)
+    check(tuple(iq.shape) == (N_QUERY, 100) and iq.larray.dtype == torch.int32, f"nearest_neighbors k=100 {tuple(iq.shape)}")
+    d1, i1 = dq.larray, iq.larray
+    e_100 = (d1 - dq0).abs()
+    check(bool((e_100 <= KNN_ATOL + KNN_RTOL * dq0.abs()).all()), f"k=100 distances differ by up to {e_100.max().item()}")
+    rows = torch.nonzero((i1 != iq0).any(dim=1)).flatten()
+    past_tie = 0
+    for r0 in range(0, rows.numel(), 64):
+        rr = rows[r0 : r0 + 64]
+        full = _quadratic_expand(zq.larray[rr], train.larray)
+        dk, dp = torch.gather(full, 1, i1[rr].long()), torch.gather(full, 1, iq0[rr].long())
+        check(bool(((dk - dp).abs() <= KNN_ATOL + KNN_RTOL * dp.abs()).all()), "k=100 indices differ beyond the distance tolerance")
+        past_tie += int(((dk - dp).abs() > KNN_TIE_RTOL * (dp.abs() + 1.0)).sum())
+    print(f"[knn] spatial.nearest_neighbors k=100 on the kNN path's data vs knn_tiles: distances max abs "
+          f"{e_100.max().item():.3e}, indices differ on {int((i1 != iq0).sum())} entries, all within the distance "
+          f"tolerance; {past_tie} of them past KNN_TIE_RTOL", flush=True)
+    del dq, iq, dq0, iq0, d1, i1
 
     # the kernel-ridge path: Cholesky of an RBF Gram matrix, two triangular solves
     X = z[:N_RIDGE]

@@ -30,8 +30,8 @@ from ._dispatch import (
 )
 from .lloyd import LLOYD_KERNEL, MAX_F, MAX_KF, assign_stats, lloyd_local
 from .moments import MOMENTS_KERNEL, chunk_moments, merge_moments, moments_local
-from .panel_update import CHOL_KERNEL, MAX_FUSED_N, chol_block_size, chol_panels, cholesky_local
-from .topk_distance import MAX_K, TOPK_KERNEL, knn_tiles, nearest_neighbors_local
+from .panel_update import CHOL_KERNEL, MAX_FUSED_N, chol_block_size, chol_grid, chol_panels, cholesky_local
+from .topk_distance import MAX_K, TOPK_KERNEL, knn_plan, knn_tiles, nearest_neighbors_local
 
 __all__ = [
     "CHOL_KERNEL",
@@ -47,12 +47,14 @@ __all__ = [
     "TOPK_KERNEL",
     "assign_stats",
     "chol_block_size",
+    "chol_grid",
     "chol_panels",
     "cholesky_local",
     "chunk_moments",
     "count_launch",
     "dispatch_mode",
     "forced_mode",
+    "knn_plan",
     "knn_tiles",
     "lloyd_local",
     "merge_moments",

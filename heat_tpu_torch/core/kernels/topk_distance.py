@@ -5,9 +5,10 @@ Counterpart of ``heat_tpu/core/kernels/topk_distance.py``:
 
 - :func:`nearest_neighbors_local` — the wrapper. On a CUDA tensor it
   launches the hand-written kernel ``csrc/topk_distance.cu`` (segments of
-  ``y`` per block, then a lexicographic merge — see the source's header);
-  on a CPU tensor it runs the plain version. It never falls back: a CUDA
-  tensor gets the kernel or an error.
+  ``y`` per block, a register-tiled float32 product behind a threshold
+  filter, then a lexicographic merge — see the source's header), for any
+  ``1 <= k <= m``; on a CPU tensor it runs the plain
+  version. It never falls back: a CUDA tensor gets the kernel or an error.
 - :func:`knn_tiles` — the plain PyTorch version: it streams over ``y`` in
   tiles of ``tile_m`` rows and keeps a running (n, k) carry.
 
@@ -28,7 +29,7 @@ import torch
 
 from ._dispatch import count_launch, register_kernel
 
-__all__ = ["MAX_K", "TOPK_KERNEL", "default_tile_m", "knn_tiles", "nearest_neighbors_local"]
+__all__ = ["MAX_K", "TOPK_KERNEL", "default_tile_m", "knn_plan", "knn_tiles", "nearest_neighbors_local"]
 
 TOPK_KERNEL = register_kernel(
     "topk_distance",
@@ -37,14 +38,17 @@ TOPK_KERNEL = register_kernel(
     replaces="heat_tpu/core/kernels/topk_distance.py:65 _knn_kernel",
 )
 
-# the kernel keeps each row's list in shared memory (csrc/topk_distance.cu);
-# heat_tpu's kernel accepts any k <= m but pays only for k up to about 64
+# the largest k whose per-row lists the kernel keeps in shared memory
+# (csrc/topk_distance.cu); above it they live in the (nseg, n, k) scratch
 MAX_K = 64
 _ROWS = 128  # query rows per block in csrc/topk_distance.cu
 _YT = 64  # y rows per staged tile
 _MAX_SEG = 64
+_MAX_PARTIAL = 1 << 28  # (nseg, n, k) scratch entries, 8 bytes each: 2 GiB
 _INT32_MAX = 2**31 - 1
 _lib = None
+_sms = {}  # device index -> SM count
+_per_sm = {}  # (device index, f % 4 == 0, k > MAX_K) -> blocks of the kernel per SM
 
 
 def _check(x: torch.Tensor, y: torch.Tensor, k: int) -> None:
@@ -101,37 +105,57 @@ def _library():
 
         lib = _build.load("topk_distance")
         p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.topk_distance.argtypes = [p, p, i32, i64, i32, i32, i32, i64, p, p, p, p, i32, p]
+        lib.topk_distance.argtypes = [p, p, i32, i64, i32, i32, i32, i64, p, p, p, p, p, i32, p]
         lib.topk_distance.restype = ctypes.c_int
+        lib.topk_blocks_per_sm.argtypes = [i32, i32, i32]
+        lib.topk_blocks_per_sm.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
-def knn_segments(n: int, m: int, device: torch.device):
-    """``(nseg, seg_len)``: how the kernel cuts ``y`` so that about four
-    blocks per SM are in flight; ``seg_len`` is a multiple of the 64-row
-    tile and no segment is empty."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+def knn_plan(n: int, m: int, k: int, sms: int, blocks_per_sm: int):
+    """``(nseg, seg_len)``: how the kernel cuts ``y`` for n queries on a card
+    with ``sms`` SMs holding ``blocks_per_sm`` blocks each. The (query
+    block, segment) grid fills one wave of the card, and no more segments
+    than 64, than 64-row tiles, or than keep the (nseg, n, k) scratch
+    within 2^28 entries; ``seg_len`` is a multiple of the 64-row tile and
+    no segment is empty."""
     nqt = -(-n // _ROWS)
-    nseg = max(1, min(_MAX_SEG, -(-4 * sms // nqt), -(-m // _YT)))
+    nseg = max(1, min(_MAX_SEG, sms * max(blocks_per_sm, 1) // nqt, -(-m // _YT), _MAX_PARTIAL // (n * k)))
     per_seg = -(-m // nseg)
     seg_len = -(-per_seg // _YT) * _YT
     return -(-m // seg_len), seg_len
+
+
+def _occupancy(index: int, f: int, k: int):
+    """``(SM count, blocks per SM)`` for this kernel variant, queried once
+    per card and variant."""
+    if index not in _sms:
+        _sms[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    key = (index, f % 4 == 0, k > MAX_K)
+    if key not in _per_sm:
+        per_sm = _library().topk_blocks_per_sm(f, k, index)
+        if per_sm < 1:
+            raise RuntimeError(f"topk_distance occupancy query gave {per_sm} (a negative value is a CUDA error)")
+        _per_sm[key] = per_sm
+    return _sms[index], _per_sm[key]
 
 
 def _topk_cuda(x: torch.Tensor, y: torch.Tensor, k: int):
     n, f = x.shape
     m = y.shape[0]
     dev = x.device
-    nseg, seg_len = knn_segments(n, m, dev)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    nseg, seg_len = knn_plan(n, m, k, *_occupancy(index, f, k))
+    norms = torch.empty(n + m, dtype=torch.float32, device=dev)
     part_d = torch.empty((nseg, n, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((nseg, n, k), dtype=torch.int32, device=dev)
     out_d = torch.empty((n, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((n, k), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _library().topk_distance(
-        x.data_ptr(), y.data_ptr(), n, m, f, k, nseg, seg_len, part_d.data_ptr(), part_i.data_ptr(),
-        out_d.data_ptr(), out_i.data_ptr(), dev.index or 0, stream,
+        x.data_ptr(), y.data_ptr(), n, m, f, k, nseg, seg_len, norms.data_ptr(), part_d.data_ptr(),
+        part_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), index, stream,
     )
     if err != 0:
         raise RuntimeError(f"topk_distance kernel launch failed with CUDA error {err}")
@@ -143,15 +167,13 @@ def nearest_neighbors_local(x: torch.Tensor, y: torch.Tensor, k: int):
     """``(d2, idx)`` of the k nearest rows of ``y`` for every row of a
     local (n, f) buffer ``x``, as :func:`knn_tiles` defines them.
 
-    A CUDA tensor runs the hand-written kernel (float32; ``k <= MAX_K``
-    and fewer than 2^31 rows, else ValueError); a CPU tensor runs
-    :func:`knn_tiles`. ``k`` outside ``[1, m]`` raises ValueError."""
+    A CUDA tensor runs the hand-written kernel (float32; fewer than 2^31
+    rows, else ValueError); a CPU tensor runs :func:`knn_tiles`. ``k``
+    outside ``[1, m]`` raises ValueError."""
     _check(x, y, k)
     if x.shape[0] < 1:
         raise ValueError("nearest_neighbors_local needs at least one query row")
     if x.is_cuda:
-        if k > MAX_K:
-            raise ValueError(f"topk_distance takes k <= MAX_K={MAX_K} on a card; got k={k}")
         if x.shape[0] > _INT32_MAX or y.shape[0] > _INT32_MAX:
             raise ValueError("topk_distance takes fewer than 2^31 rows (int32 indices)")
         return _topk_cuda(x.to(torch.float32).contiguous(), y.to(torch.float32).contiguous(), k)

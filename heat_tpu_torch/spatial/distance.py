@@ -100,9 +100,11 @@ def nearest_neighbors(x: DNDarray, y: DNDarray, k: int):
     ``x.split`` must be 0 or None; ``y`` is replicated (a split ``y`` is
     resplit first). Returns ``(d2, idx)``: (n, k) squared distances
     (ascending, float32) and row indices into ``y`` (int32), both with
-    ``x``'s split. The ``topk_distance`` kernel runs for tensors on a
-    card, its plain version for tensors on the CPU; the decision is
-    recorded in ``KERNEL_STATS``."""
+    ``x``'s split, for any ``1 <= k <= m`` as ``heat_tpu`` takes it. The
+    ``topk_distance`` kernel runs for tensors on a card (every such k; its
+    per-row lists move from shared memory to a scratch buffer above
+    ``MAX_K`` = 64), its plain version for tensors on the CPU; the decision
+    is recorded in ``KERNEL_STATS``."""
     from ..core.kernels import TOPK_KERNEL, dispatch_mode, knn_tiles, nearest_neighbors_local, record_dispatch
 
     if x.ndim != 2 or y.ndim != 2:

@@ -348,7 +348,13 @@ def test_lloyd_kernel_limits_raise(cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize(
     "n,m,f,k",
-    [(1000, 3000, 7, 1), (37, 999, 16, 7), (50, 50, 5, 50), (300, 5000, 70, 64), (2048, 100_003, 32, 5), (5, 64, 1, 3)],
+    [
+        (1000, 3000, 7, 1), (37, 999, 16, 7), (50, 50, 5, 50), (300, 5000, 70, 64), (2048, 100_003, 32, 5), (5, 64, 1, 3),
+        # lists in the (nseg, n, k) scratch above MAX_K, and k = m
+        (300, 5000, 32, 65), (257, 4099, 7, 200), (130, 3000, 32, 1000), (70, 333, 70, 333),
+        # n and m off the 128-row query block and the 64-row y tile; f on both copy variants and over one chunk
+        (8195, 100_003, 1, 5), (8195, 100_003, 7, 5), (8195, 100_003, 32, 5), (8195, 100_003, 70, 5),
+    ],
 )
 def test_topk_kernel_matches_plain(cuda, n, m, f, k):
     g = torch.Generator(device=cuda).manual_seed(n + m)
@@ -368,11 +374,29 @@ def test_topk_kernel_matches_plain(cuda, n, m, f, k):
 
 @pytest.mark.gpu
 def test_topk_kernel_limits_raise(cuda):
-    x, y = torch.zeros((8, 4), device=cuda), torch.zeros((100, 4), device=cuda)
-    with pytest.raises(ValueError, match="MAX_K"):
-        nearest_neighbors_local(x, y, MAX_K + 1)
+    # k above the shared-memory lists (MAX_K) is no limit on a card: it matches the plain version
+    g = torch.Generator(device=cuda).manual_seed(65)
+    x, y = torch.randn(8, 4, device=cuda, generator=g), torch.randn(100, 4, device=cuda, generator=g)
+    d, i = nearest_neighbors_local(x, y, MAX_K + 1)
+    d0, i0 = knn_tiles(x, y, MAX_K + 1)
+    _knn_ties_only(x, y, d, i, d0, i0)
     with pytest.raises(ValueError, match="k="):
         nearest_neighbors_local(x, y, 101)
+
+
+@pytest.mark.gpu
+def test_spatial_nearest_neighbors_above_64_on_a_card(cuda):
+    # heat_tpu's nearest_neighbors takes any k <= m; so does the port's on a card
+    import heat_tpu_torch as ht
+
+    x, _ = _blobs(7, 500, 16, 8)
+    y, _ = _blobs(8, 3000, 16, 8)
+    xt, yt = torch.from_numpy(x).to(cuda), torch.from_numpy(y).to(cuda)
+    reset_kernel_stats()
+    d, i = ht.spatial.nearest_neighbors(ht.array(xt, split=0, device="gpu"), ht.array(yt, device="gpu"), 100)
+    assert LAUNCHES["topk_distance"] == 1 and tuple(i.shape) == (500, 100)
+    d0, i0 = knn_tiles(xt, yt, 100)
+    _knn_ties_only(xt, yt, d.larray, i.larray, d0, i0)
 
 
 def _spd(n, seed):
@@ -382,7 +406,7 @@ def _spd(n, seed):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [1, 129, 1000, 1024])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 129, 1000, 1024])
 def test_chol_kernel_matches_plain(cuda, n):
     a = torch.from_numpy(_spd(n, n)).to(cuda)
     before = LAUNCHES["chol_panel_fused"]
@@ -397,7 +421,7 @@ def test_chol_kernel_matches_plain(cuda, n):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,jf", [(40, 17), (300, 200), (1024, 700)])
+@pytest.mark.parametrize("n,jf", [(40, 17), (300, 200), (1024, 700), (1024, 704)])  # 704: a 32-wide panel's edge
 def test_chol_kernel_nan_mask_matches_plain(cuda, n, jf):
     a = torch.from_numpy(_indefinite(n, jf)).to(cuda)
     L = cholesky_local(a)
