@@ -12,7 +12,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 2. Build: every ``heat_tpu_torch/core/kernels/csrc/*.cu`` with ``nvcc`` for
    ``sm_90a`` (in parallel), with ptxas' register / shared-memory report.
 3. Each kernel against its plain PyTorch version on the card, at several
-   shapes, main-path shapes included, with the tolerances below.
+   shapes, main-path shapes included, with the tolerances below;
+   ``lloyd_fused`` on both of its routes (``resident`` and ``general``),
+   f up to 4097 and k * f past 8192.
 4. Three paths at full width, each with its kernel launch counts zeroed
    just before and read just after, and held against the same path
    through the plain versions:
@@ -26,7 +28,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      k = 100 (above the kernel's shared-memory lists) on the same data;
    - kernel ridge: ``K = rbf(X, X, sigma=sqrt(32)) + eye(1024)`` over the
      first 1024 standardized rows, ``L = cholesky(K)``, then
-     ``alpha = solve_triangular(L.T, solve_triangular(L, y, lower=True))``.
+     ``alpha = solve_triangular(L.T, solve_triangular(L, y, lower=True))``;
+   - and a wide fit beside the paths: ``KMeans(16, max_iter=10,
+     tol=None).fit`` on 16 blobs of n = 2^20 rows x f = 160, which takes
+     ``lloyd_fused``'s general route, held against the plain fit.
 5. Timing with CUDA events (median of single launches after warm-up; the
    repetitions are named per kernel): kernel, plain version, one-call
    library yardstick where one exists, and the bound of each kernel at its
@@ -80,6 +85,7 @@ N_MAIN, F_MAIN, K_MAIN, ITERS = 1 << 24, 32, 8, 30
 N_PREDICT = 1 << 20
 N_TRAIN, N_QUERY, KNN_K = 1 << 22, 1 << 13, 5  # kNN path
 N_RIDGE = 1024                                 # kernel-ridge path: heat_tpu's MAX_FUSED_N
+N_WIDE, F_WIDE, K_WIDE, ITERS_WIDE = 1 << 20, 160, 16, 10  # the wide fit: lloyd_fused's general route
 
 
 def check(cond, msg):
@@ -123,9 +129,9 @@ def main() -> int:
     import heat_tpu_torch as ht
     from heat_tpu_torch.core.kernels import (
         _build, assign_stats, chol_block_size, chol_panels, cholesky_local, chunk_moments, forced_mode, knn_tiles,
-        lloyd_local, moments_local, nearest_neighbors_local,
+        lloyd_local, lloyd_route, moments_local, nearest_neighbors_local, resident_smem,
     )
-    from heat_tpu_torch.core.kernels import panel_update, topk_distance
+    from heat_tpu_torch.core.kernels import lloyd, panel_update, topk_distance
     from heat_tpu_torch.spatial.distance import _quadratic_expand
 
     check(os.path.dirname(os.path.abspath(ht.__file__)) == os.path.join(ROOT, "heat_tpu_torch"),
@@ -158,6 +164,10 @@ def main() -> int:
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
+    # the checks of lloyd_fused's routes past the resident one draw from their own stream, so
+    # every path's data is what it was before they were added
+    gen_routes = torch.Generator(device=dev)
+    gen_routes.manual_seed(1)
     errors = {}
 
     # ----------------------------------------------- 3. kernels vs plain versions
@@ -178,11 +188,20 @@ def main() -> int:
         if n == N_MAIN:
             errors["moments_onepass"] = max(e_mean.max().item(), e_m2.max().item())
         del x
-    for n, f, k, nv in [(N_MAIN, F_MAIN, K_MAIN, N_MAIN), (1_000_003, 18, 5, 999_000), (65_536, 64, 64, 65_536), (7, 3, 2, 7)]:
-        cen = torch.randn(k, f, device=dev, generator=gen) * 8.0
-        truth = torch.randint(0, k, (n,), device=dev, generator=gen)
-        x = cen[truth] + torch.randn(n, f, device=dev, generator=gen)
+    lloyd_shapes = [(s, gen) for s in [(N_MAIN, F_MAIN, K_MAIN, N_MAIN), (1_000_003, 18, 5, 999_000),
+                                       (65_536, 64, 64, 65_536), (7, 3, 2, 7)]]
+    # past the resident route: f > 128 (the wide fit's shape among them), and k * f > 8192 on both routes
+    lloyd_shapes += [(s, gen_routes) for s in [(100_003, 129, 3, 100_000), (65_536, F_WIDE, K_WIDE, 65_000),
+                                               (20_000, 1000, 5, 19_000), (5_000, 4097, 3, 4_900),
+                                               (65_536, 64, 160, 65_536), (30_000, 64, 400, 29_000)]]
+    for (n, f, k, nv), g in lloyd_shapes:
+        cen = torch.randn(k, f, device=dev, generator=g) * 8.0
+        truth = torch.randint(0, k, (n,), device=dev, generator=g)
+        x = cen[truth] + torch.randn(n, f, device=dev, generator=g)
+        route = lloyd_route(f, k)
+        routed = ht.KERNEL_STATS.get(f"lloyd_fused.{route}", 0)
         sums, counts, labels, inertia = lloyd_local(x, cen, nv)
+        check(ht.KERNEL_STATS.get(f"lloyd_fused.{route}") == routed + 1, f"lloyd route {route} not counted at {(n, f, k)}")
         sums0, counts0, labels0, inertia0 = assign_stats(x, cen, nv)
         torch.cuda.synchronize()
         check(bool((counts == counts0).all()), f"lloyd counts at {(n, f, k, nv)}")
@@ -198,12 +217,22 @@ def main() -> int:
         again = lloyd_local(x, cen, nv)
         check(all(bool((a == b).all()) for a, b in zip(again, (sums, counts, labels, inertia))),
               f"lloyd not bit-identical from run to run at {(n, f, k, nv)}")
-        print(f"[check] lloyd_fused n={n} f={f} k={k} n_valid={nv}: counts exact, labels differ on {int(diff.sum())} rows "
+        print(f"[check] lloyd_fused ({route}) n={n} f={f} k={k} n_valid={nv}: counts exact, labels differ on {int(diff.sum())} rows "
               f"({int(near.sum())} near-tie rows), sums max abs {e_sums:.3e} (max |sum| {sums0.abs().max().item():.3e}), "
               f"inertia rel {e_in / max(abs(float(inertia0)), 1e-30):.3e}, bit-identical rerun", flush=True)
         if n == N_MAIN:
             errors["lloyd_fused"] = max(e_sums, e_in)
         del x, d2
+    lsms = lloyd._sm_count(0)
+    lper_sm = lloyd._blocks_per_sm(0, F_MAIN, K_MAIN, True)
+    lgrid = lloyd.lloyd_resident_plan(N_MAIN, lsms, lper_sm)
+    print(f"[design] lloyd_fused: resident route at n={N_MAIN} f={F_MAIN} k={K_MAIN}: 2 CUDA kernels per call (partial, "
+          f"reduce); one-wave grid {lgrid} blocks x {lloyd._TILE} threads ({lper_sm} blocks/SM x {lsms} SMs), each a "
+          f"contiguous run of {lloyd._TILE}-row tiles; {lloyd._STAGES} cp.async stages (16-byte copies, rows padded to "
+          f"f + 4 floats), {lloyd._STAGES - 1} tiles in flight per block = "
+          f"{lper_sm * (lloyd._STAGES - 1) * lloyd._TILE * F_MAIN * 4} B per SM; {resident_smem(F_MAIN, K_MAIN)} B of "
+          f"shared memory per block. General route (3 CUDA kernels: assign, scatter, reduce) where f > {lloyd._TILE} "
+          f"or the resident block passes 227 KB", flush=True)
     knn_shapes = [(N_QUERY, N_TRAIN, F_MAIN, KNN_K), (1000, 3000, 7, 1), (37, 999, 16, 7), (128, 64, 32, 64),
                   # lists in scratch above MAX_K, and k = m
                   (1000, 20_000, 32, 65), (1000, 20_000, 32, 200), (300, 5000, 7, 1000), (70, 333, 70, 333)]
@@ -295,6 +324,8 @@ def main() -> int:
     check(stats.get("moments_onepass.cuda") == 2, f"moments dispatches {stats}")
     check(launches["lloyd_fused"] == ITERS + 1, f"lloyd launches {launches['lloyd_fused']} != max_iter + 1")
     check(stats.get("lloyd_fused.cuda") == 1 and not any(k.endswith(".torch") for k in stats), f"dispatch {stats}")
+    check(stats.get("lloyd_fused.resident") == ITERS + 1 and "lloyd_fused.general" not in stats,
+          f"the main path's Lloyd launches should all take the resident route: {stats}")
 
     centers = km.cluster_centers_.larray
     check(tuple(centers.shape) == (K_MAIN, F_MAIN) and bool(torch.isfinite(centers).all()), "centers shape/finite")
@@ -425,6 +456,45 @@ def main() -> int:
     print(f"[ridge] ||L L^T - K||max/||K||max {recon:.3e}; ||K alpha - y||/||y|| {resid:.3e}; L vs plain L max abs "
           f"{e_L:.3e}; L bit-identical on rerun", flush=True)
 
+    # the wide fit: f = 160 takes lloyd_fused's general route, as heat_tpu's kernel takes any f
+    wide_true = torch.randn(K_WIDE, F_WIDE, device=dev, generator=gen_routes) * 8.0
+    wide_member = torch.randint(0, K_WIDE, (N_WIDE,), device=dev, generator=gen_routes)
+    wide_member[:K_WIDE] = torch.arange(K_WIDE, device=dev)
+    xw = ht.array(wide_true[wide_member] + torch.randn(N_WIDE, F_WIDE, device=dev, generator=gen_routes), split=0)
+    torch.cuda.synchronize()
+    ht.kernels.reset_kernel_stats()
+    t0 = time.perf_counter()
+    kw = ht.cluster.KMeans(n_clusters=K_WIDE, init=xw[:K_WIDE], max_iter=ITERS_WIDE, tol=None).fit(xw)
+    torch.cuda.synchronize()
+    wide_s = time.perf_counter() - t0
+    stats = dict(ht.KERNEL_STATS)
+    print(f"[wide] launches {dict(ht.LAUNCHES)} KERNEL_STATS {stats}; fit {wide_s:.3f} s at n={N_WIDE} f={F_WIDE} "
+          f"k={K_WIDE}, {ITERS_WIDE} iterations", flush=True)
+    check(stats.get("lloyd_fused.general") == ITERS_WIDE + 1 and "lloyd_fused.resident" not in stats
+          and ht.LAUNCHES["lloyd_fused"] == ITERS_WIDE + 1, f"the wide fit should take the general route: {stats}")
+    cw = kw.cluster_centers_.larray
+    check(tuple(cw.shape) == (K_WIDE, F_WIDE) and bool(torch.isfinite(cw).all()), "wide fit centers shape/finite")
+    with forced_mode("lloyd_fused", "torch"):
+        t0 = time.perf_counter()
+        kw0 = ht.cluster.KMeans(n_clusters=K_WIDE, init=xw[:K_WIDE], max_iter=ITERS_WIDE, tol=None).fit(xw)
+        torch.cuda.synchronize()
+        wide_plain_s = time.perf_counter() - t0
+    cw0 = kw0.cluster_centers_.larray
+    e_cw = (cw - cw0).abs().max().item()
+    check(e_cw <= CENTERS_RTOL * cw0.abs().max().item(), f"wide fit centroids vs plain fit: {e_cw}")
+    d2 = _quadratic_expand(xw.larray, cw0)
+    two = torch.topk(d2, 2, dim=1, largest=False).values
+    near = (two[:, 1] - two[:, 0]) <= TIE_RTOL * two[:, 1]
+    wdiff = kw.labels_.larray != kw0.labels_.larray
+    check(not bool((wdiff & ~near).any()), "wide fit labels differ from the plain fit outside near-ties")
+    check(abs(kw.inertia_ - kw0.inertia_) <= INERTIA_RTOL * abs(kw0.inertia_), "wide fit inertia vs plain fit")
+    rec_w = (cw - wide_true).abs().max().item()
+    check(rec_w < 5e-2, f"wide fit centers are {rec_w} from the blob centres")
+    print(f"[wide] vs plain fit ({wide_plain_s:.3f} s): labels differ on {int(wdiff.sum())} rows ({int(near.sum())} "
+          f"near-tie rows), centroids max abs {e_cw:.3e}, inertia {kw.inertia_:.6e} vs {kw0.inertia_:.6e}; centers "
+          f"within {rec_w:.3e} of the blob centres", flush=True)
+    del d2, two, near, wdiff, kw0
+
     # --------------------------------------------------------------- 5. timing
     def time_ms(fn, reps=25, warm=3):
         # the median of `reps` single launches after `warm` unmeasured ones
@@ -465,6 +535,12 @@ def main() -> int:
         "source": "heat_tpu_torch/core/kernels/csrc/lloyd.cu",
         "replaces": "heat_tpu/core/kernels/lloyd.py:52",
     }
+    xwa = xw.larray
+    gen_ms, gen_plain_ms = time_ms(lambda: lloyd_local(xwa, cw), reps=10, warm=2), time_ms(lambda: assign_stats(xwa, cw), reps=10, warm=2)
+    print(f"[time] lloyd_fused general route at n={N_WIDE} f={F_WIDE} k={K_WIDE}: kernel_ms {gen_ms:.4f} plain_ms "
+          f"{gen_plain_ms:.4f} bytes bound_ms {(xwa.numel() + N_WIDE) * 4 / HBM_BYTES_PER_S * 1e3:.4f} (context only; "
+          f"the JSON row is the main path's shape)", flush=True)
+    del xw, xwa
     ta, tq = train.larray, zq.larray
     rows["topk_distance"] = {
         # 5 launches of a kernel near 0.1 s; the plain version takes seconds: 2 after 1 warm-up

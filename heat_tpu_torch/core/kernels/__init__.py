@@ -7,7 +7,8 @@ on a card and runs the plain version for tensors on the CPU:
 - :func:`moments_local` — one-pass per-column (count, mean, M2)
   (``moments_onepass``, ``csrc/moments.cu``), behind ``mean``/``var``/``std``;
 - :func:`lloyd_local` — fused distance + argmin + per-cluster statistics
-  (``lloyd_fused``, ``csrc/lloyd.cu``), behind ``KMeans.fit``;
+  (``lloyd_fused``, ``csrc/lloyd.cu``; any f and k, by the resident or the
+  general route of :func:`lloyd_route`), behind ``KMeans.fit``;
 - :func:`nearest_neighbors_local` — fused distance + running top-k
   (``topk_distance``, ``csrc/topk_distance.cu``), behind
   ``spatial.nearest_neighbors`` and ``KNeighborsClassifier.predict``;
@@ -25,10 +26,19 @@ from ._dispatch import (
     dispatch_mode,
     forced_mode,
     record_dispatch,
+    record_route,
     register_kernel,
     reset_kernel_stats,
 )
-from .lloyd import LLOYD_KERNEL, MAX_F, MAX_KF, assign_stats, lloyd_local
+from .lloyd import (
+    LLOYD_KERNEL,
+    assign_stats,
+    lloyd_general_plan,
+    lloyd_local,
+    lloyd_resident_plan,
+    lloyd_route,
+    resident_smem,
+)
 from .moments import MOMENTS_KERNEL, chunk_moments, merge_moments, moments_local
 from .panel_update import CHOL_KERNEL, MAX_FUSED_N, chol_block_size, chol_grid, chol_panels, cholesky_local
 from .topk_distance import MAX_K, TOPK_KERNEL, knn_plan, knn_tiles, nearest_neighbors_local
@@ -39,10 +49,8 @@ __all__ = [
     "KERNEL_STATS",
     "LAUNCHES",
     "LLOYD_KERNEL",
-    "MAX_F",
     "MAX_FUSED_N",
     "MAX_K",
-    "MAX_KF",
     "MOMENTS_KERNEL",
     "TOPK_KERNEL",
     "assign_stats",
@@ -56,11 +64,16 @@ __all__ = [
     "forced_mode",
     "knn_plan",
     "knn_tiles",
+    "lloyd_general_plan",
     "lloyd_local",
+    "lloyd_resident_plan",
+    "lloyd_route",
     "merge_moments",
     "moments_local",
     "nearest_neighbors_local",
     "record_dispatch",
+    "record_route",
     "register_kernel",
     "reset_kernel_stats",
+    "resident_smem",
 ]

@@ -11,8 +11,10 @@ implementation to run for a tensor and report the decision through
 The mode follows from where the tensor lies; :func:`forced_mode` overrides
 it inside a block, which is how a check runs the plain version on a card
 beside the kernel. :data:`KERNEL_STATS` counts decisions under
-``"{kernel}.{mode}"`` (a memo hit counts as a decision); :data:`LAUNCHES`
-counts actual kernel launches, one per wrapper call that starts the kernel.
+``"{kernel}.{mode}"`` (a memo hit counts as a decision), and the route of
+each launch of a kernel that has more than one under ``"{kernel}.{route}"``;
+:data:`LAUNCHES` counts actual kernel launches, one per wrapper call that
+starts the kernel.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ __all__ = [
     "dispatch_mode",
     "forced_mode",
     "record_dispatch",
+    "record_route",
     "register_kernel",
     "reset_kernel_stats",
 ]
@@ -88,6 +91,13 @@ def record_dispatch(kernel: str, mode: str) -> None:
     """Report one public-API dispatch decision (call boundary only)."""
     KERNEL_STATS["dispatches"] += 1
     key = f"{kernel}.{mode}"
+    KERNEL_STATS[key] = KERNEL_STATS.get(key, 0) + 1
+
+
+def record_route(kernel: str, route: str) -> None:
+    """Report the route of one launch of ``kernel`` (its wrapper calls this
+    beside :func:`count_launch`)."""
+    key = f"{kernel}.{route}"
     KERNEL_STATS[key] = KERNEL_STATS.get(key, 0) + 1
 
 

@@ -25,10 +25,8 @@ from heat_tpu_torch.core.kernels import (
     KERNEL_STATS,
     KERNELS,
     LAUNCHES,
-    MAX_F,
     MAX_FUSED_N,
     MAX_K,
-    MAX_KF,
     _build,
     assign_stats,
     chol_block_size,
@@ -39,6 +37,7 @@ from heat_tpu_torch.core.kernels import (
     forced_mode,
     knn_tiles,
     lloyd_local,
+    lloyd_route,
     merge_moments,
     moments_local,
     nearest_neighbors_local,
@@ -338,11 +337,37 @@ def test_lloyd_kernel_matches_plain(cuda, n, f, k, n_valid):
 
 
 @pytest.mark.gpu
-def test_lloyd_kernel_limits_raise(cuda):
-    with pytest.raises(ValueError, match="k \\* f"):
-        lloyd_local(torch.zeros((16, MAX_F + 1), device=cuda), torch.zeros((2, MAX_F + 1), device=cuda))
-    with pytest.raises(ValueError, match="k \\* f"):
-        lloyd_local(torch.zeros((16, 64), device=cuda), torch.zeros((MAX_KF // 64 + 1, 64), device=cuda))
+@pytest.mark.parametrize(
+    "n,f,k,n_valid",
+    [
+        # f past the resident route's 128 columns: the general route
+        (3_000, 129, 3, 2_900), (2_000, 160, 16, 2_000), (500, 1_000, 5, 450), (300, 4_097, 3, 250),
+        # k * f past 8192: resident while the shared memory holds it, then general
+        (4_000, 64, 160, 4_000), (3_000, 64, 400, 2_900),
+    ],
+)
+def test_lloyd_kernel_takes_any_shape(cuda, n, f, k, n_valid):
+    """heat_tpu's kernel takes any f and k, and so does the port on a card:
+    counts exact, labels equal to the plain version's except where the two
+    smallest d2 are within 1e-5 relative, sums 1e-5 and inertia 1e-4
+    relative (float32 sums in another order), a rerun bit-identical."""
+    x, centers = _blobs(n + f, n, f, k)
+    xt, ct = torch.from_numpy(x).to(cuda), torch.from_numpy(centers).to(cuda)
+    route = lloyd_route(f, k)
+    before, routed = LAUNCHES["lloyd_fused"], KERNEL_STATS.get(f"lloyd_fused.{route}", 0)
+    sums, cnt, lab, inertia = lloyd_local(xt, ct, n_valid)
+    assert LAUNCHES["lloyd_fused"] == before + 1 and KERNEL_STATS[f"lloyd_fused.{route}"] == routed + 1
+    sums0, cnt0, lab0, inertia0 = assign_stats(xt, ct, n_valid)
+    torch.cuda.synchronize()
+    assert lab.dtype == torch.int32 and tuple(lab.shape) == (n,) and tuple(sums.shape) == (k, f)
+    assert bool((cnt == cnt0).all())
+    two = torch.topk(_quadratic_expand(xt[:n_valid], ct), min(2, k), dim=1, largest=False).values
+    near = (two[:, -1] - two[:, 0]) <= 1e-5 * two[:, -1]
+    assert not bool(((lab[:n_valid] != lab0[:n_valid]) & ~near).any())
+    torch.testing.assert_close(sums, sums0, rtol=1e-5, atol=1e-5 * float(sums0.abs().max()))
+    torch.testing.assert_close(inertia, inertia0, rtol=1e-4, atol=0.0)
+    again = lloyd_local(xt, ct, n_valid)
+    assert all(bool((a == b).all()) for a, b in zip(again, (sums, cnt, lab, inertia)))
 
 
 @pytest.mark.gpu
