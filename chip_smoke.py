@@ -29,9 +29,22 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    - kernel ridge: ``K = rbf(X, X, sigma=sqrt(32)) + eye(1024)`` over the
      first 1024 standardized rows, ``L = cholesky(K)``, then
      ``alpha = solve_triangular(L.T, solve_triangular(L, y, lower=True))``;
+   - the array surface on the KMeans path's standardized z (2^24 x 32):
+     ``abs``, ``>``, ``any``, ``sum``, ``clip``, ``where``, ``min``/``max``/
+     ``argmin``/``argmax`` along axis 0, ``exp``, ``log1p``, ``sqrt``,
+     ``sin``, ``//``, ``%`` and ``cumsum``, held against numpy (exact, or
+     within SURFACE_ULPS of the float64 value, or cumsum's rounding bound)
+     on 2^16 rows, with no kernel launched;
+   - the public ``linalg.cholesky`` of a matrix that is not positive
+     definite, through the kernel: jnp's NaN pattern;
    - and a wide fit beside the paths: ``KMeans(16, max_iter=10,
      tol=None).fit`` on 16 blobs of n = 2^20 rows x f = 160, which takes
-     ``lloyd_fused``'s general route, held against the plain fit.
+     ``lloyd_fused``'s general route, held against the plain fit;
+   - tall-skinny ``linalg.qr`` + ``matmul`` (the ``BASELINE.json`` ladder's
+     last rung): A = 2^24 x 64 float32, split=0; the route taken
+     (``qr.cholqr2`` or ``qr.householder``), float64 residuals, R against
+     ``torch.linalg.qr``'s, times against ``torch.linalg.qr`` and
+     ``torch.matmul``.
 5. Timing with CUDA events (median of single launches after warm-up; the
    repetitions are named per kernel): kernel, plain version, one-call
    library yardstick where one exists, and the bound of each kernel at its
@@ -62,12 +75,23 @@ SUMS_RTOL = 1e-5                    # sums: relative to the largest |sum|
 INERTIA_RTOL = 1e-4                 # inertia: one sum over all rows
 TIE_RTOL = 1e-5                     # labels may differ only where the two smallest d2 are this close
 CENTERS_RTOL = 1e-4                 # fitted centroids, kernel fit vs plain fit, relative to max |c|
-# kNN: distances as heat_tpu's own kNN tests hold them; an index may differ
-# only where the plain version's distances of the two rows are within
-# KNN_TIE_RTOL of each other, relative to (d + 1): the card, cuBLAS and XLA
-# round (x2 + y2) - 2 xy differently in the last bits
+# kNN: distances as heat_tpu's own kNN tests hold them. An index may differ
+# from the plain version's only as far as float32 rounding of
+# d2 = (|x|^2 + |y|^2) - 2 x.y lets two rows trade places. Both evaluate that
+# formula, each in its own order; behind one d2 stand at most f + 2 roundings
+# in a chain (one per product, f - 1 per sum of f terms, one for the add, one
+# for the subtract), so (Higham, Accuracy and Stability of Numerical
+# Algorithms, 2nd ed., sec. 3.1) each computed d2 is within
+#   E(x, y) = gamma_{f+2} (|x|^2 + |y|^2 + 2 sum_i |x_i y_i|) <= gamma_{f+2} (|x| + |y|)^2
+# of the exact one, gamma_n = n u / (1 - n u), u = 2^-24 (the clamp at 0 only
+# moves d2 toward the exact value). If the kernel ranks row i_r r-th and the
+# plain version row i0_r, then at least r + 1 rows (the plain list's first)
+# have kernel values within 2 max E of the plain list's r-th value, so the
+# exact distances obey
+#   |D(i_r) - D(i0_r)| <= E(x, y_{i_r}) + E(x, y_{i0_r}) + 2 max_{j in either list} E(x, y_j).
+# knn_check computes D in float64 and this bound per row from the norms.
 KNN_RTOL, KNN_ATOL = 1e-4, 1e-5
-KNN_TIE_RTOL = 1e-5
+F32_UNIT_ROUNDOFF = 2.0 ** -24
 # Cholesky, kernel vs plain version: the same steps with float32 sums of up
 # to n terms in another order (fmaf chains vs cuBLAS), relative to max |L|
 CHOL_ATOL_REL = 2e-5
@@ -76,6 +100,15 @@ CHOL_ATOL_REL = 2e-5
 # that error times the condition of K (at most 1 + ||rbf|| ~ 1e3 here)
 RIDGE_RECON_RTOL = 1e-4
 RIDGE_SOLVE_RTOL = 1e-2
+# qr, float64 residuals of the float32 factors: ||QR - A||max/||A||max and ||QᵀQ - I||max (what heat_tpu's
+# qr tests hold), R against torch.linalg.qr's R after normalizing row signs, relative to max |R|; the
+# float32 Gram AᵀA over 2^24 rows against the float64 one, relative to its largest entry (a sum's rounding
+# grows like u sqrt(m) for random signs: 2^-24 * 2^12 = 2.4e-4)
+QR_RESID_RTOL, QR_ORTHO_ATOL, QR_R_RTOL = 1e-5, 1e-4, 1e-4
+QR_GRAM_RTOL = 1e-3
+# the surface's float functions against their float64 values, in float32 ulps: CUDA's expf and sinf are
+# within 2 ulp, log1pf within 1, sqrtf and floor exact, and z % 1 one rounding of an exact value
+SURFACE_ULPS = 2.0
 
 # ---- the card's peaks (NVIDIA H100 SXM data sheet) --------------------------
 HBM_BYTES_PER_S = 3.35e12
@@ -86,6 +119,12 @@ N_PREDICT = 1 << 20
 N_TRAIN, N_QUERY, KNN_K = 1 << 22, 1 << 13, 5  # kNN path
 N_RIDGE = 1024                                 # kernel-ridge path: heat_tpu's MAX_FUSED_N
 N_WIDE, F_WIDE, K_WIDE, ITERS_WIDE = 1 << 20, 160, 16, 10  # the wide fit: lloyd_fused's general route
+N_QR, F_QR = 1 << 24, 64    # tall-skinny qr: bench.py's QR_F at 16x its QR_N rows (4 GiB float32)
+QR_CHUNK = 1 << 22           # rows per float64 check chunk
+# CholeskyQR2 as qr.py writes it reads or writes an (m, n) array 7 times: per pass the Gram (read), the
+# triangular solve (read, write); then the guard's Gram of Q (read)
+QR_CHOLQR2_PASSES = 7
+N_SLICE, N_CUMSUM = 1 << 16, 4096  # the surface: rows compared with numpy, rows of the cumsum
 
 
 def check(cond, msg):
@@ -94,22 +133,61 @@ def check(cond, msg):
 
 
 def knn_check(x, y, d, i, d0, i0):
-    """Distances within KNN_RTOL/KNN_ATOL and indices equal outside
-    near-ties; returns (max abs distance error, differing entries)."""
+    """Distances within KNN_RTOL/KNN_ATOL, and every index that differs from
+    the plain version's within the rounding bound derived above; returns (max
+    abs distance error, differing entries, largest |D(i_r) - D(i0_r)| / bound)."""
     import torch
-
-    from heat_tpu_torch.spatial.distance import _quadratic_expand
 
     e = (d - d0).abs()
     check(bool((e <= KNN_ATOL + KNN_RTOL * d0.abs()).all()), f"kNN distances differ by up to {e.max().item()}")
     diff = i != i0
     rows = torch.nonzero(diff.any(dim=1)).flatten()
-    for r0 in range(0, rows.numel(), 64):
-        rr = rows[r0 : r0 + 64]
-        full = _quadratic_expand(x[rr], y)
-        dk, dp = torch.gather(full, 1, i[rr].long()), torch.gather(full, 1, i0[rr].long())
-        check(bool(((dk - dp).abs() <= KNN_TIE_RTOL * (dp.abs() + 1.0)).all()), "kNN indices differ outside near-ties")
-    return e.max().item(), int(diff.sum())
+    nr = (x.shape[1] + 2) * F32_UNIT_ROUNDOFF
+    gamma = nr / (1 - nr)
+    worst = 0.0
+    for r0 in range(0, rows.numel(), 256):
+        rr = rows[r0 : r0 + 256]
+        xr = x[rr].double().unsqueeze(1)                          # (R, 1, f)
+        yk, yp = y[i[rr].long()].double(), y[i0[rr].long()].double()  # (R, k, f)
+        gap = (((xr - yk) ** 2).sum(-1) - ((xr - yp) ** 2).sum(-1)).abs()  # exact distances, float64
+        nx = xr.norm(dim=2)
+        ek, ep = gamma * (nx + yk.norm(dim=2)) ** 2, gamma * (nx + yp.norm(dim=2)) ** 2
+        bound = ek + ep + 2 * torch.maximum(ek.amax(1, keepdim=True), ep.amax(1, keepdim=True))
+        check(bool((gap <= bound).all()), "kNN indices differ beyond float32 rounding of the distances")
+        worst = max(worst, (gap / bound).max().item())
+    return e.max().item(), int(diff.sum()), worst
+
+
+def time_ms(fn, reps=25, warm=3):
+    """The median of ``reps`` single calls after ``warm`` unmeasured ones,
+    between CUDA events."""
+    import torch
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)  # keep the card busy while the host enqueues: times the device, not the launch
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def ulps(r, ref64):
+    """|r - ref64| in units of the float32 spacing at ref64 (NaN where both
+    are NaN; inf where only one is)."""
+    import numpy as np
+
+    r = r.astype(np.float64)
+    both = np.isnan(r) & np.isnan(ref64)
+    err = np.abs(r - ref64) / np.spacing(np.abs(ref64).astype(np.float32)).astype(np.float64)
+    err[np.isnan(r) != np.isnan(ref64)] = np.inf
+    return np.where(both, 0.0, err)
 
 
 def spd(n, gen, dev):
@@ -120,6 +198,7 @@ def spd(n, gen, dev):
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -168,6 +247,9 @@ def main() -> int:
     # every path's data is what it was before they were added
     gen_routes = torch.Generator(device=dev)
     gen_routes.manual_seed(1)
+    # the C1 and qr phases draw from a third stream, for the same reason
+    gen_new = torch.Generator(device=dev)
+    gen_new.manual_seed(2)
     errors = {}
 
     # ----------------------------------------------- 3. kernels vs plain versions
@@ -245,11 +327,11 @@ def main() -> int:
         d0, i0 = knn_tiles(x, y, k)
         torch.cuda.synchronize()
         check(tuple(i.shape) == (n, k) and i.dtype == torch.int32 and bool(((i >= 0) & (i < m)).all()), "kNN indices")
-        e_d, ndiff = knn_check(x, y, d, i, d0, i0)
+        e_d, ndiff, worst = knn_check(x, y, d, i, d0, i0)
         again = nearest_neighbors_local(x, y, k)
         check(torch.equal(again[0], d) and torch.equal(again[1], i), f"kNN not bit-identical from run to run at {(n, m, f, k)}")
         print(f"[check] topk_distance n={n} m={m} f={f} k={k}: distances max abs {e_d:.3e}, indices differ on {ndiff} "
-              f"entries (all near-ties), bit-identical rerun", flush=True)
+              f"entries, all within the rounding bound (largest gap {worst:.3f} of it), bit-identical rerun", flush=True)
         if n == N_QUERY and m == N_TRAIN:
             errors["topk_distance"] = e_d
         del x, y, d, i, d0, i0, again
@@ -394,36 +476,24 @@ def main() -> int:
         knn_plain_s = time.perf_counter() - t0
         dq0, iq0 = ht.spatial.nearest_neighbors(zq, train, KNN_K)
     dq, iq = ht.spatial.nearest_neighbors(zq, train, KNN_K)
-    e_q, nd_q = knn_check(zq.larray, train.larray, dq.larray, iq.larray, dq0.larray, iq0.larray)
+    e_q, nd_q, worst_q = knn_check(zq.larray, train.larray, dq.larray, iq.larray, dq0.larray, iq0.larray)
     pdiff = knn_pred.larray != knn_pred0.larray
     check(not bool((pdiff & ~(iq.larray != iq0.larray).any(dim=1)).any()),
           "kNN labels differ from the plain predict where the neighbours are the same")
     print(f"[knn] accuracy against the blobs {knn_acc:.6f}; vs plain predict ({knn_plain_s:.3f} s): labels differ on "
-          f"{int(pdiff.sum())} rows, neighbour indices on {nd_q} entries (near-ties only), distances max abs {e_q:.3e}",
+          f"{int(pdiff.sum())} rows, neighbour indices on {nd_q} entries (all within the rounding bound, largest gap "
+          f"{worst_q:.3f} of it), distances max abs {e_q:.3e}",
           flush=True)
     del dq, iq, dq0, iq0, knn_pred0
-    # k above the kernel's shared-memory lists: heat_tpu answers any k <= m, and so does the port on a card.
-    # At k = 100 some ranks hold rows whose distances differ by two roundings of |x|^2 + |y|^2 (about 64
-    # here), more than KNN_TIE_RTOL of d + 1; so an index may differ where the plain version's distances
-    # of the two rows agree within the distance tolerance, and the entries past KNN_TIE_RTOL are counted.
+    # k above the kernel's shared-memory lists: heat_tpu answers any k <= m, and so does the port on a card
     dq, iq = ht.spatial.nearest_neighbors(zq, train, 100)
     dq0, iq0 = knn_tiles(zq.larray, train.larray, 100)
     check(tuple(iq.shape) == (N_QUERY, 100) and iq.larray.dtype == torch.int32, f"nearest_neighbors k=100 {tuple(iq.shape)}")
-    d1, i1 = dq.larray, iq.larray
-    e_100 = (d1 - dq0).abs()
-    check(bool((e_100 <= KNN_ATOL + KNN_RTOL * dq0.abs()).all()), f"k=100 distances differ by up to {e_100.max().item()}")
-    rows = torch.nonzero((i1 != iq0).any(dim=1)).flatten()
-    past_tie = 0
-    for r0 in range(0, rows.numel(), 64):
-        rr = rows[r0 : r0 + 64]
-        full = _quadratic_expand(zq.larray[rr], train.larray)
-        dk, dp = torch.gather(full, 1, i1[rr].long()), torch.gather(full, 1, iq0[rr].long())
-        check(bool(((dk - dp).abs() <= KNN_ATOL + KNN_RTOL * dp.abs()).all()), "k=100 indices differ beyond the distance tolerance")
-        past_tie += int(((dk - dp).abs() > KNN_TIE_RTOL * (dp.abs() + 1.0)).sum())
+    e_100, nd_100, worst_100 = knn_check(zq.larray, train.larray, dq.larray, iq.larray, dq0, iq0)
     print(f"[knn] spatial.nearest_neighbors k=100 on the kNN path's data vs knn_tiles: distances max abs "
-          f"{e_100.max().item():.3e}, indices differ on {int((i1 != iq0).sum())} entries, all within the distance "
-          f"tolerance; {past_tie} of them past KNN_TIE_RTOL", flush=True)
-    del dq, iq, dq0, iq0, d1, i1
+          f"{e_100:.3e}, indices differ on {nd_100} entries, all within the rounding bound (largest gap "
+          f"{worst_100:.3f} of it)", flush=True)
+    del dq, iq, dq0, iq0
 
     # the kernel-ridge path: Cholesky of an RBF Gram matrix, two triangular solves
     X = z[:N_RIDGE]
@@ -455,6 +525,81 @@ def main() -> int:
     check(torch.equal(ht.linalg.cholesky(K).larray, Lt), "ridge L not bit-identical from run to run")
     print(f"[ridge] ||L L^T - K||max/||K||max {recon:.3e}; ||K alpha - y||/||y|| {resid:.3e}; L vs plain L max abs "
           f"{e_L:.3e}; L bit-identical on rerun", flush=True)
+
+    # the surface: elementwise, relational and extrema functions on the KMeans path's standardized z, as a
+    # user writes them; none of them launches a kernel of the port
+    z_host = z.larray.cpu().numpy()
+    s0 = N_MAIN // 2
+    zs32 = z_host[s0 : s0 + N_SLICE]
+    zs = zs32.astype(np.float64)
+    torch.cuda.synchronize()
+    ht.kernels.reset_kernel_stats()
+    t0 = time.perf_counter()
+    mask = ht.abs(z) > 3
+    surface = {
+        "mask": mask, "any": ht.any(mask, axis=1), "sum": ht.sum(mask), "clip": ht.clip(z, -3, 3),
+        "where": ht.where(mask, 0.0, z), "min": ht.min(z, axis=0), "max": ht.max(z, axis=0),
+        "argmin": ht.argmin(z, axis=0), "argmax": ht.argmax(z, axis=0), "exp": ht.exp(z),
+        "log1p_abs": ht.log1p(ht.abs(z)), "sqrt": ht.sqrt(z), "sin": ht.sin(z), "floordiv": z // 1, "mod": z % 1,
+        "cumsum": ht.cumsum(z[:N_CUMSUM], axis=0),
+    }
+    torch.cuda.synchronize()
+    surface_s = time.perf_counter() - t0
+    check(not any(ht.LAUNCHES.values()), f"the surface launched a kernel of the port: {dict(ht.LAUNCHES)}")
+    for name, r in surface.items():
+        check(r.larray.is_cuda and r.device.device_type == "gpu", f"surface {name} is not on the card")
+    host = {k: v.larray[s0 : s0 + N_SLICE].cpu().numpy() for k, v in surface.items()
+            if k not in ("sum", "min", "max", "argmin", "argmax", "cumsum")}  # the compared rows
+    big = np.abs(zs32) > 3
+    exact = {  # bool, int and index results, and the exact float ones, against numpy
+        "mask": (host["mask"], big),
+        "any": (host["any"], big.any(axis=1)),
+        "sum": (surface["sum"].numpy(), np.count_nonzero(np.abs(z_host) > 3)),
+        "clip": (host["clip"], np.clip(zs32, -3, 3)),
+        "where": (host["where"], np.where(big, np.float32(0), zs32)),
+        "min": (surface["min"].numpy(), z_host.min(axis=0)), "max": (surface["max"].numpy(), z_host.max(axis=0)),
+        "argmin": (surface["argmin"].numpy(), z_host.argmin(axis=0)),
+        "argmax": (surface["argmax"].numpy(), z_host.argmax(axis=0)),
+    }
+    for name, (got, want) in exact.items():
+        check(np.array_equal(got, want), f"surface {name} differs from numpy")
+    check(surface["argmin"].larray.dtype == torch.int64 and surface["sum"].larray.dtype == torch.int64, "surface int64 results")
+    with np.errstate(invalid="ignore"):
+        refs = {"exp": np.exp(zs), "log1p_abs": np.log1p(np.abs(zs)), "sqrt": np.sqrt(zs), "sin": np.sin(zs),
+                "floordiv": np.floor(zs), "mod": zs - np.floor(zs)}
+    max_ulps = {}
+    for name, ref in refs.items():
+        max_ulps[name] = float(ulps(host[name], ref).max())
+        check(max_ulps[name] <= SURFACE_ULPS, f"surface {name} is {max_ulps[name]} ulp from the float64 value")
+    # a prefix of k float32 terms summed in any order is within gamma_k sum|z_i| of the exact prefix (Higham 4.2)
+    zc = z_host[:N_CUMSUM].astype(np.float64)
+    k = np.arange(1, N_CUMSUM + 1, dtype=np.float64)[:, None] * F32_UNIT_ROUNDOFF
+    c_gap = np.abs(surface["cumsum"].numpy() - np.cumsum(zc, axis=0))
+    c_bound = k / (1 - k) * np.cumsum(np.abs(zc), axis=0)
+    check(bool((c_gap <= c_bound).all()), "surface cumsum beyond gamma_k sum|z|")
+    print(f"[surface] {len(surface) + 1} calls on z ({N_MAIN} x {F_MAIN}) in {surface_s:.4f} s (host clock, first calls); "
+          f"all results on {surface['exp'].larray.device}; kernel launches {dict(ht.LAUNCHES)}; |z| > 3 in "
+          f"{int(exact['sum'][1])} entries; mask/any/sum/clip/where/min/max/argmin/argmax "
+          f"equal to numpy; max ulp vs float64 on rows {s0}..{s0 + N_SLICE - 1}: "
+          + ", ".join(f"{k_} {v:.2f}" for k_, v in max_ulps.items())
+          + f"; cumsum of {N_CUMSUM} rows at most {(c_gap / c_bound).max():.4f} of its rounding bound", flush=True)
+    del surface, host, mask, z_host, exact
+
+    # C1 on the card: the public Cholesky of a matrix that is not positive definite gives jnp's NaN pattern
+    # (NaN on and below the diagonal, zeros above) through the kernel
+    a_bad = spd(N_RIDGE, gen_new, dev)
+    a_bad[700, 700] = -50.0
+    ht.kernels.reset_kernel_stats()
+    L_bad = ht.linalg.cholesky(ht.array(a_bad, split=0)).larray
+    torch.cuda.synchronize()
+    check(ht.KERNEL_STATS.get("chol_panel_fused.cuda") == 1 and ht.LAUNCHES["chol_panel_fused"] == 1,
+          f"non-SPD cholesky dispatch {dict(ht.KERNEL_STATS)}")
+    lower = torch.ones_like(L_bad, dtype=torch.bool).tril()
+    check(torch.equal(torch.isnan(L_bad), lower) and bool((L_bad[~lower] == 0).all()),
+          "public cholesky of a non-SPD matrix: not NaN on and below the diagonal with zeros above")
+    print(f"[c1] linalg.cholesky of spd({N_RIDGE}) with a[700, 700] = -50 on the chol_panel_fused.cuda route: "
+          f"{int(torch.isnan(L_bad).sum())} NaN entries = the whole lower triangle, zeros above", flush=True)
+    del a_bad, L_bad, lower
 
     # the wide fit: f = 160 takes lloyd_fused's general route, as heat_tpu's kernel takes any f
     wide_true = torch.randn(K_WIDE, F_WIDE, device=dev, generator=gen_routes) * 8.0
@@ -496,22 +641,6 @@ def main() -> int:
     del d2, two, near, wdiff, kw0
 
     # --------------------------------------------------------------- 5. timing
-    def time_ms(fn, reps=25, warm=3):
-        # the median of `reps` single launches after `warm` unmeasured ones
-        for _ in range(warm):
-            fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            torch.cuda._sleep(2_000_000)  # keep the card busy while the host enqueues: times the device, not the launch
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        return statistics.median(times)
-
     xa, za = x.larray, z.larray
     c0 = km.cluster_centers_.larray
     rows = {}
@@ -594,6 +723,78 @@ def main() -> int:
               f"{r['bytes']} B, {r['ops']} flop) share {bound / r['ms']:.3f} plain_ms {r['plain_ms']:.4f} "
               f"library_ms {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} "
               f"launches per main path {launches[name]}", flush=True)
+
+    # the ladder's last rung: tall-skinny qr + matmul on split=0 data (after the kernels' timing, so that
+    # they are timed as in earlier runs)
+    a_t = torch.randn(N_QR, F_QR, device=dev, generator=gen_new)
+    A = ht.array(a_t, split=0, copy=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ht.kernels.reset_kernel_stats()
+    t0 = time.perf_counter()
+    Q, R = ht.linalg.qr(A)
+    torch.cuda.synchronize()
+    qr_s = time.perf_counter() - t0
+    qr_peak = torch.cuda.max_memory_allocated()
+    routes = {k: v for k, v in ht.KERNEL_STATS.items() if k.startswith("qr.")}
+    check(sum(routes.values()) == 1 and not any(ht.LAUNCHES.values()), f"qr routes {routes}, launches {dict(ht.LAUNCHES)}")
+    qr_route = next(iter(routes))
+    check(Q.shape == (N_QR, F_QR) and Q.split == 0 and R.shape == (F_QR, F_QR) and R.split is None
+          and Q.larray.dtype == R.larray.dtype == torch.float32 and Q.larray.is_cuda and R.larray.is_cuda, "qr metadata")
+    a_max = a_t.abs().max().item()
+    r64 = R.larray.double()
+    resid, qtq, gram = 0.0, torch.zeros(F_QR, F_QR, dtype=torch.float64, device=dev), torch.zeros_like(r64)
+    for r0 in range(0, N_QR, QR_CHUNK):  # float64 checks, a chunk of rows at a time
+        qc, ac = Q.larray[r0 : r0 + QR_CHUNK].double(), a_t[r0 : r0 + QR_CHUNK].double()
+        resid = max(resid, (qc @ r64 - ac).abs().max().item())
+        qtq += qc.T @ qc
+        gram += ac.T @ ac
+        del qc, ac
+    resid /= a_max
+    ortho = (qtq - torch.eye(F_QR, dtype=torch.float64, device=dev)).abs().max().item()
+    check(resid <= QR_RESID_RTOL, f"||QR - A||max/||A||max = {resid}")
+    check(ortho <= QR_ORTHO_ATOL, f"||QᵀQ - I||max = {ortho}")
+    del Q
+    r_lib = torch.linalg.qr(a_t, mode="r").R
+
+    def sign_normalized(r):
+        s_ = torch.sign(torch.diagonal(r))
+        return r * torch.where(s_ == 0, torch.ones_like(s_), s_)[:, None]
+
+    r_diff = (sign_normalized(R.larray) - sign_normalized(r_lib)).abs().max().item() / r_lib.abs().max().item()
+    check(r_diff <= QR_R_RTOL, f"qr R vs torch.linalg.qr's R: {r_diff}")
+    ht.kernels.reset_kernel_stats()
+    R_only = ht.linalg.qr(A, calc_q=False).R
+    check(ht.KERNEL_STATS.get(qr_route) == 1, f"calc_q=False took another route: {dict(ht.KERNEL_STATS)}")
+    r_only_diff = (R_only.larray - R.larray).abs().max().item() / r_lib.abs().max().item()
+    check(R_only.split is None and r_only_diff <= QR_R_RTOL, f"qr(calc_q=False) R vs qr R: {r_only_diff}")
+    G = ht.matmul(A.T, A)
+    g_diff = (G.larray.double() - gram).abs().max().item() / gram.abs().max().item()
+    check(G.shape == (F_QR, F_QR) and G.split is None and g_diff <= QR_GRAM_RTOL, f"matmul(A.T, A) vs float64 Gram: {g_diff}")
+    print(f"[qr] A {N_QR} x {F_QR} float32 split=0: ht.linalg.qr route {qr_route} ({qr_s:.4f} s first call, peak "
+          f"{qr_peak / 2**30:.2f} GiB allocated); Q split {A.split}, R split None; ||QR - A||max/||A||max {resid:.3e}; "
+          f"||QᵀQ - I||max {ortho:.3e}; R vs torch.linalg.qr's R (row signs normalized) {r_diff:.3e} of max |R|; "
+          f"calc_q=False R vs R {r_only_diff:.3e}; matmul(A.T, A) vs float64 Gram {g_diff:.3e} of max |G|", flush=True)
+    del R_only, G, r_lib
+    qr_flop = 2 * N_QR * F_QR * F_QR  # bench.py's accounting
+    a_bytes = N_QR * F_QR * 4
+    qr_times = {
+        "ht.linalg.qr": time_ms(lambda: ht.linalg.qr(A), reps=5, warm=1),
+        "ht.linalg.qr(calc_q=False)": time_ms(lambda: ht.linalg.qr(A, calc_q=False), reps=5, warm=1),
+        "torch.linalg.qr(reduced)": time_ms(lambda: torch.linalg.qr(a_t, mode="reduced"), reps=5, warm=1),
+        "torch.linalg.qr(r)": time_ms(lambda: torch.linalg.qr(a_t, mode="r"), reps=5, warm=1),
+        "ht.matmul(A.T, A)": time_ms(lambda: ht.matmul(A.T, A), reps=10, warm=2),
+        "torch.matmul(A.T, A)": time_ms(lambda: torch.matmul(a_t.T, a_t), reps=10, warm=2),
+    }
+    for name, ms in qr_times.items():
+        flop = qr_flop if "qr" in name else 2 * N_QR * F_QR * F_QR
+        print(f"[qr] {name}: {ms:.4f} ms, {flop / ms / 1e6:.1f} GFLOP/s at 2 m n^2 = {flop} flop", flush=True)
+    print(f"[qr] bounds at 3.35 TB/s: read A + write Q (2 passes of {a_bytes} B) {2 * a_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms; "
+          f"CholeskyQR2 as written, {QR_CHOLQR2_PASSES} passes {QR_CHOLQR2_PASSES * a_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms; "
+          f"its 8 m n^2 flop at 67 TFLOP/s (float32 without TF32) {8 * N_QR * F_QR * F_QR / FP32_FLOP_PER_S * 1e3:.4f} ms; "
+          f"matmul(A.T, A) reads A once {a_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms", flush=True)
+    del A, a_t, R, r64, qtq, gram
+    torch.cuda.empty_cache()
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -15,7 +15,14 @@ The port goes slice by slice, on one card so far:
    ``classification.KNeighborsClassifier`` over the ``topk_distance``
    kernel; and the Cholesky path: ``eye``, ``spatial.rbf``, ``matmul``/
    ``transpose``, ``linalg.cholesky`` over the ``chol_panel_fused`` kernel
-   and ``linalg.solve_triangular``.
+   and ``linalg.solve_triangular``;
+3. tall-skinny ``linalg.qr`` (CholeskyQR2 with ``heat_tpu``'s
+   orthogonality guard and its Householder fallback) with ``matmul``, and
+   the elementwise array surface: ``exponential``, ``trigonometrics``,
+   ``rounding``, ``logical``, ``relational``, the remaining arithmetic
+   names, ``min``/``max``/``argmin``/``argmax`` and their kin,
+   ``where``/``nonzero``, ``copy``, the DNDarray dunders and methods, and
+   ``linalg``'s ``tril``/``triu``/``norm``/``dot``/``outer``/``trace``.
 """
 from .core import *
 from .core import kernels, linalg, random

@@ -9,7 +9,15 @@ from .constants import *
 from .stride_tricks import *
 from .sanitation import *
 from .arithmetics import *
+from .exponential import *
+from .indexing import *
+from .logical import *
+from .memory import *
+from .relational import *
+from .rounding import *
 from .statistics import *
+from .trigonometrics import *
+from . import arithmetics, exponential, indexing, logical, memory, relational, rounding, statistics, trigonometrics
 from . import linalg
 from .linalg.basics import *
 from . import kernels

@@ -16,7 +16,7 @@ from . import types
 from .dndarray import DNDarray
 from .stride_tricks import broadcast_shape, sanitize_axis
 
-__all__ = ["_binary_op", "_local_op", "_reduce_op"]
+__all__ = ["_binary_op", "_cum_op", "_local_op", "_reduce_op"]
 
 
 def _as_dndarray(x, device=None, comm=None) -> DNDarray:
@@ -129,6 +129,33 @@ def _reduce_op(
         device=x.device,
         comm=x.comm,
     )
+    if out is not None:
+        return _write_out(out, res)
+    return res
+
+
+def _over_axes(fn: Callable, t: torch.Tensor, axis, keepdims: bool) -> torch.Tensor:
+    """``fn(t)`` over every axis when ``axis`` is None, else
+    ``fn(t, dim=axis, keepdim=keepdims)`` (an int or a tuple of axes)."""
+    if axis is None:
+        r = fn(t)
+        return r.reshape((1,) * t.ndim) if keepdims else r
+    return fn(t, dim=axis, keepdim=keepdims)
+
+
+def _cum_op(operation: Callable, x: DNDarray, axis, out: Optional[DNDarray] = None, dtype=None) -> DNDarray:
+    """Cumulative op along one axis (``operation(tensor, axis)``); split
+    and shape are inherited."""
+    if not isinstance(x, DNDarray):
+        raise TypeError(f"expected x to be a DNDarray, but was {type(x)}")
+    axis = sanitize_axis(x.shape, axis)
+    if axis is None:
+        raise NotImplementedError("cumulative ops require an explicit axis")
+    arr = x.larray
+    if dtype is not None:
+        arr = arr.to(types.canonical_heat_type(dtype).torch_type())
+    result = operation(arr, axis)
+    res = DNDarray(result, dtype=types.canonical_heat_type(result.dtype), split=x.split, device=x.device, comm=x.comm)
     if out is not None:
         return _write_out(out, res)
     return res

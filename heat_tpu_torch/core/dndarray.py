@@ -170,6 +170,40 @@ class DNDarray:
             raise ValueError("only one-element DNDarrays can be converted to Python scalars")
         return self.__array.item()
 
+    def tolist(self, keepsplit: bool = False) -> list:
+        """The global array as nested python lists."""
+        return self.numpy().tolist()
+
+    def __array__(self, dtype=None, copy=None) -> np.ndarray:
+        out = self.numpy()
+        return out.astype(dtype) if dtype is not None else out
+
+    def __cast(self, cast_function):
+        if self.size == 1:
+            return cast_function(self.__array.reshape(()).item())
+        raise TypeError("only size-1 arrays can be converted to Python scalars")
+
+    def __bool__(self) -> bool:
+        return self.__cast(bool)
+
+    def __int__(self) -> int:
+        return self.__cast(int)
+
+    def __float__(self) -> float:
+        return self.__cast(float)
+
+    def __complex__(self) -> complex:
+        return self.__cast(complex)
+
+    def __len__(self) -> int:
+        if self.ndim == 0:
+            raise TypeError("len() of unsized object")
+        return self.gshape[0]
+
+    def __iter__(self):
+        for i in range(len(self)):
+            yield self[i]
+
     # ------------------------------------------------------------- indexing
     def __getitem__(self, key) -> "DNDarray":
         """Basic indexing with ints, slices and ``...``. The split axis
@@ -259,7 +293,98 @@ class DNDarray:
         return arithmetics.neg(self)
 
     def __pos__(self):
-        return self
+        from . import arithmetics
+
+        return arithmetics.pos(self)
+
+    def __abs__(self):
+        from . import rounding
+
+        return rounding.abs(self)
+
+    def __floordiv__(self, other):
+        from . import arithmetics
+
+        return arithmetics.floordiv(self, other)
+
+    def __rfloordiv__(self, other):
+        from . import arithmetics
+
+        return arithmetics.floordiv(other, self)
+
+    def __mod__(self, other):
+        from . import arithmetics
+
+        return arithmetics.mod(self, other)
+
+    def __rmod__(self, other):
+        from . import arithmetics
+
+        return arithmetics.mod(other, self)
+
+    def __invert__(self):
+        from . import arithmetics
+
+        return arithmetics.invert(self)
+
+    def __and__(self, other):
+        from . import arithmetics
+
+        return arithmetics.bitwise_and(self, other)
+
+    def __or__(self, other):
+        from . import arithmetics
+
+        return arithmetics.bitwise_or(self, other)
+
+    def __xor__(self, other):
+        from . import arithmetics
+
+        return arithmetics.bitwise_xor(self, other)
+
+    def __lshift__(self, other):
+        from . import arithmetics
+
+        return arithmetics.left_shift(self, other)
+
+    def __rshift__(self, other):
+        from . import arithmetics
+
+        return arithmetics.right_shift(self, other)
+
+    # --------------------------------------------------------- relational
+    def __eq__(self, other):
+        from . import relational
+
+        return relational.eq(self, other)
+
+    def __ne__(self, other):
+        from . import relational
+
+        return relational.ne(self, other)
+
+    def __lt__(self, other):
+        from . import relational
+
+        return relational.lt(self, other)
+
+    def __le__(self, other):
+        from . import relational
+
+        return relational.le(self, other)
+
+    def __gt__(self, other):
+        from . import relational
+
+        return relational.gt(self, other)
+
+    def __ge__(self, other):
+        from . import relational
+
+        return relational.ge(self, other)
+
+    # == is elementwise, so a DNDarray cannot be a set member or a dict key
+    __hash__ = None
 
     # In-place forms rebind this object to the result's tensor, as heat_tpu
     # does (promotion may change the dtype). The previous tensor is left
@@ -281,6 +406,167 @@ class DNDarray:
         self.__dtype = result.dtype
         self.__split = result.split
         return self
+
+    # ----------------------------------------------------------- methods
+    def sum(self, axis=None, out=None, keepdims=False):
+        from . import arithmetics
+
+        return arithmetics.sum(self, axis=axis, out=out, keepdims=keepdims)
+
+    def prod(self, axis=None, out=None, keepdims=False):
+        from . import arithmetics
+
+        return arithmetics.prod(self, axis=axis, out=out, keepdims=keepdims)
+
+    def cumsum(self, axis):
+        from . import arithmetics
+
+        return arithmetics.cumsum(self, axis)
+
+    def cumprod(self, axis):
+        from . import arithmetics
+
+        return arithmetics.cumprod(self, axis)
+
+    def mean(self, axis=None):
+        from . import statistics
+
+        return statistics.mean(self, axis)
+
+    def std(self, axis=None, ddof=0):
+        from . import statistics
+
+        return statistics.std(self, axis, ddof=ddof)
+
+    def var(self, axis=None, ddof=0):
+        from . import statistics
+
+        return statistics.var(self, axis, ddof=ddof)
+
+    def min(self, axis=None, out=None, keepdims=None):
+        from . import statistics
+
+        return statistics.min(self, axis=axis, out=out, keepdims=keepdims)
+
+    def max(self, axis=None, out=None, keepdims=None):
+        from . import statistics
+
+        return statistics.max(self, axis=axis, out=out, keepdims=keepdims)
+
+    def argmin(self, axis=None, out=None):
+        from . import statistics
+
+        return statistics.argmin(self, axis=axis, out=out)
+
+    def argmax(self, axis=None, out=None):
+        from . import statistics
+
+        return statistics.argmax(self, axis=axis, out=out)
+
+    def all(self, axis=None, out=None, keepdims=False):
+        from . import logical
+
+        return logical.all(self, axis=axis, out=out, keepdims=keepdims)
+
+    def any(self, axis=None, out=None, keepdims=False):
+        from . import logical
+
+        return logical.any(self, axis=axis, out=out, keepdims=keepdims)
+
+    def isclose(self, other, rtol=1e-05, atol=1e-08, equal_nan=False):
+        from . import logical
+
+        return logical.isclose(self, other, rtol=rtol, atol=atol, equal_nan=equal_nan)
+
+    def transpose(self, axes=None):
+        from .linalg import transpose
+
+        return transpose(self, axes)
+
+    def copy(self):
+        from . import memory
+
+        return memory.copy(self)
+
+    def nonzero(self):
+        from . import indexing
+
+        return indexing.nonzero(self)
+
+    def abs(self, out=None, dtype=None):
+        from . import rounding
+
+        return rounding.abs(self, out=out, dtype=dtype)
+
+    def ceil(self, out=None):
+        from . import rounding
+
+        return rounding.ceil(self, out)
+
+    def floor(self, out=None):
+        from . import rounding
+
+        return rounding.floor(self, out)
+
+    def round(self, decimals=0, out=None, dtype=None):
+        from . import rounding
+
+        return rounding.round(self, decimals, out, dtype)
+
+    def trunc(self, out=None):
+        from . import rounding
+
+        return rounding.trunc(self, out)
+
+    def clip(self, a_min, a_max, out=None):
+        from . import rounding
+
+        return rounding.clip(self, a_min, a_max, out)
+
+    def exp(self, out=None):
+        from . import exponential
+
+        return exponential.exp(self, out)
+
+    def log(self, out=None):
+        from . import exponential
+
+        return exponential.log(self, out)
+
+    def sqrt(self, out=None):
+        from . import exponential
+
+        return exponential.sqrt(self, out)
+
+    def sin(self, out=None):
+        from . import trigonometrics
+
+        return trigonometrics.sin(self, out)
+
+    def cos(self, out=None):
+        from . import trigonometrics
+
+        return trigonometrics.cos(self, out)
+
+    def tan(self, out=None):
+        from . import trigonometrics
+
+        return trigonometrics.tan(self, out)
+
+    def tanh(self, out=None):
+        from . import trigonometrics
+
+        return trigonometrics.tanh(self, out)
+
+    def tril(self, k=0):
+        from .linalg import tril
+
+        return tril(self, k)
+
+    def triu(self, k=0):
+        from .linalg import triu
+
+        return triu(self, k)
 
     def __repr__(self) -> str:
         return (

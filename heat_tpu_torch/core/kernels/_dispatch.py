@@ -12,7 +12,9 @@ The mode follows from where the tensor lies; :func:`forced_mode` overrides
 it inside a block, which is how a check runs the plain version on a card
 beside the kernel. :data:`KERNEL_STATS` counts decisions under
 ``"{kernel}.{mode}"`` (a memo hit counts as a decision), and the route of
-each launch of a kernel that has more than one under ``"{kernel}.{route}"``;
+each launch of a kernel that has more than one under ``"{kernel}.{route}"``
+(and the route of each ``linalg.qr`` call, ``qr.cholqr2`` or
+``qr.householder``, which launches none of the kernels);
 :data:`LAUNCHES` counts actual kernel launches, one per wrapper call that
 starts the kernel.
 """
@@ -96,7 +98,7 @@ def record_dispatch(kernel: str, mode: str) -> None:
 
 def record_route(kernel: str, route: str) -> None:
     """Report the route of one launch of ``kernel`` (its wrapper calls this
-    beside :func:`count_launch`)."""
+    beside :func:`count_launch`), or of one call of an op with routes."""
     key = f"{kernel}.{route}"
     KERNEL_STATS[key] = KERNEL_STATS.get(key, 0) + 1
 

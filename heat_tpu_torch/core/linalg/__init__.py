@@ -1,6 +1,8 @@
-"""Linear algebra (counterpart of ``heat_tpu.core.linalg``): ``matmul`` and
-``transpose``, ``cholesky`` over the ``chol_panel_fused`` kernel, and
-``solve_triangular``."""
+"""Linear algebra (counterpart of ``heat_tpu.core.linalg``): ``matmul``,
+``dot``, ``outer``, ``transpose``, ``tril``/``triu``, ``trace`` and the
+norms; ``cholesky`` over the ``chol_panel_fused`` kernel,
+``solve_triangular``, and ``qr`` (CholeskyQR2 with a Householder fallback)."""
 from . import basics, factorizations
 from .basics import *
 from .factorizations import cholesky, solve_triangular
+from .qr import qr

@@ -1,8 +1,10 @@
-"""Linear algebra basics (counterpart of ``heat_tpu/core/linalg/basics.py``).
+"""Linear algebra basics (counterpart of ``heat_tpu/core/linalg/basics.py``):
+``matmul``, ``dot``, ``outer``, ``transpose``, ``tril``/``triu``,
+``trace`` and the norms.
 
 At world size 1 a product is one ``torch.matmul`` of the local tensors;
-what this module keeps from ``heat_tpu`` is the shape check and the rule
-for the result's split axis.
+what this module keeps from ``heat_tpu`` is the shape checks, the result
+types and the rule for the result's split axis.
 """
 from __future__ import annotations
 
@@ -12,9 +14,22 @@ import numpy as np
 import torch
 
 from .. import types
+from .._operations import _reduced_split, _write_out
 from ..dndarray import DNDarray
+from ..stride_tricks import sanitize_axis
 
-__all__ = ["matmul", "transpose"]
+__all__ = [
+    "dot",
+    "matmul",
+    "matrix_norm",
+    "norm",
+    "outer",
+    "trace",
+    "transpose",
+    "tril",
+    "triu",
+    "vector_norm",
+]
 
 
 def _matmul_gshape(sa: Tuple[int, ...], sb: Tuple[int, ...]) -> Tuple[int, ...]:
@@ -75,3 +90,133 @@ def transpose(a: DNDarray, axes: Optional[List[int]] = None) -> DNDarray:
     result = a.larray.permute(*axes)
     split = axes.index(a.split) if a.split is not None else None
     return DNDarray(result, dtype=a.dtype, split=split, device=a.device, comm=a.comm)
+
+
+def _out(res: DNDarray, out: Optional[DNDarray]) -> DNDarray:
+    return res if out is None else _write_out(out, res)
+
+
+def dot(a: DNDarray, b: DNDarray, out: Optional[DNDarray] = None) -> DNDarray:
+    """Dot product of two vectors (a replicated scalar), else ``matmul`` of
+    operands with at most 2 dimensions."""
+    if not isinstance(a, DNDarray) or not isinstance(b, DNDarray):
+        raise TypeError("both operands must be DNDarrays")
+    if a.ndim == 1 and b.ndim == 1:
+        if a.gshape != b.gshape:
+            raise ValueError(f"dot: shapes {a.gshape} and {b.gshape} not aligned")
+        dtype = types._weak_result_type(a, b)
+        if dtype is types.bool:
+            result = torch.any(a.larray & b.larray)
+        else:
+            tt = dtype.torch_type()
+            result = torch.sum(a.larray.to(tt) * b.larray.to(tt), dtype=tt)
+        return _out(DNDarray(result, dtype=dtype, split=None, device=a.device, comm=a.comm), out)
+    if a.ndim <= 2 and b.ndim <= 2:
+        return _out(matmul(a, b), out)
+    raise NotImplementedError("ht.dot not implemented for >2 dimensions")
+
+
+def outer(a: DNDarray, b: DNDarray, out: Optional[DNDarray] = None, split: Optional[int] = None) -> DNDarray:
+    """Outer product of the flattened operands; split 0 if either operand is
+    split, unless ``split`` says otherwise."""
+    if split is None:
+        split = 0 if (a.split is not None or b.split is not None) else None
+    tt = types._weak_result_type(a, b).torch_type()
+    result = torch.outer(a.larray.reshape(-1).to(tt), b.larray.reshape(-1).to(tt))
+    return _out(DNDarray(result, split=split, device=a.device, comm=a.comm), out)
+
+
+def trace(a: DNDarray, offset: int = 0, axis1: int = 0, axis2: int = 1, dtype=None, out=None) -> DNDarray:
+    """Sum along a diagonal (bool and integers below int64 sum in int64)."""
+    diag = torch.diagonal(a.larray, offset=offset, dim1=axis1, dim2=axis2)
+    result = diag.sum(dim=-1)
+    if dtype is not None:
+        result = result.to(types.canonical_heat_type(dtype).torch_type())
+    return _out(DNDarray(result, split=None, device=a.device, comm=a.comm), out)
+
+
+def _tri_op(m: DNDarray, k: int, op) -> DNDarray:
+    if not isinstance(m, DNDarray):
+        raise TypeError(f"expected m to be a DNDarray, got {type(m)}")
+    if m.ndim == 1:
+        # a vector becomes the (n, n) triangle of its copies, as in heat_tpu
+        result = op(m.larray.expand(m.gshape[0], -1), diagonal=k)
+        return DNDarray(result, dtype=m.dtype, split=0 if m.split is not None else None, device=m.device, comm=m.comm)
+    return DNDarray(op(m.larray, diagonal=k), dtype=m.dtype, split=m.split, device=m.device, comm=m.comm)
+
+
+def tril(m: DNDarray, k: int = 0) -> DNDarray:
+    """The lower triangle (on and below diagonal ``k``), zeros elsewhere."""
+    return _tri_op(m, k, torch.tril)
+
+
+def triu(m: DNDarray, k: int = 0) -> DNDarray:
+    """The upper triangle (on and above diagonal ``k``), zeros elsewhere."""
+    return _tri_op(m, k, torch.triu)
+
+
+def _inexact_tensor(x: DNDarray) -> torch.Tensor:
+    # jnp.promote_types(any integer or bool, float32) is float32
+    t = x.larray
+    return t if t.is_floating_point() else t.to(torch.float32)
+
+
+def matrix_norm(x: DNDarray, axis: Optional[Tuple[int, int]] = None, keepdims: bool = False, ord=None) -> DNDarray:
+    """Matrix norm over the two axes ``axis`` (default (0, 1) of a 2-D
+    array): ``"fro"`` (default), 1, -1, inf, -inf, 2, -2 or ``"nuc"``."""
+    if axis is None:
+        if x.ndim != 2:
+            raise ValueError("axis must be given for arrays that are not 2-D")
+        axis = (0, 1)
+    axis = sanitize_axis(x.shape, axis)
+    row, col = axis
+    arr = _inexact_tensor(x)
+    # after the inner sum drops an axis, the outer reduction's index shifts
+    col_adj = col - 1 if (col > row and not keepdims) else col
+    row_adj = row - 1 if (row > col and not keepdims) else row
+    if ord is None or ord == "fro":
+        result = torch.sqrt(torch.sum(arr.abs() ** 2, dim=axis, keepdim=keepdims))
+    elif ord in (1, -1):
+        ext = torch.amax if ord == 1 else torch.amin
+        result = ext(torch.sum(arr.abs(), dim=row, keepdim=keepdims), dim=col_adj, keepdim=keepdims)
+    elif ord in (np.inf, -np.inf):
+        ext = torch.amax if ord == np.inf else torch.amin
+        result = ext(torch.sum(arr.abs(), dim=col, keepdim=keepdims), dim=row_adj, keepdim=keepdims)
+    elif ord in (2, -2, "nuc"):
+        s = torch.linalg.svdvals(torch.movedim(arr, (row, col), (-2, -1)))
+        result = s.amax(dim=-1) if ord == 2 else s.amin(dim=-1) if ord == -2 else s.sum(dim=-1)
+        if keepdims:
+            result = result.unsqueeze(min(row, col)).unsqueeze(max(row, col))
+    else:
+        raise ValueError(f"Invalid norm order {ord} for matrices")
+    return DNDarray(result, split=_reduced_split(x.split, axis, x.ndim, keepdims), device=x.device, comm=x.comm)
+
+
+def vector_norm(x: DNDarray, axis=None, keepdims: bool = False, ord=None) -> DNDarray:
+    """Vector norm of order ``ord`` (default 2) along ``axis``, or over the
+    flattened array."""
+    axis_s = sanitize_axis(x.shape, axis)
+    arr = _inexact_tensor(x)
+    if axis_s is None:
+        arr = arr.reshape(-1)
+    result = torch.linalg.vector_norm(arr, ord=2 if ord is None else ord, dim=0 if axis_s is None else axis_s, keepdim=keepdims)
+    return DNDarray(result, split=_reduced_split(x.split, axis_s, x.ndim, keepdims), device=x.device, comm=x.comm)
+
+
+def norm(x: DNDarray, axis=None, keepdims: bool = False, ord=None) -> DNDarray:
+    """Frobenius/2-norm of the whole array by default; a vector norm for an
+    int ``axis`` (or 1-D input), a matrix norm for a pair (or 2-D input)."""
+    if axis is None and ord is None:
+        arr = _inexact_tensor(x)
+        return DNDarray(torch.sqrt(torch.sum(arr.abs() ** 2)), split=None, device=x.device, comm=x.comm)
+    if axis is None:
+        if x.ndim == 1:
+            return vector_norm(x, axis=0, keepdims=keepdims, ord=ord)
+        if x.ndim == 2:
+            return matrix_norm(x, axis=(0, 1), keepdims=keepdims, ord=ord)
+        raise ValueError("improper number of dimensions to norm")
+    if isinstance(axis, (int, np.integer)):
+        return vector_norm(x, axis=axis, keepdims=keepdims, ord=ord)
+    if isinstance(axis, tuple) and len(axis) == 2:
+        return matrix_norm(x, axis=axis, keepdims=keepdims, ord=ord)
+    raise TypeError(f"axis must be an int or 2-tuple, got {axis}")

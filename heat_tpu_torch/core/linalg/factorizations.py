@@ -6,9 +6,11 @@ with n <= ``MAX_FUSED_N`` on a card, and its plain version on the CPU.
 Anything else (float64, or n > ``MAX_FUSED_N``) takes ``heat_tpu``'s
 non-kernel route, ``torch.linalg.cholesky_ex``, recorded as
 ``chol_panel_fused.fallback``. A matrix that is not positive definite
-gives NaNs, never an error: on the kernel and plain routes from the
-failing pivot on, on the non-kernel route on and below the whole diagonal
-(zeros above), as ``jnp.linalg.cholesky`` returns it.
+gives NaNs, never an error, on every route as ``jnp.linalg.cholesky``
+returns it: NaN on and below the whole diagonal, zeros above. (The kernel
+and its plain version leave NaN from the failing pivot on; ``cholesky``
+widens that to the whole lower triangle on the device, without a host
+sync.)
 """
 from __future__ import annotations
 
@@ -37,13 +39,19 @@ def _float_type(*arrs):
     return t
 
 
+def _nan_lower(arr: torch.Tensor) -> torch.Tensor:
+    """jnp's factor of a matrix that is not positive definite: NaN on and
+    below the diagonal, zeros above."""
+    lower = torch.ones_like(arr, dtype=torch.bool).tril()
+    return torch.where(lower, torch.full_like(arr, float("nan")), torch.zeros_like(arr))
+
+
 def _cholesky_library(arr: torch.Tensor) -> torch.Tensor:
-    """``torch.linalg.cholesky_ex``; where it reports a failure, NaN on and
-    below the diagonal and zeros above."""
+    """``torch.linalg.cholesky_ex``; where it reports a failure, jnp's NaN
+    pattern."""
     L, info = torch.linalg.cholesky_ex(arr)
     if int(info) != 0:
-        lower = torch.ones_like(arr, dtype=torch.bool).tril()
-        L = torch.where(lower, torch.full_like(arr, float("nan")), torch.zeros_like(arr))
+        L = _nan_lower(arr)
     return L
 
 
@@ -61,10 +69,11 @@ def cholesky(a: DNDarray, tiles_per_proc: int = 1) -> DNDarray:
     record_dispatch(CHOL_KERNEL, mode)
     if mode == "fallback":
         L = _cholesky_library(arr)
-    elif mode == "cuda":
-        L = cholesky_local(arr)
     else:
-        L = chol_panels(arr, chol_block_size(arr.shape[0]))
+        L = cholesky_local(arr) if mode == "cuda" else chol_panels(arr, chol_block_size(arr.shape[0]))
+        # a failing pivot leaves NaN on the diagonal from there on: one select
+        # on the device gives jnp's pattern
+        L = torch.where(torch.isnan(L.diagonal()).any(), _nan_lower(arr), L)
     return DNDarray(L, dtype=ftype, split=a.split, device=a.device, comm=a.comm)
 
 

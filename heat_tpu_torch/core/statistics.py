@@ -1,5 +1,12 @@
-"""Statistics: ``mean``, ``var`` and ``std`` (counterpart of
-``heat_tpu/core/statistics.py:319-332, 540-760``).
+"""Statistics: ``mean``, ``var`` and ``std``, and the extrema ``min``/
+``max``/``argmin``/``argmax``/``minimum``/``maximum``/``nanmin``/``nanmax``
+(counterpart of ``heat_tpu/core/statistics.py:62-112, 280-345, 400-410,
+540-760``).
+
+The extrema reduce over :func:`._operations._reduce_op` with module-level
+callables. NaN wins in ``min``/``max``/``argmin``/``argmax``/``minimum``/
+``maximum`` and is skipped by ``nanmin``/``nanmax`` (NaN only where a
+whole slice is NaN); ``arg*`` give int64 and the first index of a tie.
 
 All three finalize from one (count, mean, M2) panel per buffer and axis,
 computed in one read and memoized, so ``ht.mean(x)`` followed by
@@ -24,12 +31,24 @@ import weakref
 import torch
 
 from . import types
-from ._operations import _reduced_shape, _reduced_split
+from ._operations import _binary_op, _over_axes, _reduce_op, _reduced_shape, _reduced_split, _write_out
 from .dndarray import DNDarray
 from .kernels import MOMENTS_KERNEL, chunk_moments, dispatch_mode, moments_local, record_dispatch
 from .stride_tricks import sanitize_axis
 
-__all__ = ["mean", "std", "var"]
+__all__ = [
+    "argmax",
+    "argmin",
+    "max",
+    "maximum",
+    "mean",
+    "min",
+    "minimum",
+    "nanmax",
+    "nanmin",
+    "std",
+    "var",
+]
 
 # id(tensor) -> [weakref, _version, requested mode, {axis_key: stats}, {axis_key: mode}].
 # Keyed by id(); the weakref's death callback drops the slot, so a recycled
@@ -191,3 +210,92 @@ def std(x: DNDarray, axis=None, ddof: int = 0, where=None) -> DNDarray:
     """Standard deviation along ``axis`` with ``ddof`` delta degrees of freedom."""
     axis_s, (c, _, m2) = _moments(x, axis, where)
     return _wrap_moment(x, axis_s, torch.sqrt(m2 / (c - ddof)))
+
+
+# ----------------------------------------------------------------- extrema
+def _max(t: torch.Tensor, axis, keepdims: bool) -> torch.Tensor:
+    return _over_axes(torch.amax, t, axis, keepdims)
+
+
+def _min(t: torch.Tensor, axis, keepdims: bool) -> torch.Tensor:
+    return _over_axes(torch.amin, t, axis, keepdims)
+
+
+def _nan_skipping(reduce, fill: float):
+    """``reduce`` with NaN replaced by ``fill`` (the reduction's identity);
+    NaN again where every element of a slice was NaN."""
+
+    def run(t: torch.Tensor, axis, keepdims: bool) -> torch.Tensor:
+        if not t.is_floating_point():
+            return reduce(t, axis, keepdims)
+        nan = torch.isnan(t)
+        r = reduce(t.masked_fill(nan, fill), axis, keepdims)
+        return r.masked_fill(_over_axes(torch.all, nan, axis, keepdims), float("nan"))
+
+    return run
+
+
+_NANMAX = _nan_skipping(_max, float("-inf"))
+_NANMIN = _nan_skipping(_min, float("inf"))
+
+
+def max(x: DNDarray, axis=None, out=None, keepdim=None, keepdims=None) -> DNDarray:
+    """Maximum along ``axis``; NaN wins."""
+    return _reduce_op(_max, x, axis=axis, out=out, keepdims=bool(keepdim or keepdims))
+
+
+def min(x: DNDarray, axis=None, out=None, keepdim=None, keepdims=None) -> DNDarray:
+    """Minimum along ``axis``; NaN wins."""
+    return _reduce_op(_min, x, axis=axis, out=out, keepdims=bool(keepdim or keepdims))
+
+
+def nanmax(x: DNDarray, axis=None, out=None, keepdim=None, keepdims=None) -> DNDarray:
+    """Maximum along ``axis``, NaNs skipped."""
+    return _reduce_op(_NANMAX, x, axis=axis, out=out, keepdims=bool(keepdim or keepdims))
+
+
+def nanmin(x: DNDarray, axis=None, out=None, keepdim=None, keepdims=None) -> DNDarray:
+    """Minimum along ``axis``, NaNs skipped."""
+    return _reduce_op(_NANMIN, x, axis=axis, out=out, keepdims=bool(keepdim or keepdims))
+
+
+def maximum(x1, x2, out=None) -> DNDarray:
+    """Elementwise maximum; NaN wins."""
+    return _binary_op(torch.maximum, x1, x2, out=out)
+
+
+def minimum(x1, x2, out=None) -> DNDarray:
+    """Elementwise minimum; NaN wins."""
+    return _binary_op(torch.minimum, x1, x2, out=out)
+
+
+def _arg_reduce(op, x: DNDarray, axis, out) -> DNDarray:
+    if not isinstance(x, DNDarray):
+        raise TypeError(f"expected x to be a DNDarray, but was {type(x)}")
+    axis = sanitize_axis(x.shape, axis)
+    if axis is not None and not isinstance(axis, int):
+        raise TypeError(f"axis must be None or an int, got {axis}")
+    arr = x.larray
+    if arr.dtype == torch.bool:
+        arr = arr.to(torch.uint8)
+    result = op(arr, dim=axis)
+    res = DNDarray(
+        result.to(torch.int64),
+        dtype=types.int64,
+        split=_reduced_split(x.split, axis, x.ndim, False),
+        device=x.device,
+        comm=x.comm,
+    )
+    if out is not None:
+        return _write_out(out, res)
+    return res
+
+
+def argmax(x: DNDarray, axis=None, out=None, **kwargs) -> DNDarray:
+    """Index of the maximum along ``axis`` (of the flattened array if None)."""
+    return _arg_reduce(torch.argmax, x, axis, out)
+
+
+def argmin(x: DNDarray, axis=None, out=None, **kwargs) -> DNDarray:
+    """Index of the minimum along ``axis`` (of the flattened array if None)."""
+    return _arg_reduce(torch.argmin, x, axis, out)

@@ -230,3 +230,33 @@ def result_type(*operands) -> Type[datatype]:
     for op in operands[1:]:
         acc = merge(acc, classify(op))
     return acc[0]
+
+
+# jnp's lattice over this slice's types, used where heat_tpu hands operands to
+# jnp unconverted (``where``, ``clip``, ``diff``, ``dot``, ``outer``): any
+# integer with float32 gives float32, and a python scalar is weakly typed.
+_KIND = {bool: 0, int32: 1, int64: 1, float32: 2, float64: 2}
+_WEAK_DEFAULT = (bool, int64, float64)  # a weak scalar's type when it wins (64-bit mode)
+
+
+def _weak_result_type(*operands) -> Type[datatype]:
+    """The type jnp gives to an op on ``operands`` (DNDarrays, tensors, numpy
+    or python scalars): arrays promote along jnp's lattice; a python scalar
+    takes the arrays' type unless its kind (bool < int < float) is higher,
+    then the 64-bit type of its kind."""
+    strong, weak = None, -1
+    for arg in operands:
+        if isinstance(arg, (builtins.bool, builtins.int, builtins.float)) and not isinstance(arg, np.generic):
+            weak = max(weak, _KIND[canonical_heat_type(type(arg))])
+            continue
+        dt = getattr(arg, "dtype", None)
+        t = dt if isinstance(dt, type) and issubclass(dt, datatype) else canonical_heat_type(dt)
+        if strong is None or strong is t:
+            strong = t
+        elif _KIND[strong] == _KIND[t]:
+            strong = strong if _ORDER.index(strong) > _ORDER.index(t) else t
+        else:
+            strong = strong if _KIND[strong] > _KIND[t] else t
+    if strong is None:
+        return _WEAK_DEFAULT[weak]
+    return strong if weak <= _KIND[strong] else _WEAK_DEFAULT[weak]

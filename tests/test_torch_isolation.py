@@ -58,6 +58,10 @@ def test_cpu_slice_runs_without_jax_in_a_fresh_process():
         "alpha = ht.linalg.solve_triangular(L.T, ht.linalg.solve_triangular(L, y, lower=True), lower=False)",
         "assert float((K @ alpha - y).larray.abs().max()) < 1e-4",
         "assert ht.KERNEL_STATS.get('topk_distance.fallback') == 1 and ht.KERNEL_STATS.get('chol_panel_fused.torch') == 1",
+        "q, r = ht.linalg.qr(z)",
+        "assert float(ht.linalg.norm(q @ r - z)) < 1e-4 and ht.KERNEL_STATS.get('qr.cholqr2') == 1",
+        "m = ht.abs(z) > 1",
+        "assert int(ht.sum(ht.where(m, 1, 0))) == int(ht.sum(m)) and ht.argmax(z, axis=0).shape == (3,)",
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'heat_tpu'))",
         "print('LEAKED', bad) if bad else print('CLEAN')",
     ])

@@ -87,15 +87,30 @@ def test_cholesky_not_positive_definite_non_kernel_route(cpu):
     assert (np.triu(Lt, 1) == 0).all() and (np.triu(Lj, 1) == 0).all()
 
 
-def test_cholesky_not_positive_definite_kernel_route(cpu):
-    """On the kernel's route NaN starts at the failing pivot and nothing
-    raises (heat_tpu's kernel documents the same NaN propagation)."""
-    a = _spd(60, 3)
-    a[25, 25] = -50.0
-    L = htt.linalg.cholesky(htt.array(a)).numpy()
-    i, j = np.indices(a.shape)
-    np.testing.assert_array_equal(np.isnan(L), (i >= j) & (j >= 25))
+@pytest.mark.parametrize("case", ["pivot25_n60", "two_by_two"])
+def test_cholesky_not_positive_definite_kernel_route(cpu, case):
+    """On the kernel's route nothing raises, and the NaN mask is exactly
+    heat_tpu's (jnp's): NaN on and below the whole diagonal, zeros above,
+    though the kernel's plain version leaves NaN only from the failing
+    pivot on."""
+    if case == "two_by_two":
+        a = np.array([[1.0, 2.0], [2.0, 1.0]], np.float32)
+        pivot = 1
+    else:
+        a = _spd(60, 3)
+        a[25, 25] = -50.0
+        pivot = 25
+    Lt = htt.linalg.cholesky(htt.array(a)).numpy()
     assert htt.KERNEL_STATS == {"dispatches": 1, "chol_panel_fused.torch": 1}
+    with comm_context(SELF):
+        Lj = htj.linalg.cholesky(htj.array(a)).numpy()
+    np.testing.assert_array_equal(np.isnan(Lt), np.isnan(Lj))
+    np.testing.assert_array_equal(np.isnan(Lt), np.tril(np.ones(a.shape, bool)))
+    assert (np.triu(Lt, 1) == 0).all()
+    # the plain version itself still starts its NaNs at the failing pivot
+    raw = htt.kernels.chol_panels(torch.from_numpy(a), htt.kernels.chol_block_size(a.shape[0])).numpy()
+    i, j = np.indices(a.shape)
+    np.testing.assert_array_equal(np.isnan(raw), (i >= j) & (j >= pivot))
 
 
 def test_cholesky_input_checks(cpu):
