@@ -4,7 +4,8 @@
 Run from the repository root, with no arguments, on a machine with an
 NVIDIA Hopper card and the CUDA toolkit:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # every phase; [dist] on every visible card
+    python3 chip_smoke.py --phases dist    # the build and [dist] only
 
 Phases (any failure raises and exits non-zero; nothing is caught):
 
@@ -51,14 +52,28 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    main-path shape (bytes over 3.35 TB/s or float32 flops over 67
    TFLOP/s). ``[design]`` lines name each redesigned kernel's launch plan.
 
-The line before last is one JSON object ``{"kernels": [...]}``; the last
-line is ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
+6. ``[dist]``: the main path across every visible card, one process per
+   card (spawned after the build, NCCL, no gloo fallback), 2^24 x 32 rows
+   per card from one seed: ``mean``/``std`` -> standardize -> ``KMeans.fit``
+   -> ``predict`` -> kNN ``predict`` (2^13 split-0 queries) -> ``qr`` +
+   ``matmul(A.T, A)`` at 2^24 x 64 per card -> a resplit round trip; per
+   rank its launches, ``COLLECTIVES`` and times, then the same path in
+   this process on the same global data as the reference, and the
+   weak-scaling efficiency of the warm fit. ``--phases dist`` runs only
+   phases 1, 2 and 6.
+
+The line before last is one JSON object ``{"kernels": [...]}`` (not
+printed with ``--phases dist``); the last line is
+``{"ok": true, "device": {...}}``. It imports nothing of JAX.
 """
+import argparse
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -197,8 +212,322 @@ def spd(n, gen, dev):
     return (g @ g.T / n + torch.eye(n, device=dev, dtype=torch.float64)).to(torch.float32)
 
 
-def main() -> int:
+# ---- [dist]: the main path over torch.distributed, one process per card ------------------------
+DIST_SEED, DIST_QR_SEED = 7, 8
+N_DIST_SLICE = 1 << 20  # rows of z in the resplit round trip
+
+
+def _dist_data(ht, world):
+    """The [dist] path's data, the same global arrays at any world size (the
+    port's split draws are split-invariant): 8 Gaussian blobs of
+    N_MAIN * world rows x F_MAIN, row i of the first K_MAIN in blob i, and
+    N_QUERY held-out rows from the same blobs."""
+    import torch
+
+    n = N_MAIN * world
+    ht.random.seed(DIST_SEED)
+    true = ht.random.randn(K_MAIN, F_MAIN) * 8.0
+    member = ht.random.randint(0, K_MAIN, size=(n,), split=0, dtype=ht.int64)
+    off = member.comm.chunk(member.gshape, 0)[0]
+    if off < K_MAIN:
+        member.larray[: K_MAIN - off] = torch.arange(off, K_MAIN, device=member.larray.device)
+    x = ht.random.randn(n, F_MAIN, split=0) + ht.DNDarray(true.larray[member.larray], gshape=(n, F_MAIN), split=0)
+    member_q = ht.random.randint(0, K_MAIN, size=(N_QUERY,), split=0, dtype=ht.int64)
+    xq = ht.random.randn(N_QUERY, F_MAIN, split=0) + ht.DNDarray(
+        true.larray[member_q.larray], gshape=(N_QUERY, F_MAIN), split=0)
+    return true, member, x, member_q, xq
+
+
+def _dist_qr_data(ht, world):
+    ht.random.seed(DIST_QR_SEED)
+    return ht.random.randn(N_QR * world, F_QR, split=0)
+
+
+def _ceil_div_map(gshape, split, world):
     import numpy as np
+
+    out = np.array([list(gshape)] * world, dtype=np.int64)
+    n = gshape[split]
+    block = -(-n // world)
+    for r in range(world):
+        start = min(r * block, n)
+        out[r, split] = min(start + block, n) - start
+    return out
+
+
+def _dist_rank(rank, world, store, out_dir):
+    """One rank of the [dist] phase: the main path on this rank's card over
+    NCCL, its checks that need no single-process reference, and its times;
+    what the parent compares goes to ``out_dir/rank{rank}.pt``."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, ROOT)
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.core.kernels import COLLECTIVES
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ht.init_distributed(backend="nccl", init_method=f"file://{store}", world_size=world, rank=rank,
+                        local_rank=rank, timeout=900)
+    comm = ht.get_comm()
+    dev = ht.get_device().torch_device
+    check(comm.size == world and comm.rank == rank and comm.backend == "nccl", f"group {comm}")
+    check(ht.get_device() == ht.Device("gpu", rank) and torch.cuda.current_device() == rank, f"device {ht.get_device()}")
+
+    def say(msg):
+        print(f"[dist r{rank}] {msg}", flush=True)
+
+    def sync():
+        torch.cuda.synchronize()
+        comm.barrier()
+
+    def timed(fn):
+        """(result, host s, CUDA-event ms) of one call, all ranks started
+        together; ``timed.collectives`` holds what the call itself ran."""
+        sync()
+        before = {k: dict(v) for k, v in COLLECTIVES.items()}
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        out = fn()
+        b.record()
+        torch.cuda.synchronize()
+        host = time.perf_counter() - t0
+        timed.collectives = {
+            k: {f: v[f] - before.get(k, {}).get(f, 0) for f in v} for k, v in COLLECTIVES.items()
+            if v["calls"] != before.get(k, {}).get("calls", 0)
+        }
+        return out, host, a.elapsed_time(b)
+
+    say(f"{torch.cuda.get_device_name(rank)} cuda:{rank}, world size {comm.size}, backend {comm.backend}")
+    true, member, x, member_q, xq = _dist_data(ht, world)
+    want_map = _ceil_div_map(x.gshape, 0, world)
+    check(np.array_equal(x.lshape_map, want_map) and tuple(x.larray.shape) == tuple(want_map[rank]),
+          f"x lshape_map {x.lshape_map.tolist()}")
+    say(f"x {x.gshape} split 0, lshape_map {x.lshape_map[:, 0].tolist()} rows; queries {xq.lshape_map[:, 0].tolist()}")
+    torch.cuda.empty_cache()
+
+    # ---- the path, counts zeroed just before and read just after
+    sync()
+    ht.kernels.reset_kernel_stats()
+    t_path = time.perf_counter()
+    (mu, sd), t_stats, ev_stats = timed(lambda: (ht.mean(x, axis=0), ht.std(x, axis=0)))
+    z = (x - mu) / sd
+    init = z[:K_MAIN].resplit(None)
+    km, t_fit, ev_fit = timed(lambda: ht.cluster.KMeans(n_clusters=K_MAIN, init=init, max_iter=ITERS, tol=None).fit(z))
+    fit_coll = timed.collectives
+    zq = (xq - mu) / sd
+    pred = km.predict(zq)
+    train, train_labels = z[:N_TRAIN], member[:N_TRAIN]
+    clf = ht.classification.KNeighborsClassifier(n_neighbors=KNN_K).fit(train, train_labels)
+    knn_pred, t_knn, ev_knn = timed(lambda: clf.predict(zq))
+    sync()
+    path_s = time.perf_counter() - t_path
+    launches, stats, colls = dict(ht.LAUNCHES), dict(ht.KERNEL_STATS), {k: dict(v) for k, v in COLLECTIVES.items()}
+    say(f"launches {launches} KERNEL_STATS {stats}")
+    say(f"COLLECTIVES of the path {colls}")
+    per_iter = {k: {f: v[f] / (ITERS + 1) for f in v} for k, v in fit_coll.items()}
+    say(f"COLLECTIVES of the fit {fit_coll}: per Lloyd step (30 iterations + the inertia pass) {per_iter}")
+    check(launches["moments_onepass"] == 1 and stats.get("moments_onepass.cuda") == 2,
+          f"one moments launch per rank should serve mean and std: {launches}, {stats}")
+    check(launches["lloyd_fused"] == ITERS + 1 and stats.get("lloyd_fused.resident") == ITERS + 1,
+          f"lloyd launches per rank {launches['lloyd_fused']} != {ITERS + 1}, or not all resident: {stats}")
+    check(launches["topk_distance"] == 1 and stats.get("topk_distance.cuda") == 1, f"topk launches {launches}, {stats}")
+    check(not any(k.endswith(".torch") for k in stats), f"a plain version ran on the path: {stats}")
+    packed = (K_MAIN * F_MAIN + K_MAIN + 1) * 4
+    check(fit_coll == {"allreduce": {"calls": ITERS + 1, "bytes": (ITERS + 1) * packed}},
+          f"the fit should run one allreduce of {packed} B per Lloyd step and nothing else: {fit_coll}")
+    check(km.labels_.split == 0 and km.cluster_centers_.split is None and pred.split == 0 and knn_pred.split == 0,
+          "result splits")
+    check(np.array_equal(km.labels_.lshape_map, _ceil_div_map((N_MAIN * world,), 0, world)), "labels lshape_map")
+    say(f"mean+std {t_stats:.4f} s host, {ev_stats:.4f} ms events; first fit {t_fit:.4f} s ({ITERS / t_fit:.1f} it/s); "
+        f"kNN predict {t_knn:.4f} s host, {ev_knn:.4f} ms events; whole path {path_s:.3f} s")
+
+    # ---- replicated results bit-identical on every rank
+    def same_everywhere(t, name):
+        parts = comm.allgather(t.contiguous().unsqueeze(0), 0, [1] * world)
+        check(all(torch.equal(parts[r], parts[0]) for r in range(world)), f"{name} differs between ranks")
+
+    for name, t in (("mean", mu.larray), ("std", sd.larray), ("centers", km.cluster_centers_.larray),
+                    ("inertia", torch.tensor([km.inertia_], device=dev))):
+        same_everywhere(t, name)
+    acc = comm.allreduce((knn_pred.larray == member_q.larray).sum()).item() / N_QUERY
+    check(acc > 0.999, f"kNN predict accuracy against the blobs {acc}")
+
+    # ---- warm times
+    _, t_warm, ev_warm = timed(lambda: ht.cluster.KMeans(n_clusters=K_MAIN, init=init, max_iter=ITERS, tol=None).fit(z))
+    _, t_knn_w, ev_knn_w = timed(lambda: clf.predict(zq))
+    d_nn, i_nn = ht.spatial.nearest_neighbors(zq, train, KNN_K)  # for the parent's index check; not on the path
+    sl = z[:N_DIST_SLICE]
+    rt, t_rs, ev_rs = timed(lambda: sl.resplit(1).resplit(None))
+    check(rt.split is None and rt.gshape == sl.gshape, "resplit round trip metadata")
+    off, lsh, _ = comm.chunk(sl.gshape, 0)
+    check(torch.equal(rt.larray[off : off + lsh[0]], sl.larray), "resplit 0 -> 1 -> None changed the values")
+    same_everywhere(rt.larray, "resplit round trip")
+    say(f"warm fit {t_warm:.4f} s host ({ITERS / t_warm:.1f} it/s), {ev_warm:.4f} ms events; warm kNN predict "
+        f"{t_knn_w:.4f} s, {ev_knn_w:.4f} ms events; resplit 0 -> 1 -> None of {sl.gshape} {t_rs:.4f} s, "
+        f"{ev_rs:.4f} ms events")
+    result = {
+        "rank": rank, "mu": mu.larray.cpu(), "sd": sd.larray.cpu(), "centers": km.cluster_centers_.larray.cpu(),
+        "inertia": km.inertia_, "labels": km.labels_.larray.to(torch.int8).cpu(), "pred": pred.larray.cpu(),
+        "knn_pred": knn_pred.larray.cpu(), "d_nn": d_nn.larray.cpu(), "i_nn": i_nn.larray.cpu(),
+        "launches": launches, "stats": stats, "fit_collectives": fit_coll,
+    }
+    del x, z, zq, train, clf, rt, sl, d_nn, i_nn, km, member
+    torch.cuda.empty_cache()
+
+    # ---- tall-skinny qr + matmul: checks computed across ranks, Q never gathered
+    A = _dist_qr_data(ht, world)
+    torch.cuda.empty_cache()
+    check(np.array_equal(A.lshape_map, _ceil_div_map(A.gshape, 0, world)), "A lshape_map")
+    ht.kernels.reset_kernel_stats()
+    (Q, R), t_qr, ev_qr = timed(lambda: ht.linalg.qr(A))
+    qr_routes = {k: v for k, v in ht.KERNEL_STATS.items() if k.startswith("qr.")}
+    qr_coll = timed.collectives
+    G, t_mm, ev_mm = timed(lambda: ht.matmul(A.T, A))
+    check(Q.split == 0 and R.split is None and G.split is None and Q.gshape == A.gshape and R.gshape == (F_QR, F_QR),
+          "qr / matmul metadata")
+    a_l, q_l, r64 = A.larray, Q.larray, R.larray.double()
+    resid, a_max = torch.zeros((), dtype=torch.float64, device=dev), torch.zeros((), dtype=torch.float64, device=dev)
+    qtq, gram = torch.zeros(F_QR, F_QR, dtype=torch.float64, device=dev), torch.zeros_like(r64)
+    for r0 in range(0, a_l.shape[0], QR_CHUNK):
+        qc, ac = q_l[r0 : r0 + QR_CHUNK].double(), a_l[r0 : r0 + QR_CHUNK].double()
+        resid = torch.maximum(resid, (qc @ r64 - ac).abs().max())
+        a_max = torch.maximum(a_max, ac.abs().max())
+        qtq += qc.T @ qc
+        gram += ac.T @ ac
+        del qc, ac
+    resid = (comm.allreduce(resid, "max") / comm.allreduce(a_max, "max")).item()
+    ortho = (comm.allreduce(qtq) - torch.eye(F_QR, dtype=torch.float64, device=dev)).abs().max().item()
+    gram = comm.allreduce(gram)
+    g_diff = (G.larray.double() - gram).abs().max().item() / gram.abs().max().item()
+    check(resid <= QR_RESID_RTOL, f"distributed ||QR - A||max/||A||max = {resid}")
+    check(ortho <= QR_ORTHO_ATOL, f"distributed ||QᵀQ - I||max = {ortho}")
+    check(g_diff <= QR_GRAM_RTOL, f"matmul(A.T, A) vs float64 Gram: {g_diff}")
+    same_everywhere(R.larray, "R")
+    same_everywhere(G.larray, "A.T @ A")
+    say(f"qr of {A.gshape} split 0 (lshape_map {A.lshape_map[:, 0].tolist()} rows): local route {qr_routes}, "
+        f"COLLECTIVES {qr_coll}; {t_qr:.4f} s host, {ev_qr:.4f} ms events; ||QR - A||max/||A||max {resid:.3e}, "
+        f"||QᵀQ - I||max {ortho:.3e}; matmul(A.T, A) {t_mm:.4f} s host, {ev_mm:.4f} ms events, vs float64 Gram "
+        f"{g_diff:.3e}")
+    _, t_qr_w, ev_qr_w = timed(lambda: ht.linalg.qr(A))
+    _, t_mm_w, ev_mm_w = timed(lambda: ht.matmul(A.T, A))
+    say(f"warm qr {t_qr_w:.4f} s host, {ev_qr_w:.4f} ms events; warm matmul(A.T, A) {t_mm_w:.4f} s, {ev_mm_w:.4f} ms")
+    result.update(R=R.larray.cpu(), qr_resid=resid, qr_ortho=ortho, gram_diff=g_diff, qr_routes=qr_routes)
+    times = torch.tensor([t_stats, t_fit, t_warm, t_knn, t_knn_w, t_qr, t_qr_w, t_mm, t_mm_w, t_rs, path_s],
+                         dtype=torch.float64, device=dev)
+    result["times_max"] = comm.allreduce(times, "max").cpu().tolist()
+    result["events"] = [ev_stats, ev_fit, ev_warm, ev_knn, ev_knn_w, ev_qr, ev_qr_w, ev_mm, ev_mm_w, ev_rs]
+    torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
+    comm.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def dist_phase(world: int) -> None:
+    """[dist]: the main path at world size ``world`` (one process per card,
+    NCCL; weak scaling: N_MAIN rows per card), then the single-process port
+    on the same global data in this process, and the comparison."""
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.spatial.distance import _quadratic_expand
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    try:
+        print(f"[dist] spawning {world} rank(s) over NCCL, {N_MAIN} x {F_MAIN} rows per card", flush=True)
+        t0 = time.perf_counter()
+        mp.start_processes(_dist_rank, args=(world, os.path.join(tmp, "store"), tmp), nprocs=world, join=True,
+                           start_method="spawn")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(world)]
+        print(f"[dist] {world} rank(s) done in {time.perf_counter() - t0:.1f} s (spawn and start included)", flush=True)
+
+        # the single-process port on the same global data, the ranks' standardization applied
+        ht.use_device("gpu")
+        dev = ht.get_device().torch_device
+        true, member, x, member_q, xq = _dist_data(ht, world)
+        mu0, sd0 = ht.mean(x, axis=0).larray, ht.std(x, axis=0).larray
+        mu, sd = ranks[0]["mu"].to(dev), ranks[0]["sd"].to(dev)
+        check(bool(((mu - mu0).abs() <= MEAN_ATOL + MEAN_RTOL * mu0.abs()).all()), "[dist] mean vs one process")
+        check(bool(((sd - sd0).abs() <= M2_RTOL * sd0.abs()).all()), "[dist] std vs one process")
+        z = (x - ht.array(mu)) / ht.array(sd)
+        del x
+        km0 = ht.cluster.KMeans(n_clusters=K_MAIN, init=z[:K_MAIN], max_iter=ITERS, tol=None).fit(z)
+        c0 = km0.cluster_centers_.larray
+        c = ranks[0]["centers"].to(dev)
+        cdiff = (c - c0).abs().max().item()
+        check(cdiff <= CENTERS_RTOL * c0.abs().max().item(), f"[dist] centroids vs one process: {cdiff}")
+        check(abs(ranks[0]["inertia"] - km0.inertia_) <= INERTIA_RTOL * abs(km0.inertia_), "[dist] inertia")
+        labels = torch.cat([r["labels"] for r in ranks]).to(dev).long()
+        ldiff = labels != km0.labels_.larray
+        near_rows = 0
+        if bool(ldiff.any()):
+            rows = torch.nonzero(ldiff).flatten()
+            two = torch.topk(_quadratic_expand(z.larray[rows], c0), 2, dim=1, largest=False).values
+            near = (two[:, 1] - two[:, 0]) <= TIE_RTOL * two[:, 1]
+            check(bool(near.all()), "[dist] labels differ from one process outside near-ties")
+            near_rows = int(near.sum())
+        zq = (xq - ht.array(mu)) / ht.array(sd)
+        pred0 = km0.predict(zq).larray
+        pdiff = int((torch.cat([r["pred"] for r in ranks]).to(dev) != pred0).sum())
+        train, train_labels = z[:N_TRAIN], member[:N_TRAIN]
+        d0, i0 = ht.spatial.nearest_neighbors(zq, train, KNN_K)
+        d, i = torch.cat([r["d_nn"] for r in ranks]).to(dev), torch.cat([r["i_nn"] for r in ranks]).to(dev)
+        e_d, nd, worst = knn_check(zq.larray, train.larray, d, i, d0.larray, i0.larray)
+        knn0 = ht.classification.KNeighborsClassifier(n_neighbors=KNN_K).fit(train, train_labels).predict(zq).larray
+        knn = torch.cat([r["knn_pred"] for r in ranks]).to(dev)
+        kdiff = knn != knn0
+        check(not bool((kdiff & ~(i != i0.larray).any(dim=1)).any()),
+              "[dist] kNN labels differ from one process where the neighbours are the same")
+        # one card's share, timed on one card: the weak-scaling baseline
+        z1 = z[:N_MAIN]
+        init1 = z1[:K_MAIN]
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            ht.cluster.KMeans(n_clusters=K_MAIN, init=init1, max_iter=ITERS, tol=None).fit(z1)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter() - t1
+        del z, z1, zq, train, km0, xq, member
+        torch.cuda.empty_cache()
+        A = _dist_qr_data(ht, world)
+        r0 = ht.linalg.qr(A, calc_q=False).R.larray
+        del A
+        torch.cuda.empty_cache()
+
+        def sign_normalized(r):
+            s_ = torch.sign(torch.diagonal(r))
+            return r * torch.where(s_ == 0, torch.ones_like(s_), s_)[:, None]
+
+        r_diff = (sign_normalized(ranks[0]["R"].to(dev)) - sign_normalized(r0)).abs().max().item() / r0.abs().max().item()
+        check(r_diff <= QR_R_RTOL, f"[dist] R vs one process's R: {r_diff}")
+        tm = ranks[0]["times_max"]
+        print(f"[dist] world size {world}; per rank: launches {[r['launches'] for r in ranks]}; fit COLLECTIVES "
+              f"{ranks[0]['fit_collectives']}; qr local routes {[r['qr_routes'] for r in ranks]}", flush=True)
+        print(f"[dist] vs one process on the same {N_MAIN * world} x {F_MAIN} data: mean/std within their bounds; "
+              f"centroids max abs {cdiff:.3e}; labels differ on {int(ldiff.sum())} rows ({near_rows} near-tie); "
+              f"predict differs on {pdiff} of {N_QUERY}; kNN distances max abs {e_d:.3e}, indices differ on {nd} "
+              f"entries (largest gap {worst:.3f} of the bound), labels on {int(kdiff.sum())}; R {r_diff:.3e} of max |R|; "
+              f"||QR - A||/||A|| {ranks[0]['qr_resid']:.3e}, ||QᵀQ - I|| {ranks[0]['qr_ortho']:.3e}", flush=True)
+        names = ["mean+std", "first fit", "warm fit", "kNN predict", "warm kNN predict", "qr", "warm qr",
+                 "matmul(A.T, A)", "warm matmul", "resplit 0->1->None", "whole path"]
+        print("[dist] slowest rank's host times (s): " + ", ".join(f"{n} {t:.4f}" for n, t in zip(names, tm)), flush=True)
+        print("[dist] CUDA-event ms per rank: " + "; ".join(
+            f"r{r['rank']}: " + ", ".join(f"{n} {e:.4f}" for n, e in zip(names, r["events"])) for r in ranks), flush=True)
+        print(f"[dist] warm fit: {world} card(s) x {N_MAIN} rows {tm[2]:.4f} s ({ITERS / tm[2]:.1f} it/s); one card, "
+              f"{N_MAIN} rows, one process {t1:.4f} s; weak-scaling efficiency t(1 card) / t({world} cards) "
+              f"{t1 / tm[2]:.3f}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="Drive heat_tpu_torch's main path on the cards and check every kernel.")
+    ap.add_argument("--phases", choices=("all", "dist"), default="all",
+                    help="all (default): every phase; dist: environment, build and [dist] only")
+    args = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -206,12 +535,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     import heat_tpu_torch as ht
-    from heat_tpu_torch.core.kernels import (
-        _build, assign_stats, chol_block_size, chol_panels, cholesky_local, chunk_moments, forced_mode, knn_tiles,
-        lloyd_local, lloyd_route, moments_local, nearest_neighbors_local, resident_smem,
-    )
-    from heat_tpu_torch.core.kernels import lloyd, panel_update, topk_distance
-    from heat_tpu_torch.spatial.distance import _quadratic_expand
+    from heat_tpu_torch.core.kernels import _build
 
     check(os.path.dirname(os.path.abspath(ht.__file__)) == os.path.join(ROOT, "heat_tpu_torch"),
           f"heat_tpu_torch imported from {ht.__file__}, not from this checkout")
@@ -240,6 +564,28 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"[build]   {line}")
     check(set(built) >= {"moments", "lloyd", "topk_distance", "panel_update"}, f"built {sorted(built)}")
+
+    kernels = single_card_phases(dev) if args.phases == "all" else None
+    torch.cuda.empty_cache()
+    dist_phase(torch.cuda.device_count())
+    if kernels is not None:
+        print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def single_card_phases(dev) -> list:
+    """Phases 3 to 5 on one card; returns the kernels' rows of the JSON line."""
+    import numpy as np
+    import torch
+
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.core.kernels import (
+        assign_stats, chol_block_size, chol_panels, cholesky_local, chunk_moments, forced_mode, knn_tiles,
+        lloyd_local, lloyd_route, moments_local, nearest_neighbors_local, resident_smem,
+    )
+    from heat_tpu_torch.core.kernels import lloyd, panel_update, topk_distance
+    from heat_tpu_torch.spatial.distance import _quadratic_expand
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -795,10 +1141,7 @@ def main() -> int:
           f"matmul(A.T, A) reads A once {a_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms", flush=True)
     del A, a_t, R, r64, qtq, gram
     torch.cuda.empty_cache()
-
-    print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
-    return 0
+    return kernels
 
 
 if __name__ == "__main__":

@@ -6,7 +6,7 @@ kernels. Arrays live on the first CUDA card unless the caller asks for the
 CPU (``use_device("cpu")`` or ``device="cpu"``). This package imports
 nothing of JAX or of ``heat_tpu``.
 
-The port goes slice by slice, on one card so far:
+The port goes slice by slice:
 
 1. the main path: factories and arithmetic, ``mean``/``var``/``std`` over
    the ``moments_onepass`` kernel, ``cdist`` and ``KMeans`` over the
@@ -22,7 +22,13 @@ The port goes slice by slice, on one card so far:
    ``rounding``, ``logical``, ``relational``, the remaining arithmetic
    names, ``min``/``max``/``argmin``/``argmax`` and their kin,
    ``where``/``nonzero``, ``copy``, the DNDarray dunders and methods, and
-   ``linalg``'s ``tril``/``triu``/``norm``/``dot``/``outer``/``trace``.
+   ``linalg``'s ``tril``/``triu``/``norm``/``dot``/``outer``/``trace``;
+4. across cards: ``init_distributed`` starts a ``torch.distributed``
+   group (NCCL on cards, gloo on the CPU), one process per card, and every
+   split array is sharded: each rank holds its ceil-div chunk, and the
+   operations above run on the chunks with the collectives they need
+   (``resplit``, reductions, moments, the Lloyd step, kNN with split
+   queries, ``matmul``, TSQR ``qr``).
 """
 from .core import *
 from .core import kernels, linalg, random

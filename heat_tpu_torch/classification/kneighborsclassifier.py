@@ -8,7 +8,8 @@ when the queries lie on a card, there are more than 2^22 query-training
 pairs, ``x.split`` is 0 or None and ``n_neighbors <= 64``; otherwise the
 materializing route (the full distance matrix, then the k smallest),
 recorded as ``topk_distance.fallback``. The route is chosen by shape and
-place, never by a failure.
+place, never by a failure. Across ranks the training set and its labels
+are gathered whole; each rank predicts its own query rows.
 """
 from __future__ import annotations
 
@@ -60,15 +61,18 @@ class KNeighborsClassifier(BaseEstimator, ClassificationMixin):
         yt = self.y._logical().ravel()
         k = self.n_neighbors
         nq, nt = x.shape[0], self.x.shape[0]
-        if _on_card(x.larray) and nq * nt > 1 << 22 and x.split in (None, 0) and k <= 64:
+        if x.split not in (None, 0):
+            # one label per query row cannot carry the queries' column split, as in heat_tpu
+            raise ValueError(f"predict takes queries split along 0 or replicated, got split={x.split}")
+        if _on_card(x.larray) and nq * nt > 1 << 22 and k <= 64:
             _, idx_nd = nearest_neighbors(x, self.x, k)
-            idx = idx_nd._logical().to(torch.int64)
+            idx = idx_nd.larray.to(torch.int64)
         else:
             record_dispatch(TOPK_KERNEL, "fallback")
-            d2 = _quadratic_expand(x._logical().to(torch.float32), self.x._logical().to(torch.float32))
+            d2 = _quadratic_expand(x.larray.to(torch.float32), self.x._logical().to(torch.float32))
             # a stable sort: ties go to the lower index, as jax.lax.top_k
             idx = torch.sort(d2, dim=1, stable=True).indices[:, :k]
         neigh = yt.to(idx.device)[idx]  # (nq, k)
         votes = (neigh.unsqueeze(2) == self.classes_.to(idx.device).view(1, 1, -1)).to(torch.float32).sum(dim=1)
         pred = self.classes_.to(idx.device)[torch.argmax(votes, dim=1)]  # first maximum, as jnp.argmax
-        return DNDarray(pred, split=x.split, device=x.device, comm=x.comm)
+        return DNDarray(pred, gshape=(nq,), split=x.split, device=x.device, comm=x.comm)

@@ -5,7 +5,9 @@ Initial centroids come from the port's explicit ``torch.Generator``
 distinct rows, ``'probability_based'`` (k-means++) draws each next centroid
 with probability proportional to D². Neither reproduces ``heat_tpu``'s
 threefry draws; an explicit ``DNDarray`` init gives both packages the same
-start.
+start. Across ranks every rank makes the same draws from the shared seed;
+the rank that owns a chosen row broadcasts it, so every rank holds the same
+centres, and an explicit init is gathered whole.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..core import factories
 from ..core import random as ht_random
 from ..core import types
 from ..core.base import BaseEstimator, ClusteringMixin
@@ -62,7 +65,8 @@ class _KCluster(BaseEstimator, ClusteringMixin):
         return self._n_iter
 
     def _initialize_cluster_centers(self, x: DNDarray) -> torch.Tensor:
-        """Initial centroids as a (k, f) tensor on ``x``'s device."""
+        """Initial centroids as a (k, f) tensor on ``x``'s device, the same
+        on every rank. ``x`` is split along 0 or replicated."""
         k = self.n_clusters
         xa = x.larray
         n = x.gshape[0]
@@ -77,18 +81,22 @@ class _KCluster(BaseEstimator, ClusteringMixin):
         gen = ht_random.get_generator(x.device)
         if self.init == "random":
             idx = torch.randperm(n, generator=gen, device=xa.device)[:k]
-            return xa[idx]
+            return _take_rows(x, idx)
         if self.init in ("probability_based", "kmeans++", "k-means++"):
             first = torch.randint(0, n, (1,), generator=gen, device=xa.device)
             centers = torch.empty((k, xa.shape[1]), dtype=xa.dtype, device=xa.device)
-            centers[0] = xa[first[0]]
+            centers[0] = _take_rows(x, first)[0]
             d2 = self._metric(xa, centers[:1]).reshape(-1)
+            split = x.split is not None and x.comm.is_distributed()
             for i in range(1, k):
                 # inverse-CDF draw: torch.multinomial caps the category count at 2^24
                 cdf = torch.cumsum(d2.to(torch.float64), dim=0)
-                u = torch.rand(1, generator=gen, device=xa.device, dtype=torch.float64) * cdf[-1]
-                nxt = torch.clamp(torch.searchsorted(cdf, u), max=n - 1)
-                centers[i] = xa[nxt[0]]
+                u = torch.rand(1, generator=gen, device=xa.device, dtype=torch.float64)
+                if not split:
+                    nxt = torch.clamp(torch.searchsorted(cdf, u * cdf[-1]), max=n - 1)
+                    centers[i] = xa[nxt[0]]
+                else:
+                    centers[i] = _draw_row_across_ranks(x, cdf, u)
                 d2 = torch.minimum(d2, self._metric(xa, centers[i : i + 1]).reshape(-1))
             return centers
         raise ValueError(f"Initialization method {self.init!r} not supported")
@@ -127,7 +135,7 @@ class _KCluster(BaseEstimator, ClusteringMixin):
         self._labels = (
             None
             if lab is None
-            else DNDarray(np.asarray(lab), dtype=types.int64, split=d.get("labels_split"), device=device, comm=comm)
+            else factories.array(np.asarray(lab), dtype=types.int64, split=d.get("labels_split"), device=device, comm=comm)
         )
         return self
 
@@ -135,15 +143,59 @@ class _KCluster(BaseEstimator, ClusteringMixin):
         """Cluster index of every sample."""
         if self._cluster_centers is None:
             raise RuntimeError("fit needs to be called before predict")
+        if x.split not in (None, 0):
+            x = x.resplit(0)
         xa = x.larray
         if not xa.is_floating_point():
             xa = xa.to(torch.float32)
         centers = self._cluster_centers.larray.to(device=xa.device, dtype=xa.dtype)
         labels = torch.argmin(self._metric(xa, centers), dim=1)
-        return DNDarray(labels, dtype=types.int64, split=x.split, device=x.device, comm=x.comm)
+        return DNDarray(labels, gshape=x.gshape[:1], dtype=types.int64, split=x.split, device=x.device, comm=x.comm)
 
     def predict(self, x: DNDarray) -> DNDarray:
         """Labels for new data."""
         if not isinstance(x, DNDarray):
             raise TypeError(f"input needs to be a DNDarray, but was {type(x)}")
         return self._assign_to_cluster(x)
+
+
+def _take_rows(x: DNDarray, idx: torch.Tensor) -> torch.Tensor:
+    """Rows ``idx`` (global, the same on every rank) of ``x`` on every rank:
+    each rank that owns some of them broadcasts those."""
+    comm = x.comm
+    if x.split is None or not comm.is_distributed():
+        return x.larray[idx]
+    block = -(-x.gshape[0] // comm.size)
+    offset = comm.chunk(x.gshape, 0)[0]
+    rows = idx.tolist()
+    out = torch.empty((len(rows),) + tuple(x.gshape[1:]), dtype=x.larray.dtype, device=x.larray.device)
+    for owner in sorted({r // block for r in rows}):
+        pos = [j for j, r in enumerate(rows) if r // block == owner]
+        if comm.rank == owner:
+            buf = x.larray[torch.tensor([rows[j] - offset for j in pos], device=x.larray.device)]
+        else:
+            buf = torch.empty((len(pos),) + tuple(x.gshape[1:]), dtype=out.dtype, device=out.device)
+        out[pos] = comm.bcast(buf, owner)
+    return out
+
+
+def _draw_row_across_ranks(x: DNDarray, cdf: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """The row of a split-0 ``x`` at which the global D² CDF first passes
+    ``u`` times its total, from this rank's local CDF ``cdf``: the ranks'
+    totals are gathered, the owner searches its own CDF and broadcasts the
+    row."""
+    comm = x.comm
+    total = cdf[-1:] if cdf.numel() else torch.zeros(1, dtype=cdf.dtype, device=cdf.device)
+    totals = comm.allgather(total, 0, [1] * comm.size).cpu()
+    incl = torch.cumsum(totals, 0)
+    target = float(u) * float(incl[-1])
+    full = [r for r in range(comm.size) if int(x.lshape_map[r, 0]) > 0]
+    owner = next((r for r in full if float(incl[r]) > target), full[-1])
+    f = x.gshape[1:]
+    if comm.rank == owner:
+        pos = torch.clamp(torch.searchsorted(cdf, torch.tensor([target - float(incl[owner] - totals[owner])],
+                                                              dtype=cdf.dtype, device=cdf.device)), max=cdf.numel() - 1)
+        row = x.larray[pos[0]].contiguous()
+    else:
+        row = torch.empty(f, dtype=x.larray.dtype, device=x.larray.device)
+    return comm.bcast(row, owner)

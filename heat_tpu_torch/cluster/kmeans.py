@@ -1,10 +1,14 @@
 """K-Means clustering (counterpart of ``heat_tpu/cluster/kmeans.py``).
 
-One Lloyd iteration is one call of the assignment statistics — the
-``lloyd_fused`` kernel on a card (:func:`kernels.lloyd_local`), its plain
-version on the CPU — followed by the centroid update, in which an empty
-cluster keeps its old centre. ``heat_tpu`` runs the whole fit as one
-``lax.while_loop`` program; here a Python loop drives the launches.
+One Lloyd iteration is one call of the assignment statistics on every
+rank's chunk — the ``lloyd_fused`` kernel on a card
+(:func:`kernels.lloyd_sharded` over :func:`kernels.lloyd_local`), its
+plain version on the CPU — and one ``allreduce`` of the summed statistics,
+followed by the centroid update, in which an empty cluster keeps its old
+centre. Every rank updates the same centres from the same allreduced
+values, so the stop test agrees on every rank. ``heat_tpu`` runs the whole
+fit as one ``lax.while_loop`` program; here a Python loop drives the
+launches.
 """
 from __future__ import annotations
 
@@ -14,26 +18,17 @@ import torch
 
 from ..core import types
 from ..core.dndarray import DNDarray
-from ..core.kernels import LLOYD_KERNEL, assign_stats, dispatch_mode, lloyd_local, record_dispatch
+from ..core.kernels import LLOYD_KERNEL, dispatch_mode, lloyd_sharded, record_dispatch
 from ..spatial.distance import _quadratic_expand
 from ._kcluster import _KCluster
 
 __all__ = ["KMeans"]
 
 
-def _assign_stats_dispatch(xa: torch.Tensor, centers: torch.Tensor, n_valid: int, mode: str):
-    """``(sums, counts, labels, inertia)`` through the mode chosen at the
-    call boundary: the kernel wrapper for ``"cuda"``, the plain version
-    (in the data's own float type) for ``"torch"``."""
-    if mode == "cuda":
-        return lloyd_local(xa, centers, n_valid)
-    return assign_stats(xa, centers, n_valid)
-
-
-def _lloyd_body(xa: torch.Tensor, centers: torch.Tensor, n_valid: int, mode: str):
+def _lloyd_body(xa: torch.Tensor, centers: torch.Tensor, comm, mode: str):
     """One Lloyd iteration: assign, then move each non-empty cluster's
     centre to its members' mean. Returns ``(centers, labels, shift)``."""
-    sums, counts, labels, _ = _assign_stats_dispatch(xa, centers, n_valid, mode)
+    sums, counts, labels, _ = lloyd_sharded(xa, centers, comm, mode)
     new_centers = torch.where(
         counts.unsqueeze(1) > 0, sums / torch.clamp(counts, min=1.0).unsqueeze(1), centers
     ).to(centers.dtype)
@@ -97,7 +92,10 @@ class KMeans(_KCluster):
         xa = x.larray
         if xa.dtype not in (torch.float32, torch.float64):
             xa = xa.to(torch.float32)
-        n = x.gshape[0]
+        if x.split not in (None, 0):
+            x = x.resplit(0)
+            xa = x.larray.to(xa.dtype)
+        comm = x.comm if x.split == 0 else None  # replicated data: every rank fits the whole
         centers = self._initialize_cluster_centers(x).to(xa.dtype)
         mode = dispatch_mode(LLOYD_KERNEL, xa)
         record_dispatch(LLOYD_KERNEL, mode)  # call boundary: once per fit
@@ -105,15 +103,17 @@ class KMeans(_KCluster):
         labels = None
         n_iter = 0
         while n_iter < self.max_iter:
-            centers, labels, shift = _lloyd_body(xa, centers, n, mode)
+            centers, labels, shift = _lloyd_body(xa, centers, comm, mode)
             n_iter += 1
             # the one host sync per iteration, only when a tol is set
             if self.tol is not None and float(shift) <= float(self.tol):
                 break
 
-        _, _, _, inertia = _assign_stats_dispatch(xa, centers, n, mode)
+        _, _, _, inertia = lloyd_sharded(xa, centers, comm, mode)
         self._cluster_centers = DNDarray(centers, split=None, device=x.device, comm=x.comm)
-        self._labels = DNDarray(labels.to(torch.int64), dtype=types.int64, split=x.split, device=x.device, comm=x.comm)
+        self._labels = DNDarray(
+            labels.to(torch.int64), gshape=x.gshape[:1], dtype=types.int64, split=x.split, device=x.device, comm=x.comm
+        )
         self._inertia = float(inertia)
         self._n_iter = n_iter
         return self

@@ -3,8 +3,19 @@
 What ``heat_tpu`` keeps here is the semantic layer around each op: heat type
 promotion, broadcasting with split-axis compatibility and propagation,
 reduction split bookkeeping and ``out=`` rewriting. The same rules apply
-here over torch tensors. At world size 1 there is no padding to align or
-mask, so operands are used as they are.
+here over torch tensors, on each rank's chunk:
+
+- a binary op runs on the chunks; a replicated operand is sliced to this
+  rank's chunk along the split axis of the broadcast result (unless its
+  extent there is 1), and a split operand with extent 1 on that axis is
+  gathered first;
+- a reduction over the split axis reduces each chunk (keeping the reduced
+  dimensions), gathers the ranks' partial results (``allgather``) and
+  reduces them again with the same function, skipping the ranks whose
+  chunk is empty — so every rank holds the same bits, and NaN and
+  empty-chunk rules are those of the local function;
+- a cumulative op along the split axis adds (or multiplies by) the
+  exclusive prefix of the ranks' totals.
 """
 from __future__ import annotations
 
@@ -16,7 +27,7 @@ from . import types
 from .dndarray import DNDarray
 from .stride_tricks import broadcast_shape, sanitize_axis
 
-__all__ = ["_binary_op", "_cum_op", "_local_op", "_reduce_op"]
+__all__ = ["_binary_op", "_cum_op", "_local_op", "_local_operand", "_reduce_op"]
 
 
 def _as_dndarray(x, device=None, comm=None) -> DNDarray:
@@ -32,6 +43,21 @@ def _out_split_after_broadcast(ndim_out: int, operand: DNDarray) -> Optional[int
     if operand.split is None:
         return None
     return operand.split + (ndim_out - operand.ndim)
+
+
+def _local_operand(x: DNDarray, out_shape, out_split: Optional[int]) -> torch.Tensor:
+    """``x``'s tensor as it meets this rank's chunk of a broadcast result of
+    ``out_shape`` split along ``out_split``."""
+    if not x.comm.is_distributed():
+        return x.larray
+    if out_split is None:
+        return x._logical()
+    ax = out_split - (len(out_shape) - x.ndim)
+    if ax < 0 or x.gshape[ax] == 1:
+        return x._logical()  # broadcast along the split axis: the whole operand
+    if x.split == ax:
+        return x.larray
+    return x.larray[x.comm.chunk(out_shape, out_split)[2][len(out_shape) - x.ndim :]]
 
 
 def _binary_op(
@@ -66,12 +92,19 @@ def _binary_op(
         raise ValueError(f"DNDarrays must have the same split axes, found {a.split} and {b.split}")
     out_split = sa if sa is not None else sb
     tt = promoted.torch_type()
-    result = operation(a.larray.to(tt), b.larray.to(tt), **fn_kwargs)
+    la, lb = (_local_operand(v, out_shape, out_split).to(tt) for v in (a, b))
+    result = operation(la, lb, **fn_kwargs)
+    _, lshape, slices = comm.chunk(out_shape, out_split)
+    if tuple(result.shape) != lshape:  # both operands whole along a split axis of extent 1
+        result = result[slices]
     if where is not True:
-        mask = _as_dndarray(where, device, comm).larray.to(torch.bool)
+        mask = _local_operand(_as_dndarray(where, device, comm), out_shape, out_split).to(torch.bool)
         base = out.larray.to(result.dtype) if out is not None else torch.zeros_like(result)
         result = torch.where(mask, result, base)
-    res = DNDarray(result, dtype=types.canonical_heat_type(result.dtype), split=out_split, device=device, comm=comm)
+    res = DNDarray(
+        result, gshape=out_shape, dtype=types.canonical_heat_type(result.dtype), split=out_split,
+        device=device, comm=comm,
+    )
     if out is not None:
         return _write_out(out, res)
     return res
@@ -94,13 +127,7 @@ def _local_op(
         arr = arr.to(types.promote_types(x.dtype, types.float32).torch_type())
     result = operation(arr, **kwargs)
     dtype = out_dtype if out_dtype is not None else types.canonical_heat_type(result.dtype)
-    res = DNDarray(
-        result.to(dtype.torch_type()),
-        dtype=dtype,
-        split=x.split if result.ndim == x.ndim else None,
-        device=x.device,
-        comm=x.comm,
-    )
+    res = DNDarray(result.to(dtype.torch_type()), gshape=x.gshape, dtype=dtype, split=x.split, device=x.device, comm=x.comm)
     if out is not None:
         return _write_out(out, res)
     return res
@@ -120,14 +147,29 @@ def _reduce_op(
     if not isinstance(x, DNDarray):
         raise TypeError(f"expected x to be a DNDarray, but was {type(x)}")
     axis = sanitize_axis(x.shape, axis)
-    result = operation(x.larray, axis, keepdims, **kwargs)
+    comm, split = x.comm, x.split
+    axes = tuple(range(x.ndim)) if axis is None else ((axis,) if isinstance(axis, int) else tuple(axis))
+    if split is not None and split in axes and comm.is_distributed():
+        local = x.larray
+        if local.shape[split] == 0:
+            # an empty chunk: a stand-in of one row gives the partial's shape and type; it is skipped below
+            local = local.new_zeros(tuple(1 if d == split else s for d, s in enumerate(local.shape)))
+        partial = operation(local, axis, True, **kwargs)
+        parts = comm.allgather(partial.unsqueeze(0), 0, [1] * comm.size)
+        keep = [r for r, n in enumerate(x.lshape_map[:, split]) if n > 0]
+        result = operation(parts[keep], 0, False, **kwargs) if keep else operation(x.larray, axis, True, **kwargs)
+        if not keepdims:
+            result = result.reshape(_reduced_shape(x.gshape, axis, False))
+    else:
+        result = operation(x.larray, axis, keepdims, **kwargs)
     dtype = out_dtype if out_dtype is not None else types.canonical_heat_type(result.dtype)
     res = DNDarray(
         result.to(dtype.torch_type()),
+        gshape=_reduced_shape(x.gshape, axis, keepdims),
         dtype=dtype,
-        split=_reduced_split(x.split, axis, x.ndim, keepdims),
+        split=_reduced_split(split, axis, x.ndim, keepdims),
         device=x.device,
-        comm=x.comm,
+        comm=comm,
     )
     if out is not None:
         return _write_out(out, res)
@@ -143,9 +185,13 @@ def _over_axes(fn: Callable, t: torch.Tensor, axis, keepdims: bool) -> torch.Ten
     return fn(t, dim=axis, keepdim=keepdims)
 
 
-def _cum_op(operation: Callable, x: DNDarray, axis, out: Optional[DNDarray] = None, dtype=None) -> DNDarray:
+def _cum_op(
+    operation: Callable, x: DNDarray, axis, out: Optional[DNDarray] = None, dtype=None, combine: Callable = torch.add
+) -> DNDarray:
     """Cumulative op along one axis (``operation(tensor, axis)``); split
-    and shape are inherited."""
+    and shape are inherited. Along the split axis each rank then applies
+    ``combine`` (``torch.add`` for a sum, ``torch.mul`` for a product) with
+    the exclusive prefix of the ranks' totals."""
     if not isinstance(x, DNDarray):
         raise TypeError(f"expected x to be a DNDarray, but was {type(x)}")
     axis = sanitize_axis(x.shape, axis)
@@ -155,7 +201,19 @@ def _cum_op(operation: Callable, x: DNDarray, axis, out: Optional[DNDarray] = No
     if dtype is not None:
         arr = arr.to(types.canonical_heat_type(dtype).torch_type())
     result = operation(arr, axis)
-    res = DNDarray(result, dtype=types.canonical_heat_type(result.dtype), split=x.split, device=x.device, comm=x.comm)
+    comm = x.comm
+    if axis == x.split and comm.is_distributed():
+        n = result.shape[axis]
+        last = result.narrow(axis, n - 1, 1) if n else result.new_zeros(
+            tuple(1 if d == axis else s for d, s in enumerate(result.shape)))
+        totals = comm.allgather(last, axis, [1] * comm.size)
+        full = [r for r, m in enumerate(x.lshape_map[:, axis]) if m > 0]
+        before = [r for r in full if r < comm.rank]
+        if n and before:
+            prefix = operation(totals.index_select(axis, torch.tensor(before, device=totals.device)), axis)
+            result = combine(result, prefix.narrow(axis, len(before) - 1, 1))
+    res = DNDarray(result, gshape=x.gshape, dtype=types.canonical_heat_type(result.dtype), split=x.split,
+                   device=x.device, comm=comm)
     if out is not None:
         return _write_out(out, res)
     return res
@@ -188,5 +246,7 @@ def _write_out(out: DNDarray, result: DNDarray) -> DNDarray:
     """Rewrite ``out`` in place with ``result`` (out= semantics)."""
     if tuple(out.shape) != tuple(result.shape):
         raise ValueError(f"output shape {out.shape} does not match result shape {result.shape}")
+    if out.split != result.split:
+        result = result.resplit(out.split)
     out.larray.copy_(result.larray.to(out.larray.dtype))
     return out

@@ -248,7 +248,7 @@ def cumsum(a: DNDarray, axis: int, dtype=None, out=None) -> DNDarray:
 
 def cumprod(a: DNDarray, axis: int, dtype=None, out=None) -> DNDarray:
     """Cumulative product along ``axis``."""
-    return _cum_op(_cumprod, a, axis, out=out, dtype=dtype)
+    return _cum_op(_cumprod, a, axis, out=out, dtype=dtype, combine=torch.mul)
 
 
 cumproduct = cumprod
@@ -256,7 +256,9 @@ cumproduct = cumprod
 
 def diff(a: DNDarray, n: int = 1, axis: int = -1, prepend=None, append=None) -> DNDarray:
     """The n-th discrete difference along ``axis``; a scalar ``prepend`` or
-    ``append`` is broadcast to one slice along ``axis``."""
+    ``append`` is broadcast to one slice along ``axis``. Across ranks the
+    operands are gathered whole and each rank keeps its chunk of the
+    result."""
     if n == 0:
         return a
     if n < 0:
@@ -267,15 +269,18 @@ def diff(a: DNDarray, n: int = 1, axis: int = -1, prepend=None, append=None) -> 
     def _edge(v):
         if v is None:
             return None
-        t = v.larray if isinstance(v, DNDarray) else torch.as_tensor(v, device=a.larray.device)
+        t = v._logical() if isinstance(v, DNDarray) else torch.as_tensor(v, device=a.larray.device)
         if t.ndim == 0:
             shape = list(a.shape)
             shape[axis] = 1
             t = t.expand(shape)
         return t.to(tt)
 
-    result = torch.diff(a.larray.to(tt), n=n, dim=axis, prepend=_edge(prepend), append=_edge(append))
-    return DNDarray(result, dtype=types.canonical_heat_type(result.dtype), split=a.split, device=a.device, comm=a.comm)
+    result = torch.diff(a._logical().to(tt), n=n, dim=axis, prepend=_edge(prepend), append=_edge(append))
+    gshape = tuple(result.shape)
+    result = result[a.comm.chunk(gshape, a.split)[2]]
+    return DNDarray(result, gshape=gshape, dtype=types.canonical_heat_type(result.dtype), split=a.split,
+                    device=a.device, comm=a.comm)
 
 
 def _int_to_int64(x: DNDarray):

@@ -1,26 +1,49 @@
-"""Communication bookkeeping (counterpart of ``heat_tpu/core/communication.py``).
+"""Communication over ``torch.distributed`` (counterpart of
+``heat_tpu/core/communication.py``).
 
-This slice of the port runs on one card, so its communicator has world
-size 1. It keeps the interface the rest of the package speaks — ``size``,
-``rank``, the ceil-div ``chunk`` partition, ``counts_displs_shape`` and
-``lshape_map`` — with the same arithmetic as ``heat_tpu``, so that a split
-array's metadata reads the same in both packages. A world size above 1
-(``torch.distributed`` over NCCL) is the multi-card slice of the port.
+The port follows Heat's own SPMD model: one process per card, each holding
+its rank's chunk of every split array. :func:`init_distributed` starts the
+process group (NCCL when the arrays live on cards, gloo when the caller
+asks for the CPU) and fixes each process's card first. Without it, and
+without a group started by other code, the world has size 1 and every
+collective returns its input without running anything.
+
+:class:`TorchCommunication` keeps ``heat_tpu``'s partition arithmetic —
+the ceil-div ``chunk``, ``counts_displs_shape`` and ``lshape_map``, so
+that the last ranks may hold nothing — and adds the few collectives the
+port needs, on tensors: ``allreduce``, ``allgather`` of ragged shards
+along an axis, ``alltoall`` of ragged blocks and ``bcast``. Each one
+counts itself in :data:`.kernels.COLLECTIVES` where it starts.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import datetime
+import os
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
+import torch.distributed as dist
+
+from .kernels._dispatch import count_collective
 
 __all__ = [
     "Communication",
     "TorchCommunication",
     "WORLD",
     "get_comm",
+    "init_distributed",
+    "replicated_decision",
     "use_comm",
     "sanitize_comm",
 ]
+
+_REDUCE_OPS = {
+    "sum": dist.ReduceOp.SUM,
+    "prod": dist.ReduceOp.PRODUCT,
+    "min": dist.ReduceOp.MIN,
+    "max": dist.ReduceOp.MAX,
+}
 
 
 class Communication:
@@ -35,33 +58,40 @@ class Communication:
 
 
 class TorchCommunication(Communication):
-    """A single-process communicator.
+    """The communicator of the default ``torch.distributed`` process group:
+    every rank of the program once a group is started, a world of size 1
+    before."""
 
-    Parameters
-    ----------
-    size : int
-        World size. Only 1 is supported in this slice.
-    """
-
-    def __init__(self, size: int = 1):
-        if int(size) != 1:
-            raise NotImplementedError(
-                "heat_tpu_torch runs at world size 1; split arrays over several cards "
-                "(torch.distributed over NCCL) are the port's multi-card slice"
-            )
-        self._size = 1
+    @staticmethod
+    def _started() -> bool:
+        return dist.is_available() and dist.is_initialized()
 
     @property
     def size(self) -> int:
-        return self._size
+        """Number of processes (MPI world-size analogue)."""
+        return dist.get_world_size() if self._started() else 1
 
     @property
     def rank(self) -> int:
-        return 0
+        """This process's rank in the group."""
+        return dist.get_rank() if self._started() else 0
 
     def is_distributed(self) -> bool:
         return self.size > 1
 
+    @property
+    def backend(self) -> Optional[str]:
+        """``"nccl"``, ``"gloo"``, or None when no group is started."""
+        return str(dist.get_backend()) if self._started() else None
+
+    def device(self) -> torch.device:
+        """Where this group's collectives take their tensors: the current
+        card for NCCL, else the CPU."""
+        if self.backend == "nccl":
+            return torch.device("cuda", torch.cuda.current_device())
+        return torch.device("cpu")
+
+    # ------------------------------------------------------- partition
     def chunk(
         self, shape, split: Optional[int], rank: Optional[int] = None
     ) -> Tuple[int, Tuple[int, ...], Tuple[slice, ...]]:
@@ -95,21 +125,91 @@ class TorchCommunication(Communication):
         return tuple(counts), tuple(displs), tuple(output_shape)
 
     def lshape_map(self, shape, split: Optional[int]) -> np.ndarray:
-        """(size, ndim) array of every shard's local shape."""
+        """(size, ndim) array of every shard's local shape — computed, not
+        communicated."""
         shape = tuple(int(s) for s in shape)
         out = np.empty((self.size, len(shape)), dtype=np.int64)
         for r in range(self.size):
             out[r] = self.chunk(shape, split, rank=r)[1] if len(shape) else ()
         return out
 
+    # ----------------------------------------------------- collectives
+    def allreduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """The elementwise ``op`` (``"sum"``, ``"prod"``, ``"min"``,
+        ``"max"``) of ``t`` over all ranks, as a new tensor; ``t`` itself
+        when no group is started."""
+        if not self._started():
+            return t
+        out = t.contiguous().clone()
+        count_collective("allreduce", out.numel() * out.element_size())
+        dist.all_reduce(out, op=_REDUCE_OPS[op])
+        return out
+
+    def allgather(self, t: torch.Tensor, axis: int = 0, counts: Optional[Sequence[int]] = None) -> torch.Tensor:
+        """The concatenation along ``axis`` of every rank's ``t``, in rank
+        order. The ranks' extents along ``axis`` may differ: ``counts``
+        gives them where the caller knows them (else one more gather
+        exchanges them); every other dimension must agree."""
+        if not self._started():
+            return t
+        if counts is None:
+            ext = torch.tensor([t.shape[axis]], dtype=torch.int64, device=self.device())
+            parts = [torch.empty_like(ext) for _ in range(self.size)]
+            count_collective("allgather", ext.numel() * ext.element_size())
+            dist.all_gather(parts, ext)
+            counts = [int(p.item()) for p in parts]
+        counts = [int(c) for c in counts]
+        cap = max(counts)
+        moved = t.movedim(axis, 0)
+        buf = torch.zeros((cap,) + tuple(moved.shape[1:]), dtype=t.dtype, device=t.device)
+        buf[: moved.shape[0]] = moved
+        parts = [torch.empty_like(buf) for _ in range(self.size)]
+        count_collective("allgather", buf.numel() * buf.element_size())
+        dist.all_gather(parts, buf)
+        return torch.cat([p[:c] for p, c in zip(parts, counts)], dim=0).movedim(0, axis)
+
+    def alltoall(self, blocks: Sequence[torch.Tensor], recv_shapes: Sequence[Tuple[int, ...]]) -> List[torch.Tensor]:
+        """Send ``blocks[q]`` to rank q and receive one block from every
+        rank p, of shape ``recv_shapes[p]``, known to the caller. All
+        blocks have one dtype and device; any of them may be empty."""
+        if not self._started():
+            return [blocks[0].reshape(recv_shapes[0])]
+        ref = blocks[self.rank]
+        send = torch.cat([b.reshape(-1) for b in blocks])
+        sizes_in = [b.numel() for b in blocks]
+        sizes_out = [int(np.prod(s, dtype=np.int64)) for s in recv_shapes]
+        recv = torch.empty(sum(sizes_out), dtype=ref.dtype, device=ref.device)
+        count_collective("alltoall", send.numel() * send.element_size())
+        dist.all_to_all_single(recv, send, output_split_sizes=sizes_out, input_split_sizes=sizes_in)
+        return [p.reshape(s) for p, s in zip(torch.split(recv, sizes_out), recv_shapes)]
+
+    def bcast(self, t: torch.Tensor, root: int) -> torch.Tensor:
+        """Rank ``root``'s ``t`` on every rank; the other ranks pass a
+        tensor of the same shape and dtype to receive into."""
+        if not self._started():
+            return t
+        out = t.contiguous()
+        count_collective("bcast", out.numel() * out.element_size())
+        dist.broadcast(out, src=root)
+        return out
+
+    def barrier(self) -> None:
+        """Wait until every rank has come here."""
+        if self._started():
+            count_collective("barrier", 0)
+            if self.backend == "nccl":
+                dist.barrier(device_ids=[torch.cuda.current_device()])
+            else:
+                dist.barrier()
+
     def __repr__(self) -> str:
-        return f"TorchCommunication(size={self.size})"
+        return f"TorchCommunication(size={self.size}, backend={self.backend})"
 
     def __eq__(self, other) -> bool:
-        return isinstance(other, TorchCommunication) and self.size == other.size
+        return isinstance(other, TorchCommunication)
 
     def __hash__(self):
-        return hash((TorchCommunication, self.size))
+        return hash(TorchCommunication)
 
 
 WORLD = TorchCommunication()
@@ -139,3 +239,74 @@ def sanitize_comm(comm) -> TorchCommunication:
     if not isinstance(comm, Communication):
         raise TypeError(f"expected a Communication object, got {type(comm)}")
     return comm
+
+
+def _env_int(name: str, value: Optional[int]) -> Optional[int]:
+    if value is not None:
+        return int(value)
+    return int(os.environ[name]) if name in os.environ else None
+
+
+def init_distributed(
+    backend: Optional[str] = None,
+    init_method: Optional[str] = None,
+    world_size: Optional[int] = None,
+    rank: Optional[int] = None,
+    local_rank: Optional[int] = None,
+    timeout: float = 600.0,
+) -> TorchCommunication:
+    """Start the process group of this SPMD program and return ``WORLD``.
+
+    Arguments left out come from ``torchrun``'s environment (``RANK``,
+    ``WORLD_SIZE``, ``LOCAL_RANK``; ``MASTER_ADDR``/``MASTER_PORT`` through
+    ``init_method="env://"``). ``backend`` defaults to NCCL when the
+    default device is a card and to gloo when it is the CPU. For NCCL the
+    process's card, ``cuda:{local_rank}``, is fixed with
+    ``torch.cuda.set_device`` before the group starts, and becomes the
+    default device. ``timeout`` (seconds) bounds the group's start and
+    every collective. Call it before creating any array::
+
+        import heat_tpu_torch as ht
+        ht.init_distributed()            # under torchrun --nproc-per-node N
+        x = ht.random.randn(n, f, split=0)
+    """
+    from . import devices
+
+    rank = _env_int("RANK", rank)
+    world_size = _env_int("WORLD_SIZE", world_size)
+    local_rank = _env_int("LOCAL_RANK", local_rank)
+    if rank is None or world_size is None:
+        raise ValueError("init_distributed needs rank and world_size, as arguments or RANK/WORLD_SIZE")
+    if local_rank is None:
+        local_rank = rank
+    if backend is None:
+        backend = "gloo" if devices.get_device().device_type == "cpu" else "nccl"
+    if backend == "nccl":
+        if not torch.cuda.is_available():
+            raise RuntimeError("init_distributed: NCCL needs a CUDA card, and torch sees none")
+        torch.cuda.set_device(local_rank)
+        devices._set_default_gpu(local_rank)
+    elif backend != "gloo":
+        raise ValueError(f"backend must be 'nccl' or 'gloo', got {backend!r}")
+    if init_method is None:
+        if "MASTER_ADDR" not in os.environ:
+            raise ValueError("init_distributed needs init_method, or MASTER_ADDR/MASTER_PORT in the environment")
+        init_method = "env://"
+    if not dist.is_initialized():
+        dist.init_process_group(
+            backend, init_method=init_method, world_size=world_size, rank=rank,
+            timeout=datetime.timedelta(seconds=timeout),
+        )
+    use_comm(WORLD)
+    return WORLD
+
+
+def replicated_decision(flag, comm: Optional[TorchCommunication] = None) -> bool:
+    """``flag`` made the same on every rank: the OR of all ranks' flags
+    (one ``allreduce`` of MAX), so a branch guarded by it is taken
+    everywhere or nowhere."""
+    comm = sanitize_comm(comm)
+    if not comm._started():
+        return bool(flag)
+    t = torch.tensor([1 if flag else 0], dtype=torch.int32, device=comm.device())
+    return bool(comm.allreduce(t, "max").item())

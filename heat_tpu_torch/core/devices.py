@@ -1,7 +1,9 @@
 """Device abstraction (counterpart of ``heat_tpu/core/devices.py``).
 
 A :class:`Device` is a label that resolves to a ``torch.device``. The
-default device is the first CUDA card (``gpu:0`` -> ``cuda:0``); work moves
+default device is the first CUDA card (``gpu:0`` -> ``cuda:0``), or after
+:func:`~.communication.init_distributed` over NCCL this process's card
+(``gpu:{LOCAL_RANK}``), so that the ranks of one host never share a card; work moves
 to the CPU only when the caller asks for it, with ``use_device("cpu")`` or
 ``device="cpu"`` on a factory. Resolving a CUDA device on a machine without
 one raises: the port never falls back to the CPU on its own.
@@ -87,6 +89,8 @@ gpu = Device("gpu", 0)
 """The first CUDA card: the default device."""
 
 __default_device: Device = gpu
+# the card a bare use_device() restores: gpu:0, or this rank's card once init_distributed ran
+__home_gpu: Device = gpu
 
 
 def get_device() -> Device:
@@ -95,9 +99,18 @@ def get_device() -> Device:
 
 
 def use_device(device: Optional[Union[str, Device]] = None) -> None:
-    """Set the global default device (``None`` restores ``gpu``)."""
+    """Set the global default device (``None`` restores this process's card:
+    ``gpu``, or ``gpu:{LOCAL_RANK}`` after ``init_distributed``)."""
     global __default_device
-    __default_device = gpu if device is None else sanitize_device(device)
+    __default_device = __home_gpu if device is None else sanitize_device(device)
+
+
+def _set_default_gpu(index: int) -> None:
+    """Make card ``index`` this process's card and the default device
+    (``init_distributed`` calls it before starting NCCL)."""
+    global __default_device, __home_gpu
+    __home_gpu = gpu if int(index) == 0 else Device("gpu", int(index))
+    __default_device = __home_gpu
 
 
 def sanitize_device(device: Optional[Union[str, Device, torch.device]]) -> Device:

@@ -1,15 +1,17 @@
-"""DNDarray — a distributed n-dimensional array over a ``torch.Tensor``.
+"""DNDarray — a distributed n-dimensional array over ``torch.Tensor`` shards.
 
-Counterpart of ``heat_tpu/core/dndarray.py``. In ``heat_tpu`` a DNDarray
-wraps a global ``jax.Array`` sharded over a mesh, padded along the split
-axis to a multiple of the mesh size. This slice of the port runs at world
-size 1: the tensor *is* the whole array, ``split`` is metadata that
-propagates through operations exactly as in ``heat_tpu``, and there is no
-padding, so ``larray`` and :meth:`_logical` are the same tensor.
+Counterpart of ``heat_tpu/core/dndarray.py``. ``heat_tpu`` wraps one global
+``jax.Array`` sharded over a mesh; the port follows Heat's own SPMD model
+instead: every process (rank) holds its own tensor, ``larray``, which is
+its ceil-div chunk of the global array along ``split`` (the whole array
+when ``split`` is None). Chunks are always in that layout — the layout of
+``heat_tpu``'s padded shards, so ``lshape_map`` reads the same in both
+packages, and the last ranks may hold nothing. ``numpy()``, ``item()``,
+``tolist()`` and ``repr`` give the global value on every rank.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -36,21 +38,54 @@ def _to_tensor(array, dtype, device: Device) -> torch.Tensor:
     return t.to(device=tdev, dtype=tt)
 
 
+def _redistribute(
+    local: torch.Tensor, axis: int, starts: Sequence[int], counts: Sequence[int], gshape, comm
+) -> torch.Tensor:
+    """This rank's ceil-div chunk along ``axis`` of an array of ``gshape``
+    whose rank r now holds the rows ``[starts[r], starts[r] + counts[r])``
+    (contiguous, any lengths): one ``alltoall``, nothing where the layout is
+    already the ceil-div one."""
+    p, me = comm.size, comm.rank
+    target = [comm.chunk(gshape, axis, rank=q) for q in range(p)]
+    if all(int(starts[q]) == target[q][0] and int(counts[q]) == target[q][1][axis] for q in range(p)):
+        return local
+    s0 = int(starts[me])
+    blocks = []
+    for q in range(p):
+        lo, hi = target[q][0], target[q][0] + target[q][1][axis]
+        a, b = max(lo, s0), min(hi, s0 + int(counts[me]))
+        blocks.append(local.narrow(axis, a - s0, b - a) if b > a else local.narrow(axis, 0, 0))
+    lo, hi = target[me][0], target[me][0] + target[me][1][axis]
+    shapes = []
+    for q in range(p):
+        a, b = max(lo, int(starts[q])), min(hi, int(starts[q]) + int(counts[q]))
+        shape = list(gshape)
+        shape[axis] = max(0, b - a)
+        shapes.append(tuple(shape))
+    parts = comm.alltoall(blocks, shapes)
+    order = sorted(range(p), key=lambda q: int(starts[q]))
+    return torch.cat([parts[q] for q in order], dim=axis)
+
+
 class DNDarray:
     """Distributed N-dimensional array.
 
     Parameters
     ----------
     array : torch.Tensor or array-like
-        The global data. A tensor keeps its device unless ``device`` is
-        given; other inputs go to ``device`` (default: the global default
-        device, a CUDA card).
+        This rank's data: its ceil-div chunk of the global array along
+        ``split`` (the whole array when ``split`` is None or the world has
+        size 1). A tensor keeps its device unless ``device`` is given;
+        other inputs go to ``device`` (default: the global default device,
+        a CUDA card).
     gshape : tuple, optional
-        Global shape; must equal the tensor's shape at world size 1.
+        Global shape. Required for a split array at world size > 1; else
+        the tensor's shape.
     dtype : heat type, optional
         Inferred from ``array`` if omitted.
     split : int or None
-        Axis that would be sharded across cards, or None for replication.
+        Axis along which the array is sharded across ranks, or None for
+        replication.
     device, comm : placement metadata.
     """
 
@@ -72,24 +107,40 @@ class DNDarray:
         tensor = _to_tensor(array, dtype, self.__device)
         if dtype is None:
             dtype = types.canonical_heat_type(tensor.dtype)
-        gshape = tuple(tensor.shape) if gshape is None else tuple(int(s) for s in gshape)
-        if gshape != tuple(tensor.shape):
-            raise ValueError(f"gshape {gshape} does not match the tensor's shape {tuple(tensor.shape)}")
         if tensor.ndim == 0:
             split = None
+        if gshape is None:
+            if split is not None and self.__comm.is_distributed():
+                raise ValueError(
+                    "a split DNDarray at world size > 1 needs its gshape; "
+                    "factories.array(local, is_split=axis) assembles one from per-rank shards"
+                )
+            gshape = tuple(tensor.shape)
+        gshape = tuple(int(s) for s in gshape)
         self.__split = sanitize_axis(gshape, split)
+        lshape = self.__comm.chunk(gshape, self.__split)[1]
+        if tuple(tensor.shape) != lshape:
+            raise ValueError(
+                f"local tensor of shape {tuple(tensor.shape)} is not rank {self.__comm.rank}'s chunk {lshape} "
+                f"of gshape {gshape} split along {self.__split}"
+            )
+        self.__gshape = gshape
         self.__dtype = dtype
         self.__array = tensor
 
     # ------------------------------------------------------------------ meta
     @property
     def larray(self) -> torch.Tensor:
-        """The underlying tensor (at world size 1: the whole array)."""
+        """This rank's tensor: its chunk of the global array."""
         return self.__array
 
     def _logical(self) -> torch.Tensor:
-        """The exact logical array (no padding exists at world size 1)."""
-        return self.__array
+        """The whole global array on this rank: ``larray`` where the array is
+        replicated or the world has size 1, else an ``allgather``."""
+        if self.__split is None or not self.__comm.is_distributed():
+            return self.__array
+        counts = self.lshape_map[:, self.__split]
+        return self.__comm.allgather(self.__array, self.__split, counts=counts)
 
     @property
     def comm(self) -> TorchCommunication:
@@ -109,11 +160,11 @@ class DNDarray:
 
     @property
     def gshape(self) -> Tuple[int, ...]:
-        return tuple(self.__array.shape)
+        return self.__gshape
 
     @property
     def shape(self) -> Tuple[int, ...]:
-        return self.gshape
+        return self.__gshape
 
     @property
     def T(self) -> "DNDarray":
@@ -124,29 +175,74 @@ class DNDarray:
 
     @property
     def lshape(self) -> Tuple[int, ...]:
-        """Shape of this process's shard (the ceil-div chunk of its rank)."""
-        return self.__comm.chunk(self.gshape, self.__split)[1]
+        """Shape of this rank's chunk."""
+        return tuple(self.__array.shape)
 
     @property
     def lshape_map(self) -> np.ndarray:
-        """(size, ndim) map of every shard's shape — computed, not communicated."""
-        return self.__comm.lshape_map(self.gshape, self.__split)
+        """(size, ndim) map of every rank's chunk shape — computed, not
+        communicated."""
+        return self.__comm.lshape_map(self.__gshape, self.__split)
 
     @property
     def ndim(self) -> int:
-        return self.__array.ndim
+        return len(self.__gshape)
 
     @property
     def size(self) -> int:
-        return int(self.__array.numel())
+        return int(np.prod(self.__gshape, dtype=np.int64))
+
+    def is_balanced(self, force_check: bool = False) -> bool:
+        """Whether the chunks are in the ceil-div layout: always, in the port
+        (every operation that changes extents rebalances, as ``balance_``
+        would)."""
+        return True
+
+    def balance_(self) -> "DNDarray":
+        """Bring the chunks into the ceil-div layout; they always are, so
+        this returns ``self``."""
+        return self
 
     # ----------------------------------------------------------- conversion
+    def __resplit_tensor(self, axis: Optional[int]) -> torch.Tensor:
+        """This rank's tensor of the array split along ``axis``: a local
+        slice (None -> a), an ``allgather`` (a -> None) or an ``alltoall``
+        (a -> b)."""
+        src, comm, t = self.__split, self.__comm, self.__array
+        if axis == src or not comm.is_distributed():
+            return t
+        if axis is None:
+            return self._logical()
+        if src is None:
+            return t[comm.chunk(self.__gshape, axis)[2]].clone()
+        lmap = self.lshape_map
+        blocks = []
+        for q in range(comm.size):
+            off, lsh, _ = comm.chunk(self.__gshape, axis, rank=q)
+            blocks.append(t.narrow(axis, off, lsh[axis]))
+        mine = comm.chunk(self.__gshape, axis)[1][axis]
+        shapes = []
+        for q in range(comm.size):
+            shape = list(self.__gshape)
+            shape[src] = int(lmap[q, src])
+            shape[axis] = mine
+            shapes.append(tuple(shape))
+        return torch.cat(comm.alltoall(blocks, shapes), dim=src)
+
     def resplit(self, axis: Optional[int] = None) -> "DNDarray":
-        """A copy with split axis ``axis`` (metadata only at world size 1)."""
-        return DNDarray(
-            self.__array.clone(), dtype=self.__dtype, split=sanitize_axis(self.gshape, axis),
-            device=self.__device, comm=self.__comm,
-        )
+        """A copy split along ``axis``."""
+        axis = sanitize_axis(self.__gshape, axis)
+        t = self.__resplit_tensor(axis)
+        if t is self.__array:
+            t = t.clone()
+        return DNDarray(t, gshape=self.__gshape, dtype=self.__dtype, split=axis, device=self.__device, comm=self.__comm)
+
+    def resplit_(self, axis: Optional[int] = None) -> "DNDarray":
+        """Split this array along ``axis`` in place."""
+        axis = sanitize_axis(self.__gshape, axis)
+        self.__array = self.__resplit_tensor(axis)
+        self.__split = axis
+        return self
 
     def astype(self, dtype, copy: bool = True) -> "DNDarray":
         """Cast to ``dtype``; ``copy=False`` casts in place of this object."""
@@ -158,17 +254,17 @@ class DNDarray:
             return self
         if casted is self.__array:
             casted = casted.clone()
-        return DNDarray(casted, dtype=dtype, split=self.__split, device=self.__device, comm=self.__comm)
+        return DNDarray(casted, gshape=self.__gshape, dtype=dtype, split=self.__split, device=self.__device, comm=self.__comm)
 
     def numpy(self) -> np.ndarray:
-        """The global array as a numpy array on the host."""
-        return self.__array.detach().cpu().numpy()
+        """The global array as a numpy array on the host, on every rank."""
+        return self._logical().detach().cpu().numpy()
 
     def item(self):
         """The single element as a python scalar."""
         if self.size != 1:
             raise ValueError("only one-element DNDarrays can be converted to Python scalars")
-        return self.__array.item()
+        return self._logical().item()
 
     def tolist(self, keepsplit: bool = False) -> list:
         """The global array as nested python lists."""
@@ -180,7 +276,7 @@ class DNDarray:
 
     def __cast(self, cast_function):
         if self.size == 1:
-            return cast_function(self.__array.reshape(()).item())
+            return cast_function(self._logical().reshape(()).item())
         raise TypeError("only size-1 arrays can be converted to Python scalars")
 
     def __bool__(self) -> bool:
@@ -198,7 +294,7 @@ class DNDarray:
     def __len__(self) -> int:
         if self.ndim == 0:
             raise TypeError("len() of unsized object")
-        return self.gshape[0]
+        return self.__gshape[0]
 
     def __iter__(self):
         for i in range(len(self)):
@@ -208,7 +304,12 @@ class DNDarray:
     def __getitem__(self, key) -> "DNDarray":
         """Basic indexing with ints, slices and ``...``. The split axis
         survives a slice and shifts left past dimensions removed by ints; an
-        int on the split axis itself makes the result unsplit."""
+        int on the split axis itself makes the result unsplit.
+
+        Across ranks: an int on the split axis is broadcast by the rank
+        that owns it; a slice of the split axis keeps each rank's share and
+        rebalances it to the ceil-div layout (one ``alltoall``); every other
+        index is local."""
         if isinstance(key, DNDarray) or not isinstance(key, tuple):
             key = (key,)
         if any(k is Ellipsis for k in key):
@@ -222,14 +323,61 @@ class DNDarray:
                 raise NotImplementedError(
                     f"index of type {type(k).__name__} is not supported in this slice of the port"
                 )
+        key = key + (slice(None),) * (self.ndim - len(key))
+        gkey, gshape = [], []
+        for k, n in zip(key, self.__gshape):
+            if isinstance(k, slice):
+                start, stop, step = k.indices(n)
+                if step <= 0:
+                    raise ValueError("step must be greater than zero")
+                gkey.append(slice(start, stop, step))
+                gshape.append(len(range(start, stop, step)))
+            else:
+                i = int(k)
+                if not -n <= i < n:
+                    raise IndexError(f"index {i} is out of bounds for axis with size {n}")
+                gkey.append(i % n)
         split = self.__split
-        if split is not None and split < len(key):
-            if isinstance(key[split], (int, np.integer)):
-                split = None
-        if split is not None:
-            split -= sum(1 for k in key[:split] if isinstance(k, (int, np.integer)))
-        result = self.__array[tuple(int(k) if isinstance(k, np.integer) else k for k in key)]
-        return DNDarray(result, dtype=self.__dtype, split=split, device=self.__device, comm=self.__comm)
+        if split is not None and isinstance(gkey[split], int):
+            out_split = None
+        elif split is not None:
+            out_split = split - sum(1 for k in gkey[:split] if isinstance(k, int))
+        else:
+            out_split = None
+        meta = dict(dtype=self.__dtype, device=self.__device, comm=self.__comm)
+        comm = self.__comm
+        if split is None or not comm.is_distributed():
+            return DNDarray(self.__array[tuple(gkey)], gshape=tuple(gshape), split=out_split, **meta)
+        off, lshape, _ = comm.chunk(self.__gshape, split)
+        if out_split is None:
+            # an int on the split axis: its owner broadcasts the result
+            i = gkey[split]
+            block = -(-self.__gshape[split] // comm.size)
+            owner = i // block
+            lkey = list(gkey)
+            if comm.rank == owner:
+                lkey[split] = i - off
+                buf = self.__array[tuple(lkey)].contiguous()
+            else:
+                buf = torch.empty(tuple(gshape), dtype=self.__array.dtype, device=self.__array.device)
+            return DNDarray(comm.bcast(buf, owner), gshape=tuple(gshape), split=None, **meta)
+        # a slice of the split axis: each rank keeps its share, then rebalances
+        start, stop, step = gkey[split].start, gkey[split].stop, gkey[split].step
+        length = len(range(start, stop, step))
+        starts, counts = [], []
+        for r in range(comm.size):
+            o, ls, _ = comm.chunk(self.__gshape, split, rank=r)
+            j0 = min(length, max(0, -(-(o - start) // step)))
+            j1 = min(length, max(0, -(-(o + ls[split] - start) // step)))
+            starts.append(j0)
+            counts.append(max(0, j1 - j0))
+        lkey = list(gkey)
+        j0 = starts[comm.rank]
+        first = start + j0 * step - off
+        lkey[split] = slice(first, first + counts[comm.rank] * step, step) if counts[comm.rank] else slice(0, 0)
+        local = self.__array[tuple(lkey)]
+        local = _redistribute(local, out_split, starts, counts, tuple(gshape), comm)
+        return DNDarray(local, gshape=tuple(gshape), split=out_split, **meta)
 
     # ----------------------------------------------------------- arithmetic
     def __add__(self, other):
@@ -403,6 +551,7 @@ class DNDarray:
 
     def __set_from(self, result: "DNDarray") -> "DNDarray":
         self.__array = result.larray
+        self.__gshape = result.gshape
         self.__dtype = result.dtype
         self.__split = result.split
         return self

@@ -1,7 +1,8 @@
 """Array factories (counterpart of ``heat_tpu/core/factories.py``).
 
 Every factory creates its tensor directly on the target device (default:
-the first CUDA card; ``device="cpu"`` for the CPU).
+the first CUDA card; ``device="cpu"`` for the CPU), and each rank builds
+only its own chunk of a split array.
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ import torch
 from . import devices, types
 from .communication import TorchCommunication, sanitize_comm
 from .devices import Device
-from .dndarray import DNDarray
+from .dndarray import DNDarray, _redistribute
 from .stride_tricks import sanitize_axis, sanitize_shape
 
 __all__ = [
@@ -41,9 +42,13 @@ def array(
     device: Optional[Union[str, Device]] = None,
     comm: Optional[TorchCommunication] = None,
 ) -> DNDarray:
-    """The main constructor. ``split=k`` marks axis ``k`` as the split axis;
-    ``is_split=k`` declares ``obj`` to be this process's shard, which at
-    world size 1 is the whole array."""
+    """The main constructor.
+
+    ``split=k``: every rank passes the same global ``obj`` and keeps its
+    chunk along axis ``k``. ``is_split=k``: ``obj`` is this rank's shard;
+    the global array is the rank-ordered concatenation of the shards along
+    ``k`` (their other dimensions must agree), rebalanced to the ceil-div
+    layout, as ``heat_tpu`` assembles it."""
     if split is not None and is_split is not None:
         raise ValueError(f"split and is_split are mutually exclusive, got {split}, {is_split}")
     comm = sanitize_comm(comm)
@@ -56,10 +61,14 @@ def array(
         data = obj
     if dtype is not None:
         dtype = types.canonical_heat_type(dtype)
+    chunked = False
     if isinstance(data, torch.Tensor):
         t = data.to(device=device.torch_device)
         if copy and t is data:
             t = t.clone()
+        while t.ndim < ndmin:
+            t = t.unsqueeze(0)
+        gshape = tuple(t.shape)
     else:
         a = np.asarray(data)
         if a.dtype == np.float64 and dtype is None and not isinstance(data, np.ndarray):
@@ -69,35 +78,55 @@ def array(
             types.canonical_heat_type(a.dtype)  # raises for types outside this slice
         elif a.dtype not in types._NP_TO_HEAT:
             a = a.astype(dtype.numpy_type())
+        a = a.reshape((1,) * (ndmin - a.ndim) + a.shape)
+        gshape = a.shape
+        if split is not None:  # only this rank's chunk goes to the device
+            a = a[comm.chunk(gshape, sanitize_axis(gshape, split))[2]]
+            chunked = True
         t = torch.from_numpy(np.array(a, copy=True)).to(device=device.torch_device)
     if dtype is not None:
         t = t.to(dtype.torch_type())
-    while t.ndim < ndmin:
-        t = t.unsqueeze(0)
     if is_split is not None:
-        split = is_split
-    return DNDarray(t, dtype=dtype, split=split, device=device, comm=comm)
+        split = sanitize_axis(gshape, is_split)
+        if comm.is_distributed():
+            shapes = comm.allgather(torch.tensor([gshape], dtype=torch.int64, device=comm.device()), 0, [1] * comm.size)
+            shapes = shapes.cpu().numpy()
+            for d in range(len(gshape)):
+                if d != split and len(set(shapes[:, d].tolist())) != 1:
+                    raise ValueError(f"local shards disagree on non-split dim {d}: {sorted(set(shapes[:, d].tolist()))}")
+            counts = shapes[:, split].tolist()
+            starts = np.concatenate([[0], np.cumsum(counts)[:-1]]).tolist()
+            gshape = tuple(int(sum(counts)) if d == split else s for d, s in enumerate(gshape))
+            t = _redistribute(t, split, starts, counts, gshape, comm)
+    elif split is not None and not chunked and comm.is_distributed():
+        t = t[comm.chunk(gshape, sanitize_axis(gshape, split))[2]].clone()
+    return DNDarray(t, gshape=gshape, dtype=dtype, split=split, device=device, comm=comm)
 
 
 def _build(shape, dtype, split, device, comm, fill) -> DNDarray:
+    """A DNDarray whose rank builds its chunk with ``fill(lshape, torch
+    dtype, torch device, offset)``."""
     shape = sanitize_shape(shape)
     dtype = types.canonical_heat_type(dtype)
     device = devices.sanitize_device(device)
-    t = fill(shape, dtype.torch_type(), device.torch_device)
-    return DNDarray(t, dtype=dtype, split=sanitize_axis(shape, split), device=device, comm=sanitize_comm(comm))
+    comm = sanitize_comm(comm)
+    split = sanitize_axis(shape, split)
+    offset, lshape, _ = comm.chunk(shape, split)
+    t = fill(lshape, dtype.torch_type(), device.torch_device, offset)
+    return DNDarray(t, gshape=shape, dtype=dtype, split=split, device=device, comm=comm)
 
 
 def zeros(shape, dtype=types.float32, split=None, device=None, comm=None) -> DNDarray:
-    return _build(shape, dtype, split, device, comm, lambda s, d, dev: torch.zeros(s, dtype=d, device=dev))
+    return _build(shape, dtype, split, device, comm, lambda s, d, dev, _: torch.zeros(s, dtype=d, device=dev))
 
 
 def ones(shape, dtype=types.float32, split=None, device=None, comm=None) -> DNDarray:
-    return _build(shape, dtype, split, device, comm, lambda s, d, dev: torch.ones(s, dtype=d, device=dev))
+    return _build(shape, dtype, split, device, comm, lambda s, d, dev, _: torch.ones(s, dtype=d, device=dev))
 
 
 def empty(shape, dtype=types.float32, split=None, device=None, comm=None) -> DNDarray:
     """Uninitialized memory (``torch.empty``)."""
-    return _build(shape, dtype, split, device, comm, lambda s, d, dev: torch.empty(s, dtype=d, device=dev))
+    return _build(shape, dtype, split, device, comm, lambda s, d, dev, _: torch.empty(s, dtype=d, device=dev))
 
 
 def full(shape, fill_value, dtype=None, split=None, device=None, comm=None) -> DNDarray:
@@ -107,7 +136,7 @@ def full(shape, fill_value, dtype=None, split=None, device=None, comm=None) -> D
         fill_value = fill_value.item()
     return _build(
         shape, dtype, split, device, comm,
-        lambda s, d, dev: torch.full(s, fill_value, dtype=d, device=dev),
+        lambda s, d, dev, _: torch.full(s, fill_value, dtype=d, device=dev),
     )
 
 
@@ -121,7 +150,15 @@ def eye(shape, dtype=types.float32, split=None, device=None, comm=None, order="C
     else:
         shape = tuple(shape)
         n, m = (int(shape[0]), int(shape[0])) if len(shape) == 1 else (int(shape[0]), int(shape[1]))
-    return _build((n, m), dtype, split, device, comm, lambda s, d, dev: torch.eye(s[0], s[1], dtype=d, device=dev))
+    split = sanitize_axis((n, m), split)
+
+    def fill(s, d, dev, offset):
+        # the chunk's rows and columns in global coordinates; ones where they meet
+        rows = torch.arange(s[0], device=dev) + (offset if split == 0 else 0)
+        cols = torch.arange(s[1], device=dev) + (offset if split == 1 else 0)
+        return (rows[:, None] == cols[None, :]).to(d)
+
+    return _build((n, m), dtype, split, device, comm, fill)
 
 
 def _like_meta(a: DNDarray, dtype, split, device, comm):
@@ -168,7 +205,7 @@ def arange(*args, dtype=None, split=None, device=None, comm=None) -> DNDarray:
     n = int(max(0, -(-(stop - start) // step))) if step != 0 else 0
     return _build(
         (n,), dtype, split, device, comm,
-        lambda s, d, dev: (
-            start + step * torch.arange(s[0], dtype=torch.float64 if d.is_floating_point else torch.int64, device=dev)
+        lambda s, d, dev, offset: (
+            start + step * (offset + torch.arange(s[0], dtype=torch.float64 if d.is_floating_point else torch.int64, device=dev))
         ).to(d),
     )

@@ -5,10 +5,13 @@ Counterpart of ``heat_tpu/core/kernels/``. Each kernel registers on the
 on a card and runs the plain version for tensors on the CPU:
 
 - :func:`moments_local` — one-pass per-column (count, mean, M2)
-  (``moments_onepass``, ``csrc/moments.cu``), behind ``mean``/``var``/``std``;
+  (``moments_onepass``, ``csrc/moments.cu``), behind ``mean``/``var``/``std``,
+  with :func:`moments_sharded`, the Chan combine across ranks;
 - :func:`lloyd_local` — fused distance + argmin + per-cluster statistics
   (``lloyd_fused``, ``csrc/lloyd.cu``; any f and k, by the resident or the
-  general route of :func:`lloyd_route`), behind ``KMeans.fit``;
+  general route of :func:`lloyd_route`), behind ``KMeans.fit``, with
+  :func:`lloyd_sharded`, one step on every rank's chunk and one
+  ``allreduce``;
 - :func:`nearest_neighbors_local` — fused distance + running top-k
   (``topk_distance``, ``csrc/topk_distance.cu``), behind
   ``spatial.nearest_neighbors`` and ``KNeighborsClassifier.predict``;
@@ -19,9 +22,11 @@ on a card and runs the plain version for tensors on the CPU:
 Sources build with ``nvcc`` at first use (:mod:`._build`).
 """
 from ._dispatch import (
+    COLLECTIVES,
     KERNEL_STATS,
     KERNELS,
     LAUNCHES,
+    count_collective,
     count_launch,
     dispatch_mode,
     forced_mode,
@@ -37,14 +42,16 @@ from .lloyd import (
     lloyd_local,
     lloyd_resident_plan,
     lloyd_route,
+    lloyd_sharded,
     resident_smem,
 )
-from .moments import MOMENTS_KERNEL, chunk_moments, merge_moments, moments_local
+from .moments import MOMENTS_KERNEL, chunk_moments, merge_moments, moments_local, moments_sharded
 from .panel_update import CHOL_KERNEL, MAX_FUSED_N, chol_block_size, chol_grid, chol_panels, cholesky_local
 from .topk_distance import MAX_K, TOPK_KERNEL, knn_plan, knn_tiles, nearest_neighbors_local
 
 __all__ = [
     "CHOL_KERNEL",
+    "COLLECTIVES",
     "KERNELS",
     "KERNEL_STATS",
     "LAUNCHES",
@@ -59,6 +66,7 @@ __all__ = [
     "chol_panels",
     "cholesky_local",
     "chunk_moments",
+    "count_collective",
     "count_launch",
     "dispatch_mode",
     "forced_mode",
@@ -68,8 +76,10 @@ __all__ = [
     "lloyd_local",
     "lloyd_resident_plan",
     "lloyd_route",
+    "lloyd_sharded",
     "merge_moments",
     "moments_local",
+    "moments_sharded",
     "nearest_neighbors_local",
     "record_dispatch",
     "record_route",

@@ -16,7 +16,10 @@ each launch of a kernel that has more than one under ``"{kernel}.{route}"``
 (and the route of each ``linalg.qr`` call, ``qr.cholqr2`` or
 ``qr.householder``, which launches none of the kernels);
 :data:`LAUNCHES` counts actual kernel launches, one per wrapper call that
-starts the kernel.
+starts the kernel. :data:`COLLECTIVES` counts the collectives the
+communicator ran (``{op: {"calls": n, "bytes": b}}``, the bytes this rank
+contributed), so a check can show which collectives a path ran beside
+which kernels it launched.
 """
 from __future__ import annotations
 
@@ -26,9 +29,11 @@ from typing import Dict, Iterator
 import torch
 
 __all__ = [
+    "COLLECTIVES",
     "KERNEL_STATS",
     "KERNELS",
     "LAUNCHES",
+    "count_collective",
     "count_launch",
     "dispatch_mode",
     "forced_mode",
@@ -87,6 +92,7 @@ def forced_mode(kernel: str, mode: str) -> Iterator[None]:
 
 KERNEL_STATS: Dict[str, int] = {"dispatches": 0}
 LAUNCHES: Dict[str, int] = {}
+COLLECTIVES: Dict[str, Dict[str, int]] = {}
 
 
 def record_dispatch(kernel: str, mode: str) -> None:
@@ -109,9 +115,18 @@ def count_launch(kernel: str) -> None:
     LAUNCHES[kernel] += 1
 
 
+def count_collective(op: str, nbytes: int) -> None:
+    """Add one call of the collective ``op`` that sent ``nbytes`` from this
+    rank; called by the communicator where it starts the collective."""
+    entry = COLLECTIVES.setdefault(op, {"calls": 0, "bytes": 0})
+    entry["calls"] += 1
+    entry["bytes"] += int(nbytes)
+
+
 def reset_kernel_stats() -> None:
-    """Zero :data:`KERNEL_STATS` and :data:`LAUNCHES`."""
+    """Zero :data:`KERNEL_STATS`, :data:`LAUNCHES` and :data:`COLLECTIVES`."""
     KERNEL_STATS.clear()
     KERNEL_STATS["dispatches"] = 0
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    COLLECTIVES.clear()

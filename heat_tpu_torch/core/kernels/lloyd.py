@@ -14,6 +14,10 @@ Counterpart of ``heat_tpu/core/kernels/lloyd.py``:
 - :func:`assign_stats` — the plain PyTorch version, with the contract of
   ``heat_tpu/cluster/kmeans.py::_assign_stats``.
 
+:func:`lloyd_sharded` runs one step on every rank's chunk (the kernel on
+a card) and sums the statistics across ranks in one ``allreduce`` of one
+packed buffer, where ``heat_tpu`` psums its three outputs apart.
+
 Both return ``(sums, counts, labels, inertia)``: per-cluster sums (k, f),
 counts (k,) and the summed minimum squared distance over rows below
 ``n_valid``, and int32 labels for every row. Distances use the quadratic
@@ -38,6 +42,7 @@ __all__ = [
     "lloyd_local",
     "lloyd_resident_plan",
     "lloyd_route",
+    "lloyd_sharded",
     "resident_smem",
 ]
 
@@ -210,3 +215,30 @@ def lloyd_local(xa: torch.Tensor, centers: torch.Tensor, n_valid: Optional[int] 
     if xa.device.type != "cpu":
         raise ValueError(f"lloyd_local supports CUDA and CPU tensors, got {xa.device}")
     return assign_stats(xa.to(torch.float32), centers.to(torch.float32), n_valid)
+
+
+def lloyd_sharded(xa: torch.Tensor, centers: torch.Tensor, comm, mode: str = "cuda"):
+    """One Lloyd assignment of this rank's chunk ``xa`` against the
+    replicated ``centers``, with sums, counts and inertia summed over all
+    ranks of ``comm`` (None: ``xa`` is the whole data, nothing to sum):
+    ``(sums, counts, labels, inertia)``, labels local.
+
+    Mode ``"cuda"`` launches :func:`lloyd_local`'s kernel, ``"torch"`` runs
+    :func:`assign_stats`. A rank with no rows launches nothing and
+    contributes zeros. The three statistics travel as one flat buffer of
+    k·f + k + 1 values in one ``allreduce`` (at k·f = 256 floats its cost
+    is the collective's latency, not its bytes)."""
+    k, f = centers.shape
+    if xa.shape[0] > 0:
+        step = lloyd_local if mode == "cuda" else assign_stats
+        sums, counts, labels, inertia = step(xa, centers, xa.shape[0])
+    else:
+        dt = torch.float32 if mode == "cuda" else xa.dtype
+        sums = torch.zeros((k, f), dtype=dt, device=xa.device)
+        counts = torch.zeros(k, dtype=dt, device=xa.device)
+        labels = torch.zeros(0, dtype=torch.int32, device=xa.device)
+        inertia = torch.zeros((), dtype=dt, device=xa.device)
+    if comm is None or comm.backend is None:  # replicated data, or no process group: nothing to sum
+        return sums, counts, labels, inertia
+    packed = comm.allreduce(torch.cat([sums.reshape(-1), counts.to(sums.dtype), inertia.reshape(1).to(sums.dtype)]))
+    return packed[: k * f].reshape(k, f), packed[k * f : k * f + k], labels, packed[-1]

@@ -9,7 +9,10 @@ Counterpart of ``heat_tpu/core/kernels/moments.py``:
   gets the kernel or an error.
 - :func:`chunk_moments` — the plain PyTorch version of the same function
   (shifted one-pass sums, ``heat_tpu``'s raw-jnp twin), and
-  :func:`merge_moments`, the Chan combine of two states.
+  :func:`merge_moments`, the Chan combine of two states;
+- :func:`moments_sharded` — the Chan combine of every rank's state over a
+  communicator (two ``allreduce`` calls), as ``heat_tpu``'s
+  ``moments_sharded`` psums them.
 
 Bound on the card: one read of the ``(n_valid, f)`` float32 buffer — bytes.
 Numerics: the plain version sums in float32; the kernel sums in float64.
@@ -24,7 +27,7 @@ import torch
 
 from ._dispatch import count_launch, register_kernel
 
-__all__ = ["MOMENTS_KERNEL", "chunk_moments", "merge_moments", "moments_local"]
+__all__ = ["MOMENTS_KERNEL", "chunk_moments", "merge_moments", "moments_local", "moments_sharded"]
 
 MOMENTS_KERNEL = register_kernel(
     "moments_onepass",
@@ -66,6 +69,24 @@ def merge_moments(na, mean_a, m2_a, nb, mean_b, m2_b):
     mean = mean_a + delta * (nb / n1)
     m2 = m2_a + m2_b + delta * delta * (na * nb / n1)
     return n, mean, m2
+
+
+def moments_sharded(cnt, mean: torch.Tensor, m2: torch.Tensor, comm):
+    """The global (count, mean, M2) from every rank's local state, by Chan's
+    parallel formulas (``heat_tpu/core/kernels/moments.py:206-210``): one
+    ``allreduce`` of the counts and count-weighted means gives the global
+    mean, a second of ``M2 + count (mean - gmean)^2`` the global M2. A rank
+    with count 0 contributes nothing (its mean may be NaN). The combine runs in float64; mean and
+    M2 come back in their own type, the count as a float64 tensor."""
+    dt = mean.dtype
+    c = torch.as_tensor(cnt, dtype=torch.float64, device=mean.device).expand(mean.shape)
+    has = c > 0
+    mean64 = torch.where(has, mean.to(torch.float64), 0.0)
+    m2_64 = torch.where(has, m2.to(torch.float64), 0.0)
+    n, s = comm.allreduce(torch.stack([c, c * mean64])).unbind(0)
+    gmean = s / n  # NaN where no rank counted anything, as a local mean of nothing
+    gm2 = comm.allreduce(m2_64 + c * (mean64 - gmean) ** 2)
+    return n, gmean.to(dt), gm2.to(m2.dtype)
 
 
 def _library():

@@ -2,9 +2,15 @@
 ``matmul``, ``dot``, ``outer``, ``transpose``, ``tril``/``triu``,
 ``trace`` and the norms.
 
-At world size 1 a product is one ``torch.matmul`` of the local tensors;
-what this module keeps from ``heat_tpu`` is the shape checks, the result
-types and the rule for the result's split axis.
+What this module keeps from ``heat_tpu`` is the shape checks, the result
+types and the rule for the result's split axis (``_matmul_out_split``).
+Across ranks a 2-D product runs on the chunks where the split axes allow:
+a row-split ``a`` times a replicated ``b`` (or a replicated ``a`` times a
+column-split ``b``) is local; a product over a split contracted axis
+(``A.T @ A`` with A split along 0) is a local product plus an
+``allreduce``, replicated; other split pairs gather the operand that is in
+the way. Norms over a split axis gather the array, except the default
+(Frobenius) norm, a sum of squares reduced across ranks.
 """
 from __future__ import annotations
 
@@ -13,8 +19,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from .. import types
-from .._operations import _reduced_split, _write_out
+from .. import arithmetics, types
+from .._operations import _reduced_shape, _reduced_split, _write_out
 from ..dndarray import DNDarray
 from ..stride_tricks import sanitize_axis
 
@@ -67,13 +73,33 @@ def matmul(a: DNDarray, b: DNDarray, allow_resplit: bool = False) -> DNDarray:
     promoted = types.promote_types(a.dtype, b.dtype)
     tt = promoted.torch_type()
     out_gshape = _matmul_gshape(a.gshape, b.gshape)
-    result = torch.matmul(a._logical().to(tt), b._logical().to(tt))
-    if result.ndim == 0:
-        return DNDarray(result, dtype=promoted, split=None, device=a.device, comm=a.comm)
-    split = _matmul_out_split(a, b, result.ndim)
+    comm = a.comm
+    split = _matmul_out_split(a, b, len(out_gshape)) if out_gshape else None
     if split is not None:
         split %= len(out_gshape)
-    return DNDarray(result, gshape=out_gshape, dtype=promoted, split=split, device=a.device, comm=a.comm)
+    la, lb = a.larray.to(tt), b.larray.to(tt)
+    if not comm.is_distributed() or (a.split is None and b.split is None):
+        result = torch.matmul(la, lb)
+    elif a.ndim == 2 and b.ndim == 2:
+        sa, sb = a.split, b.split
+        if (sa, sb) in ((0, None), (None, 1)):
+            result = torch.matmul(la, lb)
+        elif sa == 1 and sb in (0, None):
+            # the contracted axis is split: a product of the chunks, summed across ranks
+            rows = lb if sb == 0 else lb[comm.chunk(b.gshape, 0)[2]]
+            result = comm.allreduce(torch.matmul(la, rows))
+        elif sa is None and sb == 0:
+            result = comm.allreduce(torch.matmul(la[comm.chunk(a.gshape, 1)[2]], lb))
+        elif sa == 0:
+            result = torch.matmul(la, b._logical().to(tt))
+        else:  # (1, 1): the whole a against b's columns
+            result = torch.matmul(a._logical().to(tt), lb)
+    else:
+        result = torch.matmul(a._logical().to(tt), b._logical().to(tt))
+        result = result[comm.chunk(out_gshape, split)[2]] if result.ndim else result
+    if result.ndim == 0:
+        return DNDarray(result, dtype=promoted, split=None, device=a.device, comm=comm)
+    return DNDarray(result, gshape=out_gshape, dtype=promoted, split=split, device=a.device, comm=comm)
 
 
 def transpose(a: DNDarray, axes: Optional[List[int]] = None) -> DNDarray:
@@ -89,7 +115,8 @@ def transpose(a: DNDarray, axes: Optional[List[int]] = None) -> DNDarray:
             raise ValueError("axes do not match tensor shape")
     result = a.larray.permute(*axes)
     split = axes.index(a.split) if a.split is not None else None
-    return DNDarray(result, dtype=a.dtype, split=split, device=a.device, comm=a.comm)
+    gshape = tuple(a.gshape[ax] for ax in axes)
+    return DNDarray(result, gshape=gshape, dtype=a.dtype, split=split, device=a.device, comm=a.comm)
 
 
 def _out(res: DNDarray, out: Optional[DNDarray]) -> DNDarray:
@@ -105,11 +132,12 @@ def dot(a: DNDarray, b: DNDarray, out: Optional[DNDarray] = None) -> DNDarray:
         if a.gshape != b.gshape:
             raise ValueError(f"dot: shapes {a.gshape} and {b.gshape} not aligned")
         dtype = types._weak_result_type(a, b)
+        va, vb = a._logical(), b._logical()
         if dtype is types.bool:
-            result = torch.any(a.larray & b.larray)
+            result = torch.any(va & vb)
         else:
             tt = dtype.torch_type()
-            result = torch.sum(a.larray.to(tt) * b.larray.to(tt), dtype=tt)
+            result = torch.sum(va.to(tt) * vb.to(tt), dtype=tt)
         return _out(DNDarray(result, dtype=dtype, split=None, device=a.device, comm=a.comm), out)
     if a.ndim <= 2 and b.ndim <= 2:
         return _out(matmul(a, b), out)
@@ -122,13 +150,16 @@ def outer(a: DNDarray, b: DNDarray, out: Optional[DNDarray] = None, split: Optio
     if split is None:
         split = 0 if (a.split is not None or b.split is not None) else None
     tt = types._weak_result_type(a, b).torch_type()
-    result = torch.outer(a.larray.reshape(-1).to(tt), b.larray.reshape(-1).to(tt))
-    return _out(DNDarray(result, split=split, device=a.device, comm=a.comm), out)
+    va, vb = a._logical().reshape(-1).to(tt), b._logical().reshape(-1).to(tt)
+    gshape = (va.shape[0], vb.shape[0])
+    _, _, (rows, cols) = a.comm.chunk(gshape, split)
+    result = torch.outer(va[rows], vb[cols])
+    return _out(DNDarray(result, gshape=gshape, split=split, device=a.device, comm=a.comm), out)
 
 
 def trace(a: DNDarray, offset: int = 0, axis1: int = 0, axis2: int = 1, dtype=None, out=None) -> DNDarray:
     """Sum along a diagonal (bool and integers below int64 sum in int64)."""
-    diag = torch.diagonal(a.larray, offset=offset, dim1=axis1, dim2=axis2)
+    diag = torch.diagonal(a._logical(), offset=offset, dim1=axis1, dim2=axis2)
     result = diag.sum(dim=-1)
     if dtype is not None:
         result = result.to(types.canonical_heat_type(dtype).torch_type())
@@ -138,11 +169,19 @@ def trace(a: DNDarray, offset: int = 0, axis1: int = 0, axis2: int = 1, dtype=No
 def _tri_op(m: DNDarray, k: int, op) -> DNDarray:
     if not isinstance(m, DNDarray):
         raise TypeError(f"expected m to be a DNDarray, got {type(m)}")
+    comm = m.comm
     if m.ndim == 1:
         # a vector becomes the (n, n) triangle of its copies, as in heat_tpu
-        result = op(m.larray.expand(m.gshape[0], -1), diagonal=k)
-        return DNDarray(result, dtype=m.dtype, split=0 if m.split is not None else None, device=m.device, comm=m.comm)
-    return DNDarray(op(m.larray, diagonal=k), dtype=m.dtype, split=m.split, device=m.device, comm=m.comm)
+        n = m.gshape[0]
+        split = 0 if m.split is not None else None
+        off, (rows, _), _ = comm.chunk((n, n), split)
+        result = op(m._logical().expand(n, -1), diagonal=k)[off : off + rows]
+        return DNDarray(result, gshape=(n, n), dtype=m.dtype, split=split, device=m.device, comm=comm)
+    # this rank's rows (columns) start at the chunk's offset: shift the diagonal by it
+    off = comm.chunk(m.gshape, m.split)[0]
+    shift = off if m.split == m.ndim - 2 else -off if m.split == m.ndim - 1 else 0
+    return DNDarray(op(m.larray, diagonal=k + shift), gshape=m.gshape, dtype=m.dtype, split=m.split,
+                    device=m.device, comm=comm)
 
 
 def tril(m: DNDarray, k: int = 0) -> DNDarray:
@@ -155,10 +194,19 @@ def triu(m: DNDarray, k: int = 0) -> DNDarray:
     return _tri_op(m, k, torch.triu)
 
 
-def _inexact_tensor(x: DNDarray) -> torch.Tensor:
-    # jnp.promote_types(any integer or bool, float32) is float32
-    t = x.larray
+def _inexact_tensor(x: DNDarray, axis) -> torch.Tensor:
+    """The tensor a norm over ``axis`` reads: this rank's chunk, or the whole
+    array where ``axis`` covers the split axis; jnp.promote_types(any
+    integer or bool, float32) is float32."""
+    axes = range(x.ndim) if axis is None else ((axis,) if isinstance(axis, int) else axis)
+    t = x._logical() if x.split in axes else x.larray
     return t if t.is_floating_point() else t.to(torch.float32)
+
+
+def _norm_result(x: DNDarray, result: torch.Tensor, axis, keepdims: bool) -> DNDarray:
+    split = _reduced_split(x.split, axis, x.ndim, keepdims)
+    gshape = _reduced_shape(x.gshape, axis, keepdims) if split is not None else None
+    return DNDarray(result, gshape=gshape, split=split, device=x.device, comm=x.comm)
 
 
 def matrix_norm(x: DNDarray, axis: Optional[Tuple[int, int]] = None, keepdims: bool = False, ord=None) -> DNDarray:
@@ -170,7 +218,7 @@ def matrix_norm(x: DNDarray, axis: Optional[Tuple[int, int]] = None, keepdims: b
         axis = (0, 1)
     axis = sanitize_axis(x.shape, axis)
     row, col = axis
-    arr = _inexact_tensor(x)
+    arr = _inexact_tensor(x, axis)
     # after the inner sum drops an axis, the outer reduction's index shifts
     col_adj = col - 1 if (col > row and not keepdims) else col
     row_adj = row - 1 if (row > col and not keepdims) else row
@@ -189,26 +237,27 @@ def matrix_norm(x: DNDarray, axis: Optional[Tuple[int, int]] = None, keepdims: b
             result = result.unsqueeze(min(row, col)).unsqueeze(max(row, col))
     else:
         raise ValueError(f"Invalid norm order {ord} for matrices")
-    return DNDarray(result, split=_reduced_split(x.split, axis, x.ndim, keepdims), device=x.device, comm=x.comm)
+    return _norm_result(x, result, axis, keepdims)
 
 
 def vector_norm(x: DNDarray, axis=None, keepdims: bool = False, ord=None) -> DNDarray:
     """Vector norm of order ``ord`` (default 2) along ``axis``, or over the
     flattened array."""
     axis_s = sanitize_axis(x.shape, axis)
-    arr = _inexact_tensor(x)
+    arr = _inexact_tensor(x, axis_s)
     if axis_s is None:
         arr = arr.reshape(-1)
     result = torch.linalg.vector_norm(arr, ord=2 if ord is None else ord, dim=0 if axis_s is None else axis_s, keepdim=keepdims)
-    return DNDarray(result, split=_reduced_split(x.split, axis_s, x.ndim, keepdims), device=x.device, comm=x.comm)
+    return _norm_result(x, result, axis_s, keepdims)
 
 
 def norm(x: DNDarray, axis=None, keepdims: bool = False, ord=None) -> DNDarray:
     """Frobenius/2-norm of the whole array by default; a vector norm for an
     int ``axis`` (or 1-D input), a matrix norm for a pair (or 2-D input)."""
     if axis is None and ord is None:
-        arr = _inexact_tensor(x)
-        return DNDarray(torch.sqrt(torch.sum(arr.abs() ** 2)), split=None, device=x.device, comm=x.comm)
+        t = x.larray if x.larray.is_floating_point() else x.larray.to(torch.float32)
+        squares = DNDarray(t.abs() ** 2, gshape=x.gshape, split=x.split, device=x.device, comm=x.comm)
+        return DNDarray(torch.sqrt(arithmetics.sum(squares).larray), split=None, device=x.device, comm=x.comm)
     if axis is None:
         if x.ndim == 1:
             return vector_norm(x, axis=0, keepdims=keepdims, ord=ord)

@@ -1,5 +1,7 @@
 """Cholesky factorization and triangular solves (counterpart of
-``heat_tpu/core/linalg/factorizations.py``), at world size 1.
+``heat_tpu/core/linalg/factorizations.py``), on replicated operands; a
+split operand across ranks raises ``NotImplementedError`` (the distributed
+Cholesky is still to port).
 
 ``cholesky`` runs the ``chol_panel_fused`` kernel for a float32 matrix
 with n <= ``MAX_FUSED_N`` on a card, and its plain version on the CPU.
@@ -32,6 +34,14 @@ def _square_2d_check(name: str, a) -> None:
         raise RuntimeError(f"{name} requires a square matrix, got {a.gshape}")
 
 
+def _replicated_only(name: str, *arrs) -> None:
+    if any(x.split is not None and x.comm.is_distributed() for x in arrs):
+        raise NotImplementedError(
+            f"{name} of a split operand across ranks is still to port (ROADMAP.md Queue A item 1: the distributed "
+            "cholesky/solve_triangular, chol_panel_fused per block); resplit it to None first"
+        )
+
+
 def _float_type(*arrs):
     t = types.float32
     for x in arrs:
@@ -61,6 +71,7 @@ def cholesky(a: DNDarray, tiles_per_proc: int = 1) -> DNDarray:
     split. ``tiles_per_proc`` is accepted for ``heat_tpu``'s signature; it
     shapes the panels only above world size 1."""
     _square_2d_check("cholesky", a)
+    _replicated_only("cholesky", a)
     ftype = _float_type(a)
     arr = a._logical().to(ftype.torch_type())
     mode = dispatch_mode(CHOL_KERNEL, arr)
@@ -87,6 +98,7 @@ def solve_triangular(a: DNDarray, b: DNDarray, lower: bool = False, unit_diagona
         raise TypeError(f"solve_triangular expects a DNDarray rhs, got {type(b)}")
     if b.ndim not in (1, 2):
         raise ValueError(f"rhs must be 1-D or 2-D, got {b.ndim}-D")
+    _replicated_only("solve_triangular", a, b)
     n = a.gshape[0]
     if b.gshape[0] != n:
         raise ValueError(f"dimension mismatch: a has {n} rows, b has {b.gshape[0]}")

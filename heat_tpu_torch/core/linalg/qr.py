@@ -1,5 +1,4 @@
-"""QR decomposition at world size 1 (counterpart of
-``heat_tpu/core/linalg/qr.py:40-201``).
+"""QR decomposition (counterpart of ``heat_tpu/core/linalg/qr.py``).
 
 ``method="auto"`` runs CholeskyQR2 for tall floating input (m >= 4n): two
 passes of Gram product, Cholesky of the (n, n) Gram and triangular solve,
@@ -15,6 +14,14 @@ guard's one scalar is read on the host, once per call. Each call counts the
 route it returned under ``KERNEL_STATS["qr.cholqr2"]`` or
 ``KERNEL_STATS["qr.householder"]``. Float32 products run in full float32
 inside ``qr`` (no TF32), whatever the caller set.
+
+Across ranks a split-0 array takes TSQR (``heat_tpu``'s ``qr.py:192-315``):
+each rank factors its own rows as above (a block with fewer rows than
+columns, or none, at its true row count by Householder), the ranks' R
+factors are gathered (``allgather``) and factored again by Householder on
+every rank, and each rank's Q is its block's Q times its rows of the
+second Q. R comes out replicated and identical on every rank, Q split
+along 0. A split-1 array is gathered and factored whole.
 """
 from __future__ import annotations
 
@@ -62,8 +69,8 @@ def qr(
     size 1 and is only checked here; ``overwrite_a`` only warns. Integer
     input computes in float32.
 
-    Split 0 gives Q split 0 and R replicated; split 1 gives both split 1;
-    None gives both None.
+    Split 0 gives Q split 0 and R replicated (TSQR across ranks); split 1
+    gives both split 1; None gives both None.
     """
     if not isinstance(a, DNDarray):
         raise TypeError(f"expected a DNDarray, got {type(a)}")
@@ -78,25 +85,44 @@ def qr(
     if overwrite_a:
         warnings.warn("qr: overwrite_a is accepted for heat_tpu's signature but has no effect", UserWarning, stacklevel=2)
     ftype = types.float64 if a.dtype is types.float64 else types.float32
-    x = a.larray.to(ftype.torch_type())
-    m, n = x.shape
+    comm = a.comm
+    tsqr = a.split == 0 and comm.is_distributed()
+    x = (a.larray if tsqr or a.split is None else a._logical()).to(ftype.torch_type())
     with _full_float32_products():
-        q = r = None
-        if m >= n and (method == "cholqr2" or (method == "auto" and n >= 1 and m >= 4 * n)):
-            q, r, bad = _cholqr2(x)
-            if bool(bad):  # the guard's one host read
-                q = r = None
-        if r is None:
-            record_route("qr", "householder")
-            if calc_q:
-                q, r = torch.linalg.qr(x, mode="reduced")
-            else:
-                r = torch.linalg.qr(x, mode="r").R
-        else:
-            record_route("qr", "cholqr2")
-    Q = DNDarray(q, dtype=ftype, split=a.split, device=a.device, comm=a.comm) if calc_q else None
-    R = DNDarray(r, dtype=ftype, split=None if a.split == 0 else a.split, device=a.device, comm=a.comm)
+        q, r, route = _factor(x, method, calc_q)
+        if tsqr:
+            # the ranks' R factors, stacked in rank order, factored again
+            k = min(x.shape[0], x.shape[1])
+            counts = [min(int(m_r), x.shape[1]) for m_r in a.lshape_map[:, 0]]
+            q2, r = torch.linalg.qr(comm.allgather(r, 0, counts), mode="reduced")
+            start = sum(counts[: comm.rank])
+            q = q @ q2[start : start + k] if calc_q else None
+    record_route("qr", route)
+    meta = dict(dtype=ftype, device=a.device, comm=comm)
+    m, n = a.gshape
+    kk = r.shape[0]
+    if a.split == 1 and comm.is_distributed():
+        Q = DNDarray(q[comm.chunk((m, kk), 1)[2]], gshape=(m, kk), split=1, **meta) if calc_q else None
+        return QR_out(Q, DNDarray(r[comm.chunk((kk, n), 1)[2]], gshape=(kk, n), split=1, **meta))
+    Q = DNDarray(q, gshape=(m, kk), split=a.split, **meta) if calc_q else None
+    R = DNDarray(r, split=None if a.split == 0 else a.split, **meta)
     return QR_out(Q, R)
+
+
+def _factor(x: torch.Tensor, method: str, calc_q: bool):
+    """``(q, r, route)`` of a local (m, n) block: CholeskyQR2 where the
+    method and shape ask for it and its guard passes, else Householder
+    (``q`` None when not ``calc_q``). A block with no rows gives a (0, 0)
+    ``q`` and a (0, n) ``r``."""
+    m, n = x.shape
+    if m >= n and (method == "cholqr2" or (method == "auto" and n >= 1 and m >= 4 * n)):
+        q, r, bad = _cholqr2(x)
+        if not bool(bad):  # the guard's one host read
+            return q, r, "cholqr2"
+    if calc_q:
+        q, r = torch.linalg.qr(x, mode="reduced")
+        return q, r, "householder"
+    return None, torch.linalg.qr(x, mode="r").R, "householder"
 
 
 def _chol_pass(v: torch.Tensor):

@@ -61,7 +61,7 @@ def isclose(x, y, rtol: float = 1e-05, atol: float = 1e-08, equal_nan: bool = Fa
 
 def allclose(x, y, rtol: float = 1e-05, atol: float = 1e-08, equal_nan: bool = False) -> bool:
     """Whether every element pair is close, as one python bool."""
-    return bool(torch.all(isclose(x, y, rtol=rtol, atol=atol, equal_nan=equal_nan).larray))
+    return bool(_reduce_op(_all, isclose(x, y, rtol=rtol, atol=atol, equal_nan=equal_nan)))
 
 
 def isfinite(x) -> DNDarray:

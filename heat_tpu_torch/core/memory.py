@@ -10,7 +10,7 @@ def copy(x: DNDarray) -> DNDarray:
     """A deep copy: a new tensor with the same values and metadata."""
     if not isinstance(x, DNDarray):
         raise TypeError(f"input needs to be a DNDarray, but was {type(x)}")
-    return DNDarray(x.larray.clone(), dtype=x.dtype, split=x.split, device=x.device, comm=x.comm)
+    return DNDarray(x.larray.clone(), gshape=x.gshape, dtype=x.dtype, split=x.split, device=x.device, comm=x.comm)
 
 
 def sanitize_memory_layout(x, order: str = "C"):

@@ -4,6 +4,12 @@ Draws come from an explicit ``torch.Generator`` per device, seeded by
 :func:`seed`. They do not reproduce ``heat_tpu``'s threefry bits: the two
 packages agree in distribution, not in values, so tests feed both the same
 numpy data instead.
+
+A split draw gives the same global array at every world size: every rank
+draws the whole global array from the shared seeded generator on its own
+device and keeps its chunk. That costs O(global) transient memory and draw
+time on every rank; a counter-based generator (threefry, as ``heat_tpu``
+draws) that computes only the chunk's numbers would not.
 """
 from __future__ import annotations
 
@@ -15,7 +21,7 @@ import torch
 from . import devices, types
 from .communication import sanitize_comm
 from .dndarray import DNDarray
-from .stride_tricks import sanitize_shape
+from .stride_tricks import sanitize_axis, sanitize_shape
 
 __all__ = ["get_generator", "rand", "randint", "randn", "seed"]
 
@@ -54,9 +60,13 @@ def _float_type(dtype):
 
 def _draw(fill, shape, dtype, split, device, comm) -> DNDarray:
     device = devices.sanitize_device(device)
+    comm = sanitize_comm(comm)
+    split = sanitize_axis(shape, split) if shape else None
     gen = get_generator(device)
     t = fill(shape, dtype.torch_type(), device.torch_device, gen)
-    return DNDarray(t, dtype=dtype, split=split if shape else None, device=device, comm=sanitize_comm(comm))
+    if split is not None and comm.is_distributed():
+        t = t[comm.chunk(shape, split)[2]].clone()  # the global draw is freed here
+    return DNDarray(t, gshape=shape, dtype=dtype, split=split, device=device, comm=comm)
 
 
 def rand(*d, dtype=types.float32, split=None, device=None, comm=None) -> DNDarray:

@@ -8,8 +8,9 @@ from __future__ import annotations
 
 import torch
 
-from ._operations import _binary_op
+from ._operations import _binary_op, _reduce_op
 from .dndarray import DNDarray
+from .logical import _all
 
 __all__ = [
     "eq",
@@ -38,7 +39,7 @@ def equal(x, y) -> bool:
         res = _binary_op(torch.eq, x, y)
     except ValueError:
         return False
-    return bool(torch.all(res.larray))
+    return bool(_reduce_op(_all, res))
 
 
 def ge(x, y) -> DNDarray:

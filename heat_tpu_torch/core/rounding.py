@@ -9,7 +9,7 @@ from __future__ import annotations
 import torch
 
 from . import types
-from ._operations import _local_op, _write_out
+from ._operations import _local_operand, _local_op, _write_out
 from .dndarray import DNDarray
 
 __all__ = [
@@ -88,7 +88,9 @@ def clip(x, min=None, max=None, out=None, *, a_min=None, a_max=None) -> DNDarray
     def bound(b):
         if b is None:
             return None
-        return (b.larray if isinstance(b, DNDarray) else torch.as_tensor(b, device=x.larray.device)).to(tt)
+        if isinstance(b, DNDarray):
+            return _local_operand(b, x.gshape, x.split).to(tt)
+        return torch.as_tensor(b, device=x.larray.device).to(tt)
 
     return _local_op(lambda t: torch.clamp(t.to(tt), bound(lo), bound(hi)), x, out=out, no_cast=True)
 

@@ -23,17 +23,25 @@ computed in one read and memoized, so ``ht.mean(x)`` followed by
 The memo key is the tensor's identity *and* its ``_version``: torch
 tensors are mutable, so an in-place update (``x.larray.add_(1)``) bumps the
 version and the next call recomputes instead of serving stale moments.
+
+Across ranks each rank computes its chunk's moments (a rank with an empty
+chunk contributes (0, 0, 0) and launches nothing), and
+:func:`kernels.moments_sharded` combines them by Chan's formulas. The
+extrema reduce as every ``_reduce_op`` does; ``argmin``/``argmax`` over
+the split axis gather each rank's best value and its global index and keep
+the lowest index among the best.
 """
 from __future__ import annotations
 
 import weakref
 
+import numpy as np
 import torch
 
-from . import types
-from ._operations import _binary_op, _over_axes, _reduce_op, _reduced_shape, _reduced_split, _write_out
+from . import factories, types
+from ._operations import _binary_op, _local_operand, _over_axes, _reduce_op, _reduced_shape, _reduced_split, _write_out
 from .dndarray import DNDarray
-from .kernels import MOMENTS_KERNEL, chunk_moments, dispatch_mode, moments_local, record_dispatch
+from .kernels import MOMENTS_KERNEL, chunk_moments, dispatch_mode, moments_local, moments_sharded, record_dispatch
 from .stride_tricks import sanitize_axis
 
 __all__ = [
@@ -123,6 +131,9 @@ def _moments_panel(x: DNDarray, axis_s):
     arr = x.larray
     if arr.dtype not in (torch.float32, torch.float64):
         return None
+    if arr.numel() == 0:  # an empty chunk of a non-empty array: nothing to read, nothing to launch
+        z = torch.zeros(_reduced_shape(arr.shape, axis_s, False), dtype=_float_type(arr), device=arr.device)
+        return 0.0, z, z
     req_mode = dispatch_mode(MOMENTS_KERNEL, arr)
     akey = _axis_key(axis_s)
     if arr.is_inference():
@@ -158,7 +169,8 @@ def _wrap_moment(x: DNDarray, axis_s, result: torch.Tensor) -> DNDarray:
     result = torch.as_tensor(result)
     out_shape = _reduced_shape(x.gshape, axis_s, False)
     return DNDarray(
-        result.reshape(out_shape),
+        result.reshape(_reduced_shape(x.lshape, axis_s, False)),
+        gshape=out_shape,
         dtype=types.canonical_heat_type(result.dtype),
         split=_reduced_split(x.split, axis_s, x.ndim, False),
         device=x.device,
@@ -174,7 +186,9 @@ def _direct_moments(x: DNDarray, axis_s, where=None):
     if where is None:
         w = torch.ones_like(t)
     else:
-        wt = where.larray if isinstance(where, DNDarray) else torch.as_tensor(where, device=t.device)
+        if not isinstance(where, DNDarray):
+            where = factories.array(where, device=x.device, comm=x.comm)
+        wt = _local_operand(where, x.gshape, x.split)
         w = torch.broadcast_to(wt.to(device=t.device, dtype=torch.bool), t.shape).to(t.dtype)
     c = w.sum(dim=dims)
     mean_ = (t * w).sum(dim=dims) / c
@@ -190,6 +204,9 @@ def _moments(x: DNDarray, axis, where):
     if stats is None:
         # where= masks cannot key the memo: they decline to a direct reduction
         stats = _direct_moments(x, axis_s, where)
+    axes = range(x.ndim) if axis_s is None else ((axis_s,) if isinstance(axis_s, int) else axis_s)
+    if x.split is not None and x.split in axes and x.comm.is_distributed():
+        stats = moments_sharded(*stats, x.comm)
     return axis_s, stats
 
 
@@ -203,13 +220,13 @@ def mean(x: DNDarray, axis=None, where=None) -> DNDarray:
 def var(x: DNDarray, axis=None, ddof: int = 0, where=None) -> DNDarray:
     """Variance along ``axis`` with ``ddof`` delta degrees of freedom."""
     axis_s, (c, _, m2) = _moments(x, axis, where)
-    return _wrap_moment(x, axis_s, m2 / (c - ddof))
+    return _wrap_moment(x, axis_s, (m2 / (c - ddof)).to(m2.dtype))
 
 
 def std(x: DNDarray, axis=None, ddof: int = 0, where=None) -> DNDarray:
     """Standard deviation along ``axis`` with ``ddof`` delta degrees of freedom."""
     axis_s, (c, _, m2) = _moments(x, axis, where)
-    return _wrap_moment(x, axis_s, torch.sqrt(m2 / (c - ddof)))
+    return _wrap_moment(x, axis_s, torch.sqrt(m2 / (c - ddof)).to(m2.dtype))
 
 
 # ----------------------------------------------------------------- extrema
@@ -278,17 +295,49 @@ def _arg_reduce(op, x: DNDarray, axis, out) -> DNDarray:
     arr = x.larray
     if arr.dtype == torch.bool:
         arr = arr.to(torch.uint8)
-    result = op(arr, dim=axis)
+    comm, split = x.comm, x.split
+    if split is not None and axis in (None, split) and comm.is_distributed():
+        result = _arg_across_ranks(op, x, arr, axis)
+    else:
+        result = op(arr, dim=axis)
     res = DNDarray(
         result.to(torch.int64),
+        gshape=_reduced_shape(x.gshape, axis, False),
         dtype=types.int64,
-        split=_reduced_split(x.split, axis, x.ndim, False),
+        split=_reduced_split(split, axis, x.ndim, False),
         device=x.device,
-        comm=x.comm,
+        comm=comm,
     )
     if out is not None:
         return _write_out(out, res)
     return res
+
+
+def _arg_across_ranks(op, x: DNDarray, arr: torch.Tensor, axis) -> torch.Tensor:
+    """``op`` (``torch.argmin``/``argmax``) over the split axis or the whole
+    array: each rank's best value and its global index are gathered, the
+    best of those wins, NaN first, and the lowest index among equals."""
+    comm, split = x.comm, x.split
+    offset, lshape, _ = comm.chunk(x.gshape, split)
+    if lshape[split] == 0:  # a stand-in row; this rank's candidate is dropped below
+        arr = arr.new_zeros(tuple(1 if d == split else s for d, s in enumerate(arr.shape)))
+        offset = 0
+    if axis is None:
+        i = int(op(arr))
+        val = arr.reshape(-1)[i]
+        coords = list(np.unravel_index(i, tuple(arr.shape)))
+        coords[split] += offset
+        gidx = torch.tensor(int(np.ravel_multi_index(coords, x.gshape)), device=arr.device)
+    else:
+        idx = op(arr, dim=axis, keepdim=True)
+        val = torch.take_along_dim(arr, idx, dim=axis).squeeze(axis)
+        gidx = idx.squeeze(axis) + offset
+    keep = [r for r, n in enumerate(x.lshape_map[:, split]) if n > 0]
+    vals = comm.allgather(val.unsqueeze(0), 0, [1] * comm.size)[keep]
+    idxs = comm.allgather(gidx.unsqueeze(0), 0, [1] * comm.size)[keep]
+    best = torch.take_along_dim(vals, op(vals, dim=0, keepdim=True), dim=0)
+    tie = (vals == best) | (torch.isnan(vals) & torch.isnan(best)) if vals.is_floating_point() else vals == best
+    return torch.where(tie, idxs, torch.full_like(idxs, torch.iinfo(torch.int64).max)).amin(dim=0)
 
 
 def argmax(x: DNDarray, axis=None, out=None, **kwargs) -> DNDarray:

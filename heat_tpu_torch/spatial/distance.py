@@ -5,8 +5,10 @@ square-rooted — chunked over ``y`` so the (n, chunk, f) temporary stays
 bounded) and the quadratic expansion ``|x|² + |y|² − 2 x yᵀ``, one matrix
 product; ``rbf``, the Gaussian kernel over the expansion; and
 ``nearest_neighbors``, the k nearest rows without the distance matrix,
-over the ``topk_distance`` kernel. At world size 1 all run on the local
-tensors.
+over the ``topk_distance`` kernel. Across ranks a split-0 ``x`` against
+a replicated ``y`` (or a replicated ``x`` against a split-0 ``y``, whose
+result is split along 1) is local to each rank; two split operands (a
+ring exchange in ``heat_tpu``) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -68,11 +70,17 @@ def _dist(x: DNDarray, y: Optional[DNDarray], metric: Callable) -> DNDarray:
         raise ValueError(f"feature dimensions differ: {x.shape[1]} != {y.shape[1]}")
     if x.split == 1 or y.split == 1:
         raise NotImplementedError("cdist with split=1 operands: resplit to 0 or None first")
+    if x.split is not None and y.split is not None and x.comm.is_distributed():
+        raise NotImplementedError(
+            "cdist of two split operands across ranks (heat_tpu's ring exchange, use_ring) is still to port: "
+            "ROADMAP.md Queue A item 1; resplit one operand to None first"
+        )
     promoted = types.promote_types(x.dtype, types.float32)
     tt = promoted.torch_type()
     result = metric(x.larray.to(tt), y.larray.to(tt))
     out_split = 0 if x.split is not None else (1 if y.split is not None else None)
-    return DNDarray(result, dtype=promoted, split=out_split, device=x.device, comm=x.comm)
+    return DNDarray(result, gshape=(x.gshape[0], y.gshape[0]), dtype=promoted, split=out_split, device=x.device,
+                    comm=x.comm)
 
 
 def cdist(X: DNDarray, Y: Optional[DNDarray] = None, quadratic_expansion: bool = False) -> DNDarray:
@@ -98,7 +106,8 @@ def nearest_neighbors(x: DNDarray, y: DNDarray, k: int):
     distance matrix.
 
     ``x.split`` must be 0 or None; ``y`` is replicated (a split ``y`` is
-    resplit first). Returns ``(d2, idx)``: (n, k) squared distances
+    gathered whole first, as ``heat_tpu`` resplits it). Each rank runs the
+    kernel on its own query rows; a rank with none launches nothing. Returns ``(d2, idx)``: (n, k) squared distances
     (ascending, float32) and row indices into ``y`` (int32), both with
     ``x``'s split, for any ``1 <= k <= m`` as ``heat_tpu`` takes it. The
     ``topk_distance`` kernel runs for tensors on a card (every such k; its
@@ -109,18 +118,20 @@ def nearest_neighbors(x: DNDarray, y: DNDarray, k: int):
 
     if x.ndim != 2 or y.ndim != 2:
         raise NotImplementedError("nearest_neighbors expects 2-D operands")
-    if y.split is not None:
-        y = y.resplit(None)
     if x.split not in (None, 0):
         raise NotImplementedError("nearest_neighbors: x must be split=0 or replicated")
     xa = x.larray.to(torch.float32)
     ya = y._logical().to(torch.float32)
     mode = dispatch_mode(TOPK_KERNEL, xa)
     record_dispatch(TOPK_KERNEL, mode)
-    if mode == "cuda":
+    if xa.shape[0] == 0:  # no query rows on this rank: nothing to launch
+        if not 0 < k <= ya.shape[0]:
+            raise ValueError(f"k={k} must be in [1, {ya.shape[0]}]")
+        d = torch.empty((0, k), dtype=torch.float32, device=xa.device)
+        idx = torch.empty((0, k), dtype=torch.int32, device=xa.device)
+    elif mode == "cuda":
         d, idx = nearest_neighbors_local(xa, ya, k)
     else:
         d, idx = knn_tiles(xa, ya, k)
-    dist = DNDarray(d, dtype=types.float32, split=x.split, device=x.device, comm=x.comm)
-    indices = DNDarray(idx, dtype=types.int32, split=x.split, device=x.device, comm=x.comm)
-    return dist, indices
+    meta = dict(gshape=(x.gshape[0], k), split=x.split, device=x.device, comm=x.comm)
+    return DNDarray(d, dtype=types.float32, **meta), DNDarray(idx, dtype=types.int32, **meta)

@@ -1,0 +1,359 @@
+"""heat_tpu_torch across ranks, against heat_tpu on a device mesh of the
+same size, on the CPU.
+
+One group of four processes (``torch.distributed`` over gloo, started
+through ``ht.init_distributed``, ``torch.set_num_threads(1)``) runs every
+case of ``tests/test_torch_dist_worker.py`` on the port; the test process
+runs the same case code on ``heat_tpu`` under
+``comm_context(MeshCommunication(devices=jax.devices()[:4]))``. The group
+runs once per test session: the first pytest worker to need it spawns it,
+under a file lock, and the others read its results. Every rank's result is
+held against heat_tpu's: values, dtype, ``gshape``, ``split``,
+``lshape_map``, and the rank's ``larray`` against heat_tpu's chunk of the
+same rank; replicated results must be bit-identical on every rank.
+
+Tolerances: bool, integer and index results exact; float results rtol
+1e-5 / atol 1e-6 (reductions across ranks add in another order than one
+device's XLA program, and XLA's and torch's transcendental functions
+may round differently in the last bits); QR factors compared after
+making R's diagonal non-negative, rtol 1e-4 / atol 1e-5 (TSQR's second
+factorization rotates by a different orthogonal matrix on each package).
+
+A case whose reference is the port itself (``PORT_ONLY``: the random
+draws, which are torch's, and the port's own bookkeeping) is held against
+the port at world size 1 in the test process. heat_tpu is imported only
+inside the functions that need it, so the ``gpu``-marked NCCL test also
+runs where JAX is not installed (``--noconftest``).
+"""
+import fcntl
+import hashlib
+import os
+import pickle
+import subprocess
+import sys
+import tempfile
+import time
+import uuid
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import heat_tpu_torch as htt
+from tests import test_torch_dist_worker as W
+
+REPO = Path(__file__).resolve().parent.parent
+WORKER = Path(W.__file__).resolve()
+WORLD = 4
+RTOL, ATOL = 1e-5, 1e-6
+QR_RTOL, QR_ATOL = 1e-4, 1e-5
+GROUP_TIMEOUT = 420  # seconds for the whole group, start to exit
+_RUN_ID = os.environ.get("PYTEST_XDIST_TESTRUNUID") or uuid.uuid4().hex
+
+HT_CASES = sorted(set(W.CASES) - W.PORT_ONLY)
+
+
+# ------------------------------------------------------------ the group
+def _spawn(world: int, backend: str, names, d: Path, timeout: float) -> dict:
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    cmd = [sys.executable, str(WORKER), "--world", str(world), "--store", str(d / "store"), "--out", str(d),
+           "--backend", backend, "--cases", ",".join(names)]
+    procs = [
+        subprocess.Popen(cmd + ["--rank", str(r)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                         env=env, cwd=str(REPO))
+        for r in range(world)
+    ]
+    deadline = time.monotonic() + timeout
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        for p in procs:
+            p.communicate()
+        return {"__error__": f"the {backend} group of {world} did not finish within {timeout} s"}
+    ranks = []
+    for r, p in enumerate(procs):
+        f = d / f"rank{r}.pkl"
+        if p.returncode != 0 or not f.exists():
+            return {"__error__": f"rank {r} exited with {p.returncode}:\n{logs[r][-6000:]}"}
+        with open(f, "rb") as fh:
+            ranks.append(pickle.load(fh))
+    return {"ranks": ranks, "logs": logs}
+
+
+def run_group(world: int, backend: str = "gloo", names=None, timeout: float = GROUP_TIMEOUT) -> list:
+    """Every rank's results, ``[rank][case][name]``, from one group of
+    ``world`` processes; shared by the pytest workers of one run."""
+    names = list(W.CASES) if names is None else list(names)
+    tag = hashlib.sha256(f"{_RUN_ID}:{world}:{backend}:{','.join(names)}".encode()).hexdigest()[:16]
+    d = Path(tempfile.gettempdir()) / f"heat_tpu_torch_dist_{tag}"
+    d.mkdir(exist_ok=True)
+    done = d / "results.pkl"
+    with open(d / "lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if not done.exists():
+                res = _spawn(world, backend, names, d, timeout)
+                with open(d / "results.tmp", "wb") as fh:
+                    pickle.dump(res, fh)
+                os.replace(d / "results.tmp", done)
+            with open(done, "rb") as fh:
+                res = pickle.load(fh)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    if "__error__" in res:
+        pytest.fail(res["__error__"])
+    return res["ranks"]
+
+
+@pytest.fixture(scope="module")
+def group():
+    return run_group(WORLD)
+
+
+def _case(group, name):
+    per_rank = [rank[name] for rank in group]
+    for r, res in enumerate(per_rank):
+        assert "__error__" not in res, f"rank {r}:\n{res['__error__']}"
+    return per_rank
+
+
+# ------------------------------------------------------- the references
+def heat_tpu_results(name: str, world: int = WORLD) -> dict:
+    import jax
+
+    import heat_tpu as htj
+    from heat_tpu.core.communication import MeshCommunication, comm_context
+
+    with comm_context(MeshCommunication(devices=jax.devices()[:world])):
+        return {k: W.pack(v, port=False) for k, v in W.CASES[name](htj).items()}
+
+
+def port_world1_results(name: str) -> dict:
+    htt.use_device("cpu")
+    try:
+        return W.run_cases(htt, [name], port=True)[name]
+    finally:
+        htt.use_device(None)
+
+
+def _chunk(glob: np.ndarray, lshape_map: np.ndarray, split, rank: int) -> np.ndarray:
+    """Rank ``rank``'s chunk of ``glob`` by ``lshape_map`` (ceil-div)."""
+    if split is None:
+        return glob
+    start = int(lshape_map[:rank, split].sum())
+    idx = [slice(None)] * glob.ndim
+    idx[split] = slice(start, start + int(lshape_map[rank, split]))
+    return glob[tuple(idx)]
+
+
+def _close(got, want, rtol, atol, what):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape, f"{what}: shape {got.shape} vs {want.shape}"
+    if want.dtype.kind in "biuO" or got.dtype.kind in "biu":
+        np.testing.assert_array_equal(got, want, err_msg=what)
+    else:
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(want), err_msg=f"{what}: NaN positions")
+        np.testing.assert_allclose(got, want, rtol=rtol, atol=atol, equal_nan=True, err_msg=what)
+
+
+def compare(port: dict, ref: dict, rank: int, what: str, rtol=RTOL, atol=ATOL, lshape_map=True, world=WORLD):
+    """One packed port result of rank ``rank`` against the packed reference."""
+    assert port["kind"] == ref["kind"], f"{what}: {port} vs {ref}"
+    kind = ref["kind"]
+    meta_only = what.split("/")[-1].startswith("meta:")
+    if kind == "array":
+        assert port["dtype"] == ref["dtype"], f"{what}: dtype {port['dtype']} vs {ref['dtype']}"
+        assert port["gshape"] == ref["gshape"], f"{what}: gshape {port['gshape']} vs {ref['gshape']}"
+        assert port["split"] == ref["split"], f"{what}: split {port['split']} vs {ref['split']}"
+        lmap = _ceil_div_map(ref["gshape"], ref["split"], world)
+        if lshape_map:
+            np.testing.assert_array_equal(port["lshape_map"], ref["lshape_map"], err_msg=f"{what}: lshape_map")
+        np.testing.assert_array_equal(port["lshape_map"], lmap, err_msg=f"{what}: ceil-div lshape_map")
+        chunk = _chunk(ref["global"], lmap, ref["split"], rank)
+        if meta_only:
+            assert port["local"].shape == chunk.shape, what
+            return
+        _close(port["global"], ref["global"], rtol, atol, f"{what}: global")
+        _close(port["local"], chunk, rtol, atol, f"{what}: rank {rank}'s larray")
+    elif kind == "seq":
+        assert len(port["items"]) == len(ref["items"]), what
+        for i, (p, j) in enumerate(zip(port["items"], ref["items"])):
+            compare(p, j, rank, f"{what}[{i}]", rtol, atol, lshape_map, world)
+    elif kind == "raises":
+        assert port["type"] == ref["type"], f"{what}: raised {port['type']} ({port['message']}), want {ref['type']}"
+    elif kind in ("scalar", "ndarray"):
+        _close(port["value"], ref["value"], rtol, atol, what)
+    else:
+        assert port["value"] == ref["value"], f"{what}: {port['value']} vs {ref['value']}"
+
+
+def _ceil_div_map(gshape, split, world):
+    out = np.array([list(gshape)] * world, dtype=np.int64).reshape(world, len(gshape))
+    if split is not None:
+        n = gshape[split]
+        block = -(-n // world) if n else 0
+        for r in range(world):
+            start = min(r * block, n)
+            out[r, split] = min(start + block, n) - start
+    return out
+
+
+def _tolerance(case):
+    return (QR_RTOL, QR_ATOL) if case == "qr" else (RTOL, ATOL)
+
+
+# ----------------------------------------------------------------- tests
+@pytest.mark.parametrize("case", HT_CASES)
+def test_case_matches_heat_tpu_at_world_size_4(group, case):
+    per_rank = _case(group, case)
+    ref = heat_tpu_results(case)
+    rtol, atol = _tolerance(case)
+    for rank, res in enumerate(per_rank):
+        assert set(ref) == {k for k in res if not k.startswith("port:")}, case
+        for key, want in ref.items():
+            compare(res[key], want, rank, f"{case}/{key}", rtol, atol)
+
+
+@pytest.mark.parametrize("case", sorted(W.CASES))
+def test_replicated_results_are_bit_identical_on_every_rank(group, case):
+    per_rank = _case(group, case)
+
+    def leaves(v, path):
+        if v["kind"] == "seq":
+            for i, item in enumerate(v["items"]):
+                yield from leaves(item, f"{path}[{i}]")
+        elif v["kind"] == "array":
+            yield path, v["global"]
+            if v["split"] is None:
+                yield path + ":local", v["local"]
+        elif v["kind"] in ("scalar", "ndarray"):
+            yield path, np.asarray(v["value"])
+
+    skip = {"rank", "device", "decision", "collectives_before"}  # facts of one rank by design
+    for key in per_rank[0]:
+        if key in skip or key.startswith("meta:"):
+            continue
+        first = dict(leaves(per_rank[0][key], key))
+        for rank, res in enumerate(per_rank[1:], 1):
+            for path, val in leaves(res[key], key):
+                assert np.array_equal(val, first[path], equal_nan=val.dtype.kind == "f"), f"{case}/{path} on rank {rank}"
+
+
+def test_empty_shard_layouts_match_heat_tpu(group):
+    res = _case(group, "layout")[0]
+    assert res["a93_s0"]["lshape_map"].tolist() == [[3, 3], [3, 3], [3, 3], [0, 3]]
+    assert res["a33_s0"]["lshape_map"].tolist() == [[1, 3], [1, 3], [1, 3], [0, 3]]
+    assert res["a93_s0_to_1"]["lshape_map"].tolist() == [[9, 1], [9, 1], [9, 1], [9, 0]]
+    assert res["a95_s1"]["lshape_map"].tolist() == [[9, 2], [9, 2], [9, 1], [9, 0]]
+    last = _case(group, "layout")[3]
+    assert last["a93_s0"]["local"].shape == (0, 3) and last["a93_s0_to_1"]["local"].shape == (9, 0)
+
+
+def test_kmeans_fit_runs_one_allreduce_per_iteration_and_gathers_no_x(group):
+    """5 iterations and the inertia pass: 6 allreduces of one packed buffer
+    of k*f + k + 1 float32 values each, and nothing else, on every rank."""
+    k, f = 3, 5
+    for rank, res in enumerate(_case(group, "kmeans")):
+        coll = res["port:collectives"]["value"]
+        assert coll == {"allreduce": {"calls": 6, "bytes": 6 * (k * f + k + 1) * 4}}, (rank, coll)
+        assert res["n_iter"]["value"] == 5
+
+
+def test_kmeans_random_inits_agree_across_ranks_and_with_world_size_1(group):
+    per_rank = _case(group, "kmeans")
+    alone = port_world1_results("kmeans")
+    for init in ("random", "kmeans++"):
+        key = f"port:{init}"
+        for res in per_rank[1:]:
+            np.testing.assert_array_equal(res[key]["value"], per_rank[0][key]["value"])
+        assert per_rank[0][key]["value"].shape == (3, 5)
+    # the random init draws the same rows at any world size, and the fit then agrees
+    np.testing.assert_allclose(per_rank[0]["port:random"]["value"], alone["port:random"]["value"], rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("case", sorted(W.PORT_ONLY - {"environment", "not_implemented"}))
+def test_port_only_case_matches_world_size_1(group, case):
+    alone = port_world1_results(case)
+    for rank, res in enumerate(_case(group, case)):
+        for key, want in alone.items():
+            compare(res[key], want, rank, f"{case}/{key}", lshape_map=False)
+
+
+def test_random_draws_are_split_invariant(group):
+    res = _case(group, "random")[0]
+    np.testing.assert_array_equal(res["randn:0"]["global"], res["randn:none"]["global"])
+    np.testing.assert_array_equal(res["randn:1"]["global"], res["randn:none"]["global"])
+
+
+def test_not_implemented_names_say_which_roadmap_item(group):
+    """The short list of calls that raise above world size 1; every other
+    public name works at world size 4 (the cases above)."""
+    assert sorted(W.NOT_IMPLEMENTED) == ["linalg.cholesky", "linalg.solve_triangular", "spatial.cdist", "spatial.rbf"]
+    for rank, res in enumerate(_case(group, "not_implemented")):
+        for name, v in res.items():
+            assert v["kind"] == "raises" and v["type"] == "NotImplementedError", (rank, name, v)
+            assert "ROADMAP.md Queue A item 1" in v["message"], (name, v["message"])
+
+
+def test_ranks_run_the_group_they_were_given(group):
+    for rank, res in enumerate(_case(group, "environment")):
+        assert res["size"]["value"] == WORLD and res["rank"]["value"] == rank
+        assert res["backend"]["value"] == "gloo" and res["device"]["value"] == "cpu"
+        assert res["decision"]["value"] is True  # the OR of "am I the last rank"
+        assert res["leaked"]["value"] == "", res["leaked"]
+
+
+# the port's public names that take arrays, and the cases that drive each at world size 4
+NON_ARRAY = {
+    "BaseEstimator", "ClassificationMixin", "ClusteringMixin", "Communication", "DNDarray", "Device",
+    "TorchCommunication", "canonical_heat_type", "heat_type_is_exact", "promote_types", "result_type",
+    "get_comm", "get_device", "use_comm", "use_device", "sanitize_axis", "sanitize_comm", "sanitize_device",
+    "sanitize_memory_layout", "sanitize_shape", "broadcast_shape", "is_classifier", "is_clusterer", "is_estimator",
+    "init_distributed", "replicated_decision",
+}
+EXPLICIT = {
+    "array", "zeros", "ones", "full", "eye", "arange", "zeros_like", "ones_like", "full_like", "empty", "empty_like",
+    "clip", "modf", "invert", "bitwise_not", "transpose", "cumsum", "cumprod", "cumproduct", "diff", "mean", "var",
+    "std", "argmin", "argmax", "where", "nonzero", "matmul", "dot", "outer", "trace", "tril", "triu", "norm",
+    "vector_norm", "matrix_norm", "copy",
+}
+
+
+def test_every_public_name_is_driven_or_listed():
+    public = {
+        n for n in dir(htt)
+        if not n.startswith("_") and callable(getattr(htt, n)) and not isinstance(getattr(htt, n), type)
+    }
+    driven = set(W.UNARY) | set(W.BINARY) | set(W.INT_BINARY) | set(W.REDUCTIONS) | EXPLICIT
+    assert not sorted(public - driven - NON_ARRAY)
+    assert not sorted(driven - public)
+    src = WORKER.read_text()
+    for name in EXPLICIT:
+        assert f".{name}(" in src or f'"{name}"' in src, name  # called, or named in a loop of calls
+
+
+@pytest.mark.gpu
+def test_nccl_group_matches_world_size_1():
+    """Two ranks over NCCL on two cards, against the port at world size 1
+    on the CPU (kernels on the cards, their plain versions on the CPU)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs at least 2 CUDA cards")
+    names = ["layout", "binary", "reductions", "moments", "kmeans", "knn", "qr", "linalg", "environment"]
+    per_rank = run_group(2, "nccl", names, timeout=600)
+    for case in names:
+        alone = port_world1_results(case)
+        rtol, atol = (1e-4, 1e-4) if case in ("kmeans", "knn", "qr", "moments", "linalg") else (RTOL, ATOL)
+        for rank, res in enumerate(per_rank):
+            assert "__error__" not in res[case], res[case]["__error__"]
+            for key, want in alone.items():
+                if case == "environment" or key.startswith(("port:", "world:")):
+                    continue
+                compare(res[case][key], want, rank, f"{case}/{key}", rtol, atol, lshape_map=False, world=2)
+    for rank, res in enumerate(per_rank):
+        env = res["environment"]
+        assert env["backend"]["value"] == "nccl" and env["device"]["value"] == f"cuda:{rank}"

@@ -1,0 +1,526 @@
+"""The cases of tests/test_torch_dist.py, and the worker that runs them in
+one rank of a ``torch.distributed`` group.
+
+A case is a function of the package module ``ht`` that returns
+``{name: value}`` (DNDarrays, tuples of them, python scalars, numpy
+arrays, or :class:`Raised` for a call that raised). Names starting with
+``world:`` hold values that depend on the world size (``lshape_map``
+lists), ``meta:`` arrays whose values are undefined (``empty``), and
+``port:`` facts of the port alone. The same code drives
+``heat_tpu_torch`` in every rank of the group and ``heat_tpu`` on a
+device mesh of the same size in the test process, on the same numpy
+inputs made from seeds. :func:`pack` turns a result into plain values
+(numpy arrays and metadata; for the port also this rank's ``larray``), so
+the test process can hold the two against each other.
+
+Run as a script, one process per rank:
+
+    python tests/test_torch_dist_worker.py --rank R --world P --store FILE --out DIR [--backend gloo|nccl]
+
+Each rank starts the group through ``ht.init_distributed`` (gloo on the
+CPU, or NCCL on card R), runs every case and writes ``DIR/rank{R}.pkl``.
+This module imports torch and heat_tpu_torch only — never JAX or
+heat_tpu — and has no test functions.
+"""
+import argparse
+import os
+import pickle
+import sys
+import traceback
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+class Raised:
+    """A call that raised: the exception's type name and message."""
+
+    def __init__(self, exc: BaseException):
+        self.type = type(exc).__name__
+        self.message = str(exc)
+
+
+def attempt(fn):
+    try:
+        return fn()
+    except Exception as e:  # the test compares which exception each package raised
+        return Raised(e)
+
+
+def is_port(ht) -> bool:
+    return ht.__name__ == "heat_tpu_torch"
+
+
+def pack(v, port: bool):
+    """A case result as plain, picklable values."""
+    if hasattr(v, "gshape") and hasattr(v, "lshape_map"):
+        out = {
+            "kind": "array",
+            "global": np.asarray(v.numpy()),
+            "dtype": v.dtype.__name__,
+            "gshape": tuple(int(s) for s in v.gshape),
+            "split": v.split,
+            "lshape_map": np.asarray(v.lshape_map),
+        }
+        if port:
+            out["local"] = v.larray.detach().cpu().numpy()
+        return out
+    if isinstance(v, Raised):
+        return {"kind": "raises", "type": v.type, "message": v.message}
+    if isinstance(v, (tuple, list)):
+        return {"kind": "seq", "items": [pack(i, port) for i in v]}
+    if isinstance(v, np.ndarray):
+        return {"kind": "ndarray", "value": v}
+    if isinstance(v, (bool, int, float, np.generic)):
+        return {"kind": "scalar", "value": v.item() if isinstance(v, np.generic) else v}
+    if v is None or isinstance(v, (str, dict)):
+        return {"kind": "plain", "value": v}
+    raise TypeError(f"cannot pack a {type(v)}")
+
+
+# ------------------------------------------------------------------ data
+def _rng(seed):
+    return np.random.default_rng(seed)
+
+
+A93 = _rng(1).normal(size=(9, 3)).astype(np.float32)
+A33 = _rng(2).normal(size=(3, 3)).astype(np.float32)
+A95 = (_rng(3).normal(size=(9, 5)) * 2).astype(np.float32)
+POS95 = _rng(4).uniform(0.1, 3.0, size=(9, 5)).astype(np.float32)
+I95 = _rng(5).integers(-6, 7, size=(9, 5)).astype(np.int32)
+NAN95 = A95.copy()
+NAN95[2, 1] = NAN95[7, 4] = NAN95[0, 0] = np.nan
+NAN95[:, 3] = np.nan
+TIES95 = np.round(A95).astype(np.float32)  # many equal values: arg* must take the lowest index
+V9 = _rng(6).normal(size=9).astype(np.float32)
+V5 = _rng(7).normal(size=5).astype(np.float32)
+
+
+def _blobs(seed, n, f, k, scale=10.0):
+    rng = _rng(seed)
+    centers = (rng.normal(size=(k, f)) * scale).astype(np.float32)
+    member = rng.integers(0, k, size=n)
+    member[:k] = np.arange(k)
+    return (centers[member] + rng.normal(size=(n, f))).astype(np.float32), member
+
+
+BLOBS, _ = _blobs(8, 203, 5, 3)
+BLOBS_NEW, _ = _blobs(9, 37, 5, 3)
+TALL = _rng(10).normal(size=(256, 8)).astype(np.float32)
+RAGGED = _rng(11).normal(size=(20, 8)).astype(np.float32)
+
+# names the unary/binary sweeps call, with the domain each takes
+UNARY = {
+    "exp": A95, "expm1": A95, "exp2": A95, "log": POS95, "log2": POS95, "log10": POS95, "log1p": POS95,
+    "sqrt": POS95, "rsqrt": POS95, "square": A95, "cbrt": A95, "acos": A95 / 7, "arccos": A95 / 7,
+    "acosh": POS95 + 1, "arccosh": POS95 + 1, "asin": A95 / 7, "arcsin": A95 / 7, "asinh": A95, "arcsinh": A95,
+    "atan": A95, "arctan": A95, "atanh": A95 / 7, "arctanh": A95 / 7, "cos": A95, "cosh": A95, "deg2rad": A95,
+    "radians": A95, "rad2deg": A95, "degrees": A95, "sin": A95, "sinc": A95, "sinh": A95, "tan": A95 / 7,
+    "tanh": A95, "abs": A95, "absolute": A95, "ceil": A95, "floor": A95, "trunc": A95, "fabs": A95,
+    "round": A95, "sign": A95, "sgn": A95, "nan_to_num": NAN95, "isfinite": NAN95, "isinf": NAN95,
+    "isnan": NAN95, "isneginf": NAN95, "isposinf": NAN95, "signbit": A95, "logical_not": A95, "neg": A95,
+    "negative": A95, "pos": A95, "positive": A95, "copy": A95,
+}
+BINARY = [
+    "add", "sub", "subtract", "mul", "multiply", "div", "divide", "floordiv", "floor_divide", "mod", "remainder",
+    "fmod", "pow", "power", "hypot", "copysign", "logaddexp", "logaddexp2", "atan2", "arctan2", "maximum",
+    "minimum", "eq", "equal", "ne", "not_equal", "lt", "less", "le", "less_equal", "gt", "greater", "ge",
+    "greater_equal", "isclose", "allclose", "logical_and", "logical_or", "logical_xor",
+]
+INT_BINARY = ["bitwise_and", "bitwise_or", "bitwise_xor", "left_shift", "right_shift"]
+REDUCTIONS = ["sum", "prod", "nansum", "nanprod", "min", "max", "nanmin", "nanmax", "all", "any"]
+
+
+# ----------------------------------------------------------------- cases
+def case_layout(ht):
+    a, b, c = ht.array(A93, split=0), ht.array(A33, split=0), ht.array(A95, split=1)
+    d = ht.array(A93, split=0)
+    d.resplit_(1)
+    return {
+        "a93_s0": a, "a33_s0": b, "a95_s1": c, "a93_s0_to_1": a.resplit(1), "a95_s1_to_0": c.resplit(0),
+        "a93_s0_to_none": a.resplit(None), "a93_none_to_0": ht.array(A93).resplit(0), "resplit_": d,
+        "a33_s0_to_1_to_none": b.resplit(1).resplit(None), "balanced": a.is_balanced(), "balance_": a.balance_(),
+        "world:a95_s1_lshape": tuple(c.lshape_map[:, 1].tolist()),
+    }
+
+
+def case_factories(ht):
+    x = ht.array(A95, split=1)
+    return {
+        "zeros": ht.zeros((9, 3), split=0), "ones": ht.ones((5, 7), split=1, dtype=ht.int32),
+        "full": ht.full((9,), 2.5, split=0), "eye": ht.eye(7, split=0), "eye_rect": ht.eye((5, 9), split=1),
+        "arange": ht.arange(10, split=0), "arange_step": ht.arange(1, 20, 3, split=0),
+        "arange_float": ht.arange(0.0, 2.0, 0.25, split=0), "zeros_like": ht.zeros_like(x),
+        "ones_like": ht.ones_like(x, split=0), "full_like": ht.full_like(x, 7), "array_ndmin": ht.array(V5, ndmin=2, split=1),
+        "array_of_dndarray": ht.array(x, split=0), "array_int": ht.array(I95, split=0),
+        "meta:empty": ht.empty((9, 3), split=0), "meta:empty_like": ht.empty_like(x),
+    }
+
+
+def case_is_split(ht):
+    """Ranks hold 4, 0, 1 and the rest of 9 rows: the global array is their
+    concatenation in rank order, rebalanced (heat_tpu, one controller, is
+    handed the concatenation)."""
+    if is_port(ht):
+        comm = ht.get_comm()
+        bounds = [0, 4, 4, 5] + [9] * comm.size
+        r = comm.rank
+        lo, hi = (bounds[r], bounds[r + 1]) if r < comm.size - 1 else (bounds[r], 9)
+        shard, shard1 = A93[lo:hi], A95.T[:, lo:hi]
+    else:
+        shard, shard1 = A93, A95.T
+    return {"rows": ht.array(shard, is_split=0), "cols": ht.array(shard1, is_split=1)}
+
+
+def case_binary(ht):
+    x0, x1, xn = ht.array(A95, split=0), ht.array(A95, split=1), ht.array(A95)
+    p0 = ht.array(POS95, split=0)
+    return {
+        "s0+s0": x0 + p0, "s0*none": x0 * xn, "s0-row": x0 - ht.array(V5), "s1+row": x1 + ht.array(V5),
+        "s0/col": x0 / ht.array(V9.reshape(9, 1)), "col_s0+none": ht.array(V9.reshape(9, 1), split=0) + xn,
+        "row_s0+none": ht.array(V5.reshape(1, 5), split=0) + xn, "vec_s0+none": ht.array(V5, split=0) + xn,
+        "scalar": 2.5 * x1 - 1, "rpow": 2 ** x0, "pow": p0 ** 0.5, "none+s1": xn + x1,
+        "mismatch": attempt(lambda: x0 + x1), "out": ht.add(x0, 1.0, out=ht.zeros((9, 5), split=0)),
+        "where_kw": ht.add(x0, p0, where=ht.array(A95 > 0, split=0)),
+        "iadd": _iadd(ht), "cmp": x1 > xn,
+    }
+
+
+def _iadd(ht):
+    y = ht.array(A95, split=0)
+    y += 1
+    return y
+
+
+def case_unary_sweep(ht):
+    out = {}
+    for name, data in UNARY.items():
+        for split in (0, 1):
+            out[f"{name}:{split}"] = getattr(ht, name)(ht.array(data, split=split))
+    out["clip"] = ht.clip(ht.array(A95, split=0), -1.0, 1.5)
+    out["clip_arr"] = ht.clip(ht.array(A95, split=1), ht.array(-POS95, split=1), 2.0)
+    out["modf"] = ht.modf(ht.array(A95, split=1))
+    out["round2"] = ht.round(ht.array(A95, split=0), 2)
+    out["invert"] = ht.invert(ht.array(I95, split=0))
+    out["bitwise_not"] = ht.bitwise_not(ht.array(I95, split=1))
+    out["astype"] = ht.array(A95, split=1).astype(ht.int32)
+    out["transpose"] = ht.transpose(ht.array(A95, split=0))
+    out["T"] = ht.array(A95, split=1).T
+    return out
+
+
+def case_binary_sweep(ht):
+    out = {}
+    for name in BINARY:
+        a = ht.array(POS95 if name in ("pow", "power") else A95, split=0)
+        b = ht.array(POS95, split=0) if name not in ("pow", "power") else ht.array(V5 / 3)
+        out[name] = getattr(ht, name)(a, b)
+    for name in INT_BINARY:
+        b = np.abs(I95) % 4 if "shift" in name else I95[::-1].copy()
+        out[name] = getattr(ht, name)(ht.array(I95, split=1), ht.array(b, split=1))
+    out["equal_same"] = ht.equal(ht.array(A95, split=0), ht.array(A95))
+    out["allclose_same"] = ht.allclose(ht.array(A95, split=0), ht.array(A95 + 1e-7))
+    return out
+
+
+def case_reductions(ht):
+    out = {}
+    for name in REDUCTIONS:
+        for label, data, split in (("s0", A95, 0), ("s1", A95, 1), ("nan", NAN95, 0), ("e33", A33, 0)):
+            x = ht.array(data if name not in ("all", "any") else data > 0.5, split=split)
+            for axis in (None, 0, 1):
+                out[f"{name}:{label}:{axis}"] = getattr(ht, name)(x, axis=axis)
+            out[f"{name}:{label}:keep"] = getattr(ht, name)(x, axis=split, keepdims=True)
+    out["sum_int"] = ht.sum(ht.array(I95, split=1), axis=1)
+    out["method"] = ht.array(A95, split=0).sum(axis=0)
+    return out
+
+
+def case_arg(ht):
+    out = {}
+    for label, data in (("ties", TIES95), ("nan", NAN95), ("e33", A33)):
+        for split in (0, 1):
+            x = ht.array(data, split=split)
+            for axis in (None, 0, 1):
+                out[f"argmin:{label}:{split}:{axis}"] = ht.argmin(x, axis=axis)
+                out[f"argmax:{label}:{split}:{axis}"] = ht.argmax(x, axis=axis)
+    out["argmax_bool"] = ht.argmax(ht.array(A95 > 2, split=0), axis=0)
+    return out
+
+
+def case_cumulative(ht):
+    out = {}
+    for label, data, split in (("s0", A95 / 3, 0), ("s1", A95 / 3, 1), ("e33", A33, 0), ("int", I95, 0)):
+        x = ht.array(data, split=split)
+        for axis in (0, 1):
+            out[f"cumsum:{label}:{axis}"] = ht.cumsum(x, axis)
+            out[f"cumprod:{label}:{axis}"] = ht.cumprod(x, axis)
+        out[f"cumproduct:{label}"] = ht.cumproduct(x, split)
+    out["cumsum_bool"] = ht.cumsum(ht.array(A95 > 0, split=0), 0)
+    out["diff0"] = ht.diff(ht.array(A95, split=0), axis=0)
+    out["diff1"] = ht.diff(ht.array(A95, split=0), n=2, axis=1)
+    out["diff_prepend"] = ht.diff(ht.array(A95, split=1), axis=1, prepend=0.0)
+    return out
+
+
+def case_moments(ht):
+    out = {}
+    for label, data, split in (("s0", A95, 0), ("s1", A95, 1), ("e33", A33, 0), ("f64", A95.astype(np.float64), 0),
+                               ("vec", V9, 0), ("int", I95, 0)):
+        x = ht.array(data, split=split)
+        axes = (None, 0) if data.ndim == 1 else (None, 0, 1)
+        for axis in axes:
+            out[f"mean:{label}:{axis}"] = ht.mean(x, axis=axis)
+            out[f"var:{label}:{axis}"] = ht.var(x, axis=axis)
+            out[f"std:{label}:{axis}"] = ht.std(x, axis=axis, ddof=1)
+    mask = ht.array(_rng(12).random((9, 5)) > 0.3, split=0)
+    for axis in (None, 0, 1):
+        out[f"mean_where:{axis}"] = ht.mean(ht.array(A95, split=0), axis=axis, where=mask)
+    x = ht.array(A95, split=0)
+    z = (x - ht.mean(x, axis=0)) / ht.std(x, axis=0)
+    out["standardized"] = z
+    return out
+
+
+def case_indexing(ht):
+    x0, x1 = ht.array(A95, split=0), ht.array(A95, split=1)
+    out = {
+        "int0": x0[2], "neg0": x0[-1], "slice0": x0[2:7], "step0": x0[1:8:3], "col0": x0[:, 1],
+        "cols0": x0[:, 1:3], "tail0": x0[7:], "head0": x0[:3], "elem0": x0[5, 2], "ell0": x0[..., 4],
+        "int1": x1[2], "slice1": x1[:, 1:4], "col1": x1[:, 3], "rows1": x1[3:6], "empty0": x0[4:4],
+        "float": float(x0[3, 1]), "len": len(x1), "item": x1[8, 4].item(), "tolist": x1[1:3].tolist(),
+        "iter": [float(v.sum()) for v in ht.array(A33, split=0)], "numpy": x1.numpy(),
+        "bool": bool(x0[0, 0] > 0), "int": int(ht.array(I95, split=0)[4, 4]),
+        "where": ht.where(x0 > 0, x0, 0.0), "where_s1": ht.where(x1 > 0, 1.0, x1),
+        "where_mixed": ht.where(ht.array(A95 > 0, split=0), ht.array(A95), -1.0),
+        "nonzero0": ht.nonzero(x0 > 1), "nonzero1": ht.nonzero(x1 > 1), "nonzero_vec": ht.nonzero(ht.array(V9, split=0) > 0),
+        "oob": attempt(lambda: x0[9]),
+    }
+    return out
+
+
+def case_linalg(ht):
+    a0, a1, an = ht.array(A95, split=0), ht.array(A95, split=1), ht.array(A95)
+    out = {}
+    bt = _rng(13).normal(size=(5, 4)).astype(np.float32)
+    for sa, a in (("0", a0), ("1", a1), ("n", an)):
+        for sb in (0, 1, None):
+            out[f"matmul:{sa}:{sb}"] = ht.matmul(a, ht.array(bt, split=sb))
+    out["ata"] = a0.T @ a0
+    out["aat"] = a1 @ a1.T
+    out["matvec"] = a0 @ ht.array(V5)
+    out["vecmat"] = ht.array(V9, split=0) @ an
+    out["dot_vec"] = ht.dot(ht.array(V9, split=0), ht.array(V9))
+    out["dot_mat"] = ht.dot(a0, ht.array(bt))
+    out["outer"] = ht.outer(ht.array(V9, split=0), ht.array(V5))
+    out["outer_s1"] = ht.outer(ht.array(V9), ht.array(V5, split=0), split=1)
+    sq = ht.array(_rng(14).normal(size=(7, 7)).astype(np.float32), split=0)
+    out["trace"] = ht.trace(sq)
+    out["trace_off"] = ht.linalg.trace(ht.array(A95, split=1), 1)
+    for name in ("tril", "triu"):
+        for k in (-1, 0, 2):
+            out[f"{name}:0:{k}"] = getattr(ht, name)(a0, k)
+            out[f"{name}:1:{k}"] = getattr(ht, name)(a1, k)
+        out[f"{name}:vec"] = getattr(ht, name)(ht.array(V5, split=0))
+    out["norm"] = ht.norm(a1)
+    out["norm_ax"] = ht.norm(a0, axis=1)
+    out["vector_norm0"] = ht.vector_norm(a0, axis=0, ord=1)
+    out["vector_norm1"] = ht.vector_norm(a0, axis=1)
+    out["vector_norm_all"] = ht.vector_norm(a1)
+    out["matrix_norm"] = ht.matrix_norm(a0)
+    out["matrix_norm_inf"] = ht.matrix_norm(a1, ord=np.inf)
+    g = _rng(16).normal(size=(6, 6))
+    spd = ht.array((g @ g.T / 6 + np.eye(6)).astype(np.float32))
+    low = ht.linalg.cholesky(spd)
+    out["cholesky_replicated"] = low
+    out["solve_replicated"] = ht.linalg.solve_triangular(low, ht.array(V5[:5].repeat(2)[:6]), lower=True)
+    return out
+
+
+def _sign_fixed(q, r):
+    """Q and R with R's diagonal made non-negative (QR is unique up to
+    those signs)."""
+    rn, qn = r.numpy(), None if q is None else q.numpy()
+    s = np.where(np.diag(rn) < 0, -1.0, 1.0).astype(rn.dtype)
+    return (None if qn is None else qn * s[None, : qn.shape[1]]), rn * s[: rn.shape[0], None]
+
+
+def case_qr(ht):
+    out = {}
+    for label, data, split in (("tall", TALL, 0), ("ragged", RAGGED, 0), ("e93", A93, 0), ("s1", TALL[:40], 1),
+                               ("none", RAGGED, None)):
+        q, r = ht.linalg.qr(ht.array(data, split=split))
+        out[f"world:{label}:meta_q"] = (q.gshape, q.split, q.lshape_map.tolist())
+        out[f"world:{label}:meta_r"] = (r.gshape, r.split, r.lshape_map.tolist())
+        out[f"{label}:qr"] = _sign_fixed(q, r)
+        out[f"{label}:resid"] = float(np.abs(q.numpy() @ r.numpy() - data).max())
+    out["r_only"] = _sign_fixed(None, ht.linalg.qr(ht.array(TALL, split=0), calc_q=False).R)[1]
+    out["householder"] = _sign_fixed(*ht.linalg.qr(ht.array(TALL, split=0), method="householder"))
+    return out
+
+
+def case_kmeans(ht):
+    x = ht.array(BLOBS, split=0)
+    z = (x - ht.mean(x, axis=0)) / ht.std(x, axis=0)
+    init = z[:3].resplit(None)
+    out = {}
+    if is_port(ht):
+        ht.kernels.reset_kernel_stats()
+    km = ht.cluster.KMeans(n_clusters=3, init=init, max_iter=5, tol=None).fit(z)
+    if is_port(ht):
+        out["port:collectives"] = {k: dict(v) for k, v in ht.kernels.COLLECTIVES.items()}
+    out.update({
+        "centers": km.cluster_centers_, "labels": km.labels_, "inertia": km.inertia_, "n_iter": km.n_iter_,
+        "predict": km.predict(ht.array(BLOBS_NEW, split=0) - ht.mean(x, axis=0)),
+        "predict_e33": km.predict(ht.array(BLOBS_NEW[:3], split=0)),
+    })
+    km_tol = ht.cluster.KMeans(n_clusters=3, init=z[:3], max_iter=50, tol=1e-4).fit(z)
+    out.update({"tol_n_iter": km_tol.n_iter_, "tol_centers": km_tol.cluster_centers_, "tol_labels": km_tol.labels_})
+    state = km.state_dict()
+    back = ht.cluster.KMeans().load_state_dict(state)
+    out.update({"state_labels": back.labels_, "state_centers": back.cluster_centers_,
+                "state_keys": sorted(state)})
+    if is_port(ht):
+        for init_name in ("random", "kmeans++"):
+            k2 = ht.cluster.KMeans(n_clusters=3, init=init_name, max_iter=3, tol=None, random_state=5).fit(z)
+            out[f"port:{init_name}"] = k2.cluster_centers_.larray.cpu().numpy()
+    return out
+
+
+def case_knn(ht):
+    rng = _rng(15)
+    y = ht.array(BLOBS[:150], split=0)
+    q0, qn = ht.array(BLOBS_NEW, split=0), ht.array(BLOBS_NEW)
+    labels = ht.array((rng.integers(0, 3, size=150)).astype(np.int32), split=0)
+    out = {
+        "nn_s0": ht.spatial.nearest_neighbors(q0, ht.array(BLOBS[:150]), 4),
+        "nn_ysplit": ht.spatial.nearest_neighbors(q0, y, 3),
+        "nn_none": ht.spatial.nearest_neighbors(qn, y, 2),
+        "nn_e33": ht.spatial.nearest_neighbors(ht.array(BLOBS_NEW[:3], split=0), y, 5),
+    }
+    clf = ht.classification.KNeighborsClassifier(n_neighbors=5).fit(y, labels)
+    out["predict"] = clf.predict(q0)
+    out["predict_none"] = clf.predict(qn)
+    out["predict_e33"] = clf.predict(ht.array(BLOBS_NEW[:3], split=0))
+    out["predict_s1"] = attempt(lambda: clf.predict(ht.array(BLOBS_NEW, split=1)))
+    return out
+
+
+def case_spatial(ht):
+    x0, xn = ht.array(BLOBS[:30], split=0), ht.array(BLOBS[:30])
+    yn, y0 = ht.array(BLOBS_NEW[:11]), ht.array(BLOBS_NEW[:11], split=0)
+    return {
+        "cdist:0n": ht.spatial.cdist(x0, yn), "cdist:n0": ht.spatial.cdist(xn, y0),
+        "cdist_quad": ht.spatial.cdist(x0, yn, quadratic_expansion=True), "cdist_self": ht.spatial.cdist(xn),
+        "rbf:0n": ht.spatial.rbf(x0, yn, sigma=3.0), "rbf:n0": ht.spatial.rbf(xn, y0, sigma=3.0),
+    }
+
+
+def case_convert(ht):
+    state = {
+        "n_clusters": 3, "max_iter": 7, "tol": None, "random_state": 1, "n_iter": 7, "inertia": 12.5,
+        "cluster_centers": BLOBS[:3], "labels": (np.arange(203) % 3).astype(np.int64), "labels_split": 0,
+    }
+    if is_port(ht):
+        km = ht.convert.from_heat_tpu_state(state)
+        arr = ht.convert.array_from_numpy(A95, split=1)
+        clf = ht.convert.knn_from_heat_tpu(BLOBS[:40], state["labels"][:40], n_neighbors=3, split=0)
+    else:
+        km = ht.cluster.KMeans().load_state_dict(state)
+        arr = ht.array(A95, split=1)
+        clf = ht.classification.KNeighborsClassifier(n_neighbors=3).fit(
+            ht.array(BLOBS[:40], split=0), ht.array(state["labels"][:40], split=0))
+    return {"labels": km.labels_, "centers": km.cluster_centers_, "array": arr,
+            "knn_predict": clf.predict(ht.array(BLOBS_NEW, split=0))}
+
+
+# names whose call above world size 1 raises NotImplementedError naming its ROADMAP item
+NOT_IMPLEMENTED = {
+    "linalg.cholesky": lambda ht: ht.linalg.cholesky(ht.array(np.eye(6, dtype=np.float32) * 2, split=0)),
+    "linalg.solve_triangular": lambda ht: ht.linalg.solve_triangular(
+        ht.array(np.eye(6, dtype=np.float32), split=0), ht.array(np.ones(6, np.float32))),
+    "spatial.cdist": lambda ht: ht.spatial.cdist(ht.array(BLOBS[:9], split=0), ht.array(BLOBS[:5], split=0)),
+    "spatial.rbf": lambda ht: ht.spatial.rbf(ht.array(BLOBS[:9], split=0), ht.array(BLOBS[:5], split=0)),
+}
+
+
+def case_not_implemented(ht):
+    return {name: attempt(lambda fn=fn: fn(ht)) for name, fn in NOT_IMPLEMENTED.items()}
+
+
+def case_environment(ht):
+    """Port-only facts of the rank: what it imported, and its group."""
+    comm = ht.get_comm()
+    x = ht.array(A93, split=0)
+    before = {k: dict(v) for k, v in ht.kernels.COLLECTIVES.items()}
+    decision = ht.replicated_decision(comm.rank == comm.size - 1)
+    return {
+        "leaked": ",".join(sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "heat_tpu"))),
+        "size": comm.size, "rank": comm.rank, "backend": comm.backend, "device": str(x.larray.device),
+        "decision": decision, "collectives_before": before,
+    }
+
+
+def case_random(ht):
+    ht.random.seed(3)
+    a = ht.random.randn(9, 5, split=0)
+    ht.random.seed(3)
+    b = ht.random.randn(9, 5, split=1)
+    ht.random.seed(3)
+    c = ht.random.randn(9, 5)
+    ht.random.seed(4)
+    return {"randn:0": a, "randn:1": b, "randn:none": c, "rand:1": ht.random.rand(3, 10, split=1),
+            "randint:0": ht.random.randint(0, 9, size=(11,), split=0)}
+
+
+
+CASES = {
+    name[len("case_"):]: fn for name, fn in sorted(globals().items()) if name.startswith("case_") and callable(fn)
+}
+# cases whose reference is the port itself at world size 1 (heat_tpu has no counterpart to compare)
+PORT_ONLY = {"environment", "not_implemented", "random"}
+
+
+
+
+def run_cases(ht, names, port: bool):
+    out = {}
+    for name in names:
+        try:
+            out[name] = {k: pack(v, port) for k, v in CASES[name](ht).items()}
+        except Exception:
+            out[name] = {"__error__": traceback.format_exc()}
+            print(f"case {name} failed:\n{out[name]['__error__']}", file=sys.stderr, flush=True)
+    return out
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--rank", type=int, required=True)
+    ap.add_argument("--world", type=int, required=True)
+    ap.add_argument("--store", required=True, help="file for the group's FileStore")
+    ap.add_argument("--out", required=True, help="directory for rank{R}.pkl")
+    ap.add_argument("--backend", default="gloo", choices=("gloo", "nccl"))
+    ap.add_argument("--cases", default=",".join(CASES))
+    args = ap.parse_args()
+    sys.path.insert(0, REPO)
+    import torch
+
+    torch.set_num_threads(1)
+    import heat_tpu_torch as ht
+
+    if args.backend == "gloo":
+        ht.use_device("cpu")
+    ht.init_distributed(backend=args.backend, init_method=f"file://{args.store}", world_size=args.world,
+                        rank=args.rank, local_rank=args.rank, timeout=180)
+    results = run_cases(ht, args.cases.split(","), port=True)
+    ht.get_comm().barrier()
+    with open(os.path.join(args.out, f".rank{args.rank}.pkl"), "wb") as fh:
+        pickle.dump(results, fh)
+    os.replace(os.path.join(args.out, f".rank{args.rank}.pkl"), os.path.join(args.out, f"rank{args.rank}.pkl"))
+    torch.distributed.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()

@@ -35,7 +35,7 @@ def _port_sources():
 
 
 def test_sources_import_no_jax_or_heat_tpu():
-    files = list(_port_sources()) + [os.path.join(REPO, "chip_smoke.py")]
+    files = list(_port_sources()) + [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "tests", "test_torch_dist_worker.py")]
     assert len(files) > 20
     for path in files:
         bad = _imported_roots(path) & set(FORBIDDEN)
@@ -68,6 +68,17 @@ def test_cpu_slice_runs_without_jax_in_a_fresh_process():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("CLEAN"), out.stdout
+
+
+def test_spawned_ranks_import_no_jax():
+    """The ranks of tests/test_torch_dist.py's gloo group: what each
+    process had imported after running every case."""
+    from tests.test_torch_dist import WORLD, run_group
+
+    for rank, res in enumerate(run_group(WORLD)):
+        env = res["environment"]
+        assert "__error__" not in env, env.get("__error__")
+        assert env["leaked"]["value"] == "" and env["rank"]["value"] == rank
 
 
 def test_default_device_is_the_card():

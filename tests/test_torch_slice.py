@@ -340,8 +340,10 @@ def test_communication_arithmetic_matches_heat_tpu():
         np.testing.assert_array_equal(ct.lshape_map(shape, split), c1.lshape_map(shape, split))
         if split is not None:
             assert ct.counts_displs_shape(shape, split) == c1.counts_displs_shape(shape, split)
-    with pytest.raises(NotImplementedError, match="multi-card"):
-        htt.communication.TorchCommunication(size=2)
+    # no process group started: a world of size 1 whose collectives run nothing
+    assert ct.backend is None and htt.replicated_decision(True) and not htt.replicated_decision(0)
+    with pytest.raises(TypeError):
+        htt.communication.TorchCommunication(group=2)
     with pytest.raises(TypeError):
         htt.use_comm("world")
     assert htt.sanitize_comm(None) is ct

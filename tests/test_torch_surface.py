@@ -711,12 +711,11 @@ STILL_MISSING = {
         "finfo", "flatten", "flexible", "flip", "fliplr", "flipud", "float16", "float_", "fuse",
         "get_printoptions", "get_state", "global_printing", "heat_type_is_complexfloating",
         "heat_type_is_inexact", "heat_type_of", "histc", "histogram", "hsplit", "hstack", "iinfo", "imag",
-        "init_distributed", "int16", "int8", "int_", "inv", "is_regressor", "is_transformer", "iscomplex",
+        "int16", "int8", "int_", "inv", "is_regressor", "is_transformer", "iscomplex",
         "isreal", "issubdtype", "kurtosis", "lazy", "linspace", "load", "load_csv", "load_hdf5", "load_netcdf",
         "local_printing", "logspace", "median", "meshgrid", "moveaxis", "nanmean", "normal", "pad",
         "percentile", "permutation", "print0", "projection", "rand", "randint", "randn", "random_integer",
-        "random_sample", "randperm", "ranf", "ravel", "real", "redistribute", "repeat", "replicated_decision",
-        "replicated_frame", "replicated_ids", "reset_fuse_stats", "reshape", "resplit", "roll", "rot90",
+        "random_sample", "randperm", "ranf", "ravel", "real", "redistribute", "repeat", "replicated_frame", "replicated_ids", "reset_fuse_stats", "reshape", "resplit", "roll", "rot90",
         "row_stack", "sample", "sanitize_distribution", "sanitize_in", "sanitize_in_tensor",
         "sanitize_infinity", "sanitize_lshape", "sanitize_out", "sanitize_sequence", "sanitize_slice",
         "sanitize_split", "save", "save_csv", "save_hdf5", "save_netcdf", "scalar_to_1d", "seed",
