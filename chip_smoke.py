@@ -15,14 +15,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 3. Each kernel against its plain PyTorch version on the card, at several
    shapes, main-path shapes included, with the tolerances below;
    ``lloyd_fused`` on both of its routes (``resident`` and ``general``),
-   f up to 4097 and k * f past 8192.
+   f up to 4097 and k * f past 8192; ``threefry_bits`` bit-identical to
+   its plain version (bits, uniform float32 and float64, the main path's
+   2^24 x 32 normal draw, and the permutation ``KMeans(init="random")``
+   takes at n = 2^24).
 4. Three paths at full width, each with its kernel launch counts zeroed
    just before and read just after, and held against the same path
    through the plain versions:
    - KMeans: 8 Gaussian blobs, n = 2^24 rows x f = 32 float32 (2 GiB;
-     ``bench.py``'s k, f and iteration count at 32x its rows),
-     ``mean``/``std`` along axis 0, standardize, ``KMeans(8, init=8 rows
-     of z, max_iter=30, tol=None).fit``, ``predict`` on 2^20 held-out rows;
+     ``bench.py``'s k, f and iteration count at 32x its rows) drawn with
+     ``ht.random.randn``, ``mean``/``std`` along axis 0, standardize,
+     ``KMeans(8, init=8 rows of z, max_iter=30, tol=None).fit``,
+     ``predict`` on 2^20 held-out rows;
    - kNN: ``KNeighborsClassifier(n_neighbors=5).fit`` on the first 2^22
      standardized rows (512 MiB) with the fit's labels, ``predict`` on 2^13
      held-out standardized rows; then ``spatial.nearest_neighbors`` at
@@ -56,11 +60,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    card (spawned after the build, NCCL, no gloo fallback), 2^24 x 32 rows
    per card from one seed: ``mean``/``std`` -> standardize -> ``KMeans.fit``
    -> ``predict`` -> kNN ``predict`` (2^13 split-0 queries) -> ``qr`` +
-   ``matmul(A.T, A)`` at 2^24 x 64 per card -> a resplit round trip; per
-   rank its launches, ``COLLECTIVES`` and times, then the same path in
-   this process on the same global data as the reference, and the
-   weak-scaling efficiency of the warm fit. ``--phases dist`` runs only
-   phases 1, 2 and 6.
+   ``matmul(A.T, A)`` at 2^24 x 64 per card -> a resplit round trip ->
+   the kernel-ridge path at 4096 rows per card (X of n x 32 drawn at
+   split 0 and standardized, ``K = rbf(X, X)``, ``+ eye(n, split=0)``,
+   ``cholesky(K, tiles_per_proc=4)``, whose 1024-wide diagonal blocks run
+   ``chol_panel_fused`` on every rank above one card, and two
+   ``solve_triangular``); per rank its launches, ``COLLECTIVES`` and
+   times, the ridge residuals computed across ranks (L never gathered)
+   and ``rbf(..., use_ring=True)`` against the default route; then the
+   same paths in this process on the same global data as the reference
+   (the ridge factor against the one-process factor of the same K), and
+   the weak-scaling efficiency of the warm fit. ``--phases dist`` runs
+   only phases 1, 2 and 6.
 
 The line before last is one JSON object ``{"kernels": [...]}`` (not
 printed with ``--phases dist``); the last line is
@@ -121,6 +132,9 @@ RIDGE_SOLVE_RTOL = 1e-2
 # grows like u sqrt(m) for random signs: 2^-24 * 2^12 = 2.4e-4)
 QR_RESID_RTOL, QR_ORTHO_ATOL, QR_R_RTOL = 1e-5, 1e-4, 1e-4
 QR_GRAM_RTOL = 1e-3
+# threefry_bits' normal draw, kernel vs plain version: both round every product and sum on its own and call
+# CUDA's log1pf and sqrtf, so equal bits are expected; held within 2 float32 ulp
+THREEFRY_NORMAL_RTOL = 2 * 2.0 ** -23
 # the surface's float functions against their float64 values, in float32 ulps: CUDA's expf and sinf are
 # within 2 ulp, log1pf within 1, sqrtf and floor exact, and z % 1 one rounding of an exact value
 SURFACE_ULPS = 2.0
@@ -140,6 +154,11 @@ QR_CHUNK = 1 << 22           # rows per float64 check chunk
 # triangular solve (read, write); then the guard's Gram of Q (read)
 QR_CHOLQR2_PASSES = 7
 N_SLICE, N_CUMSUM = 1 << 16, 4096  # the surface: rows compared with numpy, rows of the cumsum
+THREEFRY_KEY = (0x2545F491, 0x6C078965)  # the phase-3 checks' key
+# float32 operations per element of the normal draw: the uniform's subtract, multiply and add, u * u, log1p
+# (counted as 10), a sqrt, a subtract, 9 multiply-adds of Horner's rule and two products; the ~70 32-bit
+# integer operations of threefry's rounds have no peak in the table and are not counted
+THREEFRY_NORMAL_FLOP = 36
 
 
 def check(cond, msg):
@@ -213,8 +232,12 @@ def spd(n, gen, dev):
 
 
 # ---- [dist]: the main path over torch.distributed, one process per card ------------------------
-DIST_SEED, DIST_QR_SEED = 7, 8
+DIST_SEED, DIST_QR_SEED, DIST_RIDGE_SEED = 7, 8, 9
 N_DIST_SLICE = 1 << 20  # rows of z in the resplit round trip
+# the kernel-ridge path in [dist]: 4096 rows per card (n = 16384 at four cards: K is 1 GiB, 256 MiB per card);
+# cholesky's tiles_per_proc = 4 makes its panels 4096 / 4 = 1024 = MAX_FUSED_N rows, so every diagonal block
+# runs chol_panel_fused above one card (at one card n = 4096 > MAX_FUSED_N takes cholesky_ex)
+N_RIDGE_CARD, RIDGE_TILES = 4096, 4
 
 
 def _dist_data(ht, world):
@@ -358,6 +381,7 @@ def _dist_rank(rank, world, store, out_dir):
     # ---- warm times
     _, t_warm, ev_warm = timed(lambda: ht.cluster.KMeans(n_clusters=K_MAIN, init=init, max_iter=ITERS, tol=None).fit(z))
     _, t_knn_w, ev_knn_w = timed(lambda: clf.predict(zq))
+    _, t_stats_w, ev_stats_w = timed(lambda: (ht.mean(x, axis=0), ht.std(x, axis=0)))
     d_nn, i_nn = ht.spatial.nearest_neighbors(zq, train, KNN_K)  # for the parent's index check; not on the path
     sl = z[:N_DIST_SLICE]
     rt, t_rs, ev_rs = timed(lambda: sl.resplit(1).resplit(None))
@@ -366,8 +390,8 @@ def _dist_rank(rank, world, store, out_dir):
     check(torch.equal(rt.larray[off : off + lsh[0]], sl.larray), "resplit 0 -> 1 -> None changed the values")
     same_everywhere(rt.larray, "resplit round trip")
     say(f"warm fit {t_warm:.4f} s host ({ITERS / t_warm:.1f} it/s), {ev_warm:.4f} ms events; warm kNN predict "
-        f"{t_knn_w:.4f} s, {ev_knn_w:.4f} ms events; resplit 0 -> 1 -> None of {sl.gshape} {t_rs:.4f} s, "
-        f"{ev_rs:.4f} ms events")
+        f"{t_knn_w:.4f} s, {ev_knn_w:.4f} ms events; warm mean+std {t_stats_w:.4f} s, {ev_stats_w:.4f} ms events; "
+        f"resplit 0 -> 1 -> None of {sl.gshape} {t_rs:.4f} s, {ev_rs:.4f} ms events")
     result = {
         "rank": rank, "mu": mu.larray.cpu(), "sd": sd.larray.cpu(), "centers": km.cluster_centers_.larray.cpu(),
         "inertia": km.inertia_, "labels": km.labels_.larray.to(torch.int8).cpu(), "pred": pred.larray.cpu(),
@@ -415,13 +439,193 @@ def _dist_rank(rank, world, store, out_dir):
     _, t_mm_w, ev_mm_w = timed(lambda: ht.matmul(A.T, A))
     say(f"warm qr {t_qr_w:.4f} s host, {ev_qr_w:.4f} ms events; warm matmul(A.T, A) {t_mm_w:.4f} s, {ev_mm_w:.4f} ms")
     result.update(R=R.larray.cpu(), qr_resid=resid, qr_ortho=ortho, gram_diff=g_diff, qr_routes=qr_routes)
-    times = torch.tensor([t_stats, t_fit, t_warm, t_knn, t_knn_w, t_qr, t_qr_w, t_mm, t_mm_w, t_rs, path_s],
+    del A, Q, R, G, a_l, q_l, r64, qtq, gram
+    torch.cuda.empty_cache()
+    result["ridge"] = _dist_ridge(ht, world, rank, timed, same_everywhere, say, out_dir)
+    times = torch.tensor([t_stats, t_fit, t_warm, t_knn, t_knn_w, t_stats_w, t_qr, t_qr_w, t_mm, t_mm_w, t_rs, path_s],
                          dtype=torch.float64, device=dev)
     result["times_max"] = comm.allreduce(times, "max").cpu().tolist()
-    result["events"] = [ev_stats, ev_fit, ev_warm, ev_knn, ev_knn_w, ev_qr, ev_qr_w, ev_mm, ev_mm_w, ev_rs]
+    result["events"] = [ev_stats, ev_fit, ev_warm, ev_knn, ev_knn_w, ev_stats_w, ev_qr, ev_qr_w, ev_mm, ev_mm_w, ev_rs]
     torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
     comm.barrier()
     torch.distributed.destroy_process_group()
+
+
+def _gamma(k):
+    """Higham's gamma_k = k u / (1 - k u) for float32."""
+    return k * F32_UNIT_ROUNDOFF / (1 - k * F32_UNIT_ROUNDOFF)
+
+
+def _dist_ridge(ht, world, rank, timed, same_everywhere, say, out_dir):
+    """The kernel-ridge path across the ranks at N_RIDGE_CARD rows per card, with its launch counts zeroed just
+    before and read just after; the checks that need no one-process reference (computed across ranks, L never
+    gathered); this rank's rows of K and L go to ``out_dir`` for the parent's factor check."""
+    import torch
+
+    from heat_tpu_torch.core.kernels import MAX_FUSED_N, cholesky_local
+
+    comm = ht.get_comm()
+    dev = ht.get_device().torch_device
+    n = N_RIDGE_CARD * world
+    sigma = F_MAIN ** 0.5
+    steps = {}
+
+    def step(name, fn):
+        out, host, ev = timed(fn)
+        steps[name] = {"host_s": host, "event_ms": ev, "collectives": timed.collectives}
+        return out
+
+    ht.kernels.reset_kernel_stats()
+    ht.random.seed(DIST_RIDGE_SEED)
+    X, yv = step("draw X, y", lambda: (ht.random.randn(n, F_MAIN, split=0), ht.random.randn(n, split=0)))
+    mu, sd = step("mean+std", lambda: (ht.mean(X, axis=0), ht.std(X, axis=0)))
+    Xs = (X - mu) / sd
+    K0 = step("rbf", lambda: ht.spatial.rbf(Xs, Xs, sigma=sigma))
+    K = step("+ eye", lambda: K0 + ht.eye(n, split=0))
+    L = step("cholesky", lambda: ht.linalg.cholesky(K, tiles_per_proc=RIDGE_TILES))
+    z1 = step("solve L", lambda: ht.linalg.solve_triangular(L, yv, lower=True))
+    alpha = step("solve L.T", lambda: ht.linalg.solve_triangular(L.T, z1, lower=False))
+    launches, stats = dict(ht.LAUNCHES), dict(ht.KERNEL_STATS)
+    bs = ht.factor_block_edge(K, RIDGE_TILES, -(-n // world))
+    panels = -(-n // bs)
+    say(f"ridge n={n} ({N_RIDGE_CARD} rows per card), cholesky panels of {bs} rows: launches {launches} "
+        f"KERNEL_STATS {stats}")
+    say("ridge per call: " + "; ".join(f"{k} {v['host_s']:.4f} s host, {v['event_ms']:.4f} ms events, COLLECTIVES "
+                                       f"{v['collectives']}" for k, v in steps.items()))
+    check(launches["threefry_bits"] == 2 and stats.get("threefry_bits.cuda") == 2, f"ridge draws {launches}")
+    if world > 1:
+        check(bs == MAX_FUSED_N and launches["chol_panel_fused"] == panels
+              and stats.get("chol_panel_fused.cuda") == panels,
+              f"every rank should factor each of the {panels} diagonal blocks with chol_panel_fused: {launches}, {stats}")
+    else:
+        check(stats.get("chol_panel_fused.fallback") == 1 and launches["chol_panel_fused"] == 0,
+              f"one card: n = {n} > MAX_FUSED_N takes cholesky_ex: {stats}")
+    check(not any(k.endswith(".torch") for k in stats), f"a plain version ran on the ridge path: {stats}")
+    check(K.split == 0 and L.split == 0 and alpha.split == (0 if world > 1 else None) and L.gshape == (n, n),
+          "ridge splits / shapes")
+
+    # ||L L^T - K|| across ranks: L's row chunks rotate around the ring, block (r, q) = L_r L_q^T in float64.
+    # Higham (2nd ed.) Thm 10.3: the computed factor of a symmetric positive definite K satisfies
+    # L L^T = K + dK with |dK| <= gamma_{n+1} |L| |L^T|, and (|L| |L^T|)_ij <= |L_i| |L_j| = sqrt(K_ii K_jj)
+    # (+ O(u)), at most max K_ii = ||K||max here (rbf <= 1 off the diagonal, 2 on it): the blocked schedule
+    # computes the same inner products in another order, so ||dK||max / ||K||max <= gamma_{n+1}.
+    counts = [int(c) for c in L.lshape_map[:, 0]]
+    starts = [sum(counts[:q]) for q in range(world)]
+    Lr, Kr = L.larray, K.larray
+    check(bool(torch.isfinite(Lr).all()) and bool((torch.triu(Lr, diagonal=starts[rank] + 1) == 0).all()),
+          "ridge L finite and lower")
+    buf = torch.zeros((max(counts), n), dtype=Lr.dtype, device=dev)
+    buf[: counts[rank]] = Lr
+    dk_max, dk_f2 = torch.zeros((), dtype=torch.float64, device=dev), torch.zeros((), dtype=torch.float64, device=dev)
+    for s_ in range(world):
+        q = (rank + s_) % world
+        if counts[q] and counts[rank]:
+            d = Lr.double() @ buf[: counts[q]].double().T - Kr[:, starts[q] : starts[q] + counts[q]].double()
+            dk_max = torch.maximum(dk_max, d.abs().max())
+            dk_f2 += (d * d).sum()
+            del d
+        if s_ < world - 1:
+            buf = comm.ring_shift(buf)
+    del buf
+    k_max = comm.allreduce(Kr.abs().max().double(), "max").item()
+    k_inf = comm.allreduce(Kr.double().abs().sum(1).max(), "max").item()  # ||K||_inf >= ||K||_2
+    recon = comm.allreduce(dk_max, "max").item() / k_max
+    dk_fro = comm.allreduce(dk_f2).sqrt().item()
+    check(recon <= _gamma(n + 1), f"ridge ||L L^T - K||max/||K||max = {recon} > gamma_(n+1) = {_gamma(n + 1)}")
+    # ||K a - y|| / ||y||: K a - y = -dK' a with dK' the factorization's and the solves' backward errors, and
+    # ||K^-1|| <= 1 (K = rbf + I, rbf positive semi-definite): the relative residual is at most ||dK'||_2
+    a_full = alpha._logical().double()
+    r2 = comm.allreduce(((Kr.double() @ a_full - yv.larray.double()) ** 2).sum())
+    y2 = comm.allreduce((yv.larray.double() ** 2).sum())
+    resid = (r2 / y2).sqrt().item()
+    check(resid <= RIDGE_SOLVE_RTOL, f"ridge ||K alpha - y||/||y|| = {resid}")
+
+    # rbf on the ring against the default route: each d2 = (|x|^2 + |y|^2) - 2 x.y is within
+    # E = gamma_{f+2} (|x| + |y|)^2 of the exact one (see knn_check), so the two routes' d2 differ by at most
+    # 2 E <= 2 gamma_{f+2} (2 max|x|)^2; exp(-d2 / (2 sigma^2)) moves by at most its argument's change (d2 >= 0)
+    # and rounds once on each side
+    K_ring, t_ring, ev_ring = timed(lambda: ht.spatial.rbf(Xs, Xs, sigma=sigma, use_ring=True))
+    ring_coll = timed.collectives
+    ring_diff = comm.allreduce((K_ring.larray - K0.larray).abs().max() if counts[rank] else
+                               torch.zeros((), device=dev), "max").item()
+    x_max = comm.allreduce(Xs.larray.norm(dim=1).max() if counts[rank] else torch.zeros((), device=dev), "max").item()
+    ring_bound = 2 * _gamma(F_MAIN + 2) * (2 * x_max) ** 2 / (2 * sigma**2) + 2 * F32_UNIT_ROUNDOFF
+    check(ring_diff <= ring_bound, f"rbf use_ring vs the default route: {ring_diff} > {ring_bound}")
+    if world > 1:
+        check(ring_coll.get("ring_shift", {}).get("calls") == world - 1 and "allgather" not in ring_coll,
+              f"the ring route should shift y's chunks {world - 1} times and gather nothing: {ring_coll}")
+    del K_ring
+
+    # replicated state bit-identical on every rank: the standardization, and a diagonal block's factor from the
+    # same broadcast slab (what every rank computes once per panel inside cholesky)
+    same_everywhere(mu.larray, "ridge mean")
+    same_everywhere(sd.larray, "ridge std")
+    b = min(MAX_FUSED_N, counts[0])
+    blk = Kr[:b, :b].contiguous() if rank == 0 else torch.empty((b, b), dtype=Kr.dtype, device=dev)
+    same_everywhere(cholesky_local(comm.bcast(blk, 0)), "a diagonal block's chol_panel_fused factor")
+    # the same calls again, warm (every first call above carries cuBLAS' and cuSOLVER's set-up for its shapes)
+    warm = {}
+    for name, fn in (("rbf", lambda: ht.spatial.rbf(Xs, Xs, sigma=sigma)), ("+ eye", lambda: K0 + ht.eye(n, split=0)),
+                     ("cholesky", lambda: ht.linalg.cholesky(K, tiles_per_proc=RIDGE_TILES)),
+                     ("solve L", lambda: ht.linalg.solve_triangular(L, yv, lower=True)),
+                     ("solve L.T", lambda: ht.linalg.solve_triangular(L.T, z1, lower=False))):
+        _, host, ev = timed(fn)
+        warm[name] = {"host_s": host, "event_ms": ev}
+    say("ridge warm per call: " + "; ".join(f"{k} {v['host_s']:.4f} s host, {v['event_ms']:.4f} ms events"
+                                            for k, v in warm.items()))
+    say(f"ridge ||L L^T - K||max/||K||max {recon:.3e} (gamma_(n+1) {_gamma(n + 1):.3e}), ||L L^T - K||_F "
+        f"{dk_fro:.3e}; ||K alpha - y||/||y|| {resid:.3e}; rbf use_ring vs default max abs {ring_diff:.3e} (bound "
+        f"{ring_bound:.3e}), ring rbf {t_ring:.4f} s host, {ev_ring:.4f} ms events, COLLECTIVES {ring_coll}")
+    torch.save({"K": Kr.cpu(), "L": Lr.cpu()}, os.path.join(out_dir, f"ridge{rank}.pt"))
+    return {"steps": steps, "warm": warm, "launches": launches, "stats": stats, "recon": recon, "dk_fro": dk_fro, "k_inf": k_inf,
+            "resid": resid, "ring_diff": ring_diff, "ring_bound": ring_bound, "ring_host_s": t_ring,
+            "ring_event_ms": ev_ring, "ring_collectives": ring_coll, "counts": counts, "bs": bs}
+
+
+def _ridge_reference(ht, world, ranks, tmp):
+    """The one-process factor of the ranks' K on this card, against the ranks' L: their difference within a
+    bound derived from both factors' measured backward errors."""
+    import torch
+
+    dev = ht.get_device().torch_device
+    n = N_RIDGE_CARD * world
+    parts = [torch.load(os.path.join(tmp, f"ridge{r}.pt")) for r in range(world)]
+    K = torch.cat([p["K"] for p in parts]).to(dev)
+    Ls = [p["L"] for p in parts]
+    del parts
+    t_one = []
+    for _ in range(2):  # the first call, then warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        L0 = ht.linalg.cholesky(ht.array(K, copy=False)).larray
+        torch.cuda.synchronize()
+        t_one.append(time.perf_counter() - t0)
+    L064 = L0.double()
+    dk2_f2 = 0.0
+    for r0 in range(0, n, 2048):
+        d = L064[r0 : r0 + 2048] @ L064.T - K[r0 : r0 + 2048].double()
+        dk2_f2 += (d * d).sum().item()
+        del d
+    dk2 = dk2_f2**0.5
+    diff_f2, diff_max, r0 = 0.0, 0.0, 0
+    for Lr in Ls:
+        d = Lr.to(dev).double() - L064[r0 : r0 + Lr.shape[0]]
+        diff_f2 += (d * d).sum().item()
+        diff_max = max(diff_max, d.abs().max().item()) if d.numel() else diff_max
+        r0 += Lr.shape[0]
+        del d
+    diff = diff_f2**0.5
+    # Both factors are exact for K + dK_i (||dK_i||_F measured: dk1 across ranks, dk2 here). With
+    # E = L0^-1 (dK_1 - dK_2) L0^-T, ||E||_F <= ||(K + dK_2)^-1||_2 ||dK_1 - dK_2||_F <= (dk1 + dk2) / (1 - dk2)
+    # (lambda_min(K) >= 1), and L_1 = L0 chol(I + E), so to first order
+    # ||L_1 - L0||_F <= ||L0||_2 ||E||_F / sqrt(2) with ||L0||_2^2 = ||K + dK_2||_2 <= ||K||_inf + dk2; a factor 2
+    # covers the higher-order terms while ||E|| is small
+    dk1, k_inf = ranks[0]["ridge"]["dk_fro"], ranks[0]["ridge"]["k_inf"]
+    bound = 2 * (k_inf + dk2) ** 0.5 * (dk1 + dk2) / (2**0.5 * (1 - dk2))
+    check(dk2 < 0.5 and diff <= bound, f"[dist] ridge L vs the one-process factor: ||dL||_F {diff} > bound {bound}")
+    del K, L0, L064, Ls
+    torch.cuda.empty_cache()
+    return {"diff_fro": diff, "diff_max": diff_max, "bound": bound, "dk2": dk2, "t_one": t_one}
 
 
 def dist_phase(world: int) -> None:
@@ -503,6 +707,23 @@ def dist_phase(world: int) -> None:
 
         r_diff = (sign_normalized(ranks[0]["R"].to(dev)) - sign_normalized(r0)).abs().max().item() / r0.abs().max().item()
         check(r_diff <= QR_R_RTOL, f"[dist] R vs one process's R: {r_diff}")
+        ref = _ridge_reference(ht, world, ranks, tmp)
+        rg = ranks[0]["ridge"]
+        print(f"[dist] ridge n={N_RIDGE_CARD * world}: chol_panel_fused launches per rank "
+              f"{[r['ridge']['launches']['chol_panel_fused'] for r in ranks]} (panels of {rg['bs']} rows), routes "
+              f"{[{k: v for k, v in r['ridge']['stats'].items() if k.startswith('chol_panel_fused')} for r in ranks]}; "
+              f"||L L^T - K||max/||K||max {rg['recon']:.3e}, ||K alpha - y||/||y|| {rg['resid']:.3e}; rbf use_ring vs "
+              f"default {rg['ring_diff']:.3e} (bound {rg['ring_bound']:.3e}); L vs the one-process factor of the same "
+              f"K: ||dL||_F {ref['diff_fro']:.3e} (bound {ref['bound']:.3e}), max abs {ref['diff_max']:.3e}; "
+              f"one-process cholesky of K on one card {ref['t_one'][0]:.4f} s host first call, {ref['t_one'][1]:.4f} s "
+              f"warm", flush=True)
+        for r in ranks:
+            print(f"[dist] ridge r{r['rank']}: " + "; ".join(
+                f"{k} {v['host_s']:.4f} s host, {v['event_ms']:.4f} ms events, COLLECTIVES {v['collectives']}"
+                for k, v in r["ridge"]["steps"].items()) + f"; ring rbf {r['ridge']['ring_host_s']:.4f} s host, "
+                f"{r['ridge']['ring_event_ms']:.4f} ms events, COLLECTIVES {r['ridge']['ring_collectives']}; warm: "
+                + ", ".join(f"{k} {v['host_s']:.4f} s host, {v['event_ms']:.4f} ms events"
+                            for k, v in r["ridge"]["warm"].items()), flush=True)
         tm = ranks[0]["times_max"]
         print(f"[dist] world size {world}; per rank: launches {[r['launches'] for r in ranks]}; fit COLLECTIVES "
               f"{ranks[0]['fit_collectives']}; qr local routes {[r['qr_routes'] for r in ranks]}", flush=True)
@@ -511,8 +732,8 @@ def dist_phase(world: int) -> None:
               f"predict differs on {pdiff} of {N_QUERY}; kNN distances max abs {e_d:.3e}, indices differ on {nd} "
               f"entries (largest gap {worst:.3f} of the bound), labels on {int(kdiff.sum())}; R {r_diff:.3e} of max |R|; "
               f"||QR - A||/||A|| {ranks[0]['qr_resid']:.3e}, ||QᵀQ - I|| {ranks[0]['qr_ortho']:.3e}", flush=True)
-        names = ["mean+std", "first fit", "warm fit", "kNN predict", "warm kNN predict", "qr", "warm qr",
-                 "matmul(A.T, A)", "warm matmul", "resplit 0->1->None", "whole path"]
+        names = ["mean+std", "first fit", "warm fit", "kNN predict", "warm kNN predict", "warm mean+std", "qr",
+                 "warm qr", "matmul(A.T, A)", "warm matmul", "resplit 0->1->None", "whole path"]
         print("[dist] slowest rank's host times (s): " + ", ".join(f"{n} {t:.4f}" for n, t in zip(names, tm)), flush=True)
         print("[dist] CUDA-event ms per rank: " + "; ".join(
             f"r{r['rank']}: " + ", ".join(f"{n} {e:.4f}" for n, e in zip(names, r["events"])) for r in ranks), flush=True)
@@ -563,7 +784,7 @@ def main(argv=None) -> int:
         for line in info.ptxas:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"[build]   {line}")
-    check(set(built) >= {"moments", "lloyd", "topk_distance", "panel_update"}, f"built {sorted(built)}")
+    check(set(built) >= {"moments", "lloyd", "topk_distance", "panel_update", "threefry"}, f"built {sorted(built)}")
 
     kernels = single_card_phases(dev) if args.phases == "all" else None
     torch.cuda.empty_cache()
@@ -584,7 +805,9 @@ def single_card_phases(dev) -> list:
         assign_stats, chol_block_size, chol_panels, cholesky_local, chunk_moments, forced_mode, knn_tiles,
         lloyd_local, lloyd_route, moments_local, nearest_neighbors_local, resident_smem,
     )
-    from heat_tpu_torch.core.kernels import lloyd, panel_update, topk_distance
+    from heat_tpu_torch.core import random as ht_random
+    from heat_tpu_torch.core.kernels import lloyd, panel_update, threefry_bits, threefry_plain, topk_distance
+    from heat_tpu_torch.core.kernels.threefry import chunk_layout
     from heat_tpu_torch.spatial.distance import _quadratic_expand
 
     gen = torch.Generator(device=dev)
@@ -717,19 +940,66 @@ def single_card_phases(dev) -> list:
           f"cooperative grid {panel_update.chol_grid(N_RIDGE, sms, chol_per_sm)} blocks x {panel_update._THREADS} threads "
           f"at n={N_RIDGE} ({chol_per_sm} blocks/SM x {sms} SMs co-resident), panels of {panel_update._PANEL} columns, "
           f"{-(-N_RIDGE // panel_update._PANEL) + 1} grid barriers (look-ahead: one per panel)", flush=True)
+    # threefry_bits, the port's own kernel: every kind bit-identical to its plain version, at the main path's
+    # draw (2^24 x 32 normal float32) and beside it; a chunk of a split-1 draw (rows of indices, strided)
+    lo32 = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    lo64 = float(np.nextafter(-1.0, 0.0))
+    main_draw = (chunk_layout((N_MAIN, F_MAIN), None, 0, 0), "normal32", lo32, 2.0)
+    for layout, kind, lo, scale in [main_draw, (chunk_layout((N_MAIN, F_MAIN), None, 0, 0), "uniform32", 0.0, 1.0),
+                                    (chunk_layout((1 << 26,), None, 0, 0), "uniform64", 0.0, 1.0),
+                                    (chunk_layout((1 << 24,), None, 0, 0), "normal64", lo64, 2.0),
+                                    (chunk_layout((N_MAIN,), None, 0, 0), "bits32", 0.0, 1.0),
+                                    (chunk_layout((1 << 24,), None, 0, 0), "bits64", 0.0, 1.0),
+                                    (chunk_layout((4096, 4099), 1, 1025, 1025), "uniform32", 0.0, 1.0)]:
+        got = threefry_bits(THREEFRY_KEY, layout, kind, dev, lo, scale)
+        want = threefry_plain(THREEFRY_KEY, layout, kind, dev, lo, scale)
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        if kind.startswith("normal"):
+            e_tf = (got - want).abs().max().item()
+            check(bool(((got - want).abs() <= THREEFRY_NORMAL_RTOL * want.abs()).all()),
+                  f"threefry_bits {kind} vs plain beyond 2 ulp: max abs {e_tf}")
+            if layout == main_draw[0] and kind == main_draw[1]:
+                errors["threefry_bits"] = e_tf
+        else:
+            check(same, f"threefry_bits {kind} at layout {layout} differs from its plain version")
+        print(f"[check] threefry_bits {kind} layout (base, row_stride, rows, cols) {layout}: "
+              f"{'bit-identical to the plain version' if same else f'max abs {e_tf:.3e} from the plain version'}",
+              flush=True)
+        del got, want
+    # the permutation KMeans(init="random") takes at n = 2^24: three rounds of 32-bit keys and a stable sort
+    perm_key = ht_random._fold_in(ht_random._prng_key(0), 0)
+    reset_launches = ht.LAUNCHES["threefry_bits"]
+    perm = ht_random._shuffle(perm_key, N_MAIN, dev)
+    perm_launches = ht.LAUNCHES["threefry_bits"] - reset_launches
+    with forced_mode("threefry_bits", "torch"):
+        perm0 = ht_random._shuffle(perm_key, N_MAIN, dev)
+    torch.cuda.synchronize()
+    check(torch.equal(perm, perm0), "the n = 2^24 permutation differs between threefry_bits and its plain version")
+    check(torch.equal(torch.sort(perm).values, torch.arange(N_MAIN, device=dev)), "the permutation is no permutation")
+    first_keys = threefry_bits(ht_random._split(perm_key)[1], chunk_layout((N_MAIN,), None, 0, 0), "bits32", dev)
+    ties = N_MAIN - torch.unique(first_keys).numel()
+    print(f"[check] threefry_bits permutation of arange(2^24) ({perm_launches} kernel launches, one per round): "
+          f"identical to the plain version's; {ties} colliding 32-bit keys in the first round, ordered by the "
+          f"stable sort", flush=True)
+    del perm, perm0, first_keys
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------ 4. main path
     ht.use_device("gpu")
-    ht.random.seed(0)
-    true_centers = ht.random.randn(K_MAIN, F_MAIN) * 8.0
     member = torch.randint(0, K_MAIN, (N_MAIN + N_PREDICT,), device=dev, generator=gen)
     member[:K_MAIN] = torch.arange(K_MAIN, device=dev)  # rows 0..7: one of each blob, the init rows
+    torch.cuda.synchronize()
+
+    # the path starts with its draws: three through threefry_bits (the centres, x, the held-out rows)
+    ht.kernels.reset_kernel_stats()
+    t_draw = time.perf_counter()
+    ht.random.seed(0)
+    true_centers = ht.random.randn(K_MAIN, F_MAIN) * 8.0
     x = ht.random.randn(N_MAIN, F_MAIN, split=0) + ht.array(true_centers.larray[member[:N_MAIN]], split=0, copy=False)
     x_new = ht.random.randn(N_PREDICT, F_MAIN, split=0) + ht.array(true_centers.larray[member[N_MAIN:]], split=0, copy=False)
     torch.cuda.synchronize()
-
-    ht.kernels.reset_kernel_stats()
+    draw_s = time.perf_counter() - t_draw
     t_main = time.perf_counter()
     mu = ht.mean(x, axis=0)
     sd = ht.std(x, axis=0)
@@ -745,8 +1015,10 @@ def single_card_phases(dev) -> list:
     launches = dict(ht.LAUNCHES)
     stats = dict(ht.KERNEL_STATS)
     print(f"[main] launches {launches} KERNEL_STATS {stats}", flush=True)
-    print(f"[main] mean+std+standardize+fit+predict {main_s:.3f} s; fit {fit_s:.3f} s "
-          f"({ITERS / fit_s:.1f} iterations/s) at n={N_MAIN} f={F_MAIN} k={K_MAIN}", flush=True)
+    print(f"[main] draws {draw_s:.3f} s (first calls); mean+std+standardize+fit+predict {main_s:.3f} s; fit "
+          f"{fit_s:.3f} s ({ITERS / fit_s:.1f} iterations/s) at n={N_MAIN} f={F_MAIN} k={K_MAIN}", flush=True)
+    check(launches["threefry_bits"] == 3 and stats.get("threefry_bits.cuda") == 3,
+          f"the path's three draws should each launch threefry_bits once: {launches}, {stats}")
     check(moments_after_stats == 1 and launches["moments_onepass"] == 1,
           f"one moments launch should serve mean and std, got {moments_after_stats}")
     check(stats.get("moments_onepass.cuda") == 2, f"moments dispatches {stats}")
@@ -1047,6 +1319,21 @@ def single_card_phases(dev) -> list:
         "source": "heat_tpu_torch/core/kernels/csrc/panel_update.cu",
         "replaces": "heat_tpu/core/kernels/panel_update.py:95",
     }
+    tf_layout, tf_kind, tf_lo, tf_scale = main_draw
+    rows["threefry_bits"] = {
+        "ms": time_ms(lambda: threefry_bits(THREEFRY_KEY, tf_layout, tf_kind, dev, tf_lo, tf_scale)),
+        "plain_ms": time_ms(lambda: threefry_plain(THREEFRY_KEY, tf_layout, tf_kind, dev, tf_lo, tf_scale), reps=3,
+                            warm=1),
+        "library_ms": None,  # no PyTorch call draws threefry's bits (torch.randn draws Philox's: context only)
+        # nothing read, the (n, f) float32 draw written once; float32 operations per element as counted above
+        "bytes": N_MAIN * F_MAIN * 4,
+        "ops": THREEFRY_NORMAL_FLOP * N_MAIN * F_MAIN,
+        "source": "heat_tpu_torch/core/kernels/csrc/threefry.cu",
+        "replaces": "none: jax.random threefry-2x32 in heat_tpu/core/random.py:79 (XLA-fused, not a Pallas kernel)",
+    }
+    randn_ms = time_ms(lambda: torch.randn(N_MAIN, F_MAIN, device=dev, generator=gen))
+    print(f"[time] torch.randn({N_MAIN}, {F_MAIN}) on its Philox generator: {randn_ms:.4f} ms (context only; "
+          f"another function, not a library_ms)", flush=True)
     t0 = time.perf_counter()
     ht.cluster.KMeans(n_clusters=K_MAIN, init=z[:K_MAIN], max_iter=ITERS, tol=None).fit(z)
     torch.cuda.synchronize()
@@ -1054,7 +1341,7 @@ def single_card_phases(dev) -> list:
     print(f"[time] warm fit {warm_fit_s:.4f} s ({ITERS / warm_fit_s:.1f} iterations/s, {ITERS + 1} lloyd launches)", flush=True)
 
     kernels = []
-    for name in ("moments_onepass", "lloyd_fused", "topk_distance", "chol_panel_fused"):
+    for name in ("moments_onepass", "lloyd_fused", "topk_distance", "chol_panel_fused", "threefry_bits"):
         r = rows[name]
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = r["ops"] / FP32_FLOP_PER_S * 1e3

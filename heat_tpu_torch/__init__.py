@@ -28,7 +28,14 @@ The port goes slice by slice:
    split array is sharded: each rank holds its ceil-div chunk, and the
    operations above run on the chunks with the collectives they need
    (``resplit``, reductions, moments, the Lloyd step, kNN with split
-   queries, ``matmul``, TSQR ``qr``).
+   queries, ``matmul``, TSQR ``qr``);
+5. ``heat_tpu``'s random stream (threefry-2x32, the ``threefry_bits``
+   kernel; each rank draws only its chunk) behind ``random`` and KMeans'
+   ``'random'``/``'kmeans++'`` inits, and the kernel-ridge path across
+   ranks: ``cdist``/``rbf``/``manhattan`` of two split operands (gathered,
+   or on a ring with ``use_ring``), the blocked ``cholesky`` with
+   ``chol_panel_fused`` on each diagonal block, ``solve_triangular``, and
+   the tile geometry (``tiling``) they read.
 """
 from .core import *
 from .core import kernels, linalg, random

@@ -1,13 +1,16 @@
 """Shared k-clustering machinery (counterpart of ``heat_tpu/cluster/_kcluster.py``).
 
-Initial centroids come from the port's explicit ``torch.Generator``
-(:func:`heat_tpu_torch.core.random.get_generator`): ``'random'`` samples k
-distinct rows, ``'probability_based'`` (k-means++) draws each next centroid
-with probability proportional to D². Neither reproduces ``heat_tpu``'s
-threefry draws; an explicit ``DNDarray`` init gives both packages the same
-start. Across ranks every rank makes the same draws from the shared seed;
-the rank that owns a chosen row broadcasts it, so every rank holds the same
-centres, and an explicit init is gathered whole.
+Initial centroids come from ``heat_tpu``'s threefry stream
+(:mod:`heat_tpu_torch.core.random`), step by step as ``heat_tpu`` draws
+them, so a ``random_state`` gives ``heat_tpu``'s starting rows: ``'random'``
+takes the first k of the permutation of the rows (jax's ``choice`` without
+replacement); ``'probability_based'`` (k-means++) draws the first centroid
+with jax's 64-bit ``randint`` and each next one by the inverse float32 D²
+CDF at one uniform draw (jax's ``choice`` with ``p``). Across ranks every
+rank computes the same draws; the rank that owns a chosen row broadcasts
+it, so every rank holds the same centres, and an explicit init is
+gathered whole. The float32 sums behind the CDF add in another order than
+XLA's, so at large n a k-means++ draw can land on a neighbouring row.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from ..core import random as ht_random
 from ..core import types
 from ..core.base import BaseEstimator, ClusteringMixin
 from ..core.dndarray import DNDarray
+from ..core.kernels.threefry import chunk_layout
 
 __all__ = ["_KCluster"]
 
@@ -78,22 +82,26 @@ class _KCluster(BaseEstimator, ClusteringMixin):
             return self.init._logical().to(device=xa.device, dtype=xa.dtype)
         if self.random_state is not None:
             ht_random.seed(self.random_state)
-        gen = ht_random.get_generator(x.device)
+        dev = xa.device
         if self.init == "random":
-            idx = torch.randperm(n, generator=gen, device=xa.device)[:k]
-            return _take_rows(x, idx)
+            key = ht_random._next_key(k)
+            return _take_rows(x, ht_random._shuffle(key, n, dev)[:k])
         if self.init in ("probability_based", "kmeans++", "k-means++"):
-            first = torch.randint(0, n, (1,), generator=gen, device=xa.device)
-            centers = torch.empty((k, xa.shape[1]), dtype=xa.dtype, device=xa.device)
+            key = ht_random._next_key(k * n)
+            one = chunk_layout((), None, 0, 0)
+            first = ht_random._randint_offsets(ht_random._fold_in(key, 0), one, n, dev)
+            centers = torch.empty((k, xa.shape[1]), dtype=xa.dtype, device=dev)
             centers[0] = _take_rows(x, first)[0]
             d2 = self._metric(xa, centers[:1]).reshape(-1)
             split = x.split is not None and x.comm.is_distributed()
+            kind = "uniform32" if d2.dtype == torch.float32 else "uniform64"
             for i in range(1, k):
-                # inverse-CDF draw: torch.multinomial caps the category count at 2^24
-                cdf = torch.cumsum(d2.to(torch.float64), dim=0)
-                u = torch.rand(1, generator=gen, device=xa.device, dtype=torch.float64)
+                # jax's choice(key_i, n, p=d2/sum(d2)): r = cdf[-1] * (1 - u), the first index whose cdf >= r
+                total = x.comm.allreduce(d2.sum()) if split else d2.sum()
+                cdf = torch.cumsum(d2 / total, dim=0)
+                u = ht_random._fill(ht_random._fold_in(key, i), one, kind, dev)
                 if not split:
-                    nxt = torch.clamp(torch.searchsorted(cdf, u * cdf[-1]), max=n - 1)
+                    nxt = torch.searchsorted(cdf, cdf[-1:] * (1 - u))
                     centers[i] = xa[nxt[0]]
                 else:
                     centers[i] = _draw_row_across_ranks(x, cdf, u)
@@ -180,22 +188,22 @@ def _take_rows(x: DNDarray, idx: torch.Tensor) -> torch.Tensor:
 
 
 def _draw_row_across_ranks(x: DNDarray, cdf: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    """The row of a split-0 ``x`` at which the global D² CDF first passes
-    ``u`` times its total, from this rank's local CDF ``cdf``: the ranks'
-    totals are gathered, the owner searches its own CDF and broadcasts the
-    row."""
+    """The row of a split-0 ``x`` at which the global CDF first reaches
+    ``r = total * (1 - u)``, from this rank's local CDF ``cdf`` of the
+    globally normalized weights: the ranks' totals are gathered, each
+    rank's CDF continues from the sum of the totals before it, and the
+    owner of the row searches its own and broadcasts the row."""
     comm = x.comm
     total = cdf[-1:] if cdf.numel() else torch.zeros(1, dtype=cdf.dtype, device=cdf.device)
     totals = comm.allgather(total, 0, [1] * comm.size).cpu()
     incl = torch.cumsum(totals, 0)
-    target = float(u) * float(incl[-1])
-    full = [r for r in range(comm.size) if int(x.lshape_map[r, 0]) > 0]
-    owner = next((r for r in full if float(incl[r]) > target), full[-1])
-    f = x.gshape[1:]
+    r = incl[-1:] * (1 - u.cpu())
+    full = [q for q in range(comm.size) if int(x.lshape_map[q, 0]) > 0]
+    owner = next((q for q in full if bool(incl[q] >= r)), full[-1])
     if comm.rank == owner:
-        pos = torch.clamp(torch.searchsorted(cdf, torch.tensor([target - float(incl[owner] - totals[owner])],
-                                                              dtype=cdf.dtype, device=cdf.device)), max=cdf.numel() - 1)
+        before = (incl[owner] - totals[owner]).to(cdf.device)
+        pos = torch.clamp(torch.searchsorted(cdf + before, r.to(cdf.device)), max=cdf.numel() - 1)
         row = x.larray[pos[0]].contiguous()
     else:
-        row = torch.empty(f, dtype=x.larray.dtype, device=x.larray.device)
+        row = torch.empty(x.gshape[1:], dtype=x.larray.dtype, device=x.larray.device)
     return comm.bcast(row, owner)

@@ -22,4 +22,7 @@ from . import linalg
 from .linalg.basics import *
 from . import kernels
 from . import random
+from .random import *
+from . import tiling
+from .tiling import *
 from .base import *

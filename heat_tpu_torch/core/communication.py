@@ -12,8 +12,10 @@ collective returns its input without running anything.
 the ceil-div ``chunk``, ``counts_displs_shape`` and ``lshape_map``, so
 that the last ranks may hold nothing — and adds the few collectives the
 port needs, on tensors: ``allreduce``, ``allgather`` of ragged shards
-along an axis, ``alltoall`` of ragged blocks and ``bcast``. Each one
-counts itself in :data:`.kernels.COLLECTIVES` where it starts.
+along an axis, ``alltoall`` of ragged blocks, ``bcast`` (a slab from its
+owner) and ``ring_shift`` (a send to the previous rank with a receive from
+the next). Each one counts itself in :data:`.kernels.COLLECTIVES` where it
+starts.
 """
 from __future__ import annotations
 
@@ -191,6 +193,21 @@ class TorchCommunication(Communication):
         out = t.contiguous()
         count_collective("bcast", out.numel() * out.element_size())
         dist.broadcast(out, src=root)
+        return out
+
+    def ring_shift(self, t: torch.Tensor) -> torch.Tensor:
+        """The next rank's ``t`` (rank + 1, wrapping around): every rank
+        sends its ``t`` to the previous rank and receives one tensor of the
+        same shape and dtype, as one batch of point-to-point operations."""
+        if not self._started():
+            return t
+        t = t.contiguous()
+        out = torch.empty_like(t)
+        count_collective("ring_shift", t.numel() * t.element_size())
+        ops = [dist.P2POp(dist.isend, t, (self.rank - 1) % self.size),
+               dist.P2POp(dist.irecv, out, (self.rank + 1) % self.size)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
         return out
 
     def barrier(self) -> None:

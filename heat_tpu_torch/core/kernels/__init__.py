@@ -17,7 +17,11 @@ on a card and runs the plain version for tensors on the CPU:
   ``spatial.nearest_neighbors`` and ``KNeighborsClassifier.predict``;
 - :func:`cholesky_local` — blocked Cholesky by panels
   (``chol_panel_fused``, ``csrc/panel_update.cu``), behind
-  ``linalg.cholesky``.
+  ``linalg.cholesky``;
+- :func:`threefry_bits` — threefry-2x32 random bits at a chunk's global
+  indices, and their conversion to uniform floats (``threefry_bits``,
+  ``csrc/threefry.cu``; the port's own kernel, not a TPU kernel's port),
+  behind ``random``.
 
 Sources build with ``nvcc`` at first use (:mod:`._build`).
 """
@@ -47,6 +51,7 @@ from .lloyd import (
 )
 from .moments import MOMENTS_KERNEL, chunk_moments, merge_moments, moments_local, moments_sharded
 from .panel_update import CHOL_KERNEL, MAX_FUSED_N, chol_block_size, chol_grid, chol_panels, cholesky_local
+from .threefry import THREEFRY_KERNEL, threefry_bits, threefry_plain
 from .topk_distance import MAX_K, TOPK_KERNEL, knn_plan, knn_tiles, nearest_neighbors_local
 
 __all__ = [
@@ -59,6 +64,7 @@ __all__ = [
     "MAX_FUSED_N",
     "MAX_K",
     "MOMENTS_KERNEL",
+    "THREEFRY_KERNEL",
     "TOPK_KERNEL",
     "assign_stats",
     "chol_block_size",
@@ -86,4 +92,6 @@ __all__ = [
     "register_kernel",
     "reset_kernel_stats",
     "resident_smem",
+    "threefry_bits",
+    "threefry_plain",
 ]

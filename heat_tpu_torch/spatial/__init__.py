@@ -1,3 +1,3 @@
 """Spatial distance functions (counterpart of ``heat_tpu.spatial``)."""
 from . import distance
-from .distance import cdist, nearest_neighbors, rbf
+from .distance import cdist, manhattan, nearest_neighbors, rbf

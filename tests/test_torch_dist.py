@@ -19,11 +19,13 @@ may round differently in the last bits); QR factors compared after
 making R's diagonal non-negative, rtol 1e-4 / atol 1e-5 (TSQR's second
 factorization rotates by a different orthogonal matrix on each package).
 
-A case whose reference is the port itself (``PORT_ONLY``: the random
-draws, which are torch's, and the port's own bookkeeping) is held against
-the port at world size 1 in the test process. heat_tpu is imported only
-inside the functions that need it, so the ``gpu``-marked NCCL test also
-runs where JAX is not installed (``--noconftest``).
+A case whose reference is the port itself (``PORT_ONLY``: the port's own
+bookkeeping) is not held against heat_tpu; the random draws are held
+against heat_tpu and, as every world size must give the same global
+draws, against the port at world size 1 in the test process too.
+heat_tpu is imported only inside the functions that need it, so the
+``gpu``-marked NCCL test also runs where JAX is not installed
+(``--noconftest``).
 """
 import fcntl
 import hashlib
@@ -234,7 +236,7 @@ def test_replicated_results_are_bit_identical_on_every_rank(group, case):
         elif v["kind"] in ("scalar", "ndarray"):
             yield path, np.asarray(v["value"])
 
-    skip = {"rank", "device", "decision", "collectives_before"}  # facts of one rank by design
+    skip = {"rank", "device", "decision", "collectives_before", "port:fills", "port:chunk_elems"}  # facts of one rank
     for key in per_rank[0]:
         if key in skip or key.startswith("meta:"):
             continue
@@ -265,23 +267,34 @@ def test_kmeans_fit_runs_one_allreduce_per_iteration_and_gathers_no_x(group):
 
 
 def test_kmeans_random_inits_agree_across_ranks_and_with_world_size_1(group):
+    """heat_tpu's starting rows on every rank and at world size 1 (the
+    kmeans case holds them against heat_tpu's too), and the fits from them."""
     per_rank = _case(group, "kmeans")
     alone = port_world1_results("kmeans")
     for init in ("random", "kmeans++"):
-        key = f"port:{init}"
         for res in per_rank[1:]:
-            np.testing.assert_array_equal(res[key]["value"], per_rank[0][key]["value"])
-        assert per_rank[0][key]["value"].shape == (3, 5)
-    # the random init draws the same rows at any world size, and the fit then agrees
-    np.testing.assert_allclose(per_rank[0]["port:random"]["value"], alone["port:random"]["value"], rtol=RTOL, atol=ATOL)
+            np.testing.assert_array_equal(res[f"init0:{init}"]["value"], per_rank[0][f"init0:{init}"]["value"])
+            np.testing.assert_array_equal(res[f"init:{init}"]["global"], per_rank[0][f"init:{init}"]["global"])
+        # the same rows of z, whose standardization across ranks rounds otherwise than at world size 1
+        np.testing.assert_allclose(per_rank[0][f"init0:{init}"]["value"], alone[f"init0:{init}"]["value"], rtol=RTOL,
+                                   atol=ATOL)
+        assert per_rank[0][f"init:{init}"]["gshape"] == (3, 5)
+        np.testing.assert_allclose(per_rank[0][f"init:{init}"]["global"], alone[f"init:{init}"]["global"], rtol=RTOL,
+                                   atol=ATOL)
 
 
-@pytest.mark.parametrize("case", sorted(W.PORT_ONLY - {"environment", "not_implemented"}))
+# cases held against the port at world size 1 as well: port-only bookkeeping, and the draws, which must
+# give the same global arrays at every world size
+WORLD1_CASES = sorted((W.PORT_ONLY | {"random"}) - {"environment", "not_implemented"})
+
+
+@pytest.mark.parametrize("case", WORLD1_CASES)
 def test_port_only_case_matches_world_size_1(group, case):
     alone = port_world1_results(case)
     for rank, res in enumerate(_case(group, case)):
         for key, want in alone.items():
-            compare(res[key], want, rank, f"{case}/{key}", lshape_map=False)
+            if not key.startswith("port:"):  # the port's own facts of one rank
+                compare(res[key], want, rank, f"{case}/{key}", lshape_map=False)
 
 
 def test_random_draws_are_split_invariant(group):
@@ -290,14 +303,24 @@ def test_random_draws_are_split_invariant(group):
     np.testing.assert_array_equal(res["randn:1"]["global"], res["randn:none"]["global"])
 
 
+def test_split_draws_compute_only_the_ranks_chunk(group):
+    """The (9, 5) split-1 draw and the (1000, 7) split-0 draw fill exactly
+    this rank's chunk (an empty one on the last rank for split 1), never
+    the global array."""
+    for rank, res in enumerate(_case(group, "random")):
+        fills, (chunk95, chunk_big) = res["port:fills"]["value"], res["port:chunk_elems"]["value"]
+        assert fills[1] == chunk95 and fills[-1] == chunk_big, (rank, fills, chunk95, chunk_big)
+        assert chunk_big == res["big:0"]["local"].size and chunk95 == res["randn:1"]["local"].size
+    assert [r["port:chunk_elems"]["value"][0] for r in _case(group, "random")] == [9 * 2, 9 * 2, 9, 0]
+
+
 def test_not_implemented_names_say_which_roadmap_item(group):
-    """The short list of calls that raise above world size 1; every other
-    public name works at world size 4 (the cases above)."""
-    assert sorted(W.NOT_IMPLEMENTED) == ["linalg.cholesky", "linalg.solve_triangular", "spatial.cdist", "spatial.rbf"]
+    """The calls that raise above world size 1, each naming its ROADMAP
+    item: none is left, so every public name works at world size 4 (the
+    cases above)."""
+    assert W.NOT_IMPLEMENTED == {}
     for rank, res in enumerate(_case(group, "not_implemented")):
-        for name, v in res.items():
-            assert v["kind"] == "raises" and v["type"] == "NotImplementedError", (rank, name, v)
-            assert "ROADMAP.md Queue A item 1" in v["message"], (name, v["message"])
+        assert res == {}, (rank, res)
 
 
 def test_ranks_run_the_group_they_were_given(group):
@@ -320,7 +343,9 @@ EXPLICIT = {
     "array", "zeros", "ones", "full", "eye", "arange", "zeros_like", "ones_like", "full_like", "empty", "empty_like",
     "clip", "modf", "invert", "bitwise_not", "transpose", "cumsum", "cumprod", "cumproduct", "diff", "mean", "var",
     "std", "argmin", "argmax", "where", "nonzero", "matmul", "dot", "outer", "trace", "tril", "triu", "norm",
-    "vector_norm", "matrix_norm", "copy",
+    "vector_norm", "matrix_norm", "copy", "rand", "randn", "randint", "random_integer", "random_sample", "ranf",
+    "sample", "normal", "standard_normal", "uniform", "randperm", "permutation", "seed", "get_state", "set_state",
+    "factor_block_edge",
 }
 
 
@@ -343,11 +368,12 @@ def test_nccl_group_matches_world_size_1():
     on the CPU (kernels on the cards, their plain versions on the CPU)."""
     if torch.cuda.device_count() < 2:
         pytest.skip("needs at least 2 CUDA cards")
-    names = ["layout", "binary", "reductions", "moments", "kmeans", "knn", "qr", "linalg", "environment"]
+    names = ["layout", "binary", "reductions", "moments", "kmeans", "knn", "qr", "linalg", "random", "spatial",
+             "environment"]
     per_rank = run_group(2, "nccl", names, timeout=600)
     for case in names:
         alone = port_world1_results(case)
-        rtol, atol = (1e-4, 1e-4) if case in ("kmeans", "knn", "qr", "moments", "linalg") else (RTOL, ATOL)
+        rtol, atol = (1e-4, 1e-4) if case in ("kmeans", "knn", "qr", "moments", "linalg", "spatial") else (RTOL, ATOL)
         for rank, res in enumerate(per_rank):
             assert "__error__" not in res[case], res[case]["__error__"]
             for key, want in alone.items():

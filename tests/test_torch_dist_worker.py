@@ -381,10 +381,11 @@ def case_kmeans(ht):
     back = ht.cluster.KMeans().load_state_dict(state)
     out.update({"state_labels": back.labels_, "state_centers": back.cluster_centers_,
                 "state_keys": sorted(state)})
-    if is_port(ht):
-        for init_name in ("random", "kmeans++"):
-            k2 = ht.cluster.KMeans(n_clusters=3, init=init_name, max_iter=3, tol=None, random_state=5).fit(z)
-            out[f"port:{init_name}"] = k2.cluster_centers_.larray.cpu().numpy()
+    for init_name in ("random", "kmeans++"):
+        k2 = ht.cluster.KMeans(n_clusters=3, init=init_name, max_iter=3, tol=None, random_state=5)
+        start = k2._initialize_cluster_centers(z)
+        out[f"init0:{init_name}"] = start.cpu().numpy() if is_port(ht) else np.asarray(start)
+        out[f"init:{init_name}"] = k2.fit(z).cluster_centers_
     return out
 
 
@@ -410,11 +411,80 @@ def case_knn(ht):
 def case_spatial(ht):
     x0, xn = ht.array(BLOBS[:30], split=0), ht.array(BLOBS[:30])
     yn, y0 = ht.array(BLOBS_NEW[:11]), ht.array(BLOBS_NEW[:11], split=0)
-    return {
+    out = {
         "cdist:0n": ht.spatial.cdist(x0, yn), "cdist:n0": ht.spatial.cdist(xn, y0),
         "cdist_quad": ht.spatial.cdist(x0, yn, quadratic_expansion=True), "cdist_self": ht.spatial.cdist(xn),
         "rbf:0n": ht.spatial.rbf(x0, yn, sigma=3.0), "rbf:n0": ht.spatial.rbf(xn, y0, sigma=3.0),
+        "manhattan:0n": ht.spatial.manhattan(x0, yn), "manhattan:self": ht.spatial.manhattan(xn),
     }
+    # two split operands: ragged chunks (8, 8, 8, 6 rows against 3, 3, 3, 2), and y with an empty last chunk
+    y3 = ht.array(BLOBS_NEW[:3], split=0)
+    for ring in (False, True):
+        tag = "ring" if ring else "gather"
+        out[f"cdist:00:{tag}"] = ht.spatial.cdist(x0, y0, use_ring=ring)
+        out[f"cdist_quad:00:{tag}"] = ht.spatial.cdist(x0, y0, quadratic_expansion=True, use_ring=ring)
+        out[f"rbf:00:{tag}"] = ht.spatial.rbf(x0, y0, sigma=3.0, use_ring=ring)
+        out[f"manhattan:00:{tag}"] = ht.spatial.manhattan(x0, y0, use_ring=ring)
+        out[f"cdist:self:{tag}"] = ht.spatial.cdist(x0, use_ring=ring)
+        out[f"rbf:empty_chunk:{tag}"] = ht.spatial.rbf(x0, y3, sigma=2.0, use_ring=ring)
+        out[f"manhattan:x_empty_chunk:{tag}"] = ht.spatial.manhattan(ht.array(BLOBS[:3], split=0), y3, use_ring=ring)
+    return out
+
+
+def _spd(seed, n):
+    g = _rng(seed).normal(size=(n, n))
+    return (g @ g.T / n + np.eye(n)).astype(np.float32)
+
+
+def _triangular(seed, n, lower):
+    t = _rng(seed).normal(size=(n, n)) / np.sqrt(n) + np.diag(2.0 + _rng(seed + 1).uniform(size=n))
+    return (np.tril(t) if lower else np.triu(t)).astype(np.float32)
+
+
+def case_factorizations(ht):
+    """The distributed cholesky and solve_triangular: n = 13 and 10 leave
+    the last rank short, n = 6 leaves it empty; tiles_per_proc 2 cuts the
+    panels below the chunk length."""
+    out = {}
+    for n in (13, 10, 6):
+        a = _spd(20 + n, n)
+        for tpp in (1, 2):
+            out[f"chol:{n}:0:{tpp}"] = ht.linalg.cholesky(ht.array(a, split=0), tiles_per_proc=tpp)
+        out[f"chol:{n}:1"] = ht.linalg.cholesky(ht.array(a, split=1))
+        out[f"chol:{n}:none"] = ht.linalg.cholesky(ht.array(a))
+        out[f"world:edge:{n}:2"] = ht.factor_block_edge(ht.array(a, split=0), 2, -(-n // ht.get_comm().size))
+    bad = _spd(40, 13)
+    bad[7, 7] = -30.0  # not positive definite from the third panel of 2 rows on (tiles_per_proc 2)
+    for tpp in (1, 2):
+        out[f"chol_not_spd:0:{tpp}"] = ht.linalg.cholesky(ht.array(bad, split=0), tiles_per_proc=tpp)
+    out["chol_not_spd:first_block"] = ht.linalg.cholesky(ht.array(np.array([[1, 2, 0], [2, 1, 0], [0, 0, 1]],
+                                                                           np.float32), split=0))
+    out["chol_int"] = ht.linalg.cholesky(ht.array(np.eye(5, dtype=np.int32) * 4, split=0))
+    b = _rng(41).normal(size=(13, 3)).astype(np.float32)
+    for lower in (True, False):
+        t = _triangular(42, 13, lower)
+        for unit in (False, True):
+            tag = f"{'lower' if lower else 'upper'}:{int(unit)}"
+            out[f"trsv:{tag}:vec0"] = ht.linalg.solve_triangular(ht.array(t, split=0), ht.array(b[:, 0], split=0),
+                                                                 lower=lower, unit_diagonal=unit)
+            out[f"trsm:{tag}:mat_none"] = ht.linalg.solve_triangular(ht.array(t, split=0), ht.array(b), lower=lower,
+                                                                     unit_diagonal=unit)
+        out[f"trsm:{'lower' if lower else 'upper'}:split1"] = ht.linalg.solve_triangular(
+            ht.array(t, split=1), ht.array(b, split=0), lower=lower)
+        out[f"trsv:{'lower' if lower else 'upper'}:vec_none"] = ht.linalg.solve_triangular(
+            ht.array(t, split=0), ht.array(b[:, 1]), lower=lower)
+    t6 = _triangular(43, 6, True)
+    out["trsm:empty_chunk"] = ht.linalg.solve_triangular(ht.array(t6, split=0), ht.array(b[:6], split=0), lower=True)
+    out["trsm:replicated_a"] = ht.linalg.solve_triangular(ht.array(t6), ht.array(b[:6], split=0), lower=True)
+    # the kernel-ridge path on split operands: rbf -> + eye -> cholesky -> two triangular solves
+    x = ht.array(BLOBS[:37], split=0)
+    x = (x - ht.mean(x, axis=0)) / ht.std(x, axis=0)
+    K = ht.spatial.rbf(x, x, sigma=5 ** 0.5) + ht.eye(37, split=0)
+    L = ht.linalg.cholesky(K, tiles_per_proc=2)
+    yv = ht.array(V9.repeat(5)[:37], split=0)
+    alpha = ht.linalg.solve_triangular(L.T, ht.linalg.solve_triangular(L, yv, lower=True), lower=False)
+    out.update({"ridge:K": K, "ridge:L": L, "ridge:alpha": alpha})
+    return out
 
 
 def case_convert(ht):
@@ -435,14 +505,9 @@ def case_convert(ht):
             "knn_predict": clf.predict(ht.array(BLOBS_NEW, split=0))}
 
 
-# names whose call above world size 1 raises NotImplementedError naming its ROADMAP item
-NOT_IMPLEMENTED = {
-    "linalg.cholesky": lambda ht: ht.linalg.cholesky(ht.array(np.eye(6, dtype=np.float32) * 2, split=0)),
-    "linalg.solve_triangular": lambda ht: ht.linalg.solve_triangular(
-        ht.array(np.eye(6, dtype=np.float32), split=0), ht.array(np.ones(6, np.float32))),
-    "spatial.cdist": lambda ht: ht.spatial.cdist(ht.array(BLOBS[:9], split=0), ht.array(BLOBS[:5], split=0)),
-    "spatial.rbf": lambda ht: ht.spatial.rbf(ht.array(BLOBS[:9], split=0), ht.array(BLOBS[:5], split=0)),
-}
+# names whose call above world size 1 raises NotImplementedError naming its ROADMAP item: none since the
+# distributed cholesky/solve_triangular and cdist/rbf of two split operands; a slice that leaves one lists it
+NOT_IMPLEMENTED = {}
 
 
 def case_not_implemented(ht):
@@ -463,23 +528,66 @@ def case_environment(ht):
 
 
 def case_random(ht):
-    ht.random.seed(3)
-    a = ht.random.randn(9, 5, split=0)
-    ht.random.seed(3)
-    b = ht.random.randn(9, 5, split=1)
-    ht.random.seed(3)
-    c = ht.random.randn(9, 5)
-    ht.random.seed(4)
-    return {"randn:0": a, "randn:1": b, "randn:none": c, "rand:1": ht.random.rand(3, 10, split=1),
-            "randint:0": ht.random.randint(0, 9, size=(11,), split=0)}
+    """The draws at several seeds, counters, types and splits, (9, 5) split
+    1 among them (a padded non-leading split on four ranks); for the port
+    also the elements each draw computed on this rank."""
+    fills = []
+    if is_port(ht):
+        from heat_tpu_torch.core import random as port_random
 
+        real_fill = port_random._fill
+
+        def counting_fill(key, layout, kind, *args):
+            t = real_fill(key, layout, kind, *args)
+            fills.append(t.numel())
+            return t
+
+        port_random._fill = counting_fill
+    try:
+        ht.random.seed(3)
+        a = ht.random.randn(9, 5, split=0)
+        ht.random.seed(3)
+        b = ht.random.randn(9, 5, split=1)
+        ht.random.seed(3)
+        c = ht.random.randn(9, 5)
+        out = {"randn:0": a, "randn:1": b, "randn:none": c}
+        ht.random.seed(4)
+        out.update({"rand:1": ht.random.rand(3, 10, split=1), "randint:0": ht.random.randint(0, 9, size=(11,), split=0),
+                    "state": ht.random.get_state()})
+        ht.random.set_state(("Threefry", 2**40 + 7, 0x7FFFFFF0))
+        out.update({
+            "rand64:1": ht.random.rand(9, 5, dtype=ht.float64, split=1), "rand:0_e33": ht.random.rand(3, 3, split=0),
+            "randn64:0": ht.random.randn(7, 3, dtype=ht.float64, split=0),
+            "randint64:1": ht.random.randint(-2**62, 2**62 + 12345, size=(3, 9), dtype=ht.int64, split=1),
+            "random_integer": ht.random.random_integer(5, size=(9,), split=0),
+            "uniform:1": ht.random.uniform(-2.0, 3.0, size=(9, 5), split=1),
+            "normal:0": ht.random.normal(1.5, 0.25, shape=(9, 5), split=0),
+            "standard_normal": ht.random.standard_normal((4, 9), split=1),
+            "random_sample": ht.random.random_sample((9, 2), split=0), "ranf": ht.random.ranf((5,)),
+            "sample": ht.random.sample((2, 9), split=1), "scalar": ht.random.rand(),
+            "randperm:0": ht.random.randperm(11, split=0), "randperm": ht.random.randperm(300),
+            "permutation:int": ht.random.permutation(9, split=0),
+            "permutation:rows0": ht.random.permutation(ht.array(A95, split=0)),
+            "permutation:rows1": ht.random.permutation(ht.array(A95, split=1)),
+            "state_after": ht.random.get_state(),
+        })
+        big = ht.random.randn(1000, 7, split=0)
+        out["big:0"] = big
+    finally:
+        if is_port(ht):
+            port_random._fill = real_fill
+    if is_port(ht):
+        comm = ht.get_comm()
+        out["port:fills"] = np.array(fills)
+        out["port:chunk_elems"] = np.array([np.prod(comm.chunk((9, 5), 1)[1]), np.prod(comm.chunk((1000, 7), 0)[1])])
+    return out
 
 
 CASES = {
     name[len("case_"):]: fn for name, fn in sorted(globals().items()) if name.startswith("case_") and callable(fn)
 }
 # cases whose reference is the port itself at world size 1 (heat_tpu has no counterpart to compare)
-PORT_ONLY = {"environment", "not_implemented", "random"}
+PORT_ONLY = {"environment", "not_implemented"}
 
 
 

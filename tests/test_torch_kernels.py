@@ -43,7 +43,10 @@ from heat_tpu_torch.core.kernels import (
     nearest_neighbors_local,
     record_dispatch,
     reset_kernel_stats,
+    threefry_bits,
+    threefry_plain,
 )
+from heat_tpu_torch.core.kernels.threefry import chunk_layout
 from heat_tpu_torch.spatial.distance import _quadratic_expand
 
 # kNN: an index may differ from the reference only where the two rows'
@@ -242,9 +245,11 @@ def test_chol_plain_nan_from_failing_pivot(n, jf):
 
 # ---------------------------------------------------------------- dispatch
 def test_registry_and_dispatch_modes():
-    assert set(KERNELS) == {"moments_onepass", "lloyd_fused", "topk_distance", "chol_panel_fused"}
-    for spec in KERNELS.values():
-        assert spec["comparator"] and spec["roofline"] and spec["replaces"].startswith("heat_tpu/core/kernels/")
+    assert set(KERNELS) == {"moments_onepass", "lloyd_fused", "topk_distance", "chol_panel_fused", "threefry_bits"}
+    for name, spec in KERNELS.items():
+        assert spec["comparator"] and spec["roofline"]
+        # the port's own random-bits kernel ports no Pallas kernel; every other one names the one it replaces
+        assert spec["replaces"].startswith("none: " if name == "threefry_bits" else "heat_tpu/core/kernels/")
     t = torch.zeros(3)
     assert dispatch_mode("lloyd_fused", t) == "torch"
     with forced_mode("lloyd_fused", "torch"):
@@ -267,7 +272,9 @@ def test_kernel_stats_and_launch_counters():
     knn_tiles(torch.ones((4, 2)), torch.ones((5, 2)), 2)
     chol_panels(torch.eye(3))
     # the plain versions are no launch
-    assert LAUNCHES == {"moments_onepass": 0, "lloyd_fused": 0, "topk_distance": 0, "chol_panel_fused": 0}
+    threefry_plain((1, 2), (0, 0, 1, 8), "uniform32")
+    assert LAUNCHES == {"moments_onepass": 0, "lloyd_fused": 0, "topk_distance": 0, "chol_panel_fused": 0,
+                        "threefry_bits": 0}
     reset_kernel_stats()
     assert KERNEL_STATS == {"dispatches": 0}
 
@@ -286,7 +293,7 @@ def test_build_key_covers_sources_and_flags(monkeypatch):
     assert key == _build._digest() and len(key) == 16
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ["-lineinfo"])
     assert _build._digest() != key
-    assert {p.stem for p in _build.CSRC.glob("*.cu")} == {"moments", "lloyd", "topk_distance", "panel_update"}
+    assert {p.stem for p in _build.CSRC.glob("*.cu")} == {"moments", "lloyd", "topk_distance", "panel_update", "threefry"}
 
 
 def test_build_report_keeps_register_and_spill_lines():
@@ -462,3 +469,27 @@ def test_chol_kernel_limits_raise(cuda):
         cholesky_local(torch.zeros((MAX_FUSED_N + 1, MAX_FUSED_N + 1), device=cuda))
     with pytest.raises(ValueError, match="square"):
         cholesky_local(torch.zeros((4, 5), device=cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["bits32", "bits64", "uniform32", "uniform64", "normal32", "normal64"])
+@pytest.mark.parametrize(
+    "shape,split,chunk", [((1 << 20,), None, None), ((1000, 33), 0, (100, 517)), ((9, 5000), 1, (1250, 1250)),
+                          ((3, 4, 7), 1, (2, 2)), ((5, 3), 0, (5, 0))],
+)
+def test_threefry_kernel_matches_plain(cuda, kind, shape, split, chunk):
+    """Bits and uniforms bit-identical to the plain version. Normals within
+    2 ulp: both sides round every product and sum on its own and call
+    CUDA's log1p and sqrt, so they are expected to be equal too."""
+    key = (0x2545F491, 0x6C078965)
+    layout = chunk_layout(shape, None, 0, 0) if split is None else chunk_layout(shape, split, *chunk)
+    lo, scale = (np.float32(np.nextafter(np.float32(-1), np.float32(0))), 2.0) if kind.startswith("normal") else (0.0, 1.0)
+    before = LAUNCHES["threefry_bits"]
+    got = threefry_bits(key, layout, kind, cuda, float(lo), scale)
+    assert LAUNCHES["threefry_bits"] == before + (1 if got.numel() else 0)
+    want = threefry_plain(key, layout, kind, cuda, float(lo), scale)
+    torch.cuda.synchronize()
+    if kind.startswith("normal"):
+        torch.testing.assert_close(got, want, rtol=2 * torch.finfo(got.dtype).eps, atol=0.0)
+    else:
+        assert torch.equal(got, want)

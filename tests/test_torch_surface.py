@@ -703,25 +703,25 @@ STILL_MISSING = {
         "COMPILE_STATS", "CUDA_AWARE_MPI", "FUSE_STATS", "Frame", "HEALTH_STATS", "LAYOUT_STATS",
         "LOCKSTEP_STATS", "LazyDNDarray", "MOVE_STATS", "MPICommunication", "MPI_SELF", "MPI_WORLD",
         "MeshCommunication", "RECOVERY_STATS", "RegressionMixin", "SELF", "SERVE_STATS", "SHUFFLE_STATS",
-        "SPLIT_AXIS", "STREAM_STATS", "SplitTiles", "SquareDiagTiles", "TransformMixin", "angle", "asarray",
+        "SPLIT_AXIS", "STREAM_STATS", "SplitTiles", "TransformMixin", "angle", "asarray",
         "average", "balance", "bfloat16", "bincount", "broadcast_arrays", "broadcast_shapes", "broadcast_to",
         "bucketize", "byte", "can_cast", "cdouble", "cfloat", "collective_lockstep", "column_stack", "complex",
         "complex128", "complex64", "complexfloating", "concatenate", "conj", "conjugate", "convolve", "cov",
-        "cross", "csingle", "det", "diag", "diagonal", "digitize", "dsplit", "expand_dims", "factor_block_edge",
+        "cross", "csingle", "det", "diag", "diagonal", "digitize", "dsplit", "expand_dims",
         "finfo", "flatten", "flexible", "flip", "fliplr", "flipud", "float16", "float_", "fuse",
-        "get_printoptions", "get_state", "global_printing", "heat_type_is_complexfloating",
+        "get_printoptions", "global_printing", "heat_type_is_complexfloating",
         "heat_type_is_inexact", "heat_type_of", "histc", "histogram", "hsplit", "hstack", "iinfo", "imag",
         "int16", "int8", "int_", "inv", "is_regressor", "is_transformer", "iscomplex",
         "isreal", "issubdtype", "kurtosis", "lazy", "linspace", "load", "load_csv", "load_hdf5", "load_netcdf",
-        "local_printing", "logspace", "median", "meshgrid", "moveaxis", "nanmean", "normal", "pad",
-        "percentile", "permutation", "print0", "projection", "rand", "randint", "randn", "random_integer",
-        "random_sample", "randperm", "ranf", "ravel", "real", "redistribute", "repeat", "replicated_frame", "replicated_ids", "reset_fuse_stats", "reshape", "resplit", "roll", "rot90",
-        "row_stack", "sample", "sanitize_distribution", "sanitize_in", "sanitize_in_tensor",
+        "local_printing", "logspace", "median", "meshgrid", "moveaxis", "nanmean", "pad",
+        "percentile", "print0", "projection",
+        "ravel", "real", "redistribute", "repeat", "replicated_frame", "replicated_ids", "reset_fuse_stats", "reshape", "resplit", "roll", "rot90",
+        "row_stack", "sanitize_distribution", "sanitize_in", "sanitize_in_tensor",
         "sanitize_infinity", "sanitize_lshape", "sanitize_out", "sanitize_sequence", "sanitize_slice",
-        "sanitize_split", "save", "save_csv", "save_hdf5", "save_netcdf", "scalar_to_1d", "seed",
-        "set_printoptions", "set_state", "shape", "short", "skew", "sort", "split", "squeeze", "stack",
-        "standard_normal", "supports_hdf5", "supports_netcdf", "swapaxes", "tile", "topk", "tree_merge",
-        "tree_merge_rounds", "ubyte", "uint8", "unfold", "uniform", "unique", "unsignedinteger",
+        "sanitize_split", "save", "save_csv", "save_hdf5", "save_netcdf", "scalar_to_1d",
+        "set_printoptions", "shape", "short", "skew", "sort", "split", "squeeze", "stack",
+        "supports_hdf5", "supports_netcdf", "swapaxes", "tile", "topk", "tree_merge",
+        "tree_merge_rounds", "ubyte", "uint8", "unfold", "unique", "unsignedinteger",
         "validate_layout", "vdot", "vecdot", "vsplit", "vstack",
     ],
     "heat_tpu.linalg": [
@@ -732,7 +732,7 @@ STILL_MISSING = {
 # submodules heat_tpu imports when it is imported, and the port has no counterpart of yet
 STILL_MISSING_MODULES = [
     "analysis", "complex_math", "frame", "graph", "io", "manipulations", "naive_bayes", "nn", "optim",
-    "parallel", "printing", "regression", "resilience", "serve", "signal", "stream", "tiling", "utils",
+    "parallel", "printing", "regression", "resilience", "serve", "signal", "stream", "utils",
     "version", "linalg.solver",
 ]
 
