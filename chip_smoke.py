@@ -50,6 +50,19 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      (``qr.cholqr2`` or ``qr.householder``), float64 residuals, R against
      ``torch.linalg.qr``'s, times against ``torch.linalg.qr`` and
      ``torch.matmul``.
+   - ``[spectral]`` (after phase 5): ``Spectral(n_clusters=4, gamma=1,
+     n_lanczos=300)`` fit and predict on 4 blobs of 30000 x 18 (``bench.py``'s
+     cdist size) drawn with ``ht.random``; each of its three kernels on the
+     path's own inputs against its plain version (the moments of x, the
+     normal draw and the k-means++ draws bit for bit, Lloyd on the
+     embedding from the init's and the fitted centres); the same path
+     through the plain versions (z within its bound, labels up to a
+     permutation, Ritz values, and the plain path's Ritz pairs against this
+     path's L), float64 Ritz residuals, per-step times;
+   - ``[linalg]``: ``solve`` at n = 2048 and 16384, ``inv``, ``det`` (and an
+     exact 0 for a zero column), ``cg`` on the ridge K, ``svd``/``rsvd``/
+     ``lstsq``/``pinv`` at 2^22 x 64, each against float64 or a second
+     route, timed beside the library call.
 5. Timing with CUDA events (median of single launches after warm-up; the
    repetitions are named per kernel): kernel, plain version, one-call
    library yardstick where one exists, and the bound of each kernel at its
@@ -67,11 +80,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``chol_panel_fused`` on every rank above one card, and two
    ``solve_triangular``); per rank its launches, ``COLLECTIVES`` and
    times, the ridge residuals computed across ranks (L never gathered)
-   and ``rbf(..., use_ring=True)`` against the default route; then the
+   and ``rbf(..., use_ring=True)`` against the default route; ``solve``
+   on that K (the distributed LU), ``det``/``inv`` of a matrix with a known
+   determinant, ``cg`` and ``lanczos(300)`` on K, ``svd``/``lstsq`` at 2^22
+   x 64 per card (and ``lstsq``'s QR route at 2^20 rows per card), the
+   spectral path on [spectral]'s data; then the
    same paths in this process on the same global data as the reference
    (the ridge factor against the one-process factor of the same K), and
    the weak-scaling efficiency of the warm fit. ``--phases dist`` runs
-   only phases 1, 2 and 6.
+   only phases 1, 2 and 6; ``--phases spectral`` or ``linalg`` only 1, 2
+   and that phase.
 
 The line before last is one JSON object ``{"kernels": [...]}`` (not
 printed with ``--phases dist``); the last line is
@@ -79,6 +97,7 @@ printed with ``--phases dist``); the last line is
 """
 import argparse
 import json
+import math
 import os
 import shutil
 import statistics
@@ -159,6 +178,50 @@ THREEFRY_KEY = (0x2545F491, 0x6C078965)  # the phase-3 checks' key
 # (counted as 10), a sqrt, a subtract, 9 multiply-adds of Horner's rule and two products; the ~70 32-bit
 # integer operations of threefry's rounds have no peak in the table and are not counted
 THREEFRY_NORMAL_FLOP = 36
+# 32-bit integer operations per element of csrc/threefry.cu: the hash's 2 initial key adds, 20 rounds of an
+# add, a constant rotate (one funnel shift) and an xor, and 5 key injections of two adds (2 + 60 + 10 = 72),
+# then the float kinds' xor, shift and or (3); index and loop arithmetic are not counted. The H100 issues 64
+# INT32 operations per clock per SM (16 per sub-partition), at the SM count and maximum SM clock of this card
+THREEFRY_INT32_OPS = 75
+INT32_OPS_PER_CLOCK_PER_SM = 64
+
+# ---- [spectral]: spectral clustering at bench.py's cdist size (CDIST_N x CDIST_F: (n, n) float32 = 3.6 GB)
+N_SPEC, F_SPEC, K_SPEC, N_LANCZOS = 30000, 18, 4, 300
+SPEC_SEED, SPEC_KMEANS_SEED = 11, 12
+# The blob centres are SPEC_SCALE times the rows of columns 1-3 of the 4 x 4 Hadamard matrix, tiled over the 18
+# features: every feature splits the blobs two against two, every pair of centres differs in 12 features. After
+# standardizing, each feature's variance is ~1 + SPEC_SCALE^2 = 37, so a point's noise is 1/sqrt(37) per feature:
+# two points of one blob lie ~2 * 18 / 37 = 0.97 apart in d^2, two centres 12 * (2 * 6)^2 / 37 = 46.7. gamma = 1
+# puts within-blob similarities exp(-gamma d^2) at O(1) (exp(-0.97) = 0.38 typical), and the closest points of
+# two blobs (the centre distance less two noise radii) far below 1e-3; the phase measures both and checks them
+SPEC_SCALE, SPEC_GAMMA = 6.0, 1.0
+SPEC_WITHIN_MIN, SPEC_BETWEEN_MAX = 0.1, 1e-3  # median within-blob similarity, largest between-blob similarity
+SPEC_ACC = 0.999
+# Ritz values, kernel path vs plain path: the two paths' data differ by <= 2 ulp (the normal draws) and their
+# standardization within the moments' bounds, which moves L by ~1e-6; a float32 Lanczos run adds ~eps ||L|| per
+# step (||L|| <= 2 for norm_sym), ~4e-5 over 300 steps at worst: 1e-4
+RITZ_ATOL = 1e-4
+# float64 ||L v - theta v|| / ||L|| of a Ritz pair from the port's float32 V and T: the recurrence's rounding,
+# eps ||L|| per step over m = 300 steps (3.6e-5 at worst), plus the pair's convergence; 1e-3 is ~30x that. The
+# same bound holds a Ritz pair of one path's L against another path's L of the same data: the two L differ by
+# the standardization's rounding (the moments' bounds below, ~1e-6 of ||L||), far inside it, while a
+# standardization off by a few percent moves every similarity exp(-gamma d^2) by that share of gamma d^2
+RITZ_RESID_RTOL = 1e-3
+# z of the kernel path against z of the plain path (same x, bit-identical draws): z = (x - mu) / sigma with mu
+# within MEAN_ATOL + MEAN_RTOL |mu| and M2 within M2_RTOL (so sigma within M2_RTOL / 2, relative) of the
+# plain moments, and two float32 roundings on each side: |dz| <= (MEAN_ATOL + MEAN_RTOL |mu|) / sigma
+# + |z| M2_RTOL / 2 + 4 u |z|
+
+# ---- [linalg]: the rest of linalg at full width on one card
+SOLVE_NS = (2048, 16384)  # bench.py's SOLVE_N, and a 1 GiB system
+N_DET, N_INV = 2048, 2048
+N_CG = 1024               # the kernel-ridge path's n
+N_SVD, F_SVD, RSVD_RANK, RSVD_OVERSAMPLES = 1 << 22, 64, 16, 10
+LINALG_SEED = 13
+# svd: Householder-based SVDs are backward stable, ||dA|| <= p(m, n) u ||A|| with p growing like n in practice
+# (64 u = 3.8e-6 at n = 64): ||A - U S Vh||_F / ||A||_F <= 1e-4, and two such SVDs' singular values within
+# 2e-4 of the largest (Weyl)
+SVD_RESID_RTOL = 1e-4
 
 
 def check(cond, msg):
@@ -231,13 +294,541 @@ def spd(n, gen, dev):
     return (g @ g.T / n + torch.eye(n, device=dev, dtype=torch.float64)).to(torch.float32)
 
 
+def spectral_centres(dev):
+    """[spectral]'s K_SPEC x F_SPEC blob centres (see SPEC_SCALE)."""
+    import torch
+
+    hadamard = torch.tensor([[1.0, 1.0, 1.0], [-1.0, 1.0, -1.0], [1.0, -1.0, -1.0], [-1.0, -1.0, 1.0]])
+    return (hadamard[:, torch.arange(F_SPEC) % 3] * SPEC_SCALE).to(dev)
+
+
+def spectral_data(ht):
+    """[spectral]'s data, the same global arrays at any world size (split draws are split-invariant): the blob of
+    each of N_SPEC rows (``randint``) and x = its centre + ``randn``, both split 0."""
+    ht.random.seed(SPEC_SEED)
+    member = ht.random.randint(0, K_SPEC, size=(N_SPEC,), split=0, dtype=ht.int64)
+    centres = spectral_centres(member.larray.device)
+    x = ht.random.randn(N_SPEC, F_SPEC, split=0) + ht.DNDarray(centres[member.larray], gshape=(N_SPEC, F_SPEC), split=0)
+    return member, x
+
+
+def spectral_fit(ht, z, seen=None):
+    """[spectral]'s estimator, fitted on z. ``seen``, where given, receives the inputs of the fit's Lloyd
+    launches: the embedding KMeans is fitted on (``"embedding"``) and the centres its k-means++ init draws
+    (``"init"``)."""
+    sp = ht.cluster.Spectral(n_clusters=K_SPEC, gamma=SPEC_GAMMA, n_lanczos=N_LANCZOS, random_state=SPEC_KMEANS_SEED)
+    if seen is not None:
+        km = sp._cluster
+        fit, init = km.fit, km._initialize_cluster_centers
+        km.fit = lambda e: (seen.__setitem__("embedding", e), fit(e))[1]
+        km._initialize_cluster_centers = lambda e: seen.setdefault("init", init(e))
+    return sp.fit(z)
+
+
+def matched_labels(labels, truth, k, comm=None, what="labels"):
+    """(share, perm): ``perm[t]`` is the label value matched to truth value t (one to one, by the counts of the
+    rows that carry both, summed across ranks), and ``share`` the share of rows the match agrees on."""
+    import torch
+
+    cont = torch.zeros(k, k, dtype=torch.float64, device=labels.device)
+    cont.index_put_((truth.long(), labels.long()), torch.ones_like(labels, dtype=torch.float64), accumulate=True)
+    if comm is not None:
+        cont = comm.allreduce(cont)
+    perm = cont.argmax(dim=1)
+    check(len(set(perm.tolist())) == k, f"{what}: no one-to-one match of the clusters, counts {cont.tolist()}")
+    return (cont[torch.arange(k), perm].sum() / cont.sum()).item(), perm
+
+
+def ritz_residuals(L_rows, start, Y, theta, l_norm, comm=None):
+    """float64 ||L y - theta y|| / (||L||_2 ||y||) of the Ritz pairs (theta_j, y_j), Y's columns (Y and theta
+    replicated; Y = V @ T's eigenvectors); L_rows are this rank's rows of L from global row ``start``.
+    ``l_norm`` is the largest |Ritz value| of the Lanczos run, at most ||L||_2, which it stands in for, so the
+    ratios are upper bounds."""
+    import torch
+
+    Y = Y.double()
+    rows = L_rows.shape[0]
+    R = torch.empty((rows, Y.shape[1]), dtype=torch.float64, device=Y.device)
+    for r0 in range(0, rows, 2048):
+        R[r0 : r0 + 2048] = L_rows[r0 : r0 + 2048].double() @ Y
+    R -= Y[start : start + rows] * theta.double()
+    num2 = (R * R).sum(dim=0)
+    if comm is not None:
+        num2 = comm.allreduce(num2)
+    return (num2.sqrt() / (float(l_norm) * Y.norm(dim=0))).tolist()
+
+
+def known_det_matrix(n, dev, seed):
+    """(a, det): a = Q diag(d) Q^T in float32, Q orthogonal (the QR of a float64 Gaussian matrix), |d| in
+    [e^-1, e] with sum log|d| = 10 and an odd number of negative d, so det(Q diag(d) Q^T) = -e^10 (finite in
+    float32) and cond(a) <= e^2; ``det`` is the float64 determinant of the float32 matrix a (its rounding moves
+    the determinant by ~n u). Every rank that calls it with the same seed on the same card model gets the same a."""
+    import torch
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    q = torch.linalg.qr(torch.randn(n, n, device=dev, generator=g, dtype=torch.float64)).Q
+    logs = torch.rand(n, device=dev, generator=g, dtype=torch.float64) * 2 - 1
+    logs = logs - logs.mean() + 10.0 / n
+    sign = torch.ones(n, device=dev, dtype=torch.float64)
+    sign[: 2 * (n // 4) + 1] = -1.0  # an odd count
+    a = ((q * (sign * logs.exp())) @ q.T).to(torch.float32)
+    del q
+    return a, torch.linalg.det(a.double()).item()
+
+
+def spectral_kernel_checks(ht, dev, x, member, emb, init, sp):
+    """[spectral]'s three kernels on the path's own inputs, each against its plain version with phase 3's
+    tolerances: ``moments_onepass`` on x (N_SPEC x F_SPEC); ``threefry_bits``' normal draw of x at the path's key
+    and the k-means++ init's draws, bit-identical; ``lloyd_fused`` on the (N_SPEC, K_SPEC) embedding from the
+    init's centres (the path's first launch, whose labels are ``labels_``) and from the fitted centres (its
+    last, whose inertia is ``inertia_``). Returns the lines to print."""
+    import numpy as np
+    import torch
+
+    from heat_tpu_torch.core import random as ht_random
+    from heat_tpu_torch.core.kernels import (
+        THREEFRY_KERNEL, assign_stats, chunk_moments, forced_mode, lloyd_local, moments_local, threefry_bits,
+        threefry_plain,
+    )
+    from heat_tpu_torch.core.kernels.threefry import chunk_layout
+    from heat_tpu_torch.spatial.distance import _quadratic_expand
+
+    lines = []
+    xa = x.larray
+    cnt, mean, m2 = moments_local(xa, N_SPEC)
+    cnt0, mean0, m20 = chunk_moments(xa, N_SPEC)
+    check(float(cnt) == float(cnt0) == float(N_SPEC), f"[spectral] moments counts {float(cnt)} vs {float(cnt0)}")
+    e_mean, e_m2 = (mean - mean0).abs(), (m2 - m20).abs()
+    check(bool((e_mean <= MEAN_ATOL + MEAN_RTOL * mean0.abs()).all()), f"[spectral] moments mean: {e_mean.max().item()}")
+    check(bool((e_m2 <= M2_RTOL * m20.abs() + 1e-6).all()), f"[spectral] moments M2: {e_m2.max().item()}")
+    lines.append(f"moments_onepass on the path's x {tuple(xa.shape)}: count exact, mean max abs {e_mean.max().item():.3e}, "
+                 f"M2 max rel {(e_m2 / m20.abs()).max().item():.3e} (<= {M2_RTOL})")
+
+    # the path's normal draw: seed SPEC_SEED, after randint's N_SPEC elements, as _float_draw makes it
+    ht.random.set_state(("Threefry", SPEC_SEED, N_SPEC))
+    key = ht_random._next_key(N_SPEC * F_SPEC)
+    layout = ht_random._chunk((N_SPEC, F_SPEC), 0, x.comm)[2]
+    lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
+    args = (layout, "normal32", dev, float(lo), float(np.float32(1.0) - lo))
+    drawn = threefry_bits(key, *args).reshape(N_SPEC, F_SPEC)
+    check(torch.equal(drawn + spectral_centres(dev)[member.larray], xa), "[spectral] the recomputed draw is not the path's x")
+    check(torch.equal(drawn, threefry_plain(key, *args).reshape(N_SPEC, F_SPEC)),
+          "[spectral] threefry_bits' normal draw differs from its plain version")
+    # the k-means++ init's draws (random_state SPEC_KMEANS_SEED): randint's two 64-bit words for the first centre,
+    # one float32 uniform for each next one; and the init itself, with threefry_bits and with its plain version
+    ikey = ht_random._fold_in(ht_random._prng_key(SPEC_KMEANS_SEED), 0)
+    one = chunk_layout((), None, 0, 0)
+    draws = [(k, "bits64") for k in ht_random._split(ht_random._fold_in(ikey, 0))]
+    draws += [(ht_random._fold_in(ikey, i), "uniform32") for i in range(1, K_SPEC)]
+    for k, kind in draws:
+        check(torch.equal(threefry_bits(k, one, kind, dev), threefry_plain(k, one, kind, dev)),
+              f"[spectral] the k-means++ {kind} draw differs from its plain version")
+    km = ht.cluster.KMeans(n_clusters=K_SPEC, init="probability_based", random_state=SPEC_KMEANS_SEED)
+    init_k = km._initialize_cluster_centers(emb)
+    with forced_mode(THREEFRY_KERNEL, "torch"):
+        init_p = km._initialize_cluster_centers(emb)
+    check(torch.equal(init_k, init) and torch.equal(init_p, init), "[spectral] k-means++ centres differ from the path's")
+    lines.append(f"threefry_bits: the path's normal draw {(N_SPEC, F_SPEC)} (x = draw + centres, bit for bit) and "
+                 f"the k-means++ init's {len(draws)} draws bit-identical to the plain version; the init's centres "
+                 f"equal the path's on both")
+
+    ea = emb.larray
+    for name, cen in (("init", init), ("fitted", sp._cluster.cluster_centers_.larray)):
+        sums, counts, labels, inertia = lloyd_local(ea, cen, N_SPEC)
+        sums0, counts0, labels0, inertia0 = assign_stats(ea, cen, N_SPEC)
+        check(bool((counts == counts0).all()), f"[spectral] lloyd counts from the {name} centres")
+        two = torch.topk(_quadratic_expand(ea, cen), 2, dim=1, largest=False).values
+        near = (two[:, 1] - two[:, 0]) <= TIE_RTOL * two[:, 1]
+        diff = labels != labels0
+        check(not bool((diff & ~near).any()), f"[spectral] lloyd labels from the {name} centres differ outside near-ties")
+        e_sums = (sums - sums0).abs().max().item()
+        check(e_sums <= SUMS_RTOL * sums0.abs().max().item(), f"[spectral] lloyd sums from the {name} centres: {e_sums}")
+        e_in = abs(float(inertia) - float(inertia0))
+        check(e_in <= INERTIA_RTOL * abs(float(inertia0)), f"[spectral] lloyd inertia from the {name} centres: {e_in}")
+        if name == "init":
+            check(torch.equal(labels.long(), sp.labels_.larray), "[spectral] the first Lloyd launch's labels are not labels_")
+        else:
+            check(float(inertia) == sp._cluster.inertia_, "[spectral] the last Lloyd launch's inertia is not inertia_")
+        lines.append(f"lloyd_fused on the path's embedding {tuple(ea.shape)} from the {name} centres: counts exact, "
+                     f"labels differ on {int(diff.sum())} rows ({int(near.sum())} near-tie rows), sums max abs "
+                     f"{e_sums:.3e} (max |sum| {sums0.abs().max().item():.3e}), inertia rel "
+                     f"{e_in / max(abs(float(inertia0)), 1e-30):.3e}")
+    return lines
+
+
+def spectral_phase(dev):
+    """[spectral]: spectral clustering at N_SPEC x F_SPEC through its user-facing calls; its three kernels on the
+    path's own inputs against their plain versions; the same path through the plain versions (z, labels, and
+    the plain path's Ritz pairs against this path's L); then a per-step breakdown, the Ritz pairs' residuals,
+    and the blobs' similarities behind the choice of gamma."""
+    import torch
+
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.core.kernels import LLOYD_KERNEL, MOMENTS_KERNEL, THREEFRY_KERNEL, forced_mode
+    from heat_tpu_torch.spatial.distance import _quadratic_expand
+
+    ht.use_device("gpu")
+    n_bytes = N_SPEC * N_SPEC * 4
+
+    def run(seen=None):
+        t = {}
+        t0 = time.perf_counter()
+        member, x = spectral_data(ht)
+        torch.cuda.synchronize()
+        t["draws"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mu, sd = ht.mean(x, axis=0), ht.std(x, axis=0)
+        z = (x - mu) / sd
+        torch.cuda.synchronize()
+        t["standardize"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sp = spectral_fit(ht, z, seen)
+        torch.cuda.synchronize()
+        t["fit"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pred = sp.predict(z)
+        torch.cuda.synchronize()
+        t["predict"] = time.perf_counter() - t0
+        return member, x, (mu, sd, z), sp, pred, t
+
+    seen = {}
+    torch.cuda.synchronize()
+    ht.kernels.reset_kernel_stats()
+    member, x, (mu, sd, z), sp, pred, t_main = run(seen)
+    launches, stats = dict(ht.LAUNCHES), dict(ht.KERNEL_STATS)
+    print(f"[spectral] launches {launches} KERNEL_STATS {stats}", flush=True)
+    n_iter = sp._cluster.n_iter_
+    check(launches["threefry_bits"] > 0 and stats.get("threefry_bits.cuda", 0) > 0,
+          f"the draws and the k-means++ init should launch threefry_bits: {launches}")
+    check(launches["moments_onepass"] == 1, f"one moments launch should serve mean and std: {launches}")
+    check(launches["lloyd_fused"] == n_iter + 1 and stats.get("lloyd_fused.resident") == n_iter + 1,
+          f"lloyd launches {launches['lloyd_fused']} != n_iter + 1 = {n_iter + 1}, or not resident: {stats}")
+    check(not any(k.endswith(".torch") for k in stats), f"a plain version ran on the path: {stats}")
+    lab, truth = sp.labels_.larray, member.larray
+    check(sp.labels_.gshape == (N_SPEC,) and sp.labels_.split == 0 and pred.split == 0, "labels metadata")
+    acc, _ = matched_labels(lab, truth, K_SPEC, what="labels vs the blobs")
+    check(acc >= SPEC_ACC, f"spectral labels agree with the blobs on {acc} of the rows")
+    check(torch.equal(pred.larray, lab), "predict on the fitted data differs from labels_")
+    print(f"[spectral] n={N_SPEC} f={F_SPEC} k={K_SPEC} gamma={SPEC_GAMMA} n_lanczos={N_LANCZOS}: labels agree with "
+          f"the blobs on {acc:.6f} of the rows; predict == labels_; KMeans on the embedding took {n_iter} Lloyd "
+          f"iterations; first calls: draws {t_main['draws']:.4f} s, standardize {t_main['standardize']:.4f} s, "
+          f"fit {t_main['fit']:.4f} s, predict {t_main['predict']:.4f} s", flush=True)
+    for line in spectral_kernel_checks(ht, dev, x, member, seen["embedding"], seen["init"], sp):
+        print(f"[spectral] {line}", flush=True)
+
+    # the same path through the plain versions of the three kernels
+    with forced_mode(THREEFRY_KERNEL, "torch"), forced_mode(MOMENTS_KERNEL, "torch"), forced_mode(LLOYD_KERNEL, "torch"):
+        member0, x0, (mu0, sd0, z0), sp0, pred0, t_plain = run()
+        evals0, V0, evecs0 = sp0._spectral_embedding(z0)
+    check(torch.equal(member0.larray, truth) and torch.equal(x0.larray, x.larray), "the plain draws differ from the kernel's")
+    u = F32_UNIT_ROUNDOFF
+    za, z0a = z.larray, z0.larray
+    z_bound = (MEAN_ATOL + MEAN_RTOL * mu0.larray.abs()) / sd0.larray + z0a.abs() * (M2_RTOL / 2 + 4 * u)
+    e_z = (za - z0a).abs()
+    check(bool((e_z <= z_bound).all()), f"z vs the plain path's beyond its bound: {(e_z / z_bound).max().item()} of it")
+    same, _ = matched_labels(sp0.labels_.larray, lab, K_SPEC, what="labels vs the plain path's")
+    check(same == 1.0, f"labels equal the plain path's up to a permutation on only {same} of the rows")
+
+    # the steps one by one (the fit's own sequence), for their times; L stays for the residuals
+    sigma = (1.0 / (2.0 * SPEC_GAMMA)) ** 0.5
+    steps = {}
+
+    def step(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        steps[name] = time.perf_counter() - t0
+        return out
+
+    S = step("rbf", lambda: ht.spatial.rbf(z, sigma=sigma))
+    L = step("Laplacian", lambda: ht.graph.Laplacian(lambda _: S).construct(z))
+    V, T = step("lanczos", lambda: ht.linalg.lanczos(L, N_LANCZOS))
+    evals, evecs = step("eigh", lambda: torch.linalg.eigh(T.larray))
+    step("KMeans fit", lambda: ht.cluster.KMeans(n_clusters=K_SPEC, init="probability_based",
+                                                 random_state=SPEC_KMEANS_SEED).fit(
+        ht.array(V.larray @ evecs[:, :K_SPEC], split=0)))
+    e_ritz = (evals[:K_SPEC] - evals0[:K_SPEC]).abs().max().item()
+    check(e_ritz <= RITZ_ATOL, f"Ritz values vs the plain path's: {e_ritz}")
+    Y, Y0 = V.larray.double() @ evecs[:, :K_SPEC].double(), V0.double() @ evecs0[:, :K_SPEC].double()
+    resid = ritz_residuals(L.larray, 0, Y, evals[:K_SPEC], evals.abs().max())
+    check(max(resid) <= RITZ_RESID_RTOL, f"Ritz pairs' ||L v - theta v|| / ||L|| {resid}")
+    # the plain path's Ritz pairs (from its own z and L) against this path's L
+    resid_x = ritz_residuals(L.larray, 0, Y0, evals0[:K_SPEC], evals0.abs().max())
+    check(max(resid_x) <= RITZ_RESID_RTOL, f"the plain path's Ritz pairs against this path's L: {resid_x}")
+    # the two embeddings' spans: the sine of their largest principal angle
+    cos_min = torch.linalg.svdvals(torch.linalg.qr(Y).Q.T @ torch.linalg.qr(Y0).Q).min().clamp(max=1.0).item()
+    sin_max = (1.0 - cos_min**2) ** 0.5
+    e_next = (evals[K_SPEC : 2 * K_SPEC] - evals0[K_SPEC : 2 * K_SPEC]).abs().max().item()
+    del S, L, V0, Y, Y0
+    torch.cuda.empty_cache()
+
+    # gamma: within-blob similarities (a sample of 4096 rows against all) and the largest between-blob one
+    within, between = [], 0.0
+    for r0 in range(0, N_SPEC, 4096):
+        d2 = _quadratic_expand(za[r0 : r0 + 4096], za)
+        same_blob = truth[r0 : r0 + 4096, None] == truth[None, :]
+        between = max(between, torch.exp(-SPEC_GAMMA * d2[~same_blob].min()).item())
+        if r0 == 0:
+            within = torch.exp(-SPEC_GAMMA * d2[same_blob]).median().item()
+        del d2, same_blob
+    check(within >= SPEC_WITHIN_MIN and between <= SPEC_BETWEEN_MAX,
+          f"gamma = {SPEC_GAMMA}: median within-blob similarity {within}, largest between-blob {between}")
+    lanczos_bound = N_LANCZOS * n_bytes / HBM_BYTES_PER_S
+    print(f"[spectral] gamma = {SPEC_GAMMA}: median within-blob similarity {within:.4f} (O(1)), largest "
+          f"between-blob similarity {between:.3e} (< {SPEC_BETWEEN_MAX})", flush=True)
+    print(f"[spectral] vs the plain path (threefry_bits, moments_onepass, lloyd_fused forced to their plain "
+          f"versions): x bit-identical; z max abs diff {e_z.max().item():.3e} ({(e_z / z_bound).max().item():.3f} of "
+          f"its bound); labels equal up to a permutation; {K_SPEC} smallest Ritz values max abs diff {e_ritz:.3e} "
+          f"(<= {RITZ_ATOL}), the next {K_SPEC} {e_next:.3e}; Ritz values "
+          f"{[round(v, 6) for v in evals[:K_SPEC + 1].tolist()]}; float64 ||L v - theta v|| / ||L|| of the "
+          f"{K_SPEC} smallest pairs {[f'{r:.3e}' for r in resid]}, of the plain path's pairs against this path's L "
+          f"{[f'{r:.3e}' for r in resid_x]} (<= {RITZ_RESID_RTOL}); sine of the largest principal angle between "
+          f"the two embeddings {sin_max:.3e}; plain path first calls: fit {t_plain['fit']:.4f} s, predict "
+          f"{t_plain['predict']:.4f} s", flush=True)
+    print(f"[spectral] per step (host clock, warm shapes): draws {t_main['draws']:.4f} s, standardize "
+          f"{t_main['standardize']:.4f} s, rbf {steps['rbf']:.4f} s (bound: writes {n_bytes} B, "
+          f"{n_bytes / HBM_BYTES_PER_S:.5f} s), Laplacian {steps['Laplacian']:.4f} s, lanczos {steps['lanczos']:.4f} s "
+          f"({steps['lanczos'] / N_LANCZOS * 1e3:.4f} ms per step; bound: L read once per step, "
+          f"{lanczos_bound:.4f} s), eigh {steps['eigh']:.4f} s, KMeans fit {steps['KMeans fit']:.4f} s; the path's "
+          f"fit {t_main['fit']:.4f} s and predict {t_main['predict']:.4f} s; whole path "
+          f"{sum(t_main.values()):.4f} s", flush=True)
+
+
+def linalg_phase(dev):
+    """[linalg]: solve, det, inv, cg, svd, rsvd, lstsq and pinv at full width on one card, each against float64
+    or a second route, with the bounds stated beside each gate, and timed beside the library call it makes."""
+    import torch
+
+    import heat_tpu_torch as ht
+
+    ht.use_device("gpu")
+    u = F32_UNIT_ROUNDOFF
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(LINALG_SEED)
+    ht.kernels.reset_kernel_stats()
+
+    def first(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # solve on bench.py's split-0 SPD system, M/sqrt(n) (M/sqrt(n))^T + I; the gate is the normwise backward
+    # error ||b - A x||_inf / (||A||_inf ||x||_inf + ||b||_inf) <= n u (LU with partial pivoting, growth O(1))
+    for n in SOLVE_NS:
+        m_ = torch.randn(n, n, device=dev, generator=gen) / n**0.5
+        a_t = m_ @ m_.T + torch.eye(n, device=dev)
+        del m_
+        b_t = torch.randn(n, device=dev, generator=gen)
+        A, b = ht.array(a_t, split=0, copy=False), ht.array(b_t, split=0, copy=False)
+        x, t_first = first(lambda: ht.linalg.solve(A, b))
+        check(x.gshape == (n,) and x.split is None and x.larray.is_cuda, f"solve metadata at n={n}")
+        a64, x64 = a_t.double(), x.larray.double()
+        eta = ((b_t.double() - a64 @ x64).abs().max() / (a64.abs().sum(1).max() * x64.abs().max()
+                                                          + b_t.abs().max())).item()
+        del a64
+        check(eta <= n * u, f"solve backward error {eta} > n u = {n * u} at n={n}")
+        ms, lib_ms = time_ms(lambda: ht.linalg.solve(A, b), reps=5, warm=1), time_ms(lambda: torch.linalg.solve(a_t, b_t), reps=5, warm=1)
+        flop = 2 * n**3 / 3 + 2 * n * n
+        print(f"[linalg] solve n={n} split 0: backward error {eta:.3e} (<= n u = {n * u:.3e}); first call "
+              f"{t_first:.4f} s; ht.linalg.solve {ms:.4f} ms, torch.linalg.solve {lib_ms:.4f} ms on the same tensors "
+              f"(at world size 1 the port calls torch.linalg.solve itself); 2/3 n^3 + 2 n^2 = {flop:.4e} flop, "
+              f"bound at 67 TFLOP/s {flop / FP32_FLOP_PER_S * 1e3:.4f} ms", flush=True)
+        if n == N_INV:
+            # inv on the same matrix: ||A X - I||_max <= n u cond(A)
+            X, t_inv = first(lambda: ht.linalg.inv(A))
+            ev = torch.linalg.eigvalsh(a_t.double())
+            kappa = (ev[-1] / ev[0]).item()
+            r_inv = (a_t.double() @ X.larray.double() - torch.eye(n, device=dev, dtype=torch.float64)).abs().max().item()
+            check(X.split == 0 and r_inv <= n * u * kappa, f"inv residual {r_inv} > n u cond = {n * u * kappa}")
+            ms_i, lib_i = time_ms(lambda: ht.linalg.inv(A), reps=5, warm=1), time_ms(lambda: torch.linalg.inv(a_t), reps=5, warm=1)
+            print(f"[linalg] inv n={n} split 0 (result split 0): ||A inv(A) - I||_max {r_inv:.3e} (<= n u cond(A) = "
+                  f"{n * u * kappa:.3e}, cond {kappa:.3f}); first call {t_inv:.4f} s; ht.linalg.inv {ms_i:.4f} ms, "
+                  f"torch.linalg.inv {lib_i:.4f} ms", flush=True)
+            del X
+        del A, b, a_t, b_t, x, x64
+        torch.cuda.empty_cache()
+
+    # context for [dist]'s LU at n = 16384 on four cards: the first panel every rank factors, (n, n / 4)
+    from heat_tpu_torch.core.linalg.factorizations import _lu_factor
+
+    pnl = torch.randn(SOLVE_NS[-1], SOLVE_NS[-1] // 4, device=dev, generator=gen)
+    ms_default = time_ms(lambda: torch.linalg.lu_factor_ex(pnl), reps=3, warm=1)
+    ms_panel = time_ms(lambda: _lu_factor(pnl), reps=3, warm=1)
+    pf = SOLVE_NS[-1] * (SOLVE_NS[-1] // 4) ** 2 - (SOLVE_NS[-1] // 4) ** 3 / 3
+    print(f"[linalg] LU of a {tuple(pnl.shape)} panel ([dist]'s first LU panel at four cards): the port's _lu_factor "
+          f"(cuSOLVER getrf, its pivots read back) {ms_panel:.4f} ms; torch.linalg.lu_factor_ex with torch's default "
+          f"library choice (MAGMA for a rectangular matrix) {ms_default:.4f} ms; {pf:.4e} flop, bound at 67 TFLOP/s "
+          f"{pf / FP32_FLOP_PER_S * 1e3:.4f} ms", flush=True)
+    del pnl
+
+    # det of Q diag(d) Q^T: the relative change of a determinant under a backward error dA is at most
+    # n ||A^-1|| ||dA|| <= n cond(A) u (first order, growth O(1)); cond <= e^2
+    a_t, det64 = known_det_matrix(N_DET, dev, LINALG_SEED)
+    d, t_det = first(lambda: ht.linalg.det(ht.array(a_t, split=0, copy=False)))
+    bound = N_DET * math.e**2 * u
+    e_det = abs(d.item() - det64) / abs(det64)
+    check(d.gshape == () and d.split is None and math.isfinite(d.item()) and d.item() < 0 and e_det <= bound,
+          f"det {d.item()} vs float64 {det64}: relative {e_det} > {bound}")
+    ms_d, lib_d = time_ms(lambda: ht.linalg.det(ht.array(a_t, split=0, copy=False)), reps=5, warm=1), time_ms(lambda: torch.linalg.det(a_t), reps=5, warm=1)
+    print(f"[linalg] det n={N_DET} of Q diag(d) Q^T (sum log|d| = 10, an odd number of d < 0): {d.item():.6e} vs "
+          f"float64 {det64:.6e}, relative {e_det:.3e} (<= n e^2 u = {bound:.3e}); first call {t_det:.4f} s; "
+          f"ht.linalg.det {ms_d:.4f} ms, torch.linalg.det {lib_d:.4f} ms", flush=True)
+    # a zero column makes a pivot exactly zero: heat_tpu keeps its multipliers zero, so det is an exact 0
+    a_t[:, 5] = 0.0
+    d0 = ht.linalg.det(ht.array(a_t, split=0, copy=False)).item()
+    check(d0 == 0.0, f"det of a matrix with a zero column is {d0}, not an exact 0")
+    print(f"[linalg] det n={N_DET} with a zero column: {d0} (torch.linalg.det of the same tensor: "
+          f"{torch.linalg.det(a_t).item()})", flush=True)
+    del a_t
+
+    # cg on the kernel-ridge path's K = rbf(X, X, sigma = sqrt(32)) + I over 1024 standardized rows, against its
+    # Cholesky solve: x - alpha = K^-1 (r_x - r_alpha) and ||K^-1|| <= 1, so ||x - alpha|| <= ||r_x|| + ||r_alpha||
+    ht.random.seed(LINALG_SEED)
+    Xr = ht.random.randn(N_CG, F_MAIN, split=0)
+    Xr = (Xr - ht.mean(Xr, axis=0)) / ht.std(Xr, axis=0)
+    K = ht.spatial.rbf(Xr, Xr, sigma=F_MAIN ** 0.5) + ht.eye(N_CG)
+    yv = ht.random.randn(N_CG, split=0)
+    L = ht.linalg.cholesky(K)
+    alpha = ht.linalg.solve_triangular(L.T, ht.linalg.solve_triangular(L, yv, lower=True), lower=False)
+    xc, t_cg = first(lambda: ht.linalg.cg(K, yv, ht.zeros(N_CG)))
+    k64, y64 = K.larray.double(), yv.larray.double()
+    r_x, r_a = (k64 @ xc.larray.double() - y64).norm().item(), (k64 @ alpha.larray.double() - y64).norm().item()
+    dx = (xc.larray.double() - alpha.larray.double()).norm().item()
+    check(xc.split == 0 and r_x / y64.norm().item() <= RIDGE_SOLVE_RTOL and dx <= (r_x + r_a) * (1 + 1e-6),
+          f"cg: ||K x - y|| {r_x}, ||x - alpha|| {dx} > ||r_x|| + ||r_alpha|| = {r_x + r_a}")
+    ms_cg = time_ms(lambda: ht.linalg.cg(K, yv, ht.zeros(N_CG)), reps=3, warm=1)
+    print(f"[linalg] cg n={N_CG} on the kernel-ridge K: ||K x - y||/||y|| {r_x / y64.norm().item():.3e}; "
+          f"||x - alpha_cholesky|| {dx:.3e} (<= ||r_x|| + ||r_alpha|| = {r_x + r_a:.3e}); first call {t_cg:.4f} s, "
+          f"warm {ms_cg:.4f} ms", flush=True)
+    del K, L, alpha, xc, k64, Xr
+
+    # svd, rsvd, lstsq, pinv at N_SVD x F_SVD split 0: A = G diag(s) W, s from 1 down to 1e-2 (cond ~100)
+    g_t = torch.randn(N_SVD, F_SVD, device=dev, generator=gen) / N_SVD**0.5
+    w = torch.linalg.qr(torch.randn(F_SVD, F_SVD, device=dev, generator=gen, dtype=torch.float64)).Q
+    s_true = torch.logspace(0, -2, F_SVD, device=dev, dtype=torch.float64)
+    a_t = (g_t.double() * s_true @ w).to(torch.float32)
+    A = ht.array(a_t, split=0, copy=False)
+
+    def chunks(t=a_t):
+        for r0 in range(0, N_SVD, 1 << 20):
+            yield r0, t[r0 : r0 + (1 << 20)].double()
+
+    a_f = math.sqrt(sum((c * c).sum().item() for _, c in chunks()))
+    (U, S, Vh), t_svd = first(lambda: ht.linalg.svd(A))
+    check(U.split == 0 and S.split is None and Vh.split is None and U.gshape == (N_SVD, F_SVD), "svd metadata")
+    s_lib = torch.linalg.svdvals(a_t)
+    us = (U.larray * S.larray).double()
+    e_rec = math.sqrt(sum(((us[r0 : r0 + c.shape[0]] @ Vh.larray.double() - c) ** 2).sum().item() for r0, c in chunks())) / a_f
+    e_s = (S.larray - s_lib).abs().max().item()
+    s_max = s_lib.max().item()
+    check(e_rec <= SVD_RESID_RTOL and e_s <= 2 * SVD_RESID_RTOL * s_max,
+          f"svd: ||A - U S Vh||_F/||A||_F {e_rec}, S vs svdvals {e_s}")
+    del us
+    kappa = (s_lib.max() / s_lib.min()).item()
+    ms_svd = time_ms(lambda: ht.linalg.svd(A), reps=3, warm=1)
+    ms_lib = time_ms(lambda: torch.linalg.svd(a_t, full_matrices=False), reps=3, warm=1)
+    ms_vals = time_ms(lambda: torch.linalg.svdvals(a_t), reps=3, warm=1)
+    print(f"[linalg] svd {N_SVD} x {F_SVD} split 0 (qr + the SVD of R; heat_tpu's route at world size 1 is the whole "
+          f"array's SVD, torch.linalg.svd below): "
+          f"||A - U S Vh||_F/||A||_F {e_rec:.3e}, S vs torch.linalg.svdvals max abs {e_s:.3e} (<= "
+          f"{2 * SVD_RESID_RTOL * s_max:.3e}); cond {kappa:.2f}; first call {t_svd:.4f} s; ht.linalg.svd {ms_svd:.4f} "
+          f"ms, torch.linalg.svd {ms_lib:.4f} ms, torch.linalg.svdvals {ms_vals:.4f} ms; bound: A read once "
+          f"{N_SVD * F_SVD * 4 / HBM_BYTES_PER_S * 1e3:.4f} ms", flush=True)
+    del U, Vh
+
+    # rsvd(rank 16): ||A - U S Vh||_F within sqrt(1 + k / (p - 1)) of the best rank-k error (Halko, Martinsson and
+    # Tropp 2011, Thm 10.5, no power iteration; two only tighten it)
+    (Ur, Sr, Vr), t_rsvd = first(lambda: ht.linalg.rsvd(A, RSVD_RANK, n_oversamples=RSVD_OVERSAMPLES, random_state=1))
+    best = math.sqrt((s_lib[RSVD_RANK:].double() ** 2).sum().item())
+    us = (Ur.larray * Sr.larray).double()
+    e_r = math.sqrt(sum(((us[r0 : r0 + c.shape[0]] @ Vr.larray.double() - c) ** 2).sum().item() for r0, c in chunks()))
+    factor = math.sqrt(1 + RSVD_RANK / (RSVD_OVERSAMPLES - 1))
+    check(Ur.gshape == (N_SVD, RSVD_RANK) and e_r <= factor * best, f"rsvd error {e_r} > {factor} x {best}")
+    e_rs = ((Sr.larray - s_lib[:RSVD_RANK]).abs() / s_lib[:RSVD_RANK]).max().item()
+    del us, Ur, Vr
+    ms_rsvd = time_ms(lambda: ht.linalg.rsvd(A, RSVD_RANK, n_oversamples=RSVD_OVERSAMPLES, random_state=1), reps=3, warm=1)
+    print(f"[linalg] rsvd rank {RSVD_RANK} (+{RSVD_OVERSAMPLES}, 2 power iterations): ||A - U S Vh||_F {e_r:.6e} vs "
+          f"the best rank-{RSVD_RANK} error {best:.6e} (<= x{factor:.3f}); S vs svdvals max relative {e_rs:.3e}; "
+          f"first call {t_rsvd:.4f} s, warm {ms_rsvd:.4f} ms", flush=True)
+
+    # lstsq takes heat_tpu's QR route only where min|diag R| > eps max(m, n) max|diag R|: at m = 2^22 in float32
+    # eps m = 0.5, so only for cond < 2. On G (Gaussian columns, cond ~1.008) the QR route, held against the float64
+    # normal equations by the first-order bound (Higham, 2nd ed., Thm 20.1), eta (2 cond + cond^2 ||r|| /
+    # (||G||_2 ||x||)), with a backward error eta = sqrt(m) u: the QR's inner products run over m rows, and their
+    # rounding grows like sqrt(m) u for random signs
+    G = ht.array(g_t, split=0, copy=False)
+    x_true = torch.randn(F_SVD, device=dev, generator=gen)
+    noise = 1e-3 * torch.randn(N_SVD, device=dev, generator=gen)
+    gb_t = g_t @ x_true + noise
+    gb = ht.array(gb_t, split=0, copy=False)
+    ht.kernels.reset_kernel_stats()
+    xl, t_ls = first(lambda: ht.linalg.lstsq(G, gb))
+    route = {k: v for k, v in ht.KERNEL_STATS.items() if k.startswith("qr.")}
+    sg = torch.linalg.svdvals(g_t)
+    kappa_g = (sg.max() / sg.min()).item()
+    x64 = torch.linalg.solve(sum(c.T @ c for _, c in chunks(g_t)),
+                             sum(c.T @ gb_t[r0 : r0 + c.shape[0]].double() for r0, c in chunks(g_t)))
+    r_norm = math.sqrt(sum(((c @ x64 - gb_t[r0 : r0 + c.shape[0]].double()) ** 2).sum().item() for r0, c in chunks(g_t)))
+    ls_bound = N_SVD**0.5 * u * (2 * kappa_g + kappa_g**2 * r_norm / (sg.max().item() * x64.norm().item()))
+    e_ls = ((xl.larray.double() - x64).norm() / x64.norm()).item()
+    check(xl.split is None and route == {"qr.cholqr2": 1} and e_ls <= ls_bound,
+          f"lstsq (QR route {route}) vs float64: {e_ls} > {ls_bound}")
+    ms_ls = time_ms(lambda: ht.linalg.lstsq(G, gb), reps=3, warm=1)
+    print(f"[linalg] lstsq {N_SVD} x {F_SVD} split 0, cond {kappa_g:.4f} (QR route, {route}): vs the float64 normal "
+          f"equations {e_ls:.3e} (<= {ls_bound:.3e}); first call {t_ls:.4f} s, warm {ms_ls:.4f} ms", flush=True)
+
+    # On A (cond 100) the guard fails: lstsq is pinv(A) b with the cutoff eps max(m, n) s_1 = 0.5 s_1, the
+    # truncated solution, held against its float64 value V_k S_k^-2 V_k^T A^T b (the float64 Gram's eigenpairs
+    # above the cutoff). By Wedin's theorem the float32 SVD's backward error dA turns V_k by at most
+    # ||dA|| / (s_k - s_k+1), which the solution feels times s_1 / s_k: bound 2 (s_1 / s_k) ||dA|| / (s_k - s_k+1),
+    # ||dA|| <= SVD_RESID_RTOL ||A||_F
+    b_t = a_t @ x_true + noise
+    b = ht.array(b_t, split=0, copy=False)
+    xp, t_lp = first(lambda: ht.linalg.lstsq(A, b))
+    ev, vec = torch.linalg.eigh(sum(c.T @ c for _, c in chunks()))
+    sv = ev.clamp(min=0).sqrt()
+    keep = sv > torch.finfo(torch.float32).eps * max(N_SVD, F_SVD) * sv.max()
+    k_ = int(keep.sum())
+    vk = vec[:, keep]
+    atb = sum(c.T @ b_t[r0 : r0 + c.shape[0]].double() for r0, c in chunks())
+    xp64 = vk @ ((vk.T @ atb) / ev[keep])
+    s_desc = sv.flip(0)
+    gap = (s_desc[k_ - 1] - (s_desc[k_] if k_ < F_SVD else 0.0)).item()
+    p_bound = 2 * (s_desc[0] / s_desc[k_ - 1]).item() * SVD_RESID_RTOL * a_f / gap
+    e_lp = ((xp.larray.double() - xp64).norm() / xp64.norm()).item()
+    check(xp.split is None and e_lp <= p_bound, f"lstsq (pinv route) vs float64 truncated: {e_lp} > {p_bound}")
+    print(f"[linalg] lstsq {N_SVD} x {F_SVD} split 0, cond {kappa:.2f} (R's guard fails where cond >= 1 / (eps m): "
+          f"the pinv route keeps the {k_} of {F_SVD} singular values above eps max(m, n) s_1): vs the float64 "
+          f"truncated solution {e_lp:.3e} (<= {p_bound:.3e}); first call {t_lp:.4f} s", flush=True)
+
+    # pinv of G (nothing cut): P G = I up to U's orthogonality error (<= 2e-4 by the SVD gate) amplified by cond
+    P, t_pinv = first(lambda: ht.linalg.pinv(G))
+    pa = sum(P.larray[:, r0 : r0 + c.shape[0]].double() @ c for r0, c in chunks(g_t))
+    e_p = (pa - torch.eye(F_SVD, device=dev, dtype=torch.float64)).abs().max().item()
+    check(P.gshape == (F_SVD, N_SVD) and P.split == 1 and e_p <= 2 * SVD_RESID_RTOL * kappa_g,
+          f"pinv: ||pinv(G) G - I||_max {e_p} > {2 * SVD_RESID_RTOL * kappa_g}")
+    del P
+    ms_p = time_ms(lambda: ht.linalg.pinv(G), reps=3, warm=1)
+    print(f"[linalg] pinv {N_SVD} x {F_SVD} split 0 (result split 1): ||pinv(G) G - I||_max {e_p:.3e} (<= "
+          f"{2 * SVD_RESID_RTOL * kappa_g:.3e}); first call {t_pinv:.4f} s, warm {ms_p:.4f} ms", flush=True)
+    del A, a_t, b, b_t, G, g_t, gb, gb_t
+    torch.cuda.empty_cache()
+
+
 # ---- [dist]: the main path over torch.distributed, one process per card ------------------------
-DIST_SEED, DIST_QR_SEED, DIST_RIDGE_SEED = 7, 8, 9
+DIST_SEED, DIST_QR_SEED, DIST_RIDGE_SEED, DIST_LU_SEED, DIST_SVD_SEED = 7, 8, 9, 10, 14
 N_DIST_SLICE = 1 << 20  # rows of z in the resplit round trip
 # the kernel-ridge path in [dist]: 4096 rows per card (n = 16384 at four cards: K is 1 GiB, 256 MiB per card);
 # cholesky's tiles_per_proc = 4 makes its panels 4096 / 4 = 1024 = MAX_FUSED_N rows, so every diagonal block
 # runs chol_panel_fused above one card (at one card n = 4096 > MAX_FUSED_N takes cholesky_ex)
 N_RIDGE_CARD, RIDGE_TILES = 4096, 4
+# lstsq's QR route across ranks needs eps m < 1 (see _lstsq_check): 2^20 rows per card keeps m <= 2^22 up to
+# four cards, where [dist]'s svd at N_SVD rows per card (m = 2^24 at four cards) cuts every singular value
+N_LSTSQ_CARD = 1 << 20
 
 
 def _dist_data(ht, world):
@@ -441,7 +1032,13 @@ def _dist_rank(rank, world, store, out_dir):
     result.update(R=R.larray.cpu(), qr_resid=resid, qr_ortho=ortho, gram_diff=g_diff, qr_routes=qr_routes)
     del A, Q, R, G, a_l, q_l, r64, qtq, gram
     torch.cuda.empty_cache()
-    result["ridge"] = _dist_ridge(ht, world, rank, timed, same_everywhere, say, out_dir)
+    result["ridge"], (K, yv, alpha) = _dist_ridge(ht, world, rank, timed, same_everywhere, say, out_dir)
+    result["lu"] = _dist_linalg(ht, world, rank, K, yv, alpha, timed, same_everywhere, say)
+    del K, yv, alpha
+    torch.cuda.empty_cache()
+    result["svd"] = _dist_svd(ht, world, rank, timed, same_everywhere, say)
+    torch.cuda.empty_cache()
+    result["spectral"] = _dist_spectral(ht, world, rank, timed, same_everywhere, say)
     times = torch.tensor([t_stats, t_fit, t_warm, t_knn, t_knn_w, t_stats_w, t_qr, t_qr_w, t_mm, t_mm_w, t_rs, path_s],
                          dtype=torch.float64, device=dev)
     result["times_max"] = comm.allreduce(times, "max").cpu().tolist()
@@ -577,9 +1174,10 @@ def _dist_ridge(ht, world, rank, timed, same_everywhere, say, out_dir):
         f"{dk_fro:.3e}; ||K alpha - y||/||y|| {resid:.3e}; rbf use_ring vs default max abs {ring_diff:.3e} (bound "
         f"{ring_bound:.3e}), ring rbf {t_ring:.4f} s host, {ev_ring:.4f} ms events, COLLECTIVES {ring_coll}")
     torch.save({"K": Kr.cpu(), "L": Lr.cpu()}, os.path.join(out_dir, f"ridge{rank}.pt"))
-    return {"steps": steps, "warm": warm, "launches": launches, "stats": stats, "recon": recon, "dk_fro": dk_fro, "k_inf": k_inf,
-            "resid": resid, "ring_diff": ring_diff, "ring_bound": ring_bound, "ring_host_s": t_ring,
-            "ring_event_ms": ev_ring, "ring_collectives": ring_coll, "counts": counts, "bs": bs}
+    summary = {"steps": steps, "warm": warm, "launches": launches, "stats": stats, "recon": recon, "dk_fro": dk_fro,
+               "k_inf": k_inf, "resid": resid, "ring_diff": ring_diff, "ring_bound": ring_bound, "ring_host_s": t_ring,
+               "ring_event_ms": ev_ring, "ring_collectives": ring_coll, "counts": counts, "bs": bs}
+    return summary, (K, yv, alpha)
 
 
 def _ridge_reference(ht, world, ranks, tmp):
@@ -626,6 +1224,307 @@ def _ridge_reference(ht, world, ranks, tmp):
     del K, L0, L064, Ls
     torch.cuda.empty_cache()
     return {"diff_fro": diff, "diff_max": diff_max, "bound": bound, "dk2": dk2, "t_one": t_one}
+
+
+def _steps_line(steps):
+    return "; ".join(f"{k} {v['host_s']:.4f} s host, {v['event_ms']:.4f} ms events, COLLECTIVES {v['collectives']}"
+                     for k, v in steps.items())
+
+
+def _dist_linalg(ht, world, rank, K, yv, alpha, timed, same_everywhere, say):
+    """[dist]'s LU (solve on the ridge path's K, det and inv of a matrix with a known determinant), cg and
+    lanczos on the row-split K, with their residuals computed across ranks; what the parent compares is
+    returned (x and y whole, on rank 0)."""
+    import torch
+
+    comm = ht.get_comm()
+    dev = ht.get_device().torch_device
+    n = K.gshape[0]
+    u = F32_UNIT_ROUNDOFF
+    steps = {}
+
+    def step(name, fn):
+        out, host, ev = timed(fn)
+        steps[name] = {"host_s": host, "event_ms": ev, "collectives": timed.collectives}
+        return out
+
+    counts = [int(c) for c in K.lshape_map[:, 0]]
+    starts = [sum(counts[:q]) for q in range(world)]
+    k64, y_loc = K.larray.double(), yv.larray.double()
+    y_norm = comm.allreduce((y_loc * y_loc).sum()).sqrt().item()
+
+    def resid(x_full):  # ||K x - y|| across ranks, float64
+        r = k64 @ x_full.double() - y_loc
+        return comm.allreduce((r * r).sum()).sqrt().item()
+
+    a_full = alpha._logical()
+    r_a = resid(a_full)
+    # solve against the Cholesky alpha: x - alpha = K^-1 (r_x - r_alpha), ||K^-1|| <= 1 (K = rbf + I)
+    x = step("solve", lambda: ht.linalg.solve(K, yv))
+    x_full = x._logical()
+    r_x, dx = resid(x_full), (x_full.double() - a_full.double()).norm().item()
+    check(x.split == (0 if world > 1 else None) and r_x / y_norm <= RIDGE_SOLVE_RTOL and dx <= (r_x + r_a) * (1 + 1e-6),
+          f"[dist] solve: ||K x - y||/||y|| {r_x / y_norm}, ||x - alpha|| {dx} > {r_x + r_a}")
+    bs = ht.factor_block_edge(K, 1, -(-n // world))
+    panels = -(-n // bs)
+    if world > 1:
+        coll = steps["solve"]["collectives"]
+        check(coll.get("bcast", {}).get("calls") == panels and coll.get("allgather", {}).get("calls", 0) <= 2 * panels,
+              f"[dist] solve should run one panel allgather, at most one exchange allgather and one bcast per panel "
+              f"({panels} panels): {coll}")
+    # det and inv of Q diag(d) Q^T: det within n e^2 u of the float64 one (relative), ||A X - I||_max <= n u e^2
+    a_full32, det64 = known_det_matrix(n, dev, DIST_LU_SEED)
+    A = ht.DNDarray(a_full32[starts[rank] : starts[rank] + counts[rank]].contiguous(), gshape=(n, n), split=0)
+    del a_full32
+    d = step("det", lambda: ht.linalg.det(A))
+    same_everywhere(d.larray.reshape(1), "det")
+    e_det = abs(d.item() - det64) / abs(det64)
+    check(math.isfinite(d.item()) and e_det <= n * math.e**2 * u, f"[dist] det {d.item()} vs {det64}: {e_det}")
+    # a zero column makes a pivot exactly zero: its multipliers stay zero (the library's panel factorization on
+    # the card included) and the determinant is an exact 0
+    sing = torch.randn(16 * world, 16 * world, device=dev, generator=torch.Generator(device=dev).manual_seed(1))
+    sing[:, 5] = 0.0
+    d0 = ht.linalg.det(ht.DNDarray(sing[16 * rank : 16 * rank + 16].contiguous(), gshape=sing.shape, split=0)).item()
+    check(d0 == 0.0, f"[dist] det of a matrix with a zero column is {d0}, not an exact 0")
+    X = step("inv", lambda: ht.linalg.inv(A))
+    check(X.split == 0 and X.gshape == (n, n), "[dist] inv metadata")
+    # A X - I across ranks: X's row chunks rotate around the ring, block (r, q) = A_r[:, cols q] X_q in float64
+    a64 = A.larray.double()
+    acc = torch.zeros((counts[rank], n), dtype=torch.float64, device=dev)
+    buf = torch.zeros((max(counts), n), dtype=X.larray.dtype, device=dev)
+    buf[: counts[rank]] = X.larray
+    for s_ in range(world):
+        q = (rank + s_) % world
+        if counts[q] and counts[rank]:
+            acc += a64[:, starts[q] : starts[q] + counts[q]] @ buf[: counts[q]].double()
+        if s_ < world - 1:
+            buf = comm.ring_shift(buf)
+    rows = torch.arange(counts[rank], device=dev)
+    acc[rows, starts[rank] + rows] -= 1.0
+    r_inv = comm.allreduce(acc.abs().max() if counts[rank] else torch.zeros((), dtype=torch.float64, device=dev),
+                           "max").item()
+    del acc, buf, a64, X
+    check(r_inv <= n * u * math.e**2, f"[dist] ||A inv(A) - I||_max {r_inv} > {n * u * math.e**2}")
+    # cg on K against alpha (the same bound as solve); lanczos on K: the largest Ritz pair's residual
+    xc = step("cg", lambda: ht.linalg.cg(K, yv, ht.zeros(n, split=0)))
+    xc_full = xc._logical()
+    r_c, dxc = resid(xc_full), (xc_full.double() - a_full.double()).norm().item()
+    check(r_c / y_norm <= RIDGE_SOLVE_RTOL and dxc <= (r_c + r_a) * (1 + 1e-6),
+          f"[dist] cg: ||K x - y||/||y|| {r_c / y_norm}, ||x - alpha|| {dxc} > {r_c + r_a}")
+    V, T = step("lanczos", lambda: ht.linalg.lanczos(K, N_LANCZOS))
+    if world > 1:
+        check(steps["lanczos"]["collectives"].get("allgather", {}).get("calls") == N_LANCZOS,
+              f"[dist] lanczos should run one allgather per step: {steps['lanczos']['collectives']}")
+    same_everywhere(V.larray, "lanczos V")
+    same_everywhere(T.larray, "lanczos T")
+    evals, evecs = torch.linalg.eigh(T.larray)
+    r_top = ritz_residuals(K.larray, starts[rank], V.larray.double() @ evecs[:, -1:].double(), evals[-1:],
+                           evals.abs().max(), comm)[0]
+    check(r_top <= RITZ_RESID_RTOL, f"[dist] lanczos' largest Ritz pair: ||K v - theta v|| / ||K|| {r_top}")
+    del V, T, k64
+    warm = {}
+    for name, fn in (("solve", lambda: ht.linalg.solve(K, yv)), ("det", lambda: ht.linalg.det(A)),
+                     ("inv", lambda: ht.linalg.inv(A)), ("cg", lambda: ht.linalg.cg(K, yv, ht.zeros(n, split=0))),
+                     ("lanczos", lambda: ht.linalg.lanczos(K, N_LANCZOS))):
+        _, host, ev = timed(fn)
+        warm[name] = {"host_s": host, "event_ms": ev, "collectives": timed.collectives}
+    say("lu/solvers warm per call: " + _steps_line(warm))
+    say(f"lu/solvers n={n} (panels of {bs} rows): solve ||K x - y||/||y|| {r_x / y_norm:.3e}, ||x - alpha_cholesky|| "
+        f"{dx:.3e} (<= {r_x + r_a:.3e}); det of Q diag(d) Q^T {d.item():.6e} vs float64 {det64:.6e} (relative "
+        f"{e_det:.3e}, <= {n * math.e**2 * u:.3e}), of a {16 * world}-row matrix with a zero column {d0}; "
+        f"||A inv(A) - I||_max {r_inv:.3e} (<= {n * u * math.e**2:.3e}); cg "
+        f"||K x - y||/||y|| {r_c / y_norm:.3e}, ||x - alpha|| {dxc:.3e}; lanczos m={N_LANCZOS} largest Ritz value "
+        f"{evals[-1].item():.6e}, residual {r_top:.3e}")
+    say("lu/solvers per call: " + _steps_line(steps))
+    y_full = yv._logical()  # a collective: every rank gathers, rank 0 keeps it
+    return {"steps": steps, "warm": warm, "x": x_full.cpu() if rank == 0 else None,
+            "y": y_full.cpu() if rank == 0 else None, "r_x": r_x, "panels": panels, "bs": bs}
+
+
+def _normal_equations(a_l, b_l, comm):
+    """float64 (A^T A, A^T b) of the row-split A and b, summed across ranks."""
+    import torch
+
+    gram = torch.zeros((a_l.shape[1], a_l.shape[1]), dtype=torch.float64, device=a_l.device)
+    atb = torch.zeros(a_l.shape[1], dtype=torch.float64, device=a_l.device)
+    for r0 in range(0, a_l.shape[0], 1 << 20):
+        c = a_l[r0 : r0 + (1 << 20)].double()
+        gram += c.T @ c
+        atb += c.T @ b_l[r0 : r0 + (1 << 20)].double()
+    return comm.allreduce(gram), comm.allreduce(atb)
+
+
+def _lstsq_check(A, b, x, comm, what):
+    """heat_tpu's lstsq keeps the QR route where min|diag R| > eps max(m, n) max|diag R| and otherwise returns
+    pinv(A) b with the singular values at most eps max(m, n) s_1 cut. For Gaussian columns (cond ~1.004) that is
+    the QR route while eps m < 1, and at eps m >= 1 every singular value is cut and x = 0 exactly. The QR route
+    is held to [linalg]'s bound against the float64 normal equations (residual across ranks); returns
+    (route, error, bound, cond)."""
+    import torch
+
+    m = A.gshape[0]
+    gram, atb = _normal_equations(A.larray, b.larray, comm)
+    s = torch.linalg.eigvalsh(gram).clamp(min=0).sqrt()
+    kappa = (s.max() / s.min()).item()
+    if torch.finfo(torch.float32).eps * max(m, F_SVD) >= 1.0:
+        e_ls = x.larray.abs().max().item()
+        check(e_ls == 0.0, f"[dist] {what} at eps m >= 1 should be heat_tpu's 0, not {x.larray}")
+        return "pinv (every singular value cut: x = 0)", e_ls, 0.0, kappa
+    x64 = torch.linalg.solve(gram, atb)
+    r = b.larray.double() - A.larray.double() @ x64
+    r_norm = comm.allreduce((r * r).sum()).sqrt().item()
+    u = F32_UNIT_ROUNDOFF
+    ls_bound = m**0.5 * u * (2 * kappa + kappa**2 * r_norm / (s.max().item() * x64.norm().item()))
+    e_ls = ((x.larray.double() - x64).norm() / x64.norm()).item()
+    check(e_ls <= ls_bound, f"[dist] {what} vs the float64 normal equations: {e_ls} > {ls_bound}")
+    return "QR", e_ls, ls_bound, kappa
+
+
+def _dist_svd(ht, world, rank, timed, same_everywhere, say):
+    """[dist]'s svd and lstsq at N_SVD rows x F_SVD per card (TSQR above one card), residuals across ranks; and
+    lstsq again at N_LSTSQ_CARD rows per card, where its QR route runs at up to four cards."""
+    import torch
+
+    comm = ht.get_comm()
+    steps = {}
+
+    def step(name, fn):
+        out, host, ev = timed(fn)
+        steps[name] = {"host_s": host, "event_ms": ev, "collectives": timed.collectives}
+        return out
+
+    ht.random.seed(DIST_SVD_SEED)
+    A = ht.random.randn(N_SVD * world, F_SVD, split=0)
+    b = ht.random.randn(N_SVD * world, split=0)
+    U, S, Vh = step("svd", lambda: ht.linalg.svd(A))
+    check(U.split == 0 and S.split is None and Vh.split is None, "[dist] svd metadata")
+    same_everywhere(S.larray, "svd S")
+    same_everywhere(Vh.larray, "svd Vh")
+    a_l, us = A.larray, (U.larray * S.larray).double()
+    e2, a2 = torch.zeros((), dtype=torch.float64, device=a_l.device), torch.zeros((), dtype=torch.float64, device=a_l.device)
+    for r0 in range(0, a_l.shape[0], 1 << 20):
+        c = a_l[r0 : r0 + (1 << 20)].double()
+        e2 += ((us[r0 : r0 + (1 << 20)] @ Vh.larray.double() - c) ** 2).sum()
+        a2 += (c * c).sum()
+    del us
+    e_rec = (comm.allreduce(e2) / comm.allreduce(a2)).sqrt().item()
+    check(e_rec <= SVD_RESID_RTOL, f"[dist] svd ||A - U S Vh||_F/||A||_F {e_rec}")
+    x = step("lstsq", lambda: ht.linalg.lstsq(A, b))
+    check(x.split is None, "[dist] lstsq result replicated")
+    same_everywhere(x.larray, "lstsq x")
+    route, e_ls, ls_bound, kappa = _lstsq_check(A, b, x, comm, "lstsq")
+    shape, rows = A.gshape, A.lshape_map[:, 0].tolist()
+    del A, b, U
+    # the QR route across ranks (TSQR's R, Q^T b across ranks, the triangular solve) at eps m < 1, on
+    # b = A w + 1e-3 noise as [linalg]'s: a small residual keeps the bound's kappa^2 ||r|| term small
+    A2 = ht.random.randn(N_LSTSQ_CARD * world, F_SVD, split=0)
+    b2 = ht.matmul(A2, ht.random.randn(F_SVD)) + 1e-3 * ht.random.randn(N_LSTSQ_CARD * world, split=0)
+    x2 = step("lstsq (QR route)", lambda: ht.linalg.lstsq(A2, b2))
+    check(x2.split is None, "[dist] lstsq (QR route) result replicated")
+    same_everywhere(x2.larray, "lstsq (QR route) x")
+    route2, e_ls2, ls_bound2, kappa2 = _lstsq_check(A2, b2, x2, comm, "lstsq (QR route)")
+    check(route2 == "QR", f"[dist] lstsq at {N_LSTSQ_CARD * world} rows took the {route2} route")
+    say(f"svd/lstsq {shape} split 0 (lshape_map {rows} rows): ||A - U S Vh||_F/||A||_F {e_rec:.3e}; lstsq route {route}, vs float64 {e_ls:.3e} (<= "
+        f"{ls_bound:.3e}), cond {kappa:.4f}; lstsq at {(N_LSTSQ_CARD * world, F_SVD)}: route {route2}, vs float64 "
+        f"{e_ls2:.3e} (<= {ls_bound2:.3e}), cond {kappa2:.4f}; per call: {_steps_line(steps)}")
+    return {"steps": steps, "S": S.larray.cpu(), "x": x.larray.cpu(), "ls_bound": ls_bound, "route": route,
+            "qr_route": {"e": e_ls2, "bound": ls_bound2}}
+
+
+def _dist_spectral(ht, world, rank, timed, same_everywhere, say):
+    """[dist]'s spectral path on [spectral]'s global data (N_SPEC rows split over the ranks)."""
+    import torch
+
+    comm = ht.get_comm()
+    steps = {}
+
+    def step(name, fn):
+        out, host, ev = timed(fn)
+        steps[name] = {"host_s": host, "event_ms": ev, "collectives": timed.collectives}
+        return out
+
+    member, x = step("draws", lambda: spectral_data(ht))
+    z = step("standardize", lambda: (x - ht.mean(x, axis=0)) / ht.std(x, axis=0))
+    sp = step("fit", lambda: spectral_fit(ht, z))
+    pred = step("predict", lambda: sp.predict(z))
+    evals, V, evecs = step("embedding (Ritz values)", lambda: sp._spectral_embedding(z))
+    check(sp.labels_.split == 0 and pred.split == 0 and torch.equal(pred.larray, sp.labels_.larray),
+          "[dist] spectral predict == labels_, split 0")
+    acc, _ = matched_labels(sp.labels_.larray, member.larray, K_SPEC, comm, "[dist] labels vs the blobs")
+    check(acc >= SPEC_ACC, f"[dist] spectral labels agree with the blobs on {acc}")
+    same_everywhere(evals, "spectral Ritz values")
+    same_everywhere(sp._cluster.cluster_centers_.larray, "spectral centers")
+    say(f"spectral {x.gshape} (lshape_map {x.lshape_map[:, 0].tolist()} rows): labels agree with the blobs on "
+        f"{acc:.6f}; per call: {_steps_line(steps)}")
+    Y = V.double() @ evecs[:, :K_SPEC].double()  # the k smallest Ritz vectors, replicated
+    return {"steps": steps, "labels": sp.labels_.larray.to(torch.int8).cpu(), "evals": evals.cpu(), "Y": Y.cpu()}
+
+
+def _linalg_reference(ht, world, ranks, tmp):
+    """The one-process port on one card against the ranks: solve of the same K (torch.linalg.solve at world size
+    1), svd and lstsq of the same A, the spectral path on the same data; times of each."""
+    import torch
+
+    dev = ht.get_device().torch_device
+    out = {}
+    K = torch.cat([torch.load(os.path.join(tmp, f"ridge{r}.pt"))["K"] for r in range(world)]).to(dev)
+    y, x_d = ranks[0]["lu"]["y"].to(dev), ranks[0]["lu"]["x"].to(dev)
+    t = []
+    for _ in range(2):  # the first call, then warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x1 = ht.linalg.solve(ht.array(K, copy=False), ht.array(y, copy=False)).larray
+        torch.cuda.synchronize()
+        t.append(time.perf_counter() - t0)
+    r1 = (K.double() @ x1.double() - y.double()).norm().item()
+    d = (x1.double() - x_d.double()).norm().item()
+    # both solutions against the same K: ||x_1 - x_d|| <= ||r_1|| + ||r_d|| (||K^-1|| <= 1)
+    check(d <= (r1 + ranks[0]["lu"]["r_x"]) * (1 + 1e-6), f"[dist] solve vs one card's: {d}")
+    out["solve"] = {"t": t, "diff": d, "r1": r1}
+    del K
+    torch.cuda.empty_cache()
+    ht.random.seed(DIST_SVD_SEED)
+    A = ht.random.randn(N_SVD * world, F_SVD, split=0)
+    b = ht.random.randn(N_SVD * world, split=0)
+    t = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s1 = ht.linalg.svd(A, compute_uv=False).larray
+        x1 = ht.linalg.lstsq(A, b).larray
+        torch.cuda.synchronize()
+        t.append(time.perf_counter() - t0)
+    # two SVDs of A, each exact for A + dA with ||dA|| ~ sqrt(m) u ||A|| (inner products over m rows, random signs):
+    # their singular values within 2 sqrt(m) u s_1 (Weyl)
+    e_s = (s1 - ranks[0]["svd"]["S"].to(dev)).abs().max().item()
+    s_bound = 2 * (N_SVD * world) ** 0.5 * F32_UNIT_ROUNDOFF * s1.max().item()
+    e_x = (x1.double() - ranks[0]["svd"]["x"].to(dev).double()).norm().item()
+    check(e_s <= s_bound and e_x <= 2 * ranks[0]["svd"]["ls_bound"] * x1.double().norm().item(),
+          f"[dist] svd/lstsq vs one process: S {e_s} (bound {s_bound}), ||x - x_one|| {e_x}")
+    out["svd"] = {"t": t, "e_s": e_s, "s_bound": s_bound, "e_x": e_x}
+    del A, b
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    member, x = spectral_data(ht)
+    z = (x - ht.mean(x, axis=0)) / ht.std(x, axis=0)
+    sp = spectral_fit(ht, z)
+    torch.cuda.synchronize()
+    t_sp = time.perf_counter() - t0
+    evals = sp._spectral_embedding(z)[0]
+    labels = torch.cat([r["spectral"]["labels"] for r in ranks]).to(dev)
+    same, _ = matched_labels(labels, sp.labels_.larray, K_SPEC, what="[dist] spectral labels vs one card's")
+    check(same == 1.0, f"[dist] spectral labels equal one card's up to a permutation on only {same}")
+    evals_d = ranks[0]["spectral"]["evals"].to(dev)
+    e_ritz = (evals_d[:K_SPEC] - evals[:K_SPEC]).abs().max().item()
+    check(e_ritz <= RITZ_ATOL, f"[dist] Ritz values vs one card's: {e_ritz}")
+    # the ranks' k smallest Ritz pairs (from their z and their row-split L) against this process's L
+    L1 = sp._laplacian.construct(z)
+    resid_x = ritz_residuals(L1.larray, 0, ranks[0]["spectral"]["Y"].to(dev), evals_d[:K_SPEC], evals_d.abs().max())
+    del L1
+    check(max(resid_x) <= RITZ_RESID_RTOL, f"[dist] the ranks' Ritz pairs against one card's L: {resid_x}")
+    out["spectral"] = {"t": t_sp, "e_ritz": e_ritz, "resid_x": resid_x}
+    return out
 
 
 def dist_phase(world: int) -> None:
@@ -708,6 +1607,7 @@ def dist_phase(world: int) -> None:
         r_diff = (sign_normalized(ranks[0]["R"].to(dev)) - sign_normalized(r0)).abs().max().item() / r0.abs().max().item()
         check(r_diff <= QR_R_RTOL, f"[dist] R vs one process's R: {r_diff}")
         ref = _ridge_reference(ht, world, ranks, tmp)
+        lref = _linalg_reference(ht, world, ranks, tmp)
         rg = ranks[0]["ridge"]
         print(f"[dist] ridge n={N_RIDGE_CARD * world}: chol_panel_fused launches per rank "
               f"{[r['ridge']['launches']['chol_panel_fused'] for r in ranks]} (panels of {rg['bs']} rows), routes "
@@ -724,6 +1624,30 @@ def dist_phase(world: int) -> None:
                 f"{r['ridge']['ring_event_ms']:.4f} ms events, COLLECTIVES {r['ridge']['ring_collectives']}; warm: "
                 + ", ".join(f"{k} {v['host_s']:.4f} s host, {v['event_ms']:.4f} ms events"
                             for k, v in r["ridge"]["warm"].items()), flush=True)
+        for r in ranks:
+            print(f"[dist] lu/solvers r{r['rank']}: " + _steps_line(r["lu"]["steps"]), flush=True)
+            print(f"[dist] lu/solvers warm r{r['rank']}: " + _steps_line(r["lu"]["warm"]), flush=True)
+            print(f"[dist] svd r{r['rank']}: " + _steps_line(r["svd"]["steps"]), flush=True)
+            print(f"[dist] spectral r{r['rank']}: " + _steps_line(r["spectral"]["steps"]), flush=True)
+        slowest = lambda part, name: max(r[part]["steps"][name]["host_s"] for r in ranks)
+        print(f"[dist] solve n={N_RIDGE_CARD * world} ({ranks[0]['lu']['panels']} panels of {ranks[0]['lu']['bs']} "
+              f"rows): {world} card(s) {slowest('lu', 'solve'):.4f} s (slowest rank, first call), "
+              f"{max(r['lu']['warm']['solve']['host_s'] for r in ranks):.4f} s warm; one card "
+              f"torch.linalg.solve of the same K {lref['solve']['t'][0]:.4f} s first, {lref['solve']['t'][1]:.4f} s "
+              f"warm; ||x - x_one|| {lref['solve']['diff']:.3e}", flush=True)
+        print(f"[dist] svd+lstsq {N_SVD * world} x {F_SVD}: {world} card(s) svd {slowest('svd', 'svd'):.4f} s, lstsq "
+              f"{slowest('svd', 'lstsq'):.4f} s (first calls); one card svd(compute_uv=False)+lstsq "
+              f"{lref['svd']['t'][0]:.4f} s first, {lref['svd']['t'][1]:.4f} s warm; S vs one card {lref['svd']['e_s']:.3e} "
+              f"(<= {lref['svd']['s_bound']:.3e}), "
+              f"||x - x_one|| {lref['svd']['e_x']:.3e}; lstsq route {ranks[0]['svd']['route']}; lstsq at "
+              f"{N_LSTSQ_CARD * world} x {F_SVD} (QR route) {slowest('svd', 'lstsq (QR route)'):.4f} s, vs float64 "
+              f"{ranks[0]['svd']['qr_route']['e']:.3e} (<= {ranks[0]['svd']['qr_route']['bound']:.3e})", flush=True)
+        print(f"[dist] spectral {N_SPEC} x {F_SPEC} (strong scaling): {world} card(s) fit "
+              f"{slowest('spectral', 'fit'):.4f} s, predict {slowest('spectral', 'predict'):.4f} s; one card "
+              f"draws+standardize+fit {lref['spectral']['t']:.4f} s; labels equal up to a permutation, Ritz values "
+              f"max abs diff {lref['spectral']['e_ritz']:.3e}; float64 ||L v - theta v|| / ||L|| of the ranks' "
+              f"{K_SPEC} smallest Ritz pairs against one card's L "
+              f"{[f'{r:.3e}' for r in lref['spectral']['resid_x']]} (<= {RITZ_RESID_RTOL})", flush=True)
         tm = ranks[0]["times_max"]
         print(f"[dist] world size {world}; per rank: launches {[r['launches'] for r in ranks]}; fit COLLECTIVES "
               f"{ranks[0]['fit_collectives']}; qr local routes {[r['qr_routes'] for r in ranks]}", flush=True)
@@ -746,8 +1670,8 @@ def dist_phase(world: int) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive heat_tpu_torch's main path on the cards and check every kernel.")
-    ap.add_argument("--phases", choices=("all", "dist"), default="all",
-                    help="all (default): every phase; dist: environment, build and [dist] only")
+    ap.add_argument("--phases", choices=("all", "dist", "spectral", "linalg"), default="all",
+                    help="all (default): every phase; dist, spectral or linalg: environment, build and that phase only")
     args = ap.parse_args(argv)
     import torch
 
@@ -788,7 +1712,14 @@ def main(argv=None) -> int:
 
     kernels = single_card_phases(dev) if args.phases == "all" else None
     torch.cuda.empty_cache()
-    dist_phase(torch.cuda.device_count())
+    if args.phases in ("all", "spectral"):
+        spectral_phase(dev)
+        torch.cuda.empty_cache()
+    if args.phases in ("all", "linalg"):
+        linalg_phase(dev)
+        torch.cuda.empty_cache()
+    if args.phases in ("all", "dist"):
+        dist_phase(torch.cuda.device_count())
     if kernels is not None:
         print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -1356,6 +2287,17 @@ def single_card_phases(dev) -> list:
               f"{r['bytes']} B, {r['ops']} flop) share {bound / r['ms']:.3f} plain_ms {r['plain_ms']:.4f} "
               f"library_ms {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} "
               f"launches per main path {launches[name]}", flush=True)
+
+    # threefry_bits against its integer operations (the JSON row keeps the bytes / float32 bound of the table)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock_mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                                     capture_output=True, text=True, check=True).stdout.split()[0])
+    int_rate = INT32_OPS_PER_CLOCK_PER_SM * sms * clock_mhz * 1e6
+    int_ms = THREEFRY_INT32_OPS * N_MAIN * F_MAIN / int_rate * 1e3
+    print(f"[time] threefry_bits integer bound: {THREEFRY_INT32_OPS} INT32 operations per element x {N_MAIN * F_MAIN} "
+          f"elements at {INT32_OPS_PER_CLOCK_PER_SM} per clock per SM x {sms} SMs x {clock_mhz:.0f} MHz (max SM clock) "
+          f"= {int_rate:.4e} per s: {int_ms:.4f} ms; kernel {rows['threefry_bits']['ms']:.4f} ms, share "
+          f"{int_ms / rows['threefry_bits']['ms']:.3f}", flush=True)
 
     # the ladder's last rung: tall-skinny qr + matmul on split=0 data (after the kernels' timing, so that
     # they are timed as in earlier runs)

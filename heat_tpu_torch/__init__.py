@@ -39,5 +39,5 @@ The port goes slice by slice:
 """
 from .core import *
 from .core import kernels, linalg, random
-from . import classification, cluster, convert, spatial
+from . import classification, cluster, convert, graph, spatial
 from .core.kernels import KERNEL_STATS, LAUNCHES

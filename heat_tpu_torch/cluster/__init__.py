@@ -1,2 +1,3 @@
 """Clustering algorithms (counterpart of ``heat_tpu.cluster``)."""
 from .kmeans import KMeans
+from .spectral import Spectral

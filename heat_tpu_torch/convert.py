@@ -12,10 +12,11 @@ import numpy as np
 
 from .classification.kneighborsclassifier import KNeighborsClassifier
 from .cluster.kmeans import KMeans
+from .cluster.spectral import Spectral
 from .core import factories
 from .core.dndarray import DNDarray
 
-__all__ = ["array_from_numpy", "from_heat_tpu_state", "knn_from_heat_tpu"]
+__all__ = ["array_from_numpy", "from_heat_tpu_state", "knn_from_heat_tpu", "spectral_from_heat_tpu"]
 
 
 def array_from_numpy(a, split: Optional[int] = None, device=None, comm=None) -> DNDarray:
@@ -46,3 +47,21 @@ def knn_from_heat_tpu(x, y, n_neighbors: int = 5, split: Optional[int] = None, d
         array_from_numpy(x, split=split, device=device, comm=comm),
         array_from_numpy(y, split=split, device=device, comm=comm),
     )
+
+
+def spectral_from_heat_tpu(params: dict, kmeans_state: dict, device=None, comm=None) -> Spectral:
+    """A fitted port :class:`Spectral` from a fitted ``heat_tpu`` one: its
+    ``get_params()`` and its KMeans' ``state_dict()`` (``sp._cluster``).
+    ``predict`` then embeds new data as ``heat_tpu`` does and labels it by
+    the carried centroids; ``labels_`` are the carried labels."""
+    names = set(Spectral._parameter_names())
+    unknown = set(params) - names
+    if unknown:
+        raise KeyError(f"not Spectral parameters: {sorted(unknown)}")
+    sp = Spectral(**params)
+    sp._cluster = from_heat_tpu_state(kmeans_state, device=device, comm=comm)
+    sp._cluster.init = "probability_based"
+    if sp.n_clusters is None:
+        sp.n_clusters = sp._cluster.n_clusters
+    sp._labels = sp._cluster.labels_
+    return sp

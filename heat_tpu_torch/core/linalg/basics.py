@@ -1,6 +1,7 @@
 """Linear algebra basics (counterpart of ``heat_tpu/core/linalg/basics.py``):
-``matmul``, ``dot``, ``outer``, ``transpose``, ``tril``/``triu``,
-``trace`` and the norms.
+``matmul``, ``dot``, ``vdot``/``vecdot``, ``outer``, ``cross``,
+``projection``, ``transpose``, ``tril``/``triu``, ``trace``, the norms, and
+``det``/``inv`` over the LU of :mod:`.factorizations`.
 
 What this module keeps from ``heat_tpu`` is the shape checks, the result
 types and the rule for the result's split axis (``_matmul_out_split``).
@@ -25,15 +26,21 @@ from ..dndarray import DNDarray
 from ..stride_tricks import sanitize_axis
 
 __all__ = [
+    "cross",
+    "det",
     "dot",
+    "inv",
     "matmul",
     "matrix_norm",
     "norm",
     "outer",
+    "projection",
     "trace",
     "transpose",
     "tril",
     "triu",
+    "vdot",
+    "vecdot",
     "vector_norm",
 ]
 
@@ -63,6 +70,25 @@ def _matmul_out_split(a: DNDarray, b: DNDarray, out_ndim: int) -> Optional[int]:
     return None
 
 
+def _matmul_2d(a: DNDarray, b: DNDarray, tt) -> torch.Tensor:
+    """This rank's part of the product of two 2-D operands, at least one
+    split, laid out by :func:`_matmul_out_split`."""
+    comm = a.comm
+    la, lb = a.larray.to(tt), b.larray.to(tt)
+    sa, sb = a.split, b.split
+    if (sa, sb) in ((0, None), (None, 1)):
+        return torch.matmul(la, lb)
+    if sa == 1 and sb in (0, None):
+        # the contracted axis is split: a product of the chunks, summed across ranks
+        rows = lb if sb == 0 else lb[comm.chunk(b.gshape, 0)[2]]
+        return comm.allreduce(torch.matmul(la, rows))
+    if sa is None and sb == 0:
+        return comm.allreduce(torch.matmul(la[comm.chunk(a.gshape, 1)[2]], lb))
+    if sa == 0:
+        return torch.matmul(la, b._logical().to(tt))
+    return torch.matmul(a._logical().to(tt), lb)  # (1, 1): the whole a against b's columns
+
+
 def matmul(a: DNDarray, b: DNDarray, allow_resplit: bool = False) -> DNDarray:
     """Matrix product of two DNDarrays, with numpy's shape rules.
     ``allow_resplit`` is accepted for ``heat_tpu``'s signature."""
@@ -80,20 +106,17 @@ def matmul(a: DNDarray, b: DNDarray, allow_resplit: bool = False) -> DNDarray:
     la, lb = a.larray.to(tt), b.larray.to(tt)
     if not comm.is_distributed() or (a.split is None and b.split is None):
         result = torch.matmul(la, lb)
-    elif a.ndim == 2 and b.ndim == 2:
-        sa, sb = a.split, b.split
-        if (sa, sb) in ((0, None), (None, 1)):
-            result = torch.matmul(la, lb)
-        elif sa == 1 and sb in (0, None):
-            # the contracted axis is split: a product of the chunks, summed across ranks
-            rows = lb if sb == 0 else lb[comm.chunk(b.gshape, 0)[2]]
-            result = comm.allreduce(torch.matmul(la, rows))
-        elif sa is None and sb == 0:
-            result = comm.allreduce(torch.matmul(la[comm.chunk(a.gshape, 1)[2]], lb))
-        elif sa == 0:
-            result = torch.matmul(la, b._logical().to(tt))
-        else:  # (1, 1): the whole a against b's columns
-            result = torch.matmul(a._logical().to(tt), lb)
+    elif a.ndim <= 2 and b.ndim <= 2:
+        # a vector takes part as a one-row (a) or one-column (b) matrix, so a split matrix is never gathered
+        a2 = a if a.ndim == 2 else DNDarray(la.unsqueeze(0), gshape=(1,) + a.gshape, split=None if a.split is None else 1,
+                                            device=a.device, comm=comm)
+        b2 = b if b.ndim == 2 else DNDarray(lb.unsqueeze(1), gshape=b.gshape + (1,), split=b.split, device=b.device,
+                                            comm=comm)
+        result = _matmul_2d(a2, b2, tt)
+        if b.ndim == 1:
+            result = result.squeeze(-1)
+        if a.ndim == 1:
+            result = result.squeeze(0)
     else:
         result = torch.matmul(a._logical().to(tt), b._logical().to(tt))
         result = result[comm.chunk(out_gshape, split)[2]] if result.ndim else result
@@ -142,6 +165,123 @@ def dot(a: DNDarray, b: DNDarray, out: Optional[DNDarray] = None) -> DNDarray:
     if a.ndim <= 2 and b.ndim <= 2:
         return _out(matmul(a, b), out)
     raise NotImplementedError("ht.dot not implemented for >2 dimensions")
+
+
+def _real_only(name: str, *arrs: DNDarray) -> None:
+    """The port has no complex types yet: conjugation is the identity."""
+    if any(x.larray.is_complex() for x in arrs):
+        raise NotImplementedError(f"{name}: complex input is not supported (conj is the identity on real types)")
+
+
+def _chunk_of(result: torch.Tensor, split: Optional[int], comm) -> torch.Tensor:
+    """This rank's chunk along ``split`` of a result computed whole."""
+    if split is None or not comm.is_distributed():
+        return result
+    return result[comm.chunk(tuple(result.shape), split)[2]]
+
+
+def vdot(x1: DNDarray, x2: DNDarray) -> DNDarray:
+    """Dot product of the flattened inputs, a replicated scalar. For real
+    types the conjugation of ``x1`` is the identity (complex input raises
+    ``NotImplementedError``)."""
+    _real_only("vdot", x1, x2)
+    if x1.size != x2.size:
+        raise ValueError(f"vdot: sizes {x1.size} and {x2.size} differ")
+    dtype = types.promote_types(x1.dtype, x2.dtype)
+    va, vb = x1._logical().reshape(-1), x2._logical().reshape(-1)
+    if dtype is types.bool:
+        result = torch.any(va & vb)
+    else:
+        tt = dtype.torch_type()
+        result = torch.sum(va.to(tt) * vb.to(tt), dtype=tt)
+    return DNDarray(result, dtype=dtype, split=None, device=x1.device, comm=x1.comm)
+
+
+def vecdot(x1: DNDarray, x2: DNDarray, axis: Optional[int] = None, keepdim=None, keepdims: bool = False) -> DNDarray:
+    """Dot products of the broadcast inputs along ``axis`` (default -1).
+    The result's split is the split of ``x1`` (of ``x2`` if ``x1`` is
+    replicated) with the reduced axis removed; its type is that of the
+    sum of the products (integers below int64 sum in int64). For real
+    types the conjugation of ``x1`` is the identity (complex input raises
+    ``NotImplementedError``)."""
+    _real_only("vecdot", x1, x2)
+    keepdims = bool(keepdim or keepdims)
+    ndim = max(x1.ndim, x2.ndim)
+    axis = sanitize_axis(tuple(np.broadcast_shapes(x1.shape, x2.shape)), -1 if axis is None else axis)
+    prod = torch.mul(x1._logical(), x2._logical())
+    result = torch.sum(prod, dim=axis, keepdim=keepdims)
+    anchor = x1 if x1.split is not None else x2
+    split = _reduced_split(anchor.split, axis, ndim, keepdims)
+    gshape = tuple(result.shape)
+    return DNDarray(_chunk_of(result, split, x1.comm), gshape=gshape, split=split, device=x1.device, comm=x1.comm)
+
+
+def projection(a: DNDarray, b: DNDarray) -> DNDarray:
+    """The projection of the vector ``a`` onto the vector ``b``:
+    ``(a . b) / (b . b) * b``."""
+    if a.ndim != 1 or b.ndim != 1:
+        raise RuntimeError(f"projection requires 1-D vectors, got {a.ndim}, {b.ndim}")
+    return (dot(a, b) / dot(b, b)) * b
+
+
+def cross(a: DNDarray, b: DNDarray, axisa: int = -1, axisb: int = -1, axisc: int = -1, axis: int = -1) -> DNDarray:
+    """Cross product of 2- or 3-component vectors, with numpy's axis rules
+    (``axis`` other than -1 overrides ``axisa``, ``axisb`` and ``axisc``;
+    two 2-component vectors give the z component alone). The result's
+    split is ``a``'s (else ``b``'s), None where the vector axis is gone."""
+    if axis != -1:
+        axisa = axisb = axisc = axis
+    ta = torch.movedim(a._logical(), axisa, -1)
+    tb = torch.movedim(b._logical(), axisb, -1)
+    if ta.shape[-1] not in (2, 3) or tb.shape[-1] not in (2, 3):
+        raise ValueError("incompatible dimensions for cross product (dimension must be 2 or 3)")
+    tt = types.promote_types(a.dtype, b.dtype).torch_type()
+    batch = torch.broadcast_shapes(ta.shape[:-1], tb.shape[:-1])
+    ta, tb = ta.to(tt).expand(*batch, ta.shape[-1]), tb.to(tt).expand(*batch, tb.shape[-1])
+    a0, a1 = ta[..., 0], ta[..., 1]
+    b0, b1 = tb[..., 0], tb[..., 1]
+    if ta.shape[-1] == 2 and tb.shape[-1] == 2:
+        result = a0 * b1 - a1 * b0
+    else:
+        zero = torch.zeros_like(a0)
+        a2 = ta[..., 2] if ta.shape[-1] == 3 else zero
+        b2 = tb[..., 2] if tb.shape[-1] == 3 else zero
+        result = torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2, a0 * b1 - a1 * b0], dim=-1)
+        result = torch.movedim(result, -1, axisc)
+    split = a.split if a.split is not None else b.split
+    if split is not None and result.ndim != a.ndim:
+        split = None
+    gshape = tuple(result.shape)
+    return DNDarray(_chunk_of(result, split, a.comm), gshape=gshape, split=split, device=a.device, comm=a.comm)
+
+
+def _square_check(a: DNDarray) -> None:
+    if a.ndim < 2:
+        raise RuntimeError(f"DNDarray must be at least two-dimensional, got {a.ndim}")
+    if a.shape[-1] != a.shape[-2]:
+        raise RuntimeError("Last two dimensions of the DNDarray must be square")
+
+
+def det(a: DNDarray) -> DNDarray:
+    """Determinant of a square matrix or a stack of them: a split 2-D
+    operand above world size 1 by the blocked LU across the ranks (no
+    gather), a batch-split stack on each rank's own matrices, otherwise
+    locally. A singular matrix gives an exact 0."""
+    _square_check(a)
+    from .factorizations import _det_impl
+
+    return _det_impl(a)
+
+
+def inv(a: DNDarray) -> DNDarray:
+    """Inverse of a square matrix or a stack of them: a split 2-D operand
+    above world size 1 by the blocked LU across the ranks with the identity
+    riding the elimination (no gather), a batch-split stack on each rank's
+    own matrices, otherwise locally. The result keeps ``a``'s split."""
+    _square_check(a)
+    from .factorizations import _inv_impl
+
+    return _inv_impl(a)
 
 
 def outer(a: DNDarray, b: DNDarray, out: Optional[DNDarray] = None, split: Optional[int] = None) -> DNDarray:

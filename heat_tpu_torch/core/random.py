@@ -150,6 +150,15 @@ def _float_draw(kind: str, shape, dtype, split, device, comm, lo: float = 0.0, h
     return DNDarray(t, gshape=shape, dtype=dtype, split=split, device=device, comm=comm)
 
 
+def _normal_tensor(key: Key, shape, dtype, tdev: torch.device) -> torch.Tensor:
+    """jax's ``random.normal(key, shape, dtype)`` whole, as a tensor on
+    ``tdev``: the draw ``randn`` makes, from a key the caller holds."""
+    npt = np.float32 if dtype is types.float32 else np.float64
+    lo = npt(np.nextafter(npt(-1.0), npt(0.0)))
+    kind = "normal32" if dtype is types.float32 else "normal64"
+    return _fill(key, chunk_layout(shape, None, 0, 0), kind, tdev, float(lo), float(npt(1.0) - lo)).reshape(shape)
+
+
 def rand(*d, dtype=types.float32, split=None, device=None, comm=None) -> DNDarray:
     """Uniform [0, 1) samples of shape ``d``."""
     shape = sanitize_shape(d) if d else ()

@@ -1,0 +1,2 @@
+"""Graph algorithms (counterpart of ``heat_tpu.graph``)."""
+from .laplacian import Laplacian

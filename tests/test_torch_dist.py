@@ -17,7 +17,11 @@ Tolerances: bool, integer and index results exact; float results rtol
 device's XLA program, and XLA's and torch's transcendental functions
 may round differently in the last bits); QR factors compared after
 making R's diagonal non-negative, rtol 1e-4 / atol 1e-5 (TSQR's second
-factorization rotates by a different orthogonal matrix on each package).
+factorization rotates by a different orthogonal matrix on each package),
+and the same for the iterative solvers, the SVDs (singular pairs with a
+fixed sign) and spectral clustering's Laplacians: Krylov and singular
+vectors built from float32 products summed in another order drift by a
+few 1e-6 in entries of size 1e-3 to 1.
 
 A case whose reference is the port itself (``PORT_ONLY``: the port's own
 bookkeeping) is not held against heat_tpu; the random draws are held
@@ -206,7 +210,7 @@ def _ceil_div_map(gshape, split, world):
 
 
 def _tolerance(case):
-    return (QR_RTOL, QR_ATOL) if case == "qr" else (RTOL, ATOL)
+    return (QR_RTOL, QR_ATOL) if case in ("qr", "solver", "svd", "spectral") else (RTOL, ATOL)
 
 
 # ----------------------------------------------------------------- tests
@@ -264,6 +268,14 @@ def test_kmeans_fit_runs_one_allreduce_per_iteration_and_gathers_no_x(group):
         coll = res["port:collectives"]["value"]
         assert coll == {"allreduce": {"calls": 6, "bytes": 6 * (k * f + k + 1) * 4}}, (rank, coll)
         assert res["n_iter"]["value"] == 5
+
+
+def test_matvec_over_a_split_contracted_axis_gathers_nothing(group):
+    """A split-1 matrix times a split-0 vector (lstsq's Qᵀb across ranks)
+    is one product of the chunks and one allreduce, on every rank: neither
+    operand is gathered."""
+    for rank, res in enumerate(_case(group, "linalg")):
+        assert res["port:matvec_collectives"]["value"] == {"allreduce": 1}, rank
 
 
 def test_kmeans_random_inits_agree_across_ranks_and_with_world_size_1(group):
@@ -345,7 +357,7 @@ EXPLICIT = {
     "std", "argmin", "argmax", "where", "nonzero", "matmul", "dot", "outer", "trace", "tril", "triu", "norm",
     "vector_norm", "matrix_norm", "copy", "rand", "randn", "randint", "random_integer", "random_sample", "ranf",
     "sample", "normal", "standard_normal", "uniform", "randperm", "permutation", "seed", "get_state", "set_state",
-    "factor_block_edge",
+    "factor_block_edge", "cross", "det", "inv", "projection", "vdot", "vecdot",
 }
 
 
@@ -368,12 +380,15 @@ def test_nccl_group_matches_world_size_1():
     on the CPU (kernels on the cards, their plain versions on the CPU)."""
     if torch.cuda.device_count() < 2:
         pytest.skip("needs at least 2 CUDA cards")
+    # not "factorizations" or "lu": a split operand's solve is split 0 above world size 1 and replicated at 1,
+    # as in heat_tpu; chip_smoke.py's [dist] holds those routes on the cards
     names = ["layout", "binary", "reductions", "moments", "kmeans", "knn", "qr", "linalg", "random", "spatial",
-             "environment"]
+             "solver", "svd", "spectral", "environment"]
     per_rank = run_group(2, "nccl", names, timeout=600)
     for case in names:
         alone = port_world1_results(case)
-        rtol, atol = (1e-4, 1e-4) if case in ("kmeans", "knn", "qr", "moments", "linalg", "spatial") else (RTOL, ATOL)
+        rtol, atol = ((1e-4, 1e-4) if case in ("kmeans", "knn", "qr", "moments", "linalg", "spatial", "solver", "svd",
+                                               "spectral") else (RTOL, ATOL))
         for rank, res in enumerate(per_rank):
             assert "__error__" not in res[case], res[case]["__error__"]
             for key, want in alone.items():

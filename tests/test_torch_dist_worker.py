@@ -311,6 +311,18 @@ def case_linalg(ht):
     out["aat"] = a1 @ a1.T
     out["matvec"] = a0 @ ht.array(V5)
     out["vecmat"] = ht.array(V9, split=0) @ an
+    for sa, a in (("0", a0), ("1", a1), ("n", an)):
+        out[f"matvec:{sa}:0"] = ht.matmul(a, ht.array(V5, split=0))
+    for sv in (0, None):
+        for sb, b in (("0", a0), ("1", a1)):
+            out[f"vecmat:{sv}:{sb}"] = ht.matmul(ht.array(V9, split=sv), b)
+    if is_port(ht):
+        v0 = ht.array(V5, split=0)
+        before = {k: dict(v) for k, v in ht.kernels.COLLECTIVES.items()}
+        ht.matmul(a1, v0)  # lstsq's Q^T b across ranks: the contracted axis split on both sides
+        out["port:matvec_collectives"] = {k: v["calls"] - before.get(k, {}).get("calls", 0)
+                                          for k, v in ht.kernels.COLLECTIVES.items()
+                                          if v["calls"] != before.get(k, {}).get("calls", 0)}
     out["dot_vec"] = ht.dot(ht.array(V9, split=0), ht.array(V9))
     out["dot_mat"] = ht.dot(a0, ht.array(bt))
     out["outer"] = ht.outer(ht.array(V9, split=0), ht.array(V5))
@@ -484,6 +496,144 @@ def case_factorizations(ht):
     yv = ht.array(V9.repeat(5)[:37], split=0)
     alpha = ht.linalg.solve_triangular(L.T, ht.linalg.solve_triangular(L, yv, lower=True), lower=False)
     out.update({"ridge:K": K, "ridge:L": L, "ridge:alpha": alpha})
+    return out
+
+
+def _general(seed, n):
+    """A nonsymmetric matrix, diagonally weighted enough to be well conditioned."""
+    return (_rng(seed).normal(size=(n, n)) + 3.0 * np.eye(n)).astype(np.float32)
+
+
+def _odd_permutation(n):
+    """P diag(1..n) with P swapping rows 0 and n - 1: det = -n!, reached by an odd number of row exchanges."""
+    m = np.diag(np.arange(1.0, n + 1.0)).astype(np.float32)
+    m[[0, n - 1]] = m[[n - 1, 0]]
+    return m
+
+
+def case_lu(ht):
+    """solve, det and inv by the distributed LU: n = 13 leaves the last rank one row, n = 6 none."""
+    out = {}
+    b = _rng(50).normal(size=(13, 3)).astype(np.float32)
+    for n in (13, 6):
+        a = _general(51 + n, n)
+        for sa in (0, 1, None):
+            A = ht.array(a, split=sa)
+            out[f"solve:{n}:{sa}:vec0"] = ht.linalg.solve(A, ht.array(b[:n, 0], split=0))
+            out[f"solve:{n}:{sa}:mat_none"] = ht.linalg.solve(A, ht.array(b[:n]))
+            out[f"det:{n}:{sa}"] = ht.det(A)
+            out[f"inv:{n}:{sa}"] = ht.inv(A)
+    out["solve:mat0"] = ht.linalg.solve(ht.array(_general(60, 13), split=0), ht.array(b, split=0))
+    singular = _general(61, 13)
+    singular[:, 5] = 0.0  # the sixth pivot is zero: its multipliers stay zero and det is an exact 0
+    out["det:singular"] = ht.linalg.det(ht.array(singular, split=0))
+    out["det:singular_s1"] = ht.det(ht.array(singular.T.copy(), split=1))
+    out["det:odd_swaps"] = ht.linalg.det(ht.array(_odd_permutation(13), split=0))
+    out["det:odd_swaps_s1"] = ht.det(ht.array(_odd_permutation(13), split=1))
+    ties = np.array([[1, 2, 0, 1], [-1, 0, 2, 1], [1, -1, 1, 0], [0, 1, -1, 2]], np.int32)  # |column 0| ties
+    out["det:int_ties"] = ht.det(ht.array(ties, split=0))
+    out["inv:int_ties"] = ht.inv(ht.array(ties, split=0))
+    out["det:f64"] = ht.det(ht.array(_general(62, 13).astype(np.float64), split=0))
+    out["inv:f64"] = ht.inv(ht.array(_general(63, 13).astype(np.float64), split=1))
+    stack = np.stack([_general(64 + i, 5) for i in range(5)])
+    out["det:batch0"] = ht.det(ht.array(stack, split=0))
+    out["inv:batch0"] = ht.inv(ht.array(stack, split=0))
+    out["det:stack_split2"] = ht.det(ht.array(stack, split=2))
+    out["inv:stack_split1"] = ht.inv(ht.array(stack, split=1))
+    return out
+
+
+def case_solver(ht):
+    """cg (float64: it stops on r.r < 1e-20 well before n iterations) and lanczos on split and replicated operands."""
+    g = _rng(70).normal(size=(30, 30))
+    spd = g @ g.T / 30 + np.eye(30)
+    bv = _rng(71).normal(size=30)
+    out = {}
+    for sa in (0, 1, None):
+        A = ht.array(spd, split=sa)
+        out[f"cg:{sa}"] = ht.linalg.cg(A, ht.array(bv, split=0), ht.array(np.zeros(30)))
+        out[f"cg:{sa}:b_none"] = ht.linalg.cg(A, ht.array(bv), ht.array(bv / 2, split=0))
+    sym = spd.astype(np.float32)
+    for sa in (0, None):
+        V, T = ht.linalg.lanczos(ht.array(sym, split=sa), 12)
+        out[f"lanczos:{sa}"] = (V, T)
+    out["lanczos:v0"] = ht.linalg.lanczos(ht.array(sym, split=0), 8, v0=ht.array(bv.astype(np.float32), split=0))
+    return out
+
+
+def _svd_signs(U, S, Vh):
+    """U, S, Vh as numpy arrays with each singular pair's sign fixed: the largest |entry| of each Vh row positive."""
+    u, s, vh = U.numpy(), S.numpy(), Vh.numpy()
+    sg = np.sign(vh[np.arange(vh.shape[0]), np.abs(vh).argmax(axis=1)])
+    return u * sg[None, :], s, vh * sg[:, None]
+
+
+def case_svd(ht):
+    rng = _rng(80)
+    tall = rng.normal(size=(64, 8)).astype(np.float32)
+    wide = rng.normal(size=(6, 20)).astype(np.float32)
+    out = {}
+    for label, data, sa in (("tall0", tall, 0), ("tall1", tall, 1), ("tallN", tall, None), ("wide0", wide, 0)):
+        U, S, Vh = ht.linalg.svd(ht.array(data, split=sa))
+        out[f"world:{label}:meta"] = [(x.gshape, x.split, x.lshape_map.tolist()) for x in (U, S, Vh)]
+        out[f"{label}:usv"] = _svd_signs(U, S, Vh)
+        out[f"{label}:svals"] = ht.linalg.svd(ht.array(data, split=sa), compute_uv=False)
+        out[f"{label}:pinv"] = ht.linalg.pinv(ht.array(data, split=sa))
+    rr = ht.linalg.rsvd(ht.array(tall, split=0), 3, n_oversamples=2, random_state=5)
+    out["world:rsvd:meta"] = [(x.gshape, x.split, x.lshape_map.tolist()) for x in rr]
+    out["rsvd:usv"] = _svd_signs(*rr)
+    ht.random.seed(9)
+    out["rsvd:stream"] = _svd_signs(*ht.linalg.rsvd(ht.array(tall, split=1), 4, n_iter=1))
+    out["rsvd:state"] = ht.random.get_state()
+    yv = rng.normal(size=64).astype(np.float32)
+    ym = rng.normal(size=(64, 2)).astype(np.float32)
+    out["lstsq:qr_vec"] = ht.linalg.lstsq(ht.array(tall, split=0), ht.array(yv, split=0))
+    out["lstsq:qr_mat"] = ht.linalg.lstsq(ht.array(tall, split=0), ht.array(ym))
+    deficient = tall.copy()
+    deficient[:, 3] = deficient[:, 1]
+    out["lstsq:pinv_route"] = ht.linalg.lstsq(ht.array(deficient, split=0), ht.array(yv, split=0))
+    out["lstsq:rcond"] = ht.linalg.lstsq(ht.array(tall, split=0), ht.array(ym, split=0), rcond=1e-3)
+    v9, w9 = ht.array(V9, split=0), ht.array(V9[::-1].copy())
+    out["vdot"] = ht.vdot(v9, w9)
+    out["vdot:int"] = ht.vdot(ht.array(I95, split=0), ht.array(I95, split=1))
+    out["vecdot"] = ht.vecdot(ht.array(A95, split=0), ht.array(POS95, split=0))
+    out["vecdot:axis0"] = ht.linalg.vecdot(ht.array(A95, split=1), ht.array(A95), axis=0, keepdims=True)
+    out["vecdot:int"] = ht.vecdot(ht.array(I95, split=0), ht.array(I95))
+    out["projection"] = ht.projection(v9, w9)
+    a3, b3 = ht.array(A93, split=0), ht.array(A93[::-1].copy())
+    out["cross"] = ht.cross(a3, b3)
+    out["cross:axis0"] = ht.cross(ht.array(A93.T.copy(), split=1), ht.array(A93.T.copy()), axis=0)
+    out["cross:2d"] = ht.cross(ht.array(A95[:, :2], split=0), ht.array(POS95[:, :2], split=0))
+    out["cross:2x3"] = ht.linalg.cross(ht.array(A95[:, :2], split=0), a3)
+    return out
+
+
+def _spectral_blobs():
+    """Three blobs of 40 rows in 3-D, far apart: label-exact spectral clustering."""
+    x, member = _blobs(90, 120, 3, 3, scale=6.0)
+    return x, member
+
+
+def case_spectral(ht):
+    x, _ = _spectral_blobs()
+    X = ht.array(x, split=0)
+    out = {}
+    for definition in ("simple", "norm_sym"):
+        for mode in ("fully_connected", "eNeighbour"):
+            for key in ("upper", "lower"):
+                lap = ht.graph.Laplacian(lambda z: ht.spatial.rbf(z, sigma=2.0), definition=definition, mode=mode,
+                                         threshold_key=key, threshold_value=0.3, weighted=key == "upper")
+                out[f"laplacian:{definition}:{mode}:{key}"] = lap.construct(X)
+    out["laplacian:replicated"] = ht.graph.Laplacian(lambda z: ht.spatial.rbf(z, sigma=2.0)).construct(ht.array(x))
+    sp = ht.cluster.Spectral(n_clusters=3, gamma=0.05, n_lanczos=30, random_state=4, max_iter=20)
+    sp.fit(X)
+    out["labels"] = sp.labels_
+    out["predict"] = sp.predict(X)
+    out["labels_none"] = ht.cluster.Spectral(n_clusters=3, gamma=0.05, n_lanczos=30, random_state=4).fit(
+        ht.array(x)).labels_
+    eigengap = ht.cluster.Spectral(gamma=0.05, n_lanczos=30, random_state=4)
+    eigengap.fit(X)
+    out["eigengap_k"] = eigengap.n_clusters
     return out
 
 

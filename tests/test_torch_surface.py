@@ -707,14 +707,14 @@ STILL_MISSING = {
         "average", "balance", "bfloat16", "bincount", "broadcast_arrays", "broadcast_shapes", "broadcast_to",
         "bucketize", "byte", "can_cast", "cdouble", "cfloat", "collective_lockstep", "column_stack", "complex",
         "complex128", "complex64", "complexfloating", "concatenate", "conj", "conjugate", "convolve", "cov",
-        "cross", "csingle", "det", "diag", "diagonal", "digitize", "dsplit", "expand_dims",
+        "csingle", "diag", "diagonal", "digitize", "dsplit", "expand_dims",
         "finfo", "flatten", "flexible", "flip", "fliplr", "flipud", "float16", "float_", "fuse",
         "get_printoptions", "global_printing", "heat_type_is_complexfloating",
         "heat_type_is_inexact", "heat_type_of", "histc", "histogram", "hsplit", "hstack", "iinfo", "imag",
-        "int16", "int8", "int_", "inv", "is_regressor", "is_transformer", "iscomplex",
+        "int16", "int8", "int_", "is_regressor", "is_transformer", "iscomplex",
         "isreal", "issubdtype", "kurtosis", "lazy", "linspace", "load", "load_csv", "load_hdf5", "load_netcdf",
         "local_printing", "logspace", "median", "meshgrid", "moveaxis", "nanmean", "pad",
-        "percentile", "print0", "projection",
+        "percentile", "print0",
         "ravel", "real", "redistribute", "repeat", "replicated_frame", "replicated_ids", "reset_fuse_stats", "reshape", "resplit", "roll", "rot90",
         "row_stack", "sanitize_distribution", "sanitize_in", "sanitize_in_tensor",
         "sanitize_infinity", "sanitize_lshape", "sanitize_out", "sanitize_sequence", "sanitize_slice",
@@ -722,18 +722,15 @@ STILL_MISSING = {
         "set_printoptions", "shape", "short", "skew", "sort", "split", "squeeze", "stack",
         "supports_hdf5", "supports_netcdf", "swapaxes", "tile", "topk", "tree_merge",
         "tree_merge_rounds", "ubyte", "uint8", "unfold", "unique", "unsignedinteger",
-        "validate_layout", "vdot", "vecdot", "vsplit", "vstack",
+        "validate_layout", "vsplit", "vstack",
     ],
-    "heat_tpu.linalg": [
-        "cg", "cross", "det", "inv", "lanczos", "lstsq", "pinv", "projection", "rsvd", "solve", "svd", "vdot",
-        "vecdot",
-    ],
+    "heat_tpu.linalg": [],
 }
 # submodules heat_tpu imports when it is imported, and the port has no counterpart of yet
 STILL_MISSING_MODULES = [
-    "analysis", "complex_math", "frame", "graph", "io", "manipulations", "naive_bayes", "nn", "optim",
+    "analysis", "complex_math", "frame", "io", "manipulations", "naive_bayes", "nn", "optim",
     "parallel", "printing", "regression", "resilience", "serve", "signal", "stream", "utils",
-    "version", "linalg.solver",
+    "version",
 ]
 
 
