@@ -63,6 +63,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      exact 0 for a zero column), ``cg`` on the ridge K, ``svd``/``rsvd``/
      ``lstsq``/``pinv`` at 2^22 x 64, each against float64 or a second
      route, timed beside the library call.
+   - ``[robust]``: robust clustering of heavy-tailed data at 2^24 x 32
+     (8 blobs and 2^18 uniform outlier rows joined by ``concatenate``):
+     ``percentile``/``median`` along axis 0 against numpy's order
+     statistics, robust scaling, the outlier clip by mask assignment,
+     ``average``/``skew``/``kurtosis``/``cov``/``histogram``, ``KMedians``
+     (centres equal ``np.median`` of the final members) and ``KMedoids``,
+     ``unique``/``bincount``, ``topk``, ``reshape`` + ``sort`` + back; its
+     two kernels on the path's own inputs; the plain path's labels equal.
 5. Timing with CUDA events (median of single launches after warm-up; the
    repetitions are named per kernel): kernel, plain version, one-call
    library yardstick where one exists, and the bound of each kernel at its
@@ -87,9 +95,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    spectral path on [spectral]'s data; then the
    same paths in this process on the same global data as the reference
    (the ridge factor against the one-process factor of the same K), and
-   the weak-scaling efficiency of the warm fit. ``--phases dist`` runs
-   only phases 1, 2 and 6; ``--phases spectral`` or ``linalg`` only 1, 2
-   and that phase.
+   the weak-scaling efficiency of the warm fit; then ``[robust]``'s steps at
+   2^24 x 32 per card (the split-axis sort receiving at most 3x each
+   rank's share, percentiles by the key-bisection selection, cross-rank writes,
+   KMedians) against one process on the same data. ``--phases dist`` runs
+   only phases 1, 2 and 6; ``--phases spectral``, ``linalg`` or ``robust``
+   only 1, 2 and that phase.
 
 The line before last is one JSON object ``{"kernels": [...]}`` (not
 printed with ``--phases dist``); the last line is
@@ -819,6 +830,314 @@ def linalg_phase(dev):
     torch.cuda.empty_cache()
 
 
+# ---- [robust]: robust clustering of heavy-tailed data at the KMeans path's size (bench.py's k = 8, f = 32) -----
+N_ROBUST, F_ROBUST, K_ROBUST = 1 << 24, 32, 8
+N_OUTLIERS = 1 << 18  # 1.6 % uniform outlier rows, after 2^24 - 2^18 rows of 8 Gaussian blobs
+ROBUST_SEED, KMEDOIDS_SEED, ROBUST_ITERS = 21, 22, 10
+# The blob centres are ROBUST_SCALE times the rows of columns 1-7 of the 8 x 8 Hadamard matrix, tiled over the 32
+# features (feature j takes column j % 7 + 1): every feature splits the blobs four against four, every pair of
+# centres differs in 4 of the 7 columns, so in 16-20 features, by 2 ROBUST_SCALE. A feature is then
+# N(-+ROBUST_SCALE, 1) in equal parts plus the outliers, uniform over [-ROBUST_BOX, ROBUST_BOX] (20x the centres'
+# spread): its quartiles sit at ~-+ROBUST_SCALE (IQR ~2 ROBUST_SCALE), its median somewhere in the sparse gap
+# between the halves, |median| < ROBUST_SCALE / 2 (the outliers' 0.8 % per side move the middle rank by
+# 2^17 rows, well inside a half's 2^23). z = (x - median) / IQR then puts the centres within 0.5 + 0.25 of 0 and a
+# blob point's noise at 1 / (2 ROBUST_SCALE) = 0.125 per feature. An inlier lies within 7 sigma of its centre on
+# every feature (P(|N(0,1)| > 7) = 2.6e-12 per entry, 1.4e-3 expected over 2^29 entries), so |z| < 0.75 + 7 /
+# (2 ROBUST_SCALE) = 1.625 for every inlier and ROBUST_CLIP = 2.5 clips outlier entries only (checked). Two centres
+# lie >= 16 L1 units apart in z and a point's L1 noise is ~32 * 0.8 * 0.125 = 3.2: inliers go to their blob's
+# median, accuracy > SPEC_ACC (0.999) on the inlier rows.
+ROBUST_SCALE = 4.0
+ROBUST_BOX = 20 * ROBUST_SCALE
+ROBUST_CLIP = 2.5
+ROBUST_Q = (25.0, 50.0, 75.0)
+ROBUST_COLS = (0, 9, 18, 31)  # full-length columns held against numpy on the host
+N_ROBUST_SLICE = 1 << 16      # rows at which every column's percentiles are held against numpy
+N_TOPK, N_HIST_BINS = 1000, 64
+
+
+def robust_centres(dev):
+    """[robust]'s K_ROBUST x F_ROBUST blob centres (see ROBUST_SCALE)."""
+    import torch
+
+    h = torch.ones(1, 1)
+    while h.shape[0] < K_ROBUST:
+        h = torch.cat([torch.cat([h, h], 1), torch.cat([h, -h], 1)], 0)  # Sylvester's construction
+    return (h[:, torch.arange(F_ROBUST) % (K_ROBUST - 1) + 1] * ROBUST_SCALE).to(dev)
+
+
+def robust_data(ht, world=1):
+    """[robust]'s data, the same global arrays at any world size (split draws are split-invariant): the blob of
+    each inlier row (``randint``), its centre + ``randn``, then the outlier rows (``rand`` over the box), joined
+    by ``concatenate``; split 0. Returns (member, x)."""
+    n_out = N_OUTLIERS * world
+    n_in = N_ROBUST * world - n_out
+    ht.random.seed(ROBUST_SEED)
+    member = ht.random.randint(0, K_ROBUST, size=(n_in,), split=0, dtype=ht.int64)
+    centres = robust_centres(member.larray.device)
+    blobs = ht.random.randn(n_in, F_ROBUST, split=0) + ht.DNDarray(centres[member.larray], gshape=(n_in, F_ROBUST),
+                                                                   split=0)
+    out = ht.random.rand(n_out, F_ROBUST, split=0) * (2 * ROBUST_BOX) - ROBUST_BOX
+    return member, ht.concatenate([blobs, out], axis=0)
+
+
+def first_rows(member, k):
+    """The global index of the first row of each of the k blobs (an allreduce of MIN across ranks)."""
+    import torch
+
+    comm = member.comm
+    off = comm.chunk(member.gshape, 0)[0]
+    m = member.larray
+    big = torch.iinfo(torch.int64).max
+    hit = m.unsqueeze(1) == torch.arange(k, device=m.device).unsqueeze(0)
+    pos = torch.where(hit, torch.arange(m.numel(), device=m.device).unsqueeze(1) + off, torch.full_like(hit, big,
+                                                                                                       dtype=torch.int64))
+    first = pos.amin(dim=0) if m.numel() else torch.full((k,), big, dtype=torch.int64, device=m.device)
+    return comm.allreduce(first, "min").tolist()
+
+
+def robust_path(ht, fills=None):
+    """[robust]'s path through its user-facing calls: draws and concatenate; percentiles and median along axis 0;
+    robust scaling; the outlier clip by mask assignment; average, skew, kurtosis, cov, a histogram; KMedians from
+    one row of each blob; KMedoids from a random init; unique/bincount of the labels; topk of the largest L1
+    distances to the assigned centre; reshape to one flat axis, sort, and back. Returns the results and each
+    step's host seconds (work ending in a synchronize). ``fills``, where given, receives the arguments of every
+    threefry draw the path makes."""
+    import torch
+
+    from heat_tpu_torch.core import random as ht_random
+
+    t, r = {}, {}
+
+    def step(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        t[name] = time.perf_counter() - t0
+        return out
+
+    real_fill = ht_random._fill
+    if fills is not None:
+        def recording_fill(*args):
+            fills.append(args)
+            return real_fill(*args)
+
+        ht_random._fill = recording_fill
+    try:
+        r["member"], x = step("draws + concatenate", lambda: robust_data(ht, ht.get_comm().size))
+        r["pct"] = step("percentile", lambda: ht.percentile(x, list(ROBUST_Q), axis=0))
+        r["med"] = step("median", lambda: ht.median(x, axis=0))
+        z = step("robust scaling", lambda: (x - r["med"]) / (r["pct"][2] - r["pct"][0]))
+
+        def clip():
+            mask = ht.abs(z) > ROBUST_CLIP
+            z[mask] = ROBUST_CLIP
+            return mask
+
+        r["clipped"] = step("clip (mask assignment)", clip)
+        r["avg"] = step("average", lambda: ht.average(z, axis=0))
+        r["skew"] = step("skew", lambda: ht.skew(z, axis=0))
+        r["kurt"] = step("kurtosis", lambda: ht.kurtosis(z, axis=0))
+        r["cov"] = step("cov", lambda: ht.cov(z, rowvar=False))
+        r["hist"] = step("histogram", lambda: ht.histogram(z[:, 0], bins=N_HIST_BINS))
+        rows = first_rows(r["member"], K_ROBUST)
+        r["init"] = z[rows]
+        r["km"] = step("KMedians fit", lambda: ht.cluster.KMedians(K_ROBUST, init=r["init"], max_iter=ROBUST_ITERS,
+                                                                   tol=None).fit(z))
+        r["kd"] = step("KMedoids fit", lambda: ht.cluster.KMedoids(K_ROBUST, init="random", random_state=KMEDOIDS_SEED,
+                                                                   max_iter=ROBUST_ITERS).fit(z))
+        labels = r["km"].labels_
+        r["unique"], r["counts"] = step("unique + bincount", lambda: (ht.unique(labels), ht.bincount(labels)))
+
+        def farthest():
+            assigned = ht.DNDarray(r["km"].cluster_centers_.larray[labels.larray], gshape=z.gshape, split=0)
+            d = ht.sum(ht.abs(z - assigned), axis=1)
+            return d, ht.topk(d, N_TOPK)
+
+        r["d"], r["topk"] = step("topk", farthest)
+
+        def movement():
+            flat = ht.reshape(z, (z.size,))
+            s, i = ht.sort(flat)
+            return flat, s, i, ht.reshape(s, z.gshape)
+
+        r["flat"], r["sorted"], r["order"], r["back"] = step("reshape + sort + reshape", movement)
+    finally:
+        ht_random._fill = real_fill
+    r["x"], r["z"] = x, z
+    return r, t
+
+
+def robust_numpy_percentile(col, q, n):
+    """heat_tpu's ``_sorted_percentile`` of one float32 column on the host: numpy's index arithmetic, the order
+    statistics from ``np.partition``, and ``vlo + w (vhi - vlo)`` in float32 (numpy's own lerp rounds
+    ``vhi - (vhi - vlo)(1 - w)`` where w >= 0.5, one rounding apart)."""
+    import numpy as np
+
+    pos = (np.asarray(q, dtype=np.float64) / 100.0).astype(np.float32) * np.float32(n - 1)
+    lo = np.clip(np.floor(pos).astype(np.int64), 0, n - 1)
+    hi = np.clip(np.ceil(pos).astype(np.int64), 0, n - 1)
+    part = np.partition(col, np.unique(np.concatenate([lo, hi])))
+    vlo, vhi = part[lo], part[hi]
+    w = (pos - np.floor(pos)).astype(np.float32)
+    return (vlo + w * (vhi - vlo)).astype(np.float32)
+
+
+def robust_phase(dev):
+    """[robust]: robust clustering of heavy-tailed data at 2^24 x 32 on one card through its user-facing calls;
+    its two kernels on the path's own inputs against their plain versions; order statistics against numpy; the
+    KMedians centres against numpy's medians of the final members; the KMedoids medoids against the members'
+    L1-nearest rows to their medians; the same path through the plain versions; per-step times."""
+    import numpy as np
+    import torch
+
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.core.kernels import (
+        MOMENTS_KERNEL, THREEFRY_KERNEL, chunk_moments, forced_mode, moments_local, threefry_bits, threefry_plain,
+    )
+
+    ht.use_device("gpu")
+    fills = []
+    torch.cuda.synchronize()
+    ht.kernels.reset_kernel_stats()
+    t_wall = time.perf_counter()
+    r, t = robust_path(ht, fills)
+    t_wall = time.perf_counter() - t_wall
+    launches, stats = dict(ht.LAUNCHES), dict(ht.KERNEL_STATS)
+    print(f"[robust] launches {launches} KERNEL_STATS {stats}", flush=True)
+    check(launches["threefry_bits"] > 0 and launches["moments_onepass"] > 0,
+          f"the path should launch threefry_bits (its draws, KMedoids' init) and moments_onepass (average): {launches}")
+    check(not any(k.endswith(".torch") for k in stats), f"a plain version ran on the path: {stats}")
+    x, z, km, kd = r["x"], r["z"], r["km"], r["kd"]
+    n_in = N_ROBUST - N_OUTLIERS
+    member = r["member"].larray
+
+    # ---- the two kernels on the path's own inputs
+    za = z.larray
+    cnt, mean, m2 = moments_local(za, N_ROBUST)
+    cnt0, mean0, m20 = chunk_moments(za, N_ROBUST)
+    e_mean, e_m2 = (mean - mean0).abs(), (m2 - m20).abs()
+    check(float(cnt) == float(cnt0) == float(N_ROBUST), "[robust] moments counts")
+    check(bool((e_mean <= MEAN_ATOL + MEAN_RTOL * mean0.abs()).all()), f"[robust] moments mean: {e_mean.max().item()}")
+    check(bool((e_m2 <= M2_RTOL * m20.abs() + 1e-6).all()), f"[robust] moments M2: {e_m2.max().item()}")
+    check(torch.equal(r["avg"].larray, mean), "[robust] average(z, axis=0) is not the moments kernel's mean")
+    kinds = []
+    for args in fills:
+        got, want = threefry_bits(*args), threefry_plain(*args)
+        check(torch.equal(got, want), f"[robust] threefry_bits' {args[2]} draw differs from its plain version")
+        kinds.append(f"{args[2]} x {got.numel()}")
+        del got, want
+    normal = next(a for a in fills if a[2] == "normal32")
+    drawn = threefry_bits(*normal).reshape(n_in, F_ROBUST)
+    check(torch.equal(drawn + robust_centres(dev)[member], x.larray[:n_in]),
+          f"[robust] the path's blobs are not its draw: {(drawn + robust_centres(dev)[member] - x.larray[:n_in]).abs().max()}")
+    del drawn
+    print(f"[robust] moments_onepass on the path's z {tuple(za.shape)}: count exact, mean max abs "
+          f"{e_mean.max().item():.3e}, M2 max rel {(e_m2 / m20.abs()).max().item():.3e} (<= {M2_RTOL}), average == the "
+          f"kernel's mean; threefry_bits: the path's {len(fills)} draws ({', '.join(kinds)}) bit-identical to the "
+          f"plain version, and the blobs are the normal draw plus the centres, bit for bit", flush=True)
+
+    # ---- order statistics against numpy (host)
+    xh = x.larray[:, list(ROBUST_COLS)].cpu().numpy()
+    pct, med = r["pct"].larray.cpu().numpy(), r["med"].larray.cpu().numpy()
+    worst_np = 0.0
+    for j, c in enumerate(ROBUST_COLS):
+        want = robust_numpy_percentile(xh[:, j], ROBUST_Q, N_ROBUST)
+        check(np.array_equal(pct[:, c], want), f"[robust] percentiles of column {c}: {pct[:, c]} vs {want}")
+        check(med[c] == np.median(xh[:, j]), f"[robust] median of column {c}: {med[c]} vs {np.median(xh[:, j])}")
+        ref = np.percentile(xh[:, j], ROBUST_Q).astype(np.float32)
+        worst_np = max(worst_np, float(np.max(np.abs(pct[:, c] - ref) / np.spacing(np.abs(ref)))))
+    small = x[:N_ROBUST_SLICE]
+    ps, ms = ht.percentile(small, list(ROBUST_Q), axis=0).larray.cpu().numpy(), ht.median(small, axis=0).larray.cpu().numpy()
+    sh = small.larray.cpu().numpy()
+    for c in range(F_ROBUST):
+        check(np.array_equal(ps[:, c], robust_numpy_percentile(sh[:, c], ROBUST_Q, N_ROBUST_SLICE)),
+              f"[robust] percentiles of column {c} at {N_ROBUST_SLICE} rows")
+        check(ms[c] == np.median(sh[:, c]), f"[robust] median of column {c} at {N_ROBUST_SLICE} rows")
+    del xh, sh, small
+
+    # ---- the clip touched outlier rows only, and only entries beyond the clip
+    clipped = r["clipped"].larray
+    check(not bool(clipped[:n_in].any()), "[robust] the clip touched an inlier row")
+    check(bool((za[clipped] == ROBUST_CLIP).all()) and bool((za.abs() <= ROBUST_CLIP).all()), "[robust] clip values")
+
+    # ---- KMedians: centres are numpy's medians of the final members; inlier accuracy
+    labels = km.labels_.larray
+    acc, perm = matched_labels(labels[:n_in], member, K_ROBUST, what="[robust] KMedians labels vs the blobs")
+    check(acc > SPEC_ACC, f"[robust] KMedians labels agree with the blobs on {acc} of the inlier rows")
+    lab_h, centres_h = labels.cpu().numpy(), km.cluster_centers_.larray.cpu().numpy()
+    for c in range(K_ROBUST):
+        rows = np.nonzero(lab_h == c)[0]
+        check(rows.size > 0, f"[robust] KMedians cluster {c} is empty")
+        want = np.median(za[torch.as_tensor(rows, device=dev)].cpu().numpy(), axis=0)
+        check(np.array_equal(centres_h[c], want), f"[robust] KMedians centre {c} is not numpy's median of its members")
+
+    # ---- KMedoids: each medoid is a row of z, the L1-nearest member to its cluster's median
+    from heat_tpu_torch.cluster.kmedians import _l1_distances
+
+    lab_d = kd.labels_.larray
+    lab_dh = lab_d.cpu().numpy()
+    has = [bool((lab_dh == c).any()) for c in range(K_ROBUST)]
+    med_all = torch.stack([torch.as_tensor(np.median(za[torch.as_tensor(np.nonzero(lab_dh == c)[0], device=dev)].cpu()
+                                                     .numpy(), axis=0), device=dev) if has[c] else
+                           kd.cluster_centers_.larray[c] for c in range(K_ROBUST)])
+    d_med = _l1_distances(za, med_all)  # the distances medoid_step takes, on the same shapes
+    d_med = torch.where(lab_d.unsqueeze(1) == torch.arange(K_ROBUST, device=dev), d_med, float("inf"))
+    near = torch.argmin(d_med, dim=0)
+    for c in range(K_ROBUST):
+        if has[c]:
+            check(torch.equal(kd.cluster_centers_.larray[c], za[near[c]]),
+                  f"[robust] KMedoids centre {c} is not its members' L1-nearest row to their median")
+    del d_med
+
+    # ---- unique, bincount, topk, and the data movement
+    check(torch.equal(r["unique"].larray, torch.arange(K_ROBUST, device=dev)), "[robust] unique labels")
+    check(torch.equal(r["counts"].larray, torch.bincount(labels, minlength=K_ROBUST)), "[robust] bincount")
+    tv, ti = r["topk"]
+    ref_v = torch.topk(r["d"].larray, N_TOPK).values
+    check(torch.equal(tv.larray, ref_v) and torch.equal(r["d"].larray[ti.larray], tv.larray), "[robust] topk")
+    check(bool((ti.larray >= n_in).float().mean() > 0.99), "[robust] the farthest rows should be outliers")
+    s, order, flat = r["sorted"].larray, r["order"].larray, r["flat"].larray
+    check(r["back"].gshape == z.gshape and torch.equal(r["back"].larray.reshape(-1), s), "[robust] reshape back")
+    check(torch.equal(flat, za.reshape(-1)) and torch.equal(flat[order], s), "[robust] sort's indices")
+    check(bool((s[1:] >= s[:-1]).all()), "[robust] sorted values are not ascending")
+    ties = s[1:] == s[:-1]
+    check(bool((order[1:][ties] > order[:-1][ties]).all()), "[robust] sort is not stable")
+    check(torch.equal(torch.sort(order).values, torch.arange(order.numel(), device=dev)), "[robust] not a permutation")
+    n_clip = int(clipped.sum())
+    moments_line = (f"average {r['avg'].larray[:2].tolist()}, skew {r['skew'].larray[:2].tolist()}, kurtosis "
+                    f"{r['kurt'].larray[:2].tolist()} (features 0-1), cov[0, :2] {r['cov'].larray[0, :2].tolist()}, "
+                    f"histogram of feature 0: {int(r['hist'][0].larray.sum())} counts in {N_HIST_BINS} bins")
+    km_iter, kd_iter = km.n_iter_, kd.n_iter_
+    lab_km, lab_kd = labels.clone(), lab_d.clone()
+    pct_t, med_t = r["pct"].larray.clone(), r["med"].larray.clone()
+    del r, x, z, za, clipped, s, order, flat, tv, ti, ref_v, km, kd, labels, lab_d
+    torch.cuda.empty_cache()
+
+    # ---- the same path through the plain versions: identical labels
+    with forced_mode(THREEFRY_KERNEL, "torch"), forced_mode(MOMENTS_KERNEL, "torch"):
+        r0, t0 = robust_path(ht)
+    check(torch.equal(r0["pct"].larray, pct_t) and torch.equal(r0["med"].larray, med_t), "[robust] plain path order stats")
+    check(torch.equal(r0["km"].labels_.larray, lab_km), "[robust] KMedians labels differ on the plain path")
+    check(torch.equal(r0["kd"].labels_.larray, lab_kd), "[robust] KMedoids labels differ on the plain path")
+    del r0
+    torch.cuda.empty_cache()
+    print(f"[robust] n={N_ROBUST} ({N_OUTLIERS} uniform outlier rows over +-{ROBUST_BOX}) f={F_ROBUST} k={K_ROBUST}: "
+          f"percentiles {ROBUST_Q} and medians equal numpy's order statistics and heat_tpu's lerp on columns "
+          f"{ROBUST_COLS} at full length and every column at {N_ROBUST_SLICE} rows (np.percentile's own lerp within "
+          f"{worst_np:.1f} ulp); the clip set {n_clip} outlier entries to {ROBUST_CLIP}, no inlier; {moments_line}; "
+          f"KMedians ({km_iter} iterations) agrees with the blobs on {acc:.6f} of the inlier rows and its centres "
+          f"are numpy's medians of the final members bit for bit; KMedoids ({kd_iter} iterations) medoids are their "
+          f"members' L1-nearest rows to the medians; unique/bincount, topk ({N_TOPK}) and the stable sort of the "
+          f"{N_ROBUST * F_ROBUST} flat values checked; the plain path gives the same order statistics and labels",
+          flush=True)
+    print("[robust] per step (host clock, first calls): " + ", ".join(f"{k} {v:.4f} s" for k, v in t.items())
+          + f"; whole path {t_wall:.4f} s wall; plain path steps: "
+          + ", ".join(f"{k} {v:.4f} s" for k, v in t0.items()), flush=True)
+    return {k: launches.get(k, 0) for k in ("moments_onepass", "lloyd_fused", "topk_distance", "chol_panel_fused",
+                                             "threefry_bits")}
+
+
 # ---- [dist]: the main path over torch.distributed, one process per card ------------------------
 DIST_SEED, DIST_QR_SEED, DIST_RIDGE_SEED, DIST_LU_SEED, DIST_SVD_SEED = 7, 8, 9, 10, 14
 N_DIST_SLICE = 1 << 20  # rows of z in the resplit round trip
@@ -878,7 +1197,7 @@ def _dist_rank(rank, world, store, out_dir):
 
     sys.path.insert(0, ROOT)
     import heat_tpu_torch as ht
-    from heat_tpu_torch.core.kernels import COLLECTIVES
+    from heat_tpu_torch.core.kernels import COLLECTIVES, RECEIVED
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -901,6 +1220,7 @@ def _dist_rank(rank, world, store, out_dir):
         together; ``timed.collectives`` holds what the call itself ran."""
         sync()
         before = {k: dict(v) for k, v in COLLECTIVES.items()}
+        before_recv = dict(RECEIVED)
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         a.record()
@@ -912,6 +1232,7 @@ def _dist_rank(rank, world, store, out_dir):
             k: {f: v[f] - before.get(k, {}).get(f, 0) for f in v} for k, v in COLLECTIVES.items()
             if v["calls"] != before.get(k, {}).get("calls", 0)
         }
+        timed.received = {k: v - before_recv.get(k, 0) for k, v in RECEIVED.items() if v != before_recv.get(k, 0)}
         return out, host, a.elapsed_time(b)
 
     say(f"{torch.cuda.get_device_name(rank)} cuda:{rank}, world size {comm.size}, backend {comm.backend}")
@@ -1039,6 +1360,8 @@ def _dist_rank(rank, world, store, out_dir):
     result["svd"] = _dist_svd(ht, world, rank, timed, same_everywhere, say)
     torch.cuda.empty_cache()
     result["spectral"] = _dist_spectral(ht, world, rank, timed, same_everywhere, say)
+    torch.cuda.empty_cache()
+    result["robust"] = _dist_robust(ht, world, rank, timed, same_everywhere, say)
     times = torch.tensor([t_stats, t_fit, t_warm, t_knn, t_knn_w, t_stats_w, t_qr, t_qr_w, t_mm, t_mm_w, t_rs, path_s],
                          dtype=torch.float64, device=dev)
     result["times_max"] = comm.allreduce(times, "max").cpu().tolist()
@@ -1460,6 +1783,158 @@ def _dist_spectral(ht, world, rank, timed, same_everywhere, say):
     return {"steps": steps, "labels": sp.labels_.larray.to(torch.int8).cpu(), "evals": evals.cpu(), "Y": Y.cpu()}
 
 
+def _digest(t):
+    """Two int64 sums over the bit patterns of a float32 or int64 tensor (the second weighted by position):
+    equal digests of two chunks mean, short of a collision, equal bits."""
+    import torch
+
+    b = (t.contiguous().view(torch.int32) if t.dtype == torch.float32 else t.contiguous()).reshape(-1).to(torch.int64)
+    w = torch.arange(b.numel(), device=b.device) % 65521 + 1
+    return [int(b.sum()), int((b * w).sum())]
+
+
+def _robust_writes(zz, z, world):
+    """[dist]'s cross-rank writes into zz: L = min(4096 P, n / P) rows from n/P - 1000 (P = max(world, 2): across
+    the first rank boundary) get rows from 10 on, a split value rebalanced from another offset; then every
+    (n / (2 world) + 3)-th row from row 5 (rows on every rank) gets a replicated value."""
+    n, p = zz.gshape[0], max(world, 2)
+    lo, length = n // p - 1000, min(4096 * p, n // p)
+    zz[lo : lo + length] = z[10 : 10 + length]
+    rows = slice(5, n, n // (2 * world) + 3)
+    zz[rows] = z[: len(range(*rows.indices(n)))].resplit(None) * 2.0
+
+
+def _dist_robust(ht, world, rank, timed, same_everywhere, say):
+    """[dist]'s robust steps on [robust]'s data at N_ROBUST rows per card (weak scaling): concatenate, the split-axis
+    percentiles and median (the key-bisection selection), the clip, a cross-rank __setitem__ with a split value, the split-axis
+    sort of one feature (sample sort: bytes received per rank at most 3x its share of values and indices),
+    reshape to one flat axis and back, KMedians from one row of each blob, unique of its labels, topk of the
+    largest L1 distances. What the parent holds against one process: replicated results whole, chunks digested."""
+    import torch
+
+    comm = ht.get_comm()
+    steps = {}
+
+    def step(name, fn):
+        out, host, ev = timed(fn)
+        steps[name] = {"host_s": host, "event_ms": ev, "collectives": timed.collectives, "received": timed.received}
+        return out
+
+    member, x = step("draws + concatenate", lambda: robust_data(ht, world))
+    n = x.gshape[0]
+    pct = step("percentile", lambda: ht.percentile(x, list(ROBUST_Q), axis=0))
+    med = step("median", lambda: ht.median(x, axis=0))
+
+    def scale_clip():
+        z = (x - med) / (pct[2] - pct[0])
+        z[ht.abs(z) > ROBUST_CLIP] = ROBUST_CLIP
+        return z
+
+    z = step("scale + clip", scale_clip)
+    out = {"x": _digest(x.larray), "z": _digest(z.larray), "pct": pct.larray.cpu(), "med": med.larray.cpu()}
+    del x
+    torch.cuda.empty_cache()
+    col = z[:, 1]
+    (sv, si) = step("sort", lambda: ht.sort(col))
+    share = comm.chunk(col.gshape, 0)[1][0] * (4 + 8)
+    recv = sum(steps["sort"]["received"].values())
+    check(recv <= 3 * share, f"[dist] sort: rank {rank} received {recv} B, more than 3x its share {share} B")
+    check(bool((sv.larray[1:] >= sv.larray[:-1]).all()), "[dist] sort: a chunk is not ascending")
+    out.update(sort_values=_digest(sv.larray), sort_indices=_digest(si.larray), sort_received=recv, sort_share=share)
+    del col, sv, si
+    flat = step("reshape", lambda: ht.reshape(z, (z.size,)))
+    back = ht.reshape(flat, z.gshape)
+    check(flat.split == 0 and torch.equal(back.larray, z.larray), "[dist] reshape to one axis and back")
+    del flat, back
+    zz = z.copy()
+    step("setitem", lambda: _robust_writes(zz, z, world))
+    out["setitem"] = _digest(zz.larray)
+    del zz
+    init = z[first_rows(member, K_ROBUST)]
+    km = step("KMedians fit", lambda: ht.cluster.KMedians(K_ROBUST, init=init, max_iter=ROBUST_ITERS, tol=None).fit(z))
+    same_everywhere(km.cluster_centers_.larray, "KMedians centres")
+    uq = step("unique", lambda: ht.unique(km.labels_))
+    assigned = ht.DNDarray(km.cluster_centers_.larray[km.labels_.larray], gshape=z.gshape, split=0)
+    d = ht.sum(ht.abs(z - assigned), axis=1)
+    tv, ti = step("topk", lambda: ht.topk(d, N_TOPK))
+    out.update(centres=km.cluster_centers_.larray.cpu(), n_iter=km.n_iter_, labels=_digest(km.labels_.larray),
+               unique=uq._logical().cpu(), topk_values=tv._logical().cpu(), topk_indices=ti._logical().cpu(), steps=steps)
+    say("robust per call: " + _steps_line(steps) + f"; sort received {recv} B, {recv / share:.3f} of the rank's "
+        f"share of values and indices ({share} B)")
+    del z, d, assigned, km
+    torch.cuda.empty_cache()
+    return out
+
+
+def _robust_reference(ht, world, ranks):
+    """[dist]'s robust steps in this process on one card, on the same global data, held against the ranks:
+    percentiles, median and KMedians centres equal, every chunk's digest equal (x, z, the sort's values and
+    indices, the cross-rank write, the labels), unique and topk equal. Returns the one-card times."""
+    import torch
+
+    t = {}
+
+    def first(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        t[name] = time.perf_counter() - t0
+        return out
+
+    member, x = first("draws + concatenate", lambda: robust_data(ht, world))
+    n = x.gshape[0]
+    rows = _ceil_div_map((n,), 0, world)[:, 0].tolist()  # the ranks' chunks
+    starts = [sum(rows[:r]) for r in range(world)]
+
+    def chunks_digest(t_):
+        return [_digest(t_[s : s + c]) for s, c in zip(starts, rows)]
+
+    check([r["robust"]["x"] for r in ranks] == chunks_digest(x.larray), "[dist] concatenate: x differs from one process")
+    pct = first("percentile", lambda: ht.percentile(x, list(ROBUST_Q), axis=0)).larray
+    med = first("median", lambda: ht.median(x, axis=0)).larray
+    # above one card the median along the split axis is heat_tpu's 50th percentile (linear rule): its value at
+    # the middle ranks equals jnp.median's midpoint up to one rounding; the ranks must equal the percentile's row
+    for r in ranks:
+        check(torch.equal(r["robust"]["pct"].to(pct.device), pct), "[dist] percentiles differ from one process")
+        want_med = pct[1] if world > 1 else med
+        check(torch.equal(r["robust"]["med"].to(pct.device), want_med), "[dist] median differs from one process")
+    z = (x - ht.array(ranks[0]["robust"]["med"].to(pct.device))) / ht.array((pct[2] - pct[0]))
+    z[ht.abs(z) > ROBUST_CLIP] = ROBUST_CLIP
+    del x
+    torch.cuda.empty_cache()
+    check([r["robust"]["z"] for r in ranks] == chunks_digest(z.larray), "[dist] z differs from one process")
+    sv, si = first("sort", lambda: ht.sort(z[:, 1]))
+    check([r["robust"]["sort_values"] for r in ranks] == chunks_digest(sv.larray)
+          and [r["robust"]["sort_indices"] for r in ranks] == chunks_digest(si.larray),
+          "[dist] sort values or indices differ from one process")
+    del sv, si
+    zz = z.copy()
+    _robust_writes(zz, z, world)
+    check([r["robust"]["setitem"] for r in ranks] == chunks_digest(zz.larray),
+          "[dist] the cross-rank write differs from one process")
+    del zz
+    init = z[first_rows(member, K_ROBUST)]
+    km = first("KMedians fit", lambda: ht.cluster.KMedians(K_ROBUST, init=init, max_iter=ROBUST_ITERS, tol=None).fit(z))
+    check(torch.equal(ranks[0]["robust"]["centres"].to(z.larray.device), km.cluster_centers_.larray),
+          "[dist] KMedians centres differ from one process")
+    check([r["robust"]["labels"] for r in ranks] == chunks_digest(km.labels_.larray), "[dist] KMedians labels")
+    uq = ht.unique(km.labels_).numpy()
+    assigned = ht.DNDarray(km.cluster_centers_.larray[km.labels_.larray], gshape=z.gshape, split=0)
+    tv, ti = ht.topk(ht.sum(ht.abs(z - assigned), axis=1), N_TOPK)
+    import numpy as np
+
+    check(np.array_equal(ranks[0]["robust"]["unique"].numpy(), uq), "[dist] unique labels differ from one process")
+    # the distances are row sums over 32 features, which torch may add in another order for a chunk than for the
+    # whole array: the values within 32 roundings (32 u relative), the rows the same (the top values lie far apart)
+    tv_h, ti_h = tv.numpy(), ti.numpy()
+    check(np.allclose(ranks[0]["robust"]["topk_values"].numpy(), tv_h, rtol=32 * F32_UNIT_ROUNDOFF, atol=0)
+          and set(ranks[0]["robust"]["topk_indices"].tolist()) == set(ti_h.tolist()), "[dist] topk differs from one process")
+    del z, km, assigned, tv, ti
+    torch.cuda.empty_cache()
+    return t
+
+
 def _linalg_reference(ht, world, ranks, tmp):
     """The one-process port on one card against the ranks: solve of the same K (torch.linalg.solve at world size
     1), svd and lstsq of the same A, the spectral path on the same data; times of each."""
@@ -1608,6 +2083,8 @@ def dist_phase(world: int) -> None:
         check(r_diff <= QR_R_RTOL, f"[dist] R vs one process's R: {r_diff}")
         ref = _ridge_reference(ht, world, ranks, tmp)
         lref = _linalg_reference(ht, world, ranks, tmp)
+        torch.cuda.empty_cache()
+        rref = _robust_reference(ht, world, ranks)
         rg = ranks[0]["ridge"]
         print(f"[dist] ridge n={N_RIDGE_CARD * world}: chol_panel_fused launches per rank "
               f"{[r['ridge']['launches']['chol_panel_fused'] for r in ranks]} (panels of {rg['bs']} rows), routes "
@@ -1648,6 +2125,17 @@ def dist_phase(world: int) -> None:
               f"max abs diff {lref['spectral']['e_ritz']:.3e}; float64 ||L v - theta v|| / ||L|| of the ranks' "
               f"{K_SPEC} smallest Ritz pairs against one card's L "
               f"{[f'{r:.3e}' for r in lref['spectral']['resid_x']]} (<= {RITZ_RESID_RTOL})", flush=True)
+        rb = ranks[0]["robust"]
+        print(f"[dist] robust {N_ROBUST * world} x {F_ROBUST} (weak scaling, {N_ROBUST} rows per card): against one "
+              f"process on the same data, x, z, the sort's values and indices, the cross-rank write and the KMedians "
+              f"labels equal chunk by chunk, percentiles, median, KMedians centres ({rb['n_iter']} iterations), unique "
+              f"and topk equal; sort received per rank "
+              f"{[r['robust']['sort_received'] for r in ranks]} B against 3x the share {3 * rb['sort_share']} B; "
+              f"slowest rank (first calls): " + ", ".join(
+                  f"{k} {max(r['robust']['steps'][k]['host_s'] for r in ranks):.4f} s" for k in rb["steps"])
+              + "; one card on the whole data: " + ", ".join(f"{k} {v:.4f} s" for k, v in rref.items()), flush=True)
+        for r in ranks:
+            print(f"[dist] robust r{r['rank']}: " + _steps_line(r["robust"]["steps"]), flush=True)
         tm = ranks[0]["times_max"]
         print(f"[dist] world size {world}; per rank: launches {[r['launches'] for r in ranks]}; fit COLLECTIVES "
               f"{ranks[0]['fit_collectives']}; qr local routes {[r['qr_routes'] for r in ranks]}", flush=True)
@@ -1670,8 +2158,9 @@ def dist_phase(world: int) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive heat_tpu_torch's main path on the cards and check every kernel.")
-    ap.add_argument("--phases", choices=("all", "dist", "spectral", "linalg"), default="all",
-                    help="all (default): every phase; dist, spectral or linalg: environment, build and that phase only")
+    ap.add_argument("--phases", choices=("all", "dist", "spectral", "linalg", "robust"), default="all",
+                    help="all (default): every phase; dist, spectral, linalg or robust: environment, build and that "
+                         "phase only")
     args = ap.parse_args(argv)
     import torch
 
@@ -1718,6 +2207,12 @@ def main(argv=None) -> int:
     if args.phases in ("all", "linalg"):
         linalg_phase(dev)
         torch.cuda.empty_cache()
+    if args.phases in ("all", "robust"):
+        robust_launches = robust_phase(dev)
+        torch.cuda.empty_cache()
+        if kernels is not None:
+            for row in kernels:
+                row["launches_robust"] = robust_launches.get(row["name"], 0)
     if args.phases in ("all", "dist"):
         dist_phase(torch.cuda.device_count())
     if kernels is not None:

@@ -35,9 +35,15 @@ The port goes slice by slice:
    ranks: ``cdist``/``rbf``/``manhattan`` of two split operands (gathered,
    or on a ring with ``use_ring``), the blocked ``cholesky`` with
    ``chol_panel_fused`` on each diagonal block, ``solve_triangular``, and
-   the tile geometry (``tiling``) they read.
+   the tile geometry (``tiling``) they read;
+6. the rest of ``linalg`` and spectral clustering; then ``manipulations``
+   (the rows a movement needs fetched in one ``alltoall``), ``sort``/
+   ``topk``/``unique`` along the split axis (``parallel``), exact
+   ``percentile``/``median`` and the other statistics, ``__setitem__`` and
+   advanced indexing, and ``KMedians``/``KMedoids``, whose centres are exact
+   order statistics found without moving rows.
 """
 from .core import *
 from .core import kernels, linalg, random
-from . import classification, cluster, convert, graph, spatial
+from . import classification, cluster, convert, graph, parallel, spatial
 from .core.kernels import KERNEL_STATS, LAUNCHES

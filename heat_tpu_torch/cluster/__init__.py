@@ -1,3 +1,5 @@
 """Clustering algorithms (counterpart of ``heat_tpu.cluster``)."""
 from .kmeans import KMeans
+from .kmedians import KMedians
+from .kmedoids import KMedoids
 from .spectral import Spectral

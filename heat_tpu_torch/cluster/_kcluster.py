@@ -25,6 +25,7 @@ from ..core import types
 from ..core.base import BaseEstimator, ClusteringMixin
 from ..core.dndarray import DNDarray
 from ..core.kernels.threefry import chunk_layout
+from ..spatial.distance import _quadratic_expand
 
 __all__ = ["_KCluster"]
 
@@ -92,7 +93,8 @@ class _KCluster(BaseEstimator, ClusteringMixin):
             first = ht_random._randint_offsets(ht_random._fold_in(key, 0), one, n, dev)
             centers = torch.empty((k, xa.shape[1]), dtype=xa.dtype, device=dev)
             centers[0] = _take_rows(x, first)[0]
-            d2 = self._metric(xa, centers[:1]).reshape(-1)
+            # D² by the squared euclidean distance whatever the estimator's metric, as heat_tpu draws it
+            d2 = _quadratic_expand(xa, centers[:1]).reshape(-1)
             split = x.split is not None and x.comm.is_distributed()
             kind = "uniform32" if d2.dtype == torch.float32 else "uniform64"
             for i in range(1, k):
@@ -105,7 +107,7 @@ class _KCluster(BaseEstimator, ClusteringMixin):
                     centers[i] = xa[nxt[0]]
                 else:
                     centers[i] = _draw_row_across_ranks(x, cdf, u)
-                d2 = torch.minimum(d2, self._metric(xa, centers[i : i + 1]).reshape(-1))
+                d2 = torch.minimum(d2, _quadratic_expand(xa, centers[i : i + 1]).reshape(-1))
             return centers
         raise ValueError(f"Initialization method {self.init!r} not supported")
 

@@ -12,6 +12,8 @@ import numpy as np
 
 from .classification.kneighborsclassifier import KNeighborsClassifier
 from .cluster.kmeans import KMeans
+from .cluster.kmedians import KMedians
+from .cluster.kmedoids import KMedoids
 from .cluster.spectral import Spectral
 from .core import factories
 from .core.dndarray import DNDarray
@@ -25,13 +27,19 @@ def array_from_numpy(a, split: Optional[int] = None, device=None, comm=None) -> 
     return factories.array(np.asarray(a), split=split, device=device, comm=comm)
 
 
-def from_heat_tpu_state(d: dict, device=None, comm=None) -> KMeans:
-    """A fitted port :class:`KMeans` from the dictionary that
-    ``heat_tpu.cluster.KMeans.state_dict()`` returns."""
+_ESTIMATORS = {"kmeans": KMeans, "kmedians": KMedians, "kmedoids": KMedoids}
+
+
+def from_heat_tpu_state(d: dict, device=None, comm=None, estimator: str = "kmeans"):
+    """A fitted port :class:`KMeans` (or :class:`KMedians`,
+    :class:`KMedoids`, by ``estimator``) from the dictionary that the
+    ``heat_tpu`` estimator's ``state_dict()`` returns."""
     missing = {"n_clusters", "max_iter", "tol", "random_state"} - set(d)
     if missing:
-        raise KeyError(f"not a KMeans state dictionary: missing {sorted(missing)}")
-    return KMeans().load_state_dict(d, comm=comm, device=device)
+        raise KeyError(f"not a k-clustering state dictionary: missing {sorted(missing)}")
+    if estimator not in _ESTIMATORS:
+        raise ValueError(f"estimator must be one of {sorted(_ESTIMATORS)}, got {estimator!r}")
+    return _ESTIMATORS[estimator]().load_state_dict(d, comm=comm, device=device)
 
 
 def knn_from_heat_tpu(x, y, n_neighbors: int = 5, split: Optional[int] = None, device=None, comm=None) -> KNeighborsClassifier:

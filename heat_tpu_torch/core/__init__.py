@@ -16,8 +16,12 @@ from .memory import *
 from .relational import *
 from .rounding import *
 from .statistics import *
+from .manipulations import *
 from .trigonometrics import *
-from . import arithmetics, exponential, indexing, logical, memory, relational, rounding, statistics, trigonometrics
+from . import (
+    arithmetics, exponential, indexing, logical, manipulations, memory, relational, rounding, statistics,
+    trigonometrics,
+)
 from . import linalg
 from .linalg.basics import *
 from . import kernels

@@ -256,15 +256,20 @@ cumproduct = cumprod
 
 def diff(a: DNDarray, n: int = 1, axis: int = -1, prepend=None, append=None) -> DNDarray:
     """The n-th discrete difference along ``axis``; a scalar ``prepend`` or
-    ``append`` is broadcast to one slice along ``axis``. Across ranks the
-    operands are gathered whole and each rank keeps its chunk of the
-    result."""
+    ``append`` is broadcast to one slice along ``axis``. Along a non-split
+    axis every rank differences its chunk. Along the split axis the
+    operands are joined first (``concatenate``, which keeps the ceil-div
+    layout), and each rank fetches the rows of its result chunk plus the
+    ``n`` rows after them from the ranks that hold them (one ``alltoall``:
+    the halo, and the rows the shorter result's layout shifts), never the
+    whole array."""
     if n == 0:
         return a
     if n < 0:
         raise ValueError(f"diff requires that n be a positive number, got {n}")
     axis = sanitize_axis(a.shape, axis)
     tt = types._weak_result_type(a, *(v for v in (prepend, append) if v is not None)).torch_type()
+    comm = a.comm
 
     def _edge(v):
         if v is None:
@@ -276,11 +281,44 @@ def diff(a: DNDarray, n: int = 1, axis: int = -1, prepend=None, append=None) -> 
             t = t.expand(shape)
         return t.to(tt)
 
-    result = torch.diff(a._logical().to(tt), n=n, dim=axis, prepend=_edge(prepend), append=_edge(append))
-    gshape = tuple(result.shape)
-    result = result[a.comm.chunk(gshape, a.split)[2]]
-    return DNDarray(result, gshape=gshape, dtype=types.canonical_heat_type(result.dtype), split=a.split,
-                    device=a.device, comm=a.comm)
+    if a.split is None or not comm.is_distributed() or axis != a.split:
+        chunk = list(comm.chunk(a.gshape, a.split)[2])
+        chunk[axis] = slice(None)
+
+        def _local_edge(v):
+            t = _edge(v)
+            return None if t is None else t[tuple(chunk)]
+
+        result = torch.diff(a.larray.to(tt), n=n, dim=axis, prepend=_local_edge(prepend), append=_local_edge(append))
+        gshape = list(a.gshape)
+        gshape[axis] = result.shape[axis]
+        return DNDarray(result, gshape=tuple(gshape), dtype=types.canonical_heat_type(result.dtype), split=a.split,
+                        device=a.device, comm=comm)
+    from . import manipulations
+    from ._movement import take_intervals
+
+    parts = [DNDarray(e, dtype=types.canonical_heat_type(tt), split=None, device=a.device, comm=comm)
+             for e in (_edge(prepend),) if e is not None]
+    parts.append(a.astype(types.canonical_heat_type(tt)))
+    parts += [DNDarray(e, dtype=types.canonical_heat_type(tt), split=None, device=a.device, comm=comm)
+              for e in (_edge(append),) if e is not None]
+    full = manipulations.concatenate(parts, axis=axis) if len(parts) > 1 else parts[0]
+    gshape = list(full.gshape)
+    gshape[axis] = max(0, gshape[axis] - n)
+
+    def want(r):
+        lo, sh, _ = comm.chunk(tuple(gshape), axis, rank=r)
+        return [(lo, lo + sh[axis] + n)] if sh[axis] else []
+
+    got = take_intervals(full.larray, full.gshape, axis, want, comm)
+    if got:
+        result = torch.diff(got[0], n=n, dim=axis)
+    else:
+        shape = list(full.lshape)
+        shape[axis] = 0
+        result = full.larray.new_empty(shape)
+    return DNDarray(result, gshape=tuple(gshape), dtype=types.canonical_heat_type(result.dtype), split=a.split,
+                    device=a.device, comm=comm)
 
 
 def _int_to_int64(x: DNDarray):

@@ -157,7 +157,7 @@ class TorchCommunication(Communication):
         if counts is None:
             ext = torch.tensor([t.shape[axis]], dtype=torch.int64, device=self.device())
             parts = [torch.empty_like(ext) for _ in range(self.size)]
-            count_collective("allgather", ext.numel() * ext.element_size())
+            count_collective("allgather", ext.numel() * ext.element_size(), ext.numel() * ext.element_size() * self.size)
             dist.all_gather(parts, ext)
             counts = [int(p.item()) for p in parts]
         counts = [int(c) for c in counts]
@@ -166,7 +166,7 @@ class TorchCommunication(Communication):
         buf = torch.zeros((cap,) + tuple(moved.shape[1:]), dtype=t.dtype, device=t.device)
         buf[: moved.shape[0]] = moved
         parts = [torch.empty_like(buf) for _ in range(self.size)]
-        count_collective("allgather", buf.numel() * buf.element_size())
+        count_collective("allgather", buf.numel() * buf.element_size(), buf.numel() * buf.element_size() * self.size)
         dist.all_gather(parts, buf)
         return torch.cat([p[:c] for p, c in zip(parts, counts)], dim=0).movedim(0, axis)
 
@@ -181,7 +181,7 @@ class TorchCommunication(Communication):
         sizes_in = [b.numel() for b in blocks]
         sizes_out = [int(np.prod(s, dtype=np.int64)) for s in recv_shapes]
         recv = torch.empty(sum(sizes_out), dtype=ref.dtype, device=ref.device)
-        count_collective("alltoall", send.numel() * send.element_size())
+        count_collective("alltoall", send.numel() * send.element_size(), recv.numel() * recv.element_size())
         dist.all_to_all_single(recv, send, output_split_sizes=sizes_out, input_split_sizes=sizes_in)
         return [p.reshape(s) for p, s in zip(torch.split(recv, sizes_out), recv_shapes)]
 

@@ -43,28 +43,14 @@ def _redistribute(
 ) -> torch.Tensor:
     """This rank's ceil-div chunk along ``axis`` of an array of ``gshape``
     whose rank r now holds the rows ``[starts[r], starts[r] + counts[r])``
-    (contiguous, any lengths): one ``alltoall``, nothing where the layout is
-    already the ceil-div one."""
-    p, me = comm.size, comm.rank
-    target = [comm.chunk(gshape, axis, rank=q) for q in range(p)]
-    if all(int(starts[q]) == target[q][0] and int(counts[q]) == target[q][1][axis] for q in range(p)):
+    (contiguous, any lengths): one ``alltoall`` (:func:`._movement.fetch`),
+    nothing where the layout is already the ceil-div one."""
+    from ._movement import ceil_div_layout, fetch
+
+    t_starts, t_counts = ceil_div_layout(int(gshape[axis]), comm)
+    if all(int(starts[q]) == t_starts[q] and int(counts[q]) == t_counts[q] for q in range(comm.size)):
         return local
-    s0 = int(starts[me])
-    blocks = []
-    for q in range(p):
-        lo, hi = target[q][0], target[q][0] + target[q][1][axis]
-        a, b = max(lo, s0), min(hi, s0 + int(counts[me]))
-        blocks.append(local.narrow(axis, a - s0, b - a) if b > a else local.narrow(axis, 0, 0))
-    lo, hi = target[me][0], target[me][0] + target[me][1][axis]
-    shapes = []
-    for q in range(p):
-        a, b = max(lo, int(starts[q])), min(hi, int(starts[q]) + int(counts[q]))
-        shape = list(gshape)
-        shape[axis] = max(0, b - a)
-        shapes.append(tuple(shape))
-    parts = comm.alltoall(blocks, shapes)
-    order = sorted(range(p), key=lambda q: int(starts[q]))
-    return torch.cat([parts[q] for q in order], dim=axis)
+    return fetch(local, axis, starts, counts, lambda r: [(t_starts[r], t_starts[r] + t_counts[r])], comm)[0]
 
 
 class DNDarray:
@@ -301,42 +287,205 @@ class DNDarray:
             yield self[i]
 
     # ------------------------------------------------------------- indexing
-    def __getitem__(self, key) -> "DNDarray":
-        """Basic indexing with ints, slices and ``...``. The split axis
-        survives a slice and shifts left past dimensions removed by ints; an
-        int on the split axis itself makes the result unsplit.
-
-        Across ranks: an int on the split axis is broadcast by the rank
-        that owns it; a slice of the split axis keeps each rank's share and
-        rebalances it to the ceil-div layout (one ``alltoall``); every other
-        index is local."""
-        if isinstance(key, DNDarray) or not isinstance(key, tuple):
+    def __normalize_key(self, key) -> tuple:
+        """``key`` as a tuple with ``...`` expanded: array-likes become
+        tensors on this array's device, DNDarrays stay themselves."""
+        if not isinstance(key, tuple):
             key = (key,)
-        if any(k is Ellipsis for k in key):
-            i = key.index(Ellipsis)
-            fill = self.ndim - (len(key) - 1)
-            key = key[:i] + (slice(None),) * fill + key[i + 1 :]
-        if len(key) > self.ndim:
-            raise IndexError(f"too many indices for DNDarray: {self.ndim}-dimensional, {len(key)} indexed")
+
+        def conv(k):
+            if isinstance(k, DNDarray) or k is None or k is Ellipsis or isinstance(k, (slice, bool, np.bool_)):
+                return k
+            if isinstance(k, (int, np.integer)):
+                return int(k)
+            if isinstance(k, (list, np.ndarray, torch.Tensor)):
+                return torch.as_tensor(np.asarray(k) if isinstance(k, list) else k).to(self.__array.device)
+            raise TypeError(f"index of type {type(k).__name__} is not supported")
+
+        key = tuple(conv(k) for k in key)
+
+        def consumed(k):
+            if k is None or k is Ellipsis or isinstance(k, (bool, np.bool_)):
+                return 0
+            if isinstance(k, DNDarray) and k.dtype is types.bool or isinstance(k, torch.Tensor) and k.dtype == torch.bool:
+                return k.ndim
+            return 1
+
+        n_spec = sum(consumed(k) for k in key)
+        ells = [i for i, k in enumerate(key) if k is Ellipsis]
+        if len(ells) > 1:
+            raise IndexError("an index can only have a single ellipsis ('...')")
+        if ells:
+            i = ells[0]
+            key = key[:i] + (slice(None),) * (self.ndim - n_spec) + key[i + 1 :]
+            n_spec = self.ndim
+        if n_spec > self.ndim:
+            raise IndexError(f"too many indices for DNDarray: {self.ndim}-dimensional, {n_spec} indexed")
+        return key
+
+    @staticmethod
+    def __is_basic(key) -> bool:
+        return all(isinstance(k, (int, slice)) and not isinstance(k, bool) for k in key)
+
+    def __getitem__(self, key) -> "DNDarray":
+        """Indexing with ints, slices (any step), ``...``, ``None``, bool
+        masks and integer arrays, with ``heat_tpu``'s split rules: the split
+        axis survives a slice and shifts past dimensions removed by ints; an
+        int on the split axis replicates the result; an advanced index on
+        the split axis makes it split 0.
+
+        Across ranks: an int on the split axis is broadcast by the rank that
+        owns it; a slice of the split axis keeps each rank's share and
+        rebalances it to the ceil-div layout (one ``alltoall``), a negative
+        step then fetches the mirror image; a bool mask of a split-0 array's
+        shape selects on every rank and rebalances; an integer array on
+        split axis 0 fetches the rows it names; other keys index the
+        gathered array."""
+        if isinstance(key, DNDarray) and key.ndim == 2 and self.ndim > 1 and key.gshape[1] == self.ndim \
+                and types.heat_type_is_exact(key.dtype) and key.dtype is not types.bool:
+            # a coordinate list, as nonzero gives it: one row per element
+            coords = key._logical()
+            return self.__advanced(tuple(coords[:, d] for d in range(self.ndim)), 0 if self.__split is not None else None)
+        key = self.__normalize_key(key)
+        if self.__is_basic(key):
+            return self.__basic_getitem(key)
+        if len(key) == 1 and isinstance(key[0], DNDarray) and key[0].dtype is types.bool \
+                and key[0].gshape == self.__gshape and self.__split == 0 and self.__comm.is_distributed():
+            return self.__mask_getitem(key[0])
+        key = tuple(k._logical() if isinstance(k, DNDarray) else k for k in key)
+        rows = self.__split_rows_key(key)
+        if rows is not None:
+            return self.__take_split_rows(rows)
+        return self.__advanced(key, self.__advanced_split(key))
+
+    def __advanced_split(self, key) -> Optional[int]:
+        """The result's split for an advanced key (``heat_tpu``'s rule)."""
+        split = self.__split
+        if split is None:
+            return None
+        in_dim = out_dim = 0
+        out_split = None
         for k in key:
-            if not isinstance(k, (int, np.integer, slice)):
-                raise NotImplementedError(
-                    f"index of type {type(k).__name__} is not supported in this slice of the port"
-                )
+            if k is None or isinstance(k, (bool, np.bool_)):
+                out_dim += 1
+                continue
+            if in_dim == split:
+                if isinstance(k, slice):
+                    out_split = out_dim
+                elif not isinstance(k, int):
+                    out_split = 0
+                in_dim += 1
+                out_dim += 0 if isinstance(k, int) else 1
+                continue
+            if isinstance(k, int):
+                in_dim += 1
+            elif isinstance(k, slice):
+                in_dim += 1
+                out_dim += 1
+            else:
+                in_dim += k.ndim if k.dtype == torch.bool else 1
+                out_dim += 1
+        if in_dim <= split and out_split is None:
+            out_split = out_dim + (split - in_dim)
+        return out_split
+
+    def __advanced(self, key, out_split) -> "DNDarray":
+        """Any key on the gathered array; this rank keeps its chunk."""
+        dim = 0
+        for k in key:
+            if isinstance(k, int):
+                n = self.__gshape[dim]
+                if not -n <= k < n:
+                    raise IndexError(f"index {k} is out of bounds for axis {dim} with size {n}")
+            if k is not None and not isinstance(k, (bool, np.bool_)):
+                dim += k.ndim if isinstance(k, torch.Tensor) and k.dtype == torch.bool else 1
+        result = self._logical()[key]
+        if result.ndim == 0:
+            out_split = None
+        comm = self.__comm
+        t = result[comm.chunk(tuple(result.shape), out_split)[2]] if out_split is not None else result
+        return DNDarray(t, gshape=tuple(result.shape), dtype=self.__dtype, split=out_split, device=self.__device,
+                        comm=comm)
+
+    def __split_rows_key(self, key):
+        """The global rows (numpy, non-negative) of a key that is one 1-D
+        integer array on split axis 0 followed by full slices, or None."""
+        if self.__split != 0 or not self.__comm.is_distributed():
+            return None
+        first = key[0]
+        if not isinstance(first, torch.Tensor) or first.dtype == torch.bool or first.ndim != 1:
+            return None
+        if any(not (isinstance(k, slice) and k == slice(None)) for k in key[1:]):
+            return None
+        n = self.__gshape[0]
+        rows = first.to(torch.int64).cpu().numpy()
+        if rows.size and (rows.min() < -n or rows.max() >= n):
+            raise IndexError(f"index out of bounds for axis 0 with size {n}")
+        return np.where(rows < 0, rows + n, rows)
+
+    def __take_split_rows(self, rows: np.ndarray) -> "DNDarray":
+        """An integer array on split axis 0: each rank fetches the rows of its
+        result chunk (split 0)."""
+        from ._movement import take_rows
+
+        comm = self.__comm
+        gshape = (rows.size,) + self.__gshape[1:]
+
+        def want(r):
+            lo, sh, _ = comm.chunk(gshape, 0, rank=r)
+            return rows[lo : lo + sh[0]]
+
+        t = take_rows(self.__array, self.__gshape, 0, want, comm)
+        return DNDarray(t, gshape=gshape, dtype=self.__dtype, split=0, device=self.__device, comm=comm)
+
+    def __mask_getitem(self, mask: "DNDarray") -> "DNDarray":
+        """A bool mask of a split-0 array's shape: every rank selects from its
+        chunk (row-major order is rank order), then the selection is
+        rebalanced (one ``alltoall``)."""
+        comm = self.__comm
+        m = mask.larray if mask.split == 0 else mask.resplit(0).larray
+        sel = self.__array[m]
+        counts = comm.allgather(torch.tensor([sel.numel()], dtype=torch.int64, device=comm.device()), 0,
+                                [1] * comm.size).tolist()
+        starts = [sum(counts[:q]) for q in range(comm.size)]
+        gshape = (sum(counts),)
+        return DNDarray(_redistribute(sel, 0, starts, counts, gshape, comm), gshape=gshape, dtype=self.__dtype,
+                        split=0, device=self.__device, comm=comm)
+
+    def __basic_key(self, key):
+        """``(global key, selection shape, reversed selection axes)``: every
+        slice with a positive step (a negative one selects the same elements
+        in reverse, so its selection axis is listed) and every int
+        non-negative."""
         key = key + (slice(None),) * (self.ndim - len(key))
-        gkey, gshape = [], []
-        for k, n in zip(key, self.__gshape):
+        gkey, shape, rev = [], [], []
+        for d, (k, n) in enumerate(zip(key, self.__gshape)):
             if isinstance(k, slice):
                 start, stop, step = k.indices(n)
-                if step <= 0:
-                    raise ValueError("step must be greater than zero")
+                m = len(range(start, stop, step))
+                if step < 0:
+                    rev.append(len(shape))
+                    start, stop, step = (start + step * (m - 1), start + 1, -step) if m else (0, 0, 1)
                 gkey.append(slice(start, stop, step))
-                gshape.append(len(range(start, stop, step)))
+                shape.append(m)
             else:
                 i = int(k)
                 if not -n <= i < n:
-                    raise IndexError(f"index {i} is out of bounds for axis with size {n}")
+                    raise IndexError(f"index {i} is out of bounds for axis {d} with size {n}")
                 gkey.append(i % n)
+        return gkey, shape, rev
+
+    def __basic_getitem(self, key) -> "DNDarray":
+        """Ints and slices (any step)."""
+        gkey, gshape, flips = self.__basic_key(key)
+        res = self.__positive_getitem(gkey, gshape)
+        if flips:
+            from .manipulations import flip
+
+            res = flip(res, tuple(flips))
+        return res
+
+    def __positive_getitem(self, gkey, gshape) -> "DNDarray":
         split = self.__split
         if split is not None and isinstance(gkey[split], int):
             out_split = None
@@ -348,7 +497,7 @@ class DNDarray:
         comm = self.__comm
         if split is None or not comm.is_distributed():
             return DNDarray(self.__array[tuple(gkey)], gshape=tuple(gshape), split=out_split, **meta)
-        off, lshape, _ = comm.chunk(self.__gshape, split)
+        off = comm.chunk(self.__gshape, split)[0]
         if out_split is None:
             # an int on the split axis: its owner broadcasts the result
             i = gkey[split]
@@ -362,6 +511,16 @@ class DNDarray:
                 buf = torch.empty(tuple(gshape), dtype=self.__array.dtype, device=self.__array.device)
             return DNDarray(comm.bcast(buf, owner), gshape=tuple(gshape), split=None, **meta)
         # a slice of the split axis: each rank keeps its share, then rebalances
+        starts, counts, lkey = self.__slice_shares(gkey)
+        local = self.__array[tuple(lkey)]
+        local = _redistribute(local, out_split, starts, counts, tuple(gshape), comm)
+        return DNDarray(local, gshape=tuple(gshape), split=out_split, **meta)
+
+    def __slice_shares(self, gkey):
+        """For a positive-step slice of the split axis: where each rank's
+        selected rows start in the selection, how many there are, and this
+        rank's local key."""
+        comm, split = self.__comm, self.__split
         start, stop, step = gkey[split].start, gkey[split].stop, gkey[split].step
         length = len(range(start, stop, step))
         starts, counts = [], []
@@ -371,13 +530,187 @@ class DNDarray:
             j1 = min(length, max(0, -(-(o + ls[split] - start) // step)))
             starts.append(j0)
             counts.append(max(0, j1 - j0))
+        off = comm.chunk(self.__gshape, split)[0]
         lkey = list(gkey)
         j0 = starts[comm.rank]
         first = start + j0 * step - off
         lkey[split] = slice(first, first + counts[comm.rank] * step, step) if counts[comm.rank] else slice(0, 0)
-        local = self.__array[tuple(lkey)]
-        local = _redistribute(local, out_split, starts, counts, tuple(gshape), comm)
-        return DNDarray(local, gshape=tuple(gshape), split=out_split, **meta)
+        return starts, counts, lkey
+
+    def __setitem__(self, key, value) -> None:
+        """Write ``value`` (broadcast to the selection, cast to this array's
+        dtype) where ``key`` selects. As in ``heat_tpu`` the array's tensor
+        is replaced, never written in place, so arrays handed out earlier
+        keep their values.
+
+        Across ranks: with ints and slices (any step) each rank writes the
+        rows of its chunk, taking its part of a replicated value locally and
+        of a split value by fetching it (one ``alltoall``); a bool mask of
+        the array's shape writes on every rank: a scalar locally, a 1-D
+        value of one entry per selected element by the exclusive scan of the
+        ranks' counts; an integer array on split axis 0 writes on the owners
+        of its rows; other keys write into the gathered array."""
+        if isinstance(key, DNDarray) and key.dtype is types.bool and key.gshape == self.__gshape:
+            return self.__mask_setitem(key, value)
+        nkey = self.__normalize_key(key)
+        if self.__is_basic(nkey):
+            return self.__basic_setitem(nkey, value)
+        nkey = tuple(k._logical() if isinstance(k, DNDarray) else k for k in nkey)
+        comm = self.__comm
+        rows = self.__split_rows_key(nkey)
+        if rows is not None:
+            vals = torch.broadcast_to(self.__value_tensor(value), (rows.size,) + self.__gshape[1:])
+            off, lshape, _ = comm.chunk(self.__gshape, 0)
+            mine = np.nonzero((rows >= off) & (rows < off + lshape[0]))[0]
+            new = self.__array.clone()
+            if mine.size:
+                at = torch.as_tensor(mine, device=new.device)
+                new[torch.as_tensor(rows[mine] - off, device=new.device)] = vals[at]
+            self.__array = new
+            return
+        whole = self._logical().clone()
+        whole[nkey] = self.__value_tensor(value)
+        if self.__split is not None and comm.is_distributed():
+            whole = whole[comm.chunk(self.__gshape, self.__split)[2]].clone()
+        self.__array = whole
+
+    def __value_tensor(self, value) -> torch.Tensor:
+        """``value`` whole on every rank, in this array's dtype and device."""
+        tt, dev = self.__dtype.torch_type(), self.__array.device
+        if isinstance(value, DNDarray):
+            return value._logical().to(device=dev, dtype=tt)
+        return torch.as_tensor(np.asarray(value) if isinstance(value, list) else value, device=dev).to(tt)
+
+    def __mask_setitem(self, mask: "DNDarray", value) -> None:
+        comm, split = self.__comm, self.__split
+        if mask.split != split:
+            mask = mask.resplit(split)
+        m = mask.larray
+        tt = self.__dtype.torch_type()
+        if isinstance(value, DNDarray) and value.ndim == 0 or not isinstance(value, DNDarray) and np.ndim(value) == 0:
+            self.__array = torch.where(m, self.__value_tensor(value), self.__array)
+            return
+        if split not in (None, 0) and comm.is_distributed():
+            # row-major order interleaves the ranks: write into the gathered array
+            whole = self._logical().clone()
+            whole[mask._logical()] = self.__value_tensor(value)
+            self.__array = whole[comm.chunk(self.__gshape, split)[2]].clone()
+            return
+        if split is None or not comm.is_distributed():
+            vals = self.__value_tensor(value)
+        else:
+            count = int(m.sum())
+            counts = comm.allgather(torch.tensor([count], dtype=torch.int64, device=comm.device()), 0,
+                                    [1] * comm.size).tolist()
+            starts = [sum(counts[:q]) for q in range(comm.size)]
+            if isinstance(value, DNDarray) and value.split == 0 and value.ndim == 1:
+                from ._movement import take_intervals
+
+                vals = take_intervals(value.larray, value.gshape, 0,
+                                      lambda r: [(starts[r], starts[r] + counts[r])], comm)[0].to(tt)
+            else:
+                full = self.__value_tensor(value)
+                vals = full[starts[comm.rank] : starts[comm.rank] + count] if full.ndim == 1 and \
+                    full.shape[0] == sum(counts) else full
+        new = self.__array.clone()
+        new[m] = vals
+        self.__array = new
+
+    def __basic_setitem(self, key, value) -> None:
+        gkey, sel_shape, rev = self.__basic_key(key)
+        comm, split = self.__comm, self.__split
+        if split is None or not comm.is_distributed():
+            vals, lkey = torch.broadcast_to(self.__value_tensor(value), tuple(sel_shape)), gkey
+        elif isinstance(gkey[split], int):
+            off, lshape, _ = comm.chunk(self.__gshape, split)
+            if not off <= gkey[split] < off + lshape[split]:
+                return  # another rank owns the row
+            vals = torch.broadcast_to(self.__value_tensor(value), tuple(sel_shape))
+            lkey = list(gkey)
+            lkey[split] -= off
+        else:
+            # the selection's axis that meets the split axis
+            vsplit = split - sum(1 for k in gkey[:split] if isinstance(k, int))
+            starts, counts, lkey = self.__slice_shares(gkey)
+            vals = self.__value_part(value, tuple(sel_shape), vsplit, starts, counts, vsplit in rev)
+        if rev:
+            vals = torch.flip(vals, rev)
+        new = self.__array.clone()
+        new[tuple(lkey)] = vals
+        self.__array = new
+
+    def __value_part(self, value, sel_shape, vsplit: int, starts, counts, reverse: bool) -> torch.Tensor:
+        """This rank's rows along ``vsplit`` of ``value`` broadcast to
+        ``sel_shape``, in the order of the positive-step selection (counted
+        from the other end where ``reverse``): fetched from a value split
+        along that axis, else sliced from the whole value."""
+        comm = self.__comm
+        m = sel_shape[vsplit]
+
+        def rows(r):
+            a = m - starts[r] - counts[r] if reverse else starts[r]
+            return a, a + counts[r]
+
+        lead = len(sel_shape) - (value.ndim if isinstance(value, DNDarray) else np.ndim(value))
+        if isinstance(value, DNDarray) and value.split is not None and value.split + lead == vsplit \
+                and value.gshape[value.split] == m:
+            from ._movement import take_intervals
+
+            got = take_intervals(value.larray, value.gshape, value.split, lambda r: [rows(r)], comm)[0]
+            shape = list(sel_shape)
+            shape[vsplit] = counts[comm.rank]
+            return torch.broadcast_to(got.to(self.__dtype.torch_type()), shape)
+        a, b = rows(comm.rank)
+        return torch.broadcast_to(self.__value_tensor(value), sel_shape).narrow(vsplit, a, b - a)
+
+    # ---------------------------------------------------------- manipulations
+    def reshape(self, *shape, new_split=None) -> "DNDarray":
+        from . import manipulations
+
+        return manipulations.reshape(self, *shape, new_split=new_split)
+
+    def flatten(self) -> "DNDarray":
+        from . import manipulations
+
+        return manipulations.flatten(self)
+
+    def ravel(self) -> "DNDarray":
+        from . import manipulations
+
+        return manipulations.ravel(self)
+
+    def squeeze(self, axis=None) -> "DNDarray":
+        from . import manipulations
+
+        return manipulations.squeeze(self, axis)
+
+    def expand_dims(self, axis: int) -> "DNDarray":
+        from . import manipulations
+
+        return manipulations.expand_dims(self, axis)
+
+    def flip(self, axis=None) -> "DNDarray":
+        from . import manipulations
+
+        return manipulations.flip(self, axis)
+
+    def unique(self, sorted: bool = False, return_inverse: bool = False, axis=None):
+        from . import manipulations
+
+        return manipulations.unique(self, sorted=sorted, return_inverse=return_inverse, axis=axis)
+
+    def redistribute_(self, lshape_map=None, target_map=None) -> "DNDarray":
+        """Bring the chunks into the layout ``target_map``. The port keeps the
+        ceil-div layout, so that is the one map accepted (None means it);
+        ``lshape_map`` must describe the current layout."""
+        current = self.lshape_map
+        for name, m in (("lshape_map", lshape_map), ("target_map", target_map)):
+            if m is not None and not np.array_equal(np.asarray(m), current):
+                raise NotImplementedError(
+                    f"{name} {np.asarray(m).tolist()} is not the ceil-div layout {current.tolist()}; "
+                    "the port keeps every array in that layout"
+                )
+        return self
 
     # ----------------------------------------------------------- arithmetic
     def __add__(self, other):

@@ -20,11 +20,15 @@ from .stride_tricks import sanitize_axis, sanitize_shape
 __all__ = [
     "arange",
     "array",
+    "asarray",
     "empty",
     "empty_like",
     "eye",
     "full",
     "full_like",
+    "linspace",
+    "logspace",
+    "meshgrid",
     "ones",
     "ones_like",
     "zeros",
@@ -209,3 +213,78 @@ def arange(*args, dtype=None, split=None, device=None, comm=None) -> DNDarray:
             start + step * (offset + torch.arange(s[0], dtype=torch.float64 if d.is_floating_point else torch.int64, device=dev))
         ).to(d),
     )
+
+
+def asarray(obj, dtype=None, copy=None, order="C", is_split=None, device=None) -> DNDarray:
+    """``obj`` as a DNDarray: ``obj`` itself where it is one of that dtype,
+    else :func:`array` (``is_split``: ``obj`` is this rank's shard)."""
+    if order is not None and order not in ("C", "K", "A"):
+        raise NotImplementedError("only C-order memory layout is supported")
+    if isinstance(obj, DNDarray) and is_split is None and (dtype is None or obj.dtype == types.canonical_heat_type(dtype)):
+        return obj
+    return array(obj, dtype=dtype, is_split=is_split, device=device)
+
+
+def _is_f32(v) -> bool:
+    return (isinstance(v, np.ndarray) or isinstance(v, np.generic)) and v.dtype == np.float32
+
+
+def linspace(start, stop, num: int = 50, endpoint: bool = True, retstep: bool = False, dtype=None, split=None,
+             device=None, comm=None):
+    """``num`` evenly spaced values from ``start`` to ``stop`` (included with
+    ``endpoint``), as ``jnp.linspace`` computes them: ``start·(1 - s) +
+    stop·s`` with ``s = i / div``, in float64 for python numbers, then cast
+    to ``dtype`` (float32 by default). Each rank computes its chunk."""
+    num = int(num)
+    if num < 0:
+        raise ValueError(f"Number of samples, {num}, must be non-negative.")
+    dtype = types.canonical_heat_type(dtype) if dtype is not None else types.float32
+    ct = torch.float32 if _is_f32(start) and _is_f32(stop) else torch.float64
+    div = (num - 1) if endpoint else num
+
+    def fill(s, d, dev, offset):
+        i = torch.arange(offset, offset + s[0], device=dev)
+        a, b = torch.tensor(float(start), dtype=ct, device=dev), torch.tensor(float(stop), dtype=ct, device=dev)
+        if num == 1:
+            return a.expand(s[0]).to(d)
+        step = i.to(ct) / torch.tensor(div, dtype=ct, device=dev)
+        out = a * (1 - step) + b * step
+        if endpoint:
+            out = torch.where(i == div, b, out)
+        return out.to(d)
+
+    res = _build((num,), dtype, split, device, comm, fill)
+    if retstep:
+        return res, (stop - start) / max(1, div)
+    return res
+
+
+def logspace(start, stop, num=50, endpoint=True, base=10.0, dtype=None, split=None, device=None, comm=None) -> DNDarray:
+    """``base`` to the powers :func:`linspace` gives."""
+    from . import arithmetics
+
+    y = linspace(start, stop, num=num, endpoint=endpoint, split=split, device=device, comm=comm)
+    res = arithmetics.pow(float(base), y)
+    return res.astype(dtype) if dtype is not None else res
+
+
+def meshgrid(*arrays, indexing: str = "xy"):
+    """Coordinate grids of the 1-D ``arrays`` (``"xy"`` or ``"ij"``
+    indexing); split along the grid axis of the first split input."""
+    if indexing not in ("xy", "ij"):
+        raise ValueError(f"indexing must be 'xy' or 'ij', got {indexing}")
+    dnd = [a if isinstance(a, DNDarray) else array(a) for a in arrays]
+    if not dnd:
+        return []
+    comm, device = dnd[0].comm, dnd[0].device
+    grids = torch.meshgrid(*[a._logical() for a in dnd], indexing=indexing)
+    out_split = None
+    for i, a in enumerate(dnd):
+        if a.split is not None:
+            out_split = (1 - i) if indexing == "xy" and i < 2 and len(dnd) >= 2 else i
+            break
+    out = []
+    for g in grids:
+        t = g[comm.chunk(tuple(g.shape), out_split)[2]] if out_split is not None else g
+        out.append(DNDarray(t.clone(), gshape=tuple(g.shape), split=out_split, device=device, comm=comm))
+    return out

@@ -16,23 +16,20 @@ def nonzero(x: DNDarray) -> DNDarray:
     for 1-D input), split 0 if ``x`` is split, in row-major order. Its
     length is known only after the device has counted: this synchronizes
     with the host, as ``heat_tpu``'s does. Across ranks each rank finds its
-    chunk's coordinates, shifts them to global ones and the lists are
-    gathered (``allgather``); each rank keeps its ceil-div chunk of them."""
+    chunk's coordinates, one ``allgather`` of the ranks' counts and their
+    exclusive scan give every coordinate its slot in the result, and one
+    ``alltoall`` sends it to the rank that owns that slot
+    (:func:`heat_tpu_torch.parallel.dscan.nonzero_scan`)."""
+    from ..parallel.dscan import nonzero_scan
+
     if not isinstance(x, DNDarray):
         raise TypeError(f"expected x to be a DNDarray, but was {type(x)}")
-    result = torch.nonzero(x.larray)
     comm = x.comm
     if x.split is not None and comm.is_distributed():
-        result[:, x.split] += comm.chunk(x.gshape, x.split)[0]
-        result = comm.allgather(result, 0)
-        if x.split != 0 and result.shape[0]:  # rank order is row-major order only along axis 0
-            flat = torch.zeros(result.shape[0], dtype=torch.int64, device=result.device)
-            for d, n in enumerate(x.gshape):
-                flat = flat * n + result[:, d]
-            result = result[torch.argsort(flat)]
-        gshape = tuple(result.shape)
-        result = result[comm.chunk(gshape, 0)[2]]
+        result, total = nonzero_scan(x.larray, x.gshape, x.split, comm)
+        gshape = (total, x.ndim)
     else:
+        result = torch.nonzero(x.larray)
         gshape = tuple(result.shape)
     if x.ndim == 1:
         result = result.reshape(-1)

@@ -30,6 +30,7 @@ from ._dispatch import (
     KERNEL_STATS,
     KERNELS,
     LAUNCHES,
+    RECEIVED,
     count_collective,
     count_launch,
     dispatch_mode,
@@ -64,6 +65,7 @@ __all__ = [
     "MAX_FUSED_N",
     "MAX_K",
     "MOMENTS_KERNEL",
+    "RECEIVED",
     "THREEFRY_KERNEL",
     "TOPK_KERNEL",
     "assign_stats",

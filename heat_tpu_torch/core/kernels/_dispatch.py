@@ -19,7 +19,8 @@ each launch of a kernel that has more than one under ``"{kernel}.{route}"``
 starts the kernel. :data:`COLLECTIVES` counts the collectives the
 communicator ran (``{op: {"calls": n, "bytes": b}}``, the bytes this rank
 contributed), so a check can show which collectives a path ran beside
-which kernels it launched.
+which kernels it launched; :data:`RECEIVED` the bytes each collective
+brought to this rank (``{op: bytes}``).
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ __all__ = [
     "KERNEL_STATS",
     "KERNELS",
     "LAUNCHES",
+    "RECEIVED",
     "count_collective",
     "count_launch",
     "dispatch_mode",
@@ -93,6 +95,7 @@ def forced_mode(kernel: str, mode: str) -> Iterator[None]:
 KERNEL_STATS: Dict[str, int] = {"dispatches": 0}
 LAUNCHES: Dict[str, int] = {}
 COLLECTIVES: Dict[str, Dict[str, int]] = {}
+RECEIVED: Dict[str, int] = {}
 
 
 def record_dispatch(kernel: str, mode: str) -> None:
@@ -115,18 +118,22 @@ def count_launch(kernel: str) -> None:
     LAUNCHES[kernel] += 1
 
 
-def count_collective(op: str, nbytes: int) -> None:
+def count_collective(op: str, nbytes: int, received: int = None) -> None:
     """Add one call of the collective ``op`` that sent ``nbytes`` from this
-    rank; called by the communicator where it starts the collective."""
+    rank and brought it ``received`` bytes (``nbytes`` where omitted);
+    called by the communicator where it starts the collective."""
     entry = COLLECTIVES.setdefault(op, {"calls": 0, "bytes": 0})
     entry["calls"] += 1
     entry["bytes"] += int(nbytes)
+    RECEIVED[op] = RECEIVED.get(op, 0) + int(nbytes if received is None else received)
 
 
 def reset_kernel_stats() -> None:
-    """Zero :data:`KERNEL_STATS`, :data:`LAUNCHES` and :data:`COLLECTIVES`."""
+    """Zero :data:`KERNEL_STATS`, :data:`LAUNCHES`, :data:`COLLECTIVES` and
+    :data:`RECEIVED`."""
     KERNEL_STATS.clear()
     KERNEL_STATS["dispatches"] = 0
     for k in LAUNCHES:
         LAUNCHES[k] = 0
     COLLECTIVES.clear()
+    RECEIVED.clear()

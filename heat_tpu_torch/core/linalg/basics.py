@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from .. import arithmetics, types
-from .._operations import _reduced_shape, _reduced_split, _write_out
+from .._operations import _local_operand, _reduced_shape, _reduced_split, _write_out
 from ..dndarray import DNDarray
 from ..stride_tricks import sanitize_axis
 
@@ -155,12 +155,17 @@ def dot(a: DNDarray, b: DNDarray, out: Optional[DNDarray] = None) -> DNDarray:
         if a.gshape != b.gshape:
             raise ValueError(f"dot: shapes {a.gshape} and {b.gshape} not aligned")
         dtype = types._weak_result_type(a, b)
-        va, vb = a._logical(), b._logical()
+        # this rank's chunks (a replicated operand sliced to the split one's layout); one allreduce across ranks
+        split = 0 if a.split is not None or b.split is not None else None
+        va, vb = (_local_operand(v, a.gshape, split) for v in (a, b))
         if dtype is types.bool:
             result = torch.any(va & vb)
         else:
             tt = dtype.torch_type()
             result = torch.sum(va.to(tt) * vb.to(tt), dtype=tt)
+        if split is not None and a.comm.is_distributed():
+            result = a.comm.allreduce(result.to(torch.int32), "max").to(torch.bool) if dtype is types.bool else \
+                a.comm.allreduce(result)
         return _out(DNDarray(result, dtype=dtype, split=None, device=a.device, comm=a.comm), out)
     if a.ndim <= 2 and b.ndim <= 2:
         return _out(matmul(a, b), out)
@@ -298,12 +303,20 @@ def outer(a: DNDarray, b: DNDarray, out: Optional[DNDarray] = None, split: Optio
 
 
 def trace(a: DNDarray, offset: int = 0, axis1: int = 0, axis2: int = 1, dtype=None, out=None) -> DNDarray:
-    """Sum along a diagonal (bool and integers below int64 sum in int64)."""
-    diag = torch.diagonal(a._logical(), offset=offset, dim1=axis1, dim2=axis2)
-    result = diag.sum(dim=-1)
+    """Sum along a diagonal (bool and integers below int64 sum in int64).
+    Where the split axis is one of the two, each rank sums the diagonal
+    elements in its chunk and one ``allreduce`` adds them up."""
+    axis1, axis2 = sanitize_axis(a.shape, axis1), sanitize_axis(a.shape, axis2)
+    comm = a.comm
+    if a.split in (axis1, axis2) and comm.is_distributed():
+        off = comm.chunk(a.gshape, a.split)[0]
+        shift = off if a.split == axis1 else -off
+        result = comm.allreduce(torch.diagonal(a.larray, offset=offset + shift, dim1=axis1, dim2=axis2).sum(dim=-1))
+    else:
+        result = torch.diagonal(a._logical(), offset=offset, dim1=axis1, dim2=axis2).sum(dim=-1)
     if dtype is not None:
         result = result.to(types.canonical_heat_type(dtype).torch_type())
-    return _out(DNDarray(result, split=None, device=a.device, comm=a.comm), out)
+    return _out(DNDarray(result, split=None, device=a.device, comm=comm), out)
 
 
 def _tri_op(m: DNDarray, k: int, op) -> DNDarray:
@@ -334,13 +347,19 @@ def triu(m: DNDarray, k: int = 0) -> DNDarray:
     return _tri_op(m, k, torch.triu)
 
 
-def _inexact_tensor(x: DNDarray, axis) -> torch.Tensor:
-    """The tensor a norm over ``axis`` reads: this rank's chunk, or the whole
-    array where ``axis`` covers the split axis; jnp.promote_types(any
-    integer or bool, float32) is float32."""
-    axes = range(x.ndim) if axis is None else ((axis,) if isinstance(axis, int) else axis)
-    t = x._logical() if x.split in axes else x.larray
+def _inexact_tensor(x: DNDarray) -> torch.Tensor:
+    """This rank's chunk as a norm reads it: jnp.promote_types(any integer
+    or bool, float32) is float32."""
+    t = x.larray
     return t if t.is_floating_point() else t.to(torch.float32)
+
+
+def _across(x: DNDarray, axes, t: torch.Tensor, op: str) -> torch.Tensor:
+    """``t``, a partial result of this rank's chunk, completed over the ranks
+    by one ``allreduce`` of ``op`` where ``axes`` reduce the split axis."""
+    if x.split is not None and x.split in axes and x.comm.is_distributed():
+        return x.comm.allreduce(t, op)
+    return t
 
 
 def _norm_result(x: DNDarray, result: torch.Tensor, axis, keepdims: bool) -> DNDarray:
@@ -351,30 +370,43 @@ def _norm_result(x: DNDarray, result: torch.Tensor, axis, keepdims: bool) -> DND
 
 def matrix_norm(x: DNDarray, axis: Optional[Tuple[int, int]] = None, keepdims: bool = False, ord=None) -> DNDarray:
     """Matrix norm over the two axes ``axis`` (default (0, 1) of a 2-D
-    array): ``"fro"`` (default), 1, -1, inf, -inf, 2, -2 or ``"nuc"``."""
+    array): ``"fro"`` (default), 1, -1, inf, -inf, 2, -2 or ``"nuc"``.
+    Across ranks the Frobenius, 1 and inf norms reduce each rank's chunk
+    and complete the reduction over the split axis with one ``allreduce``;
+    the 2-norms and the nuclear norm take the singular values of the
+    gathered matrices."""
     if axis is None:
         if x.ndim != 2:
             raise ValueError("axis must be given for arrays that are not 2-D")
         axis = (0, 1)
     axis = sanitize_axis(x.shape, axis)
     row, col = axis
-    arr = _inexact_tensor(x, axis)
+    arr = _inexact_tensor(x)
     # after the inner sum drops an axis, the outer reduction's index shifts
     col_adj = col - 1 if (col > row and not keepdims) else col
     row_adj = row - 1 if (row > col and not keepdims) else row
     if ord is None or ord == "fro":
-        result = torch.sqrt(torch.sum(arr.abs() ** 2, dim=axis, keepdim=keepdims))
-    elif ord in (1, -1):
-        ext = torch.amax if ord == 1 else torch.amin
-        result = ext(torch.sum(arr.abs(), dim=row, keepdim=keepdims), dim=col_adj, keepdim=keepdims)
-    elif ord in (np.inf, -np.inf):
-        ext = torch.amax if ord == np.inf else torch.amin
-        result = ext(torch.sum(arr.abs(), dim=col, keepdim=keepdims), dim=row_adj, keepdim=keepdims)
+        result = torch.sqrt(_across(x, axis, torch.sum(arr.abs() ** 2, dim=axis, keepdim=keepdims), "sum"))
+    elif ord in (1, -1, np.inf, -np.inf):
+        inner, outer = (row, col_adj) if ord in (1, -1) else (col, row_adj)
+        top = ord in (1, np.inf)
+        sums = _across(x, (inner,), torch.sum(arr.abs(), dim=inner, keepdim=keepdims), "sum")
+        if sums.shape[outer] == 0:  # an empty chunk: the identity of the outer extremum (norms are >= 0)
+            shape = _reduced_shape(sums.shape, outer, keepdims)
+            ext = torch.zeros(shape, dtype=sums.dtype, device=sums.device) if top else \
+                torch.full(shape, float("inf"), dtype=sums.dtype, device=sums.device)
+        else:
+            ext = (torch.amax if top else torch.amin)(sums, dim=outer, keepdim=keepdims)
+        result = _across(x, axis, ext, "max" if top else "min") if x.split != inner else ext
     elif ord in (2, -2, "nuc"):
-        s = torch.linalg.svdvals(torch.movedim(arr, (row, col), (-2, -1)))
+        whole = _inexact_tensor(DNDarray(x._logical(), dtype=x.dtype, split=None, device=x.device, comm=x.comm))
+        s = torch.linalg.svdvals(torch.movedim(whole, (row, col), (-2, -1)))
         result = s.amax(dim=-1) if ord == 2 else s.amin(dim=-1) if ord == -2 else s.sum(dim=-1)
         if keepdims:
             result = result.unsqueeze(min(row, col)).unsqueeze(max(row, col))
+        if x.split not in (None, row, col) and x.comm.is_distributed():
+            rs = _reduced_split(x.split, axis, x.ndim, keepdims)
+            result = result[x.comm.chunk(tuple(result.shape), rs)[2]]
     else:
         raise ValueError(f"Invalid norm order {ord} for matrices")
     return _norm_result(x, result, axis, keepdims)
@@ -382,12 +414,30 @@ def matrix_norm(x: DNDarray, axis: Optional[Tuple[int, int]] = None, keepdims: b
 
 def vector_norm(x: DNDarray, axis=None, keepdims: bool = False, ord=None) -> DNDarray:
     """Vector norm of order ``ord`` (default 2) along ``axis``, or over the
-    flattened array."""
+    flattened array. Across ranks each rank reduces its chunk (a sum of
+    powers, a maximum or a minimum) and one ``allreduce`` completes it over
+    the split axis."""
     axis_s = sanitize_axis(x.shape, axis)
-    arr = _inexact_tensor(x, axis_s)
-    if axis_s is None:
-        arr = arr.reshape(-1)
-    result = torch.linalg.vector_norm(arr, ord=2 if ord is None else ord, dim=0 if axis_s is None else axis_s, keepdim=keepdims)
+    arr = _inexact_tensor(x)
+    dims = tuple(range(x.ndim)) if axis_s is None else (axis_s,) if isinstance(axis_s, int) else tuple(axis_s)
+    p = 2 if ord is None else ord
+    if not (x.split is not None and x.split in dims and x.comm.is_distributed()):
+        flat = arr.reshape(-1) if axis_s is None else arr
+        result = torch.linalg.vector_norm(flat, ord=p, dim=0 if axis_s is None else axis_s, keepdim=keepdims)
+        return _norm_result(x, result, axis_s, keepdims)
+    a = arr.abs()
+    if p == np.inf:
+        result = _across(x, dims, torch.amax(a, dim=dims, keepdim=keepdims) if a.numel() else
+                         torch.zeros(_reduced_shape(arr.shape, dims, keepdims), dtype=a.dtype, device=a.device), "max")
+    elif p == -np.inf:
+        fill = torch.full(_reduced_shape(arr.shape, dims, keepdims), float("inf"), dtype=a.dtype, device=a.device)
+        result = _across(x, dims, torch.amin(a, dim=dims, keepdim=keepdims) if a.numel() else fill, "min")
+    elif p == 0:
+        result = _across(x, dims, (a != 0).to(a.dtype).sum(dim=dims, keepdim=keepdims), "sum")
+    else:
+        result = _across(x, dims, (a ** p).sum(dim=dims, keepdim=keepdims), "sum") ** (1.0 / p)
+    if axis_s is None:  # the flattened array's norm: () or, kept, (1,)
+        result = result.reshape((1,) if keepdims else ())
     return _norm_result(x, result, axis_s, keepdims)
 
 

@@ -20,8 +20,12 @@ each rank factors its own rows as above (a block with fewer rows than
 columns, or none, at its true row count by Householder), the ranks' R
 factors are gathered (``allgather``) and factored again by Householder on
 every rank, and each rank's Q is its block's Q times its rows of the
-second Q. R comes out replicated and identical on every rank, Q split
-along 0. A split-1 array is gathered and factored whole.
+second Q. With ``tiles_per_proc`` > 1 each rank's rows first split into
+row tiles of ``SquareDiagTiles``' edge (``heat_tpu``'s two-level tree):
+each tile is factored, the tiles' stacked R factors are factored again
+(Householder), and the block's Q is each tile's Q times its rows of that
+Q. R comes out replicated and identical on every rank, Q split along 0. A
+split-1 array is gathered and factored whole.
 """
 from __future__ import annotations
 
@@ -65,9 +69,9 @@ def qr(
     ``method`` is ``"auto"`` (CholeskyQR2 for floating input with m >= 4n,
     else Householder), ``"cholqr2"`` (CholeskyQR2 whenever m >= n, still
     guarded) or ``"householder"``. ``calc_q=False`` gives ``Q=None``.
-    ``tiles_per_proc`` shapes ``heat_tpu``'s factorization tree above world
-    size 1 and is only checked here; ``overwrite_a`` only warns. Integer
-    input computes in float32.
+    ``tiles_per_proc`` shapes the local level of the factorization tree
+    above world size 1, as in ``heat_tpu``; ``overwrite_a`` only warns.
+    Integer input computes in float32.
 
     Split 0 gives Q split 0 and R replicated (TSQR across ranks); split 1
     gives both split 1; None gives both None.
@@ -89,7 +93,10 @@ def qr(
     tsqr = a.split == 0 and comm.is_distributed()
     x = (a.larray if tsqr or a.split is None else a._logical()).to(ftype.torch_type())
     with _full_float32_products():
-        q, r, route = _factor(x, method, calc_q)
+        if tsqr and int(tiles_per_proc) > 1:
+            q, r, route = _factor_tiles(x, _tile_rows(a, int(tiles_per_proc)), method, calc_q)
+        else:
+            q, r, route = _factor(x, method, calc_q)
         if tsqr:
             # the ranks' R factors, stacked in rank order, factored again
             k = min(x.shape[0], x.shape[1])
@@ -107,6 +114,36 @@ def qr(
     Q = DNDarray(q, gshape=(m, kk), split=a.split, **meta) if calc_q else None
     R = DNDarray(r, split=None if a.split == 0 else a.split, **meta)
     return QR_out(Q, R)
+
+
+def _tile_rows(a: DNDarray, tiles_per_proc: int) -> int:
+    """The row edge of ``SquareDiagTiles(a, tiles_per_proc)``: the rows of
+    one tile of the local level of the TSQR tree."""
+    from ..tiling import SquareDiagTiles
+
+    ri = SquareDiagTiles(a, tiles_per_proc).row_indices
+    return ri[1] - ri[0] if len(ri) > 1 else max(1, a.lshape[0])
+
+
+def _factor_tiles(x: torch.Tensor, tile_rows: int, method: str, calc_q: bool):
+    """``(q, r, route)`` of a local block by tiles of ``tile_rows`` rows (the
+    last may be shorter): each tile factored by :func:`_factor`, their
+    stacked R factors factored again by Householder. ``route`` is
+    ``cholqr2`` where every tile took it."""
+    m = x.shape[0]
+    if m <= tile_rows:
+        return _factor(x, method, calc_q)
+    parts = [_factor(x[r0 : r0 + tile_rows], method, calc_q) for r0 in range(0, m, tile_rows)]
+    rs = torch.cat([r for _, r, _ in parts], dim=0)
+    route = "cholqr2" if all(rt == "cholqr2" for _, _, rt in parts) else "householder"
+    if not calc_q:
+        return None, torch.linalg.qr(rs, mode="r").R, route
+    qm, r = torch.linalg.qr(rs, mode="reduced")
+    qs, at = [], 0
+    for q, rt, _ in parts:
+        qs.append(q @ qm[at : at + rt.shape[0]])
+        at += rt.shape[0]
+    return torch.cat(qs, dim=0), r, route
 
 
 def _factor(x: torch.Tensor, method: str, calc_q: bool):

@@ -1,7 +1,20 @@
-"""Statistics: ``mean``, ``var`` and ``std``, and the extrema ``min``/
-``max``/``argmin``/``argmax``/``minimum``/``maximum``/``nanmin``/``nanmax``
-(counterpart of ``heat_tpu/core/statistics.py:62-112, 280-345, 400-410,
-540-760``).
+"""Statistics: ``mean``, ``var`` and ``std``, the extrema ``min``/
+``max``/``argmin``/``argmax``/``minimum``/``maximum``/``nanmin``/``nanmax``,
+the order statistics ``percentile``/``median``, ``nanmean``, ``average``,
+``cov``, ``skew``, ``kurtosis`` and the histograms ``histc``/``histogram``/
+``bincount``/``bucketize``/``digitize`` (counterpart of
+``heat_tpu/core/statistics.py``).
+
+The order statistics follow ``heat_tpu``'s ``_sorted_percentile``: numpy's
+index arithmetic (q/100 in float64, cast to the array's float type, times
+n - 1 in that type), the five interpolations, q-dims first, NaN in a line
+making every q NaN. Along the split axis of a distributed array the order
+statistics come from the exact selection of
+:mod:`heat_tpu_torch.parallel.dselect` (each rank's sorted keys and one
+small ``allreduce`` per key bit); elsewhere from a local sort. The moments, histograms and counts
+reduce each rank's chunk and add the partial results with one
+``allreduce``; none of these functions gathers a split array along its
+split axis.
 
 The extrema reduce over :func:`._operations._reduce_op` with module-level
 callables. NaN wins in ``min``/``max``/``argmin``/``argmax``/``minimum``/
@@ -33,7 +46,9 @@ the lowest index among the best.
 """
 from __future__ import annotations
 
+import builtins
 import weakref
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -47,13 +62,25 @@ from .stride_tricks import sanitize_axis
 __all__ = [
     "argmax",
     "argmin",
+    "average",
+    "bincount",
+    "bucketize",
+    "cov",
+    "digitize",
+    "histc",
+    "histogram",
+    "kurtosis",
     "max",
     "maximum",
     "mean",
+    "median",
     "min",
     "minimum",
     "nanmax",
+    "nanmean",
     "nanmin",
+    "percentile",
+    "skew",
     "std",
     "var",
 ]
@@ -348,3 +375,495 @@ def argmax(x: DNDarray, axis=None, out=None, **kwargs) -> DNDarray:
 def argmin(x: DNDarray, axis=None, out=None, **kwargs) -> DNDarray:
     """Index of the minimum along ``axis`` (of the flattened array if None)."""
     return _arg_reduce(torch.argmin, x, axis, out)
+
+
+# --------------------------------------------------------- order statistics
+def _reject_stream(x, name: str) -> None:
+    if type(x).__name__ == "ChunkIterator":
+        raise NotImplementedError(
+            f"{name} of a ChunkIterator (the streaming KLL sketch) needs the port's stream module, "
+            "which is not ported yet (ROADMAP.md, Queue A item 10)"
+        )
+    if not isinstance(x, DNDarray):
+        raise TypeError(f"{name} expects a DNDarray, got {type(x).__name__}")
+
+
+def _inexact(dtype: torch.dtype) -> torch.dtype:
+    """The float type order statistics compute in: float64 for float64
+    input, float32 for everything else (``heat_tpu``'s rule)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def _ranked_values(x: DNDarray, ax: int, ranks) -> torch.Tensor:
+    """The values at ``ranks`` (host ints) of ``x`` sorted along ``ax``, as
+    a tensor ``(len(ranks),) + the other dimensions`` of this rank's chunk
+    (whole along ``ax``). Along the split axis of a distributed array they
+    come from the selection of :mod:`heat_tpu_torch.parallel.dselect` (one
+    small ``allreduce`` per key bit, no gather); else from a local sort."""
+    from ..parallel.dselect import select_values
+
+    t = x.larray
+    ranks_t = torch.as_tensor(np.asarray(ranks, dtype=np.int64), device=t.device)
+    if x.split == ax and x.comm.is_distributed():
+        moved = t.movedim(ax, 0)
+        rest = tuple(moved.shape[1:])
+        cols = moved.reshape(moved.shape[0], int(np.prod(rest, dtype=np.int64)))
+        targets = ranks_t.reshape(-1, 1, 1).expand(-1, 1, cols.shape[1]).contiguous()
+        return select_values(cols, targets, comm=x.comm).reshape((len(ranks),) + rest)
+    srt = torch.sort(t, dim=ax)[0]
+    return srt.index_select(ax, ranks_t).movedim(ax, 0)
+
+
+def _any_nan(x: DNDarray, ax: int) -> torch.Tensor:
+    """Whether each line along ``ax`` holds a NaN (this rank's other
+    dimensions); across ranks an ``allreduce`` where ``ax`` is split."""
+    nan = torch.isnan(x.larray).any(dim=ax) if x.larray.is_floating_point() else \
+        torch.zeros(_reduced_shape(x.lshape, ax, False), dtype=torch.bool, device=x.larray.device)
+    if x.split == ax and x.comm.is_distributed():
+        nan = x.comm.allreduce(nan.to(torch.int32), "max").to(torch.bool)
+    return nan
+
+
+def _gather_axis(t: torch.Tensor, x: DNDarray, ax: int, lead: int) -> torch.Tensor:
+    """A result computed on this rank's chunk, whole: gathered along the
+    result axis of ``x``'s split axis where that is not the reduced ``ax``
+    (``lead`` result axes come first)."""
+    if x.split is None or x.split == ax or not x.comm.is_distributed():
+        return t
+    rax = lead + x.split - (1 if x.split > ax else 0)
+    return x.comm.allgather(t, rax, x.lshape_map[:, x.split])
+
+
+def _sorted_percentile(x: DNDarray, q_host: np.ndarray, axis_s, method: str, kd: bool) -> torch.Tensor:
+    """``heat_tpu``'s ``_sorted_percentile`` (numpy's index arithmetic): q/100
+    in float64, cast to the array's float type (float64 for integers),
+    times n - 1 in that type; the order statistics at the floor and ceiling
+    of that position; q-dims first; NaN in a line makes every q NaN."""
+    from . import manipulations
+
+    if axis_s is None and x.ndim > 1:
+        xs, ax = manipulations.flatten(x), 0
+    else:
+        xs, ax = x, (0 if axis_s is None else axis_s)
+    n = xs.gshape[ax]
+    ct = _inexact(xs.larray.dtype)
+    idx_t = (np.float64 if ct == torch.float64 else np.float32) if xs.larray.is_floating_point() else np.float64
+    np_ct = np.float64 if ct == torch.float64 else np.float32
+    pos = (q_host.astype(np.float64) / 100.0).astype(idx_t) * idx_t(n - 1)
+    lo_i = np.clip(np.floor(pos).astype(np.int64), 0, n - 1)
+    hi_i = np.clip(np.ceil(pos).astype(np.int64), 0, n - 1)
+    near_i = np.clip(np.round(pos).astype(np.int64), 0, n - 1)
+    wanted = {"lower": [lo_i], "higher": [hi_i], "nearest": [near_i]}.get(method, [lo_i, hi_i])
+    ranks = np.unique(np.concatenate([w.reshape(-1) for w in wanted]))
+    vals = _ranked_values(xs, ax, ranks.tolist()).to(ct)
+    dev = vals.device
+
+    def take(i):
+        at = torch.as_tensor(np.searchsorted(ranks, i.reshape(-1)), device=dev)
+        return vals.index_select(0, at).reshape(q_host.shape + tuple(vals.shape[1:]))
+
+    if method in ("lower", "higher", "nearest"):
+        res = take(wanted[0])
+    else:
+        vlo, vhi = take(lo_i), take(hi_i)
+        if method == "midpoint":
+            res = (vlo + vhi) / 2
+        else:
+            w = torch.as_tensor((pos - np.floor(pos)).astype(np_ct), device=dev)
+            res = vlo + w.reshape(q_host.shape + (1,) * (vals.ndim - 1)) * (vhi - vlo)
+    qn = q_host.ndim
+    nan = _any_nan(xs, ax)
+    res = torch.where(nan.reshape((1,) * qn + tuple(nan.shape)), torch.full_like(res, float("nan")), res)
+    res = _gather_axis(res, xs, ax, qn)
+    if kd:
+        res = res.reshape(q_host.shape + (1,) * x.ndim) if axis_s is None else res.unsqueeze(qn + ax)
+    return res
+
+
+def _tuple_axis_view(x: DNDarray, axes) -> Tuple[DNDarray, tuple]:
+    """``x`` gathered with ``axes`` moved last and merged into one, as a
+    replicated array, and the keepdims shape (``jnp.quantile``'s layout)."""
+    t = x._logical()
+    keep = [d for d in range(x.ndim) if d not in axes]
+    moved = t.permute(keep + list(axes)).reshape([x.gshape[d] for d in keep] + [-1])
+    keepdim = tuple(1 if d in axes else s for d, s in enumerate(x.gshape))
+    return DNDarray(moved.contiguous(), dtype=x.dtype, split=None, device=x.device, comm=x.comm), keepdim
+
+
+def percentile(x: DNDarray, q, axis=None, out=None, interpolation: str = "linear", keepdim: bool = False,
+               keepdims=None) -> DNDarray:
+    """The q-th percentiles along ``axis`` (``linear``, ``lower``,
+    ``higher``, ``midpoint`` or ``nearest``), with numpy's index
+    arithmetic, q-dims first, replicated. Along the split axis the order
+    statistics come from the selection of :mod:`heat_tpu_torch.parallel.dselect`,
+    never from a gathered array."""
+    kd = bool(keepdim or keepdims)
+    q_host = np.asarray(q.numpy() if isinstance(q, DNDarray) else q)
+    if q_host.size and not np.all((q_host >= 0) & (q_host <= 100)):
+        raise ValueError("percentiles must be in the range [0, 100]")
+    _reject_stream(x, "percentile")
+    axis_s = sanitize_axis(x.shape, axis)
+    method = {"lower": "lower", "higher": "higher", "midpoint": "midpoint", "nearest": "nearest",
+              "linear": "linear"}[interpolation]
+    if axis_s is None or isinstance(axis_s, int):
+        result = _sorted_percentile(x, q_host, axis_s, method, kd)
+    else:
+        result = _quantile_tuple(x, q_host / 100.0, axis_s, method, kd)
+    res = DNDarray(result, dtype=types.canonical_heat_type(result.dtype), split=None, device=x.device, comm=x.comm)
+    return _write_out(out, res) if out is not None else res
+
+
+def _quantile_tuple(x: DNDarray, q: np.ndarray, axes, method: str, kd: bool) -> torch.Tensor:
+    """``jnp.quantile`` over several axes (the gathered array, as
+    ``heat_tpu`` computes it): q in float64, positions q·(n - 1), the
+    linear rule as ``low·(1 - w) + high·w``."""
+    view, keepdim = _tuple_axis_view(x, axes)
+    t = view.larray.to(_inexact(view.larray.dtype))
+    n = t.shape[-1]
+    nan = torch.isnan(t).any(dim=-1)
+    srt = torch.sort(t, dim=-1)[0]
+    pos = q.astype(np.float64) * (n - 1)
+    lo, hi = np.clip(np.floor(pos), 0, n - 1).astype(np.int64), np.clip(np.ceil(pos), 0, n - 1).astype(np.int64)
+    hw = pos - np.floor(pos)
+
+    def take(i):
+        return srt.index_select(-1, torch.as_tensor(i.reshape(-1), device=t.device)).movedim(-1, 0).reshape(
+            q.shape + tuple(srt.shape[:-1]))
+
+    vlo, vhi = take(lo), take(hi)
+    shape_w = q.shape + (1,) * (srt.ndim - 1)
+    if method == "linear":
+        res = (vlo.double() * torch.as_tensor(1 - hw).reshape(shape_w) + vhi.double() * torch.as_tensor(hw).reshape(shape_w)).to(t.dtype)
+    elif method == "lower":
+        res = vlo
+    elif method == "higher":
+        res = vhi
+    elif method == "nearest":
+        res = torch.where(torch.as_tensor(hw <= 0.5).reshape(shape_w), vlo, vhi)
+    else:
+        res = (vlo + vhi) * 0.5
+    res = torch.where(nan.reshape((1,) * q.ndim + tuple(nan.shape)), torch.full_like(res, float("nan")), res)
+    if kd:
+        res = res.reshape(q.shape + keepdim)
+    return res
+
+
+def median(x: DNDarray, axis=None, keepdim: bool = False, keepdims=None) -> DNDarray:
+    """The median along ``axis``: the middle order statistic, or the
+    midpoint of the two middle ones (NaN where a line holds NaN). Along
+    the split axis of a distributed array it is ``heat_tpu``'s 50th
+    percentile there (linear rule, replicated; the selection, no
+    gather); elsewhere ``jnp.median``'s midpoint, split as a reduction."""
+    kd = bool(keepdim or keepdims)
+    _reject_stream(x, "median")
+    axis_s = sanitize_axis(x.shape, axis)
+    if x.split is not None and x.comm.is_distributed() and (axis_s is None or axis_s == x.split):
+        result = _sorted_percentile(x, np.asarray(50.0), axis_s, "linear", kd)
+        return DNDarray(result, dtype=types.canonical_heat_type(result.dtype), split=None, device=x.device,
+                        comm=x.comm)
+    if axis_s is None or isinstance(axis_s, tuple):
+        # jnp.median ravels (or merges the axes into a last one) and keeps the result replicated
+        axes = tuple(range(x.ndim)) if axis_s is None else axis_s
+        view, keepdim_shape = _tuple_axis_view(x, axes)
+        res = _midpoint_median(view.larray.to(_inexact(view.larray.dtype)), -1)
+        if kd:
+            res = res.reshape(keepdim_shape)
+        return DNDarray(res, dtype=types.canonical_heat_type(res.dtype), split=None, device=x.device, comm=x.comm)
+    t = x.larray.to(_inexact(x.larray.dtype))
+    res = _midpoint_median(t, axis_s)
+    if kd:
+        res = res.unsqueeze(axis_s)
+    split = _reduced_split(x.split, axis_s, x.ndim, kd)
+    return DNDarray(res, gshape=_reduced_shape(x.gshape, axis_s, kd), dtype=types.canonical_heat_type(res.dtype),
+                    split=split, device=x.device, comm=x.comm)
+
+
+def _midpoint_median(t: torch.Tensor, ax: int) -> torch.Tensor:
+    """``jnp.median`` along ``ax`` of a local tensor: ``(lo + hi) * 0.5`` of
+    the middle order statistics, NaN where the line holds NaN."""
+    n = t.shape[ax]
+    pos = np.asarray(0.5, dtype=np.float64 if t.dtype == torch.float64 else np.float32) * (n - 1)
+    top = builtins.max(n - 1, 0)
+    lo, hi = int(np.clip(np.floor(pos), 0, top)), int(np.clip(np.ceil(pos), 0, top))
+    srt = torch.sort(t, dim=ax)[0]
+    res = (srt.select(ax, lo) + srt.select(ax, hi)) * 0.5
+    nan = torch.isnan(t).any(dim=ax)
+    return torch.where(nan, torch.full_like(res, float("nan")), res)
+
+
+# ------------------------------------------------------------ more moments
+def _sum_over(t: torch.Tensor, x: DNDarray, axis_s, keepdim: bool = False) -> torch.Tensor:
+    """The sum of this rank's tensor ``t`` (shaped like ``x``'s chunk) over
+    ``axis_s``, completed by an ``allreduce`` where the split axis is
+    reduced."""
+    dims = tuple(range(t.ndim)) if axis_s is None else ((axis_s,) if isinstance(axis_s, int) else tuple(axis_s))
+    s = t.sum(dim=dims, keepdim=keepdim) if dims else t
+    if x.split is not None and x.split in dims and x.comm.is_distributed():
+        s = x.comm.allreduce(s)
+    return s
+
+
+def _count_over(x: DNDarray, axis_s) -> int:
+    dims = tuple(range(x.ndim)) if axis_s is None else ((axis_s,) if isinstance(axis_s, int) else tuple(axis_s))
+    return int(np.prod([x.gshape[d] for d in dims], dtype=np.int64))
+
+
+def _wrap_reduced(x: DNDarray, axis_s, t: torch.Tensor, keepdims: bool = False) -> DNDarray:
+    return DNDarray(t, gshape=_reduced_shape(x.gshape, axis_s, keepdims), dtype=types.canonical_heat_type(t.dtype),
+                    split=_reduced_split(x.split, axis_s, x.ndim, keepdims), device=x.device, comm=x.comm)
+
+
+def nanmean(x: DNDarray, axis=None, out=None, keepdim=None, keepdims=None) -> DNDarray:
+    """The mean along ``axis`` of the elements that are not NaN (NaN where
+    a line has none): local sums and counts, one ``allreduce`` each where
+    the split axis is reduced."""
+    kd = bool(keepdim or keepdims)
+    axis_s = sanitize_axis(x.shape, axis)
+    t = x.larray.to(_inexact(x.larray.dtype))
+    nan = torch.isnan(t)
+    s = _sum_over(torch.where(nan, torch.zeros_like(t), t), x, axis_s, kd)
+    c = _sum_over((~nan).to(t.dtype), x, axis_s, kd)
+    res = _wrap_reduced(x, axis_s, s / c, kd)
+    return _write_out(out, res) if out is not None else res
+
+
+def average(x: DNDarray, axis=None, weights=None, returned: bool = False):
+    """The weighted mean along ``axis`` (``mean`` without weights, through
+    the ``moments_onepass`` kernel on a card); weights summing to zero
+    raise ``ZeroDivisionError``. Across ranks: local partial sums, one
+    ``allreduce``."""
+    from . import factories
+
+    if weights is None:
+        result = mean(x, axis)
+        if returned:
+            n = x.size if axis is None else _count_over(x, sanitize_axis(x.shape, axis))
+            return result, factories.full_like(result, float(n))
+        return result
+    axis_s = sanitize_axis(x.shape, axis)
+    if isinstance(weights, DNDarray):
+        wt = weights
+    else:
+        wt = factories.array(np.asarray(weights), device=x.device, comm=x.comm)
+    wdt = types.promote_types(types.promote_types(x.dtype, wt.dtype), types.float32)
+    tt = wdt.torch_type()
+    if wt.ndim != x.ndim:
+        if axis_s is None or isinstance(axis_s, tuple):
+            raise TypeError("Axis must be specified when shapes of x and weights differ.")
+        shape = [1] * x.ndim
+        shape[axis_s] = -1
+        w_whole = wt._logical().reshape(shape)
+        w_loc = w_whole[x.comm.chunk(x.gshape, x.split)[2]] if x.split == axis_s and x.comm.is_distributed() else w_whole
+    else:
+        w_loc = _local_operand(wt, x.gshape, x.split)
+    w_loc = torch.broadcast_to(w_loc.to(tt), x.lshape)
+    wsum = _sum_over(w_loc, x, axis_s)
+    if not isinstance(weights, DNDarray) and isinstance(axis_s, (int, type(None))):
+        wnp = np.asarray(weights, dtype=np.float64).reshape(tuple(w_whole.shape) if wt.ndim != x.ndim else wt.gshape)
+        if axis_s is None:
+            zero = bool(wnp.sum() == 0)
+        elif wnp.shape[axis_s] == x.gshape[axis_s]:
+            zero = bool(np.any(wnp.sum(axis=axis_s) == 0))
+        else:
+            zero = bool(np.any(wnp == 0))
+    else:
+        zero = bool((wsum == 0).any())
+    if zero:
+        raise ZeroDivisionError("Weights sum to zero, can't be normalized")
+    res_t = _sum_over(x.larray.to(tt) * w_loc, x, axis_s) / wsum
+    res = _wrap_reduced(x, axis_s, res_t)
+    if returned:
+        return res, _wrap_reduced(x, axis_s, torch.broadcast_to(wsum, res_t.shape).clone())
+    return res
+
+
+def _central_moments(x: DNDarray, axis_s, powers):
+    """n, and the central moments mean((x - mu)^p) for each p, along
+    ``axis_s`` in ``x``'s float type (float32 for integers): two passes,
+    each a local sum and an ``allreduce`` where the split axis is
+    reduced."""
+    t = x.larray.to(_inexact(x.larray.dtype))
+    n = _count_over(x, axis_s)
+    mu = _sum_over(t, x, axis_s, True) / n
+    d = t - mu
+    return n, [_sum_over(d ** p, x, axis_s) / n for p in powers]
+
+
+def skew(x: DNDarray, axis=None, unbiased: bool = True) -> DNDarray:
+    """The skewness along ``axis``; ``unbiased`` applies the Fisher-Pearson
+    sample correction (in float64, as ``heat_tpu``'s ``np.sqrt`` factor)."""
+    axis_s = sanitize_axis(x.shape, axis)
+    n, (m2, m3) = _central_moments(x, axis_s, (2, 3))
+    g1 = m3 / (m2 ** 1.5)
+    if unbiased and n > 2:
+        g1 = g1.double() * float(np.sqrt(n * (n - 1))) / (n - 2)
+    return _wrap_reduced(x, axis_s, g1)
+
+
+def kurtosis(x: DNDarray, axis=None, unbiased: bool = True, Fischer: bool = True) -> DNDarray:
+    """The kurtosis along ``axis``; ``unbiased`` applies the sample-size
+    correction, ``Fischer`` subtracts 3."""
+    axis_s = sanitize_axis(x.shape, axis)
+    n, (m2, m4) = _central_moments(x, axis_s, (2, 4))
+    g2 = m4 / (m2 ** 2)
+    if unbiased and n > 3:
+        g2 = ((n - 1) / ((n - 2) * (n - 3))) * ((n + 1) * g2 - 3 * (n - 1)) + 3
+    if Fischer:
+        g2 = g2 - 3
+    return _wrap_reduced(x, axis_s, g2)
+
+
+def cov(m: DNDarray, y=None, rowvar: bool = True, bias: bool = False, ddof=None) -> DNDarray:
+    """The covariance matrix of the variables (rows, or columns without
+    ``rowvar``), split 0 where ``m`` is split. Across ranks the
+    observations are split (a resplit where the variables were), the mean
+    and the Gram matrix of the centred chunk are local sums, each followed
+    by one ``allreduce``; the (V, V) result is never gathered."""
+    if ddof is None:
+        ddof = 0 if bias else 1
+
+    def observations(a: DNDarray):
+        """(this rank's observations x variables, the number of observations,
+        whether the observations are split)."""
+        if a.ndim == 1:
+            return a.larray.reshape(-1, 1), a.gshape[0], a.split is not None
+        if rowvar or a.gshape[0] == 1:
+            # variables are rows: observations run along axis 1
+            src = a.resplit(1) if a.split == 0 and a.comm.is_distributed() else a
+            return src.larray.T, a.gshape[1], src.split == 1
+        src = a.resplit(0) if a.split == 1 and a.comm.is_distributed() else a
+        return src.larray, a.gshape[0], src.split == 0
+
+    obs, n_obs, split_obs = observations(m)
+    parts = [obs]
+    if y is not None:
+        y_obs, _, y_split = observations(y)
+        if y_split != split_obs:
+            raise ValueError("m and y must be split alike along the observations")
+        parts.append(y_obs)
+    x = torch.cat(parts, dim=1)
+    x = x.to(_inexact(x.dtype))
+    comm = m.comm
+    distributed = split_obs and comm.is_distributed()
+    s = x.sum(dim=0, keepdim=True)
+    avg = (comm.allreduce(s) if distributed else s) / n_obs
+    xc = x - avg
+    g = xc.T @ xc
+    g = comm.allreduce(g) if distributed else g
+    result = (g / (n_obs - ddof)).squeeze()
+    split = 0 if m.split is not None and result.ndim > 1 else None
+    t = result[comm.chunk(tuple(result.shape), split)[2]] if split is not None else result
+    return DNDarray(t, gshape=tuple(result.shape), dtype=types.canonical_heat_type(t.dtype), split=split,
+                    device=m.device, comm=comm)
+
+
+# --------------------------------------------------------------- histograms
+def _linspace32(lo: torch.Tensor, hi: torch.Tensor, num: int, dtype: torch.dtype) -> torch.Tensor:
+    """``jnp.linspace(lo, hi, num, dtype=dtype)`` (endpoint): ``lo·(1 - s) +
+    hi·s`` with ``s = iota / (num - 1)``, every step in ``dtype``."""
+    div = num - 1
+    step = torch.arange(div, dtype=dtype, device=lo.device) / torch.tensor(div, dtype=dtype, device=lo.device)
+    return torch.cat([lo * (1 - step) + hi * step, hi.reshape(1)])
+
+
+def _minmax(x: DNDarray) -> Tuple[torch.Tensor, torch.Tensor]:
+    return min(x).larray, max(x).larray
+
+
+def _hist_counts(x: DNDarray, edges: torch.Tensor, weights=None) -> torch.Tensor:
+    """``jnp.histogram``'s counts of this rank's chunk against ``edges``
+    (right-closed last bin; values outside and NaN dropped), summed over
+    the ranks by one ``allreduce``."""
+    t = x.larray.reshape(-1).to(edges.dtype).contiguous()
+    idx = torch.searchsorted(edges, t, right=True)
+    idx = torch.where(t == edges[-1], torch.full_like(idx, edges.numel() - 1), idx)
+    idx = torch.where(torch.isnan(t), torch.full_like(idx, edges.numel()), idx)
+    w = torch.ones_like(t) if weights is None else _local_operand(weights, x.gshape, x.split).reshape(-1).to(edges.dtype)
+    counts = torch.zeros(edges.numel() + 1, dtype=edges.dtype, device=t.device).index_add_(0, idx, w)[1:-1]
+    if x.split is not None and x.comm.is_distributed():
+        counts = x.comm.allreduce(counts)
+    return counts
+
+
+def histogram(a: DNDarray, bins: int = 10, range=None, normed=None, weights=None, density=None):
+    """numpy's ``histogram`` (``jnp.histogram``): ``bins`` equal bins over
+    ``range`` (default: the data's min and max; a range of width 0 widens
+    by 0.5 either side), counts in the data's float type. Each rank counts
+    its chunk; one ``allreduce`` adds the counts."""
+    ft = _inexact(a.larray.dtype)
+    if np.ndim(bins) == 1:
+        edges = torch.as_tensor(np.asarray(bins), device=a.larray.device).to(ft)
+    else:
+        if range is None:
+            lo, hi = (v.to(ft) for v in _minmax(a))
+        else:
+            lo, hi = (torch.tensor(v, device=a.larray.device).to(ft) for v in range)
+        if bool(hi == lo):
+            lo, hi = lo - 0.5, hi + 0.5
+        edges = _linspace32(lo, hi, int(bins) + 1, ft)
+    counts = _hist_counts(a, edges, weights)
+    if density:
+        counts = counts / torch.diff(edges) / counts.sum()
+    return (DNDarray(counts, split=None, device=a.device, comm=a.comm),
+            DNDarray(edges, split=None, device=a.device, comm=a.comm))
+
+
+def histc(input: DNDarray, bins: int = 100, min: float = 0.0, max: float = 0.0, out=None) -> DNDarray:
+    """torch's ``histc`` with ``heat_tpu``'s bin edges: ``jnp.histogram``
+    over ``(min, max)``, or the data's extrema when both are 0, cast to the
+    input's dtype."""
+    lo, hi = float(min), float(max)
+    if lo == 0.0 and hi == 0.0:
+        lo, hi = (float(v) for v in _minmax(input))
+    counts, _ = histogram(input, bins=bins, range=(lo, hi))
+    res = DNDarray(counts.larray.to(input.dtype.torch_type()), dtype=input.dtype, split=None, device=input.device,
+                   comm=input.comm)
+    return _write_out(out, res) if out is not None else res
+
+
+def bincount(x: DNDarray, weights=None, minlength: int = 0) -> DNDarray:
+    """The number of occurrences (or summed weights) of each value of a
+    non-negative integer array, replicated: the global maximum by one
+    ``allreduce``, each rank's counts, one ``allreduce`` of them."""
+    t = x.larray.reshape(-1).to(torch.int64)
+    top = t.max() if t.numel() else torch.tensor(-1, device=t.device)
+    if x.split is not None and x.comm.is_distributed():
+        top = x.comm.allreduce(top.reshape(1), "max").reshape(())
+    length = builtins.max(int(top) + 1, int(minlength))
+    w = None
+    if weights is not None:
+        w = (weights if isinstance(weights, DNDarray) else factories.array(weights, device=x.device, comm=x.comm))
+        w = _local_operand(w, x.gshape, x.split).reshape(-1)
+    counts = torch.bincount(t, weights=w, minlength=length)
+    if w is not None:
+        counts = counts.to(types.promote_types(types.canonical_heat_type(w.dtype), types.float32).torch_type())
+    if x.split is not None and x.comm.is_distributed():
+        counts = x.comm.allreduce(counts)
+    return DNDarray(counts, split=None, device=x.device, comm=x.comm)
+
+
+def bucketize(input: DNDarray, boundaries, out_int32: bool = False, right: bool = False, out=None) -> DNDarray:
+    """torch's ``bucketize``: the index of each value's bucket among the
+    sorted ``boundaries`` (the first ``b[i] >= x``, or ``> x`` with
+    ``right``); elementwise on each rank's chunk."""
+    b = boundaries._logical() if isinstance(boundaries, DNDarray) else torch.as_tensor(np.asarray(boundaries))
+    t = input.larray
+    b = b.to(device=t.device, dtype=torch.promote_types(b.dtype, t.dtype))
+    idx_type = types.int32 if out_int32 else types.int64
+    r = torch.searchsorted(b, t.to(b.dtype).contiguous(), right=right).to(idx_type.torch_type())
+    res = DNDarray(r, gshape=input.gshape, dtype=idx_type, split=input.split, device=input.device, comm=input.comm)
+    return _write_out(out, res) if out is not None else res
+
+
+def digitize(x: DNDarray, bins, right: bool = False) -> DNDarray:
+    """numpy's ``digitize``: the index of the bin of each value (increasing
+    or decreasing ``bins``); elementwise on each rank's chunk."""
+    b = bins._logical() if isinstance(bins, DNDarray) else torch.as_tensor(np.asarray(bins))
+    t = x.larray
+    b = b.to(device=t.device, dtype=torch.promote_types(b.dtype, t.dtype))
+    tv = t.to(b.dtype).contiguous()
+    if b.numel() > 1 and bool(b[-1] < b[0]):
+        r = b.numel() - torch.searchsorted(torch.flip(b, (0,)), tv, right=not right)
+    else:
+        r = torch.searchsorted(b, tv, right=not right)
+    return DNDarray(r.to(torch.int64), gshape=x.gshape, dtype=types.int64, split=x.split, device=x.device, comm=x.comm)

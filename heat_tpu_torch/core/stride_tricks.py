@@ -5,7 +5,7 @@ from typing import Tuple, Union
 
 import numpy as np
 
-__all__ = ["broadcast_shape", "sanitize_axis", "sanitize_shape"]
+__all__ = ["broadcast_shape", "broadcast_shapes", "sanitize_axis", "sanitize_shape", "sanitize_slice"]
 
 
 def broadcast_shape(shape_a: Tuple[int, ...], shape_b: Tuple[int, ...]) -> Tuple[int, ...]:
@@ -16,6 +16,14 @@ def broadcast_shape(shape_a: Tuple[int, ...], shape_b: Tuple[int, ...]) -> Tuple
         raise ValueError(
             f"operands could not be broadcast, input shapes {tuple(shape_a)} {tuple(shape_b)}"
         ) from None
+
+
+def broadcast_shapes(*shapes) -> Tuple[int, ...]:
+    """NumPy-broadcast any number of shapes, raising ValueError on mismatch."""
+    try:
+        return tuple(np.broadcast_shapes(*[tuple(s) for s in shapes]))
+    except ValueError:
+        raise ValueError(f"operands could not be broadcast, input shapes {shapes}") from None
 
 
 def sanitize_axis(
@@ -57,3 +65,11 @@ def sanitize_shape(shape, lval: int = 0) -> Tuple[int, ...]:
             raise ValueError(f"negative dimensions are not allowed, got {dim}")
         out.append(dim)
     return tuple(out)
+
+
+def sanitize_slice(sl: slice, max_dim: int) -> slice:
+    """``sl`` with concrete non-negative start, stop and step for an axis of
+    extent ``max_dim``."""
+    if not isinstance(sl, slice):
+        raise TypeError("This function is only for slices!")
+    return slice(*sl.indices(max_dim))

@@ -278,6 +278,63 @@ def test_matvec_over_a_split_contracted_axis_gathers_nothing(group):
         assert res["port:matvec_collectives"]["value"] == {"allreduce": 1}, rank
 
 
+def _share_bytes(n: int, itemsize: int) -> int:
+    """Bytes of the largest ceil-div chunk of n elements of ``itemsize``."""
+    return -(-n // WORLD) * itemsize
+
+
+def test_sort_receives_at_most_three_shares(group):
+    """The sample sort of 4001 float32 values: every rank receives at most
+    3 times its share of values plus int64 indices, over every collective
+    of the sort (samples, bucket sizes, buckets, rebalance)."""
+    share = _share_bytes(W.BIG1D.size, 4 + 8)
+    for rank, res in enumerate(_case(group, "sort")):
+        coll = res["port:sort_collectives"]["value"]
+        got = sum(coll["received"].values())
+        assert got <= 3 * share, (rank, coll, share)
+        assert set(coll["calls"]) <= {"allgather", "alltoall"}, (rank, coll)
+
+
+def test_percentile_along_the_split_axis_sends_counts_not_rows(group):
+    """The selection's bisection: one allreduce of the (T, 1, m) counts per
+    key bit (32 for float32), and one of the NaN flags; nothing that grows
+    with the rows."""
+    # q = 0, 25, 30, 50, 75, 100 at n = 37 sit at positions 0, 9, 10.8, 18, 27, 36: seven distinct ranks
+    # (10.8 wants 10 and 11), over 4 columns
+    t_n, m = 7, 4
+    for rank, res in enumerate(_case(group, "order_stats")):
+        coll = res["port:percentile_collectives"]["value"]
+        assert set(coll["calls"]) == {"allreduce"}, (rank, coll)
+        assert coll["calls"]["allreduce"] == 32 + 1, (rank, coll)
+        assert coll["sent"]["allreduce"] == 32 * t_n * m * 8 + m * 4, (rank, coll)  # int64 counts, int32 flags
+
+
+def test_kmedians_fit_sends_counts_not_rows(group):
+    """Per iteration: one allreduce of the (k, f) member counts and one of
+    the (2, k, f) bisection counts per key bit (32 for float32); the
+    explicit init is replicated, so nothing else moves."""
+    k, f, iters = 3, 5, 8
+    for rank, res in enumerate(_case(group, "kmedians")):
+        coll = res["port:kmedians_collectives"]["value"]
+        assert set(coll["calls"]) == {"allreduce"}, (rank, coll)
+        assert coll["calls"]["allreduce"] == iters * (1 + 32), (rank, coll)
+        assert coll["sent"]["allreduce"] == iters * (k * f * 8 + 32 * 2 * k * f * 8), (rank, coll)
+
+
+@pytest.mark.parametrize("name", ["vector_norm0", "vector_norm_inf", "vector_norm_ninf", "vector_norm_0",
+                                  "vector_norm_3", "vector_norm_kd", "matrix_norm_1", "matrix_norm_m1",
+                                  "matrix_norm_inf", "matrix_norm_ninf", "matrix_norm_fro", "trace_s0", "trace_s1",
+                                  "dot_00", "dot_0n", "dot_int"])
+def test_norms_trace_and_dot_reduce_chunks_with_one_allreduce(group, name):
+    """Over the split axis each of these reduces every rank's chunk and
+    completes the reduction with allreduces of the reduced shape, never
+    gathering the array."""
+    for rank, res in enumerate(_case(group, "norms")):
+        coll = res[f"port:{name}"]["value"]
+        assert set(coll["calls"]) <= {"allreduce"}, (name, rank, coll)
+        assert 1 <= coll["calls"].get("allreduce", 0) <= 2, (name, rank, coll)
+
+
 def test_kmeans_random_inits_agree_across_ranks_and_with_world_size_1(group):
     """heat_tpu's starting rows on every rank and at world size 1 (the
     kmeans case holds them against heat_tpu's too), and the fits from them."""
@@ -349,7 +406,9 @@ NON_ARRAY = {
     "TorchCommunication", "canonical_heat_type", "heat_type_is_exact", "promote_types", "result_type",
     "get_comm", "get_device", "use_comm", "use_device", "sanitize_axis", "sanitize_comm", "sanitize_device",
     "sanitize_memory_layout", "sanitize_shape", "broadcast_shape", "is_classifier", "is_clusterer", "is_estimator",
-    "init_distributed", "replicated_decision",
+    "init_distributed", "replicated_decision", "broadcast_shapes", "sanitize_distribution", "sanitize_in",
+    "sanitize_in_tensor", "sanitize_infinity", "sanitize_lshape", "sanitize_out", "sanitize_sequence",
+    "sanitize_slice", "sanitize_split", "validate_layout",
 }
 EXPLICIT = {
     "array", "zeros", "ones", "full", "eye", "arange", "zeros_like", "ones_like", "full_like", "empty", "empty_like",
@@ -358,6 +417,13 @@ EXPLICIT = {
     "vector_norm", "matrix_norm", "copy", "rand", "randn", "randint", "random_integer", "random_sample", "ranf",
     "sample", "normal", "standard_normal", "uniform", "randperm", "permutation", "seed", "get_state", "set_state",
     "factor_block_edge", "cross", "det", "inv", "projection", "vdot", "vecdot",
+    # manipulations, the factories' rest, order statistics, moments and histograms
+    "asarray", "linspace", "logspace", "meshgrid", "balance", "broadcast_arrays", "broadcast_to", "column_stack",
+    "concatenate", "diag", "diagonal", "dsplit", "expand_dims", "flatten", "flip", "fliplr", "flipud", "hsplit",
+    "hstack", "moveaxis", "pad", "ravel", "redistribute", "repeat", "reshape", "resplit", "roll", "rot90",
+    "row_stack", "shape", "sort", "split", "squeeze", "stack", "swapaxes", "tile", "topk", "unfold", "unique",
+    "vsplit", "vstack", "scalar_to_1d", "percentile", "median", "nanmean", "average", "cov", "skew", "kurtosis",
+    "histc", "histogram", "bincount", "bucketize", "digitize",
 }
 
 

@@ -369,6 +369,9 @@ def case_qr(ht):
         out[f"{label}:resid"] = float(np.abs(q.numpy() @ r.numpy() - data).max())
     out["r_only"] = _sign_fixed(None, ht.linalg.qr(ht.array(TALL, split=0), calc_q=False).R)[1]
     out["householder"] = _sign_fixed(*ht.linalg.qr(ht.array(TALL, split=0), method="householder"))
+    # tiles_per_proc: the local level of the tree factors row tiles of each rank's 64 rows
+    out["tiles2"] = _sign_fixed(*ht.linalg.qr(ht.array(TALL, split=0), tiles_per_proc=2))
+    out["tiles3_r_only"] = _sign_fixed(None, ht.linalg.qr(ht.array(RAGGED, split=0), tiles_per_proc=3, calc_q=False).R)[1]
     return out
 
 
@@ -730,6 +733,199 @@ def case_random(ht):
         comm = ht.get_comm()
         out["port:fills"] = np.array(fills)
         out["port:chunk_elems"] = np.array([np.prod(comm.chunk((9, 5), 1)[1]), np.prod(comm.chunk((1000, 7), 0)[1])])
+    return out
+
+
+C645 = _rng(30).normal(size=(6, 4, 5)).astype(np.float32)
+STATX = _rng(31).normal(size=(37, 4)).astype(np.float32)
+W37 = _rng(32).uniform(0.5, 2.0, size=37)
+LAB = _rng(33).integers(0, 6, size=37).astype(np.int64)
+BIG1D = np.round(_rng(34).normal(size=4001) * 50).astype(np.float32)  # many ties
+SQ7 = _rng(35).normal(size=(7, 7)).astype(np.float32)
+MEDBLOBS = (_blobs(36, 203, 5, 3, scale=12.0)[0] + _rng(37).standard_t(3, size=(203, 5))).astype(np.float32)
+
+
+def _collectives(ht, fn):
+    """``fn()``'s result and, for the port, the collectives it ran and the
+    bytes they brought this rank."""
+    if not is_port(ht):
+        return fn(), None
+    ht.kernels.reset_kernel_stats()
+    res = fn()
+    return res, {"calls": {k: v["calls"] for k, v in ht.kernels.COLLECTIVES.items()},
+                 "sent": {k: v["bytes"] for k, v in ht.kernels.COLLECTIVES.items()},
+                 "received": dict(ht.kernels.RECEIVED)}
+
+
+def case_manipulations(ht):
+    """Every manipulation, the factories' rest and diff across ranks: the
+    split axis moved, padded, rolled, flipped and cut at 9 rows on 4 ranks
+    (an empty last chunk)."""
+    a0, a1, an = ht.array(A95, split=0), ht.array(A95, split=1), ht.array(A95)
+    v0, c0 = ht.array(V9, split=0), ht.array(C645, split=1)
+    out = {
+        "reshape": ht.reshape(a0, (5, 9)), "reshape_flat": ht.reshape(a0, (45,)), "reshape_s1": ht.reshape(a1, (3, 15)),
+        "reshape_new_split": ht.reshape(a0, (15, 3), new_split=1), "reshape_method": a0.reshape(3, 3, 5),
+        "flatten": ht.flatten(c0), "ravel": ht.ravel(a1), "flatten_method": a0.flatten(),
+        "concatenate": ht.concatenate([a0, ht.array(A95[:4], split=0), an[:2]], axis=0),
+        "concatenate1": ht.concatenate([a0, ht.array(A95[:, :2], split=0)], axis=1),
+        "hstack": ht.hstack([v0, ht.array(V5, split=0)]), "vstack": ht.vstack([a0, ht.array(V5, split=0)]),
+        "row_stack": ht.row_stack([a0, an[:1]]), "column_stack": ht.column_stack([v0, a0]),
+        "stack": ht.stack([a0, a0 * 2], axis=1), "expand_dims": ht.expand_dims(a1, 0),
+        "squeeze": ht.squeeze(ht.array(A95[:1], split=0), 0), "squeeze1": ht.array(C645[:, :1], split=0).squeeze(1),
+        "flip0": ht.flip(a0, 0), "flip_all": ht.flip(c0), "fliplr": ht.fliplr(a1), "flipud": ht.flipud(a0),
+        "roll0": ht.roll(a0, 3, 0), "roll_neg": ht.roll(a0, -11, 0), "roll_none": ht.roll(a1, 7), "roll1": ht.roll(a1, 2, 1),
+        "rot90": ht.rot90(a0), "moveaxis": ht.moveaxis(ht.array(C645, split=0), 0, 2), "swapaxes": ht.swapaxes(a1, 0, 1),
+        "pad0": ht.pad(a0, ((2, 3), (1, 0))), "pad_edge": ht.pad(a0, ((4, 2), (0, 1)), mode="edge"),
+        "pad_reflect": ht.pad(a0, ((3, 3), (0, 0)), mode="reflect"), "pad_wrap": ht.pad(a0, ((10, 1), (0, 0)), mode="wrap"),
+        "unfold": ht.unfold(a0, 0, 3, 2), "unfold1": ht.unfold(a0, 1, 2),
+        "diag": ht.diag(v0), "diagonal": ht.diagonal(a0), "repeat": ht.repeat(a0, 2, axis=0), "tile": ht.tile(a0, (2, 1)),
+        "broadcast_to": ht.broadcast_to(v0, (2, 9)),
+        "broadcast_arrays": ht.broadcast_arrays(ht.array(A95[:, :1], split=0), ht.array(V5)),
+        "split": ht.split(a0, [2, 7]), "hsplit": ht.hsplit(a1, [2]), "vsplit": ht.vsplit(a0, [4]),
+        "dsplit": ht.dsplit(ht.array(C645, split=0), [2]), "balance": ht.balance(a0, copy=True),
+        "redistribute": ht.redistribute(a0), "resplit": ht.resplit(a0, 1), "shape": ht.shape(a1),
+        "diff0": ht.diff(a0, axis=0), "diff2": ht.diff(a0, n=2, axis=0, prepend=0.5, append=ht.array(A95[:2])),
+        "diff1": ht.diff(a1, axis=1), "nonzero_3d": ht.nonzero(ht.array(C645 > 0.5, split=1)),
+        "nonzero_s2": ht.nonzero(ht.array(C645 > 0.5, split=2)),
+        "linspace": ht.linspace(-2, 3, 11, split=0), "logspace": ht.logspace(0, 1, 5, split=0),
+        "meshgrid": ht.meshgrid(v0, ht.array(V5)), "asarray": ht.asarray(A95[:3], dtype=ht.float64),
+        "scalar_to_1d": ht.scalar_to_1d(ht.array(2.5)),
+    }
+    return out
+
+
+def case_sort(ht):
+    """sort, topk and unique along the split axis (and beside it); for the
+    port also the collectives of the 1-D sample sort of 4001 elements and
+    the bytes they brought each rank."""
+    x = ht.array(TIES95.reshape(-1), split=0)
+    big = ht.array(BIG1D, split=0)
+    (sv, si), coll = _collectives(ht, lambda: ht.sort(big))
+    out = {"sort_big": (sv, si), "sort": ht.sort(x), "sort_desc": ht.sort(x, descending=True),
+           "sort_nan": ht.sort(ht.array(NAN95.reshape(-1), split=0)),
+           "sort_nan_desc": ht.sort(ht.array(NAN95.reshape(-1), split=0), descending=True),
+           "sort_2d_split": ht.sort(ht.array(TIES95, split=0), axis=0),
+           "sort_2d_other": ht.sort(ht.array(TIES95, split=0), axis=1),
+           "sort_int": ht.sort(ht.array(I95.reshape(-1), split=0), descending=True),
+           "topk": ht.topk(ht.array(TIES95, split=0), 3, dim=0), "topk_small": ht.topk(x, 5, largest=False),
+           "topk_nan": ht.topk(ht.array(NAN95.reshape(-1), split=0), 6),
+           "topk_other": ht.topk(ht.array(TIES95, split=0), 2, dim=1),
+           "unique": ht.unique(x), "unique_inverse": ht.unique(ht.array(I95, split=1), return_inverse=True),
+           "unique_axis": ht.unique(ht.array(np.concatenate([I95, I95[:3]]), split=0), axis=0),
+           "unique_nan": ht.unique(ht.array(NAN95, split=0)), "unique_method": ht.array(I95, split=0).unique()}
+    if coll is not None:
+        out["port:sort_collectives"] = coll
+    return out
+
+
+def case_order_stats(ht):
+    """percentile and median along the split axis (the key-bisection selection in the
+    port) and beside it, the moments and the histograms across ranks."""
+    x0, x1 = ht.array(STATX, split=0), ht.array(STATX, split=1)
+    x64 = ht.array(STATX.astype(np.float64), split=0)
+    pct, coll = _collectives(ht, lambda: ht.percentile(x0, [0, 25, 30, 50, 75, 100], axis=0))
+    out = {
+        "percentile0": pct, "percentile_none": ht.percentile(x0, 42.0), "percentile_ax1": ht.percentile(x0, [10, 90], axis=1),
+        "percentile_methods": [ht.percentile(x0, 30, axis=0, interpolation=m) for m in ("lower", "higher", "nearest",
+                                                                                      "midpoint")],
+        "percentile_kd": ht.percentile(x1, [5, 95], axis=1, keepdims=True),
+        "percentile_nan": ht.percentile(ht.array(NAN95, split=0), [25, 75], axis=0),
+        "percentile_int": ht.percentile(ht.array(I95, split=0), 50, axis=0),
+        "percentile_f64": ht.percentile(x64, [10, 50, 90], axis=0), "median_f64": ht.median(x64, axis=0),
+        "median0": ht.median(x0, axis=0), "median_none": ht.median(x0), "median_ax1": ht.median(x0, axis=1),
+        "median_even": ht.median(ht.array(STATX[:36], split=0), axis=0),
+        "nanmean": ht.nanmean(ht.array(NAN95, split=0), axis=0), "nanmean_all": ht.nanmean(ht.array(NAN95, split=1)),
+        "average": ht.average(x0, axis=0), "average_w": ht.average(x0, axis=0, weights=W37),
+        "average_w_full": ht.average(x0, weights=ht.array(np.abs(STATX) + 0.1, split=0), returned=True),
+        "cov": ht.cov(x0, rowvar=False), "cov_rows": ht.cov(ht.array(STATX.T.copy(), split=1)),
+        "cov_s1": ht.cov(x1, rowvar=False), "skew": ht.skew(x64, axis=0), "skew_all": ht.skew(x64),
+        "kurtosis": ht.kurtosis(x64, axis=0), "kurtosis_all": ht.kurtosis(ht.array(STATX.astype(np.float64), split=1)),
+        "histogram": ht.histogram(x0, bins=7), "histc": ht.histc(x0, bins=5, min=-2.0, max=2.0),
+        "bincount": ht.bincount(ht.array(LAB, split=0)), "bincount_w": ht.bincount(ht.array(LAB, split=0), weights=ht.array(W37, split=0)),
+        "bucketize": ht.bucketize(x0, [-1.0, 0.0, 1.0]), "digitize": ht.digitize(x0, [-1.0, 0.0, 1.0]),
+    }
+    if coll is not None:
+        out["port:percentile_collectives"] = coll
+    return out
+
+
+def case_setitem(ht):
+    """Writes across the chunk boundaries of 9 rows on 4 ranks, with split
+    and replicated values; reads by negative steps, masks and integer
+    arrays."""
+    def fresh(split=0):
+        return ht.array(A95, split=split)
+
+    out = {}
+    m = A95 > 0.2
+    writes = [
+        ("slice_split_value", fresh, slice(2, 7), lambda: ht.array(A95[:5] * 10, split=0)),
+        ("step", fresh, slice(1, 8, 3), lambda: 0.5),
+        ("neg_step_split_value", fresh, slice(7, 0, -2), lambda: ht.array(A95[:4], split=0)),
+        ("slice_replicated_value", fresh, slice(3, 6), lambda: ht.array(A95[:3])),
+        ("cols_split1", lambda: fresh(1), (slice(None), slice(1, 4)), lambda: ht.array(A95[:, :3] * 2, split=1)),
+        ("int_row", fresh, 4, lambda: 9.0),
+        ("mask_scalar", fresh, lambda: ht.array(A95 > 0.5, split=0), lambda: 0.0),
+        ("mask_split_values", fresh, lambda: ht.array(m, split=0),
+         lambda: ht.array(np.arange(m.sum(), dtype=np.float32), split=0)),
+        ("mask_split1", lambda: fresh(1), lambda: ht.array(A95 < 0, split=1), lambda: -1.0),
+        ("int_array", fresh, [0, 4, 8], lambda: ht.array(A95[:3] + 100)),
+        ("ellipsis", fresh, (Ellipsis, 2), lambda: 7.0),
+    ]
+    for name, make, key, value in writes:
+        x = make()
+        x[key() if callable(key) else key] = value()
+        out[name] = x
+    out.update({
+        "get_neg_step": fresh()[::-2], "get_neg_step1": fresh(1)[:, ::-1],
+        "get_mask": fresh()[ht.array(A95 > 0.3, split=0)], "get_mask1": fresh(1)[ht.array(A95 > 0.3, split=1)],
+        "get_int_array": fresh()[[8, 0, 3, 3]], "get_int_array_cols": fresh()[:, [4, 0]],
+        "get_coords": fresh()[ht.nonzero(fresh() > 1.0)],
+    })
+    return out
+
+
+def case_norms(ht):
+    """Norms, trace and dot over the split axis; for the port also the
+    collectives each one ran."""
+    a0, a1, v0 = ht.array(A95, split=0), ht.array(A95, split=1), ht.array(V9, split=0)
+    calls = {
+        "vector_norm0": lambda: ht.vector_norm(a0, axis=0), "vector_norm_inf": lambda: ht.vector_norm(a0, axis=0, ord=np.inf),
+        "vector_norm_ninf": lambda: ht.vector_norm(a1, axis=1, ord=-np.inf), "vector_norm_0": lambda: ht.vector_norm(a0, axis=0, ord=0),
+        "vector_norm_3": lambda: ht.vector_norm(a0, ord=3), "vector_norm_kd": lambda: ht.vector_norm(a1, keepdims=True),
+        "matrix_norm_1": lambda: ht.matrix_norm(a0, ord=1), "matrix_norm_m1": lambda: ht.matrix_norm(a1, ord=-1),
+        "matrix_norm_inf": lambda: ht.matrix_norm(a0, ord=np.inf), "matrix_norm_ninf": lambda: ht.matrix_norm(a1, ord=-np.inf),
+        "matrix_norm_fro": lambda: ht.matrix_norm(a1), "norm_all": lambda: ht.norm(a0),
+        "trace_s0": lambda: ht.trace(ht.array(SQ7, split=0), 1), "trace_s1": lambda: ht.trace(ht.array(SQ7, split=1), -2),
+        "dot_00": lambda: ht.dot(v0, v0), "dot_0n": lambda: ht.dot(v0, ht.array(V9)),
+        "dot_int": lambda: ht.dot(ht.array(I95[:, 0], split=0), ht.array(I95[:, 1], split=0)),
+    }
+    out = {}
+    for name, call in calls.items():
+        out[name], coll = _collectives(ht, call)
+        if coll is not None:
+            out[f"port:{name}"] = coll
+    out["matrix_norm_nuc"] = ht.matrix_norm(a0, ord="nuc")
+    out["matrix_norm_2"] = ht.matrix_norm(a1, ord=2)
+    return out
+
+
+def case_kmedians(ht):
+    """KMedians and KMedoids on split-0 blobs with heavy-tailed noise; for
+    the port also the collectives of the explicit-init KMedians fit."""
+    x = ht.array(MEDBLOBS, split=0)
+    km, coll = _collectives(ht, lambda: ht.cluster.KMedians(3, init=ht.array(MEDBLOBS[:3]), max_iter=8, tol=None).fit(x))
+    out = {"centers": km.cluster_centers_, "labels": km.labels_, "n_iter": km.n_iter_,
+           "predict": km.predict(ht.array(BLOBS_NEW, split=0))}
+    km2 = ht.cluster.KMedians(3, init="random", random_state=4, max_iter=20).fit(x)
+    out.update({"random_centers": km2.cluster_centers_, "random_labels": km2.labels_, "random_n_iter": km2.n_iter_})
+    for name, kd in (("medoids", ht.cluster.KMedoids(3, init=ht.array(MEDBLOBS[:3]), max_iter=10)),
+                     ("medoids_random", ht.cluster.KMedoids(3, init="random", random_state=5, max_iter=10))):
+        kd.fit(x)
+        out.update({f"{name}:centers": kd.cluster_centers_, f"{name}:labels": kd.labels_, f"{name}:n_iter": kd.n_iter_})
+    if coll is not None:
+        out["port:kmedians_collectives"] = coll
     return out
 
 
