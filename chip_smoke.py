@@ -1138,6 +1138,425 @@ def robust_phase(dev):
                                              "threefry_bits")}
 
 
+# ---- [dtypes]: the small, half and complex types at [robust]'s width on one card, data from --seed with numpy -----
+N_DT, F_DT, K_DT = 1 << 24, 32, 8  # uint8 pixel rows: 512 MiB (2 GiB as float32)
+DT_LO, DT_HI, DT_SIGMA = 40.0, 215.0, 12.0  # blob centres uniform in [DT_LO, DT_HI] per feature, noise sigma, in
+# pixel units; values rounded and clipped to [0, 255]. Two centres differ by ~sqrt(32 * 175^2 / 6) = 400 against a
+# noise radius of ~sqrt(32) * 12 = 68, so a fit from one row of each blob labels well above DT_ACC
+DT_ACC = 0.999
+N_CX, CX_ROWS, CX_FREQ, CX_NOISE = 1 << 24, 1 << 20, 1234.5, 0.1  # complex signal; complex (CX_ROWS, F_DT) matrix
+N_CONV, M_CONV, CONV_CUTOFF = 1 << 26, 1023, 0.125  # signal samples; windowed-sinc taps (Blackman), cutoff/rate
+N_PAD, PAD_WIDTH = 1 << 12, ((3, 5), (2, 4))  # pad's six new modes on a split (N_PAD, N_PAD) float32 array
+PAD_MODES = ("linear_ramp", "maximum", "mean", "median", "minimum", "empty")
+# Sums in float32 of n terms, in whatever order the card's reduction takes: by Higham and Mary's probabilistic
+# bound (SIAM J. Sci. Comput. 41(5), 2019, thm. 3.1), |error| <= lambda sqrt(n) u sum|x_i| holds for any order with
+# probability >= 1 - 2n exp(-lambda^2 (1 - u)^2 / 2); lambda = 8 at n = 2^24 leaves 2^25 e^-32 = 4e-7. A result
+# rounded to bfloat16 (float16) adds one rounding, u = 2^-8 (2^-11) of its value.
+SUM_LAMBDA = 8.0
+BF16_U, F16_U = 2.0 ** -8, 2.0 ** -11
+
+
+def normal32(seed, shape, threads=8, finish=None, out=None):
+    """float32 standard normal draws of ``shape`` from ``seed`` with numpy, in ``threads`` slabs of rows drawn in
+    parallel by independent child generators (numpy releases the GIL while it fills an array and in its ufuncs).
+    ``finish(lo, hi, slab)``, where given, turns each slab into rows ``[lo, hi)`` of ``out`` in its thread."""
+    import concurrent.futures
+
+    import numpy as np
+
+    if out is None:
+        out = np.empty(shape, np.float32)
+    rows = -(-shape[0] // threads)
+    kids = np.random.SeedSequence(seed).spawn(threads)
+
+    def fill(i):
+        lo, hi = i * rows, min((i + 1) * rows, shape[0])
+        if hi > lo:
+            slab = np.random.default_rng(kids[i]).standard_normal((hi - lo,) + tuple(shape[1:]), dtype=np.float32)
+            if finish is None:
+                out[lo:hi] = slab
+            else:
+                finish(lo, hi, slab)
+
+    with concurrent.futures.ThreadPoolExecutor(threads) as pool:
+        list(pool.map(fill, range(threads)))
+    return out
+
+
+def windowed_sinc(m, cutoff):
+    """``m`` float32 taps of a Blackman-windowed sinc low-pass filter at ``cutoff`` (a share of the sample rate),
+    summing to 1."""
+    import numpy as np
+
+    k = np.arange(m) - (m - 1) / 2
+    h = np.sinc(2 * cutoff * k) * np.blackman(m)
+    return (h / h.sum()).astype(np.float32)
+
+
+def accumulation_bound(n, abs_sum):
+    """SUM_LAMBDA's bound on a float32 sum of ``n`` terms whose magnitudes add to ``abs_sum``."""
+    return SUM_LAMBDA * math.sqrt(n) * F32_UNIT_ROUNDOFF * abs_sum
+
+
+def lloyd_vs_plain(tag, data, cen, n):
+    """``lloyd_fused`` on ``data`` from the centres ``cen`` against its plain version; returns (labels, inertia,
+    the line to print). Labels may differ only at near-ties, and a row labelled otherwise moves its counts and
+    values between two clusters. Per cluster c, both versions add the n_c <= n rows' float32 values in their own
+    order: each sum is within SUM_LAMBDA's bound, lambda sqrt(n) u sum|x|, of the exact one, so the two are within twice
+    that of each other (the rows that moved added to the bound); the inertia, a sum of n positive terms, likewise.
+    Phase 3's SUMS_RTOL of the largest |sum| assumes columns of either sign: a cluster of pixel rows sums values of
+    one sign, where sum|x| = |sum x|."""
+    import torch
+
+    from heat_tpu_torch.core.kernels import assign_stats, lloyd_local
+    from heat_tpu_torch.spatial.distance import _quadratic_expand
+
+    sums, counts, labels, inertia = lloyd_local(data, cen, n)
+    sums0, counts0, labels0, inertia0 = assign_stats(data, cen, n)
+    k = cen.shape[0]
+    two = torch.topk(_quadratic_expand(data, cen), 2, dim=1, largest=False).values
+    near = (two[:, 1] - two[:, 0]) <= TIE_RTOL * two[:, 1]
+    diff = labels != labels0
+    check(not bool((diff & ~near).any()), f"{tag} lloyd labels differ outside near-ties")
+    moved = torch.zeros(k, dtype=torch.float64, device=data.device)
+    moved.index_add_(0, labels[diff].long(), torch.ones(int(diff.sum()), dtype=torch.float64, device=data.device))
+    moved.index_add_(0, labels0[diff].long(), torch.ones(int(diff.sum()), dtype=torch.float64, device=data.device))
+    check(bool(((counts.double() - counts0.double()).abs() <= moved).all()), f"{tag} lloyd counts")
+    onehot = torch.nn.functional.one_hot(labels0.long(), k).to(data.dtype)
+    abs_sums = (onehot.T @ data.abs()).double()
+    moved_abs = torch.zeros_like(abs_sums)
+    if bool(diff.any()):
+        rows = data[diff].abs().double()
+        moved_abs.index_add_(0, labels[diff].long(), rows)
+        moved_abs.index_add_(0, labels0[diff].long(), rows)
+    bound = 2 * SUM_LAMBDA * math.sqrt(n) * F32_UNIT_ROUNDOFF * abs_sums + moved_abs
+    e = (sums.double() - sums0.double()).abs()
+    check(bool((e <= bound).all()), f"{tag} lloyd sums: worst {(e / bound).max().item():.3f} of the bound")
+    e_in = abs(float(inertia) - float(inertia0))
+    in_bound = 2 * SUM_LAMBDA * math.sqrt(n) * F32_UNIT_ROUNDOFF * abs(float(inertia0)) + two[diff].sum().item()
+    check(e_in <= in_bound, f"{tag} lloyd inertia: {e_in} > {in_bound}")
+    line = (f"lloyd_fused on {tuple(data.shape)}: labels differ on {int(diff.sum())} rows ({int(near.sum())} near-tie "
+            f"rows), sums worst {(e / bound).max().item():.3f} of the bound (max abs {e.max().item():.3e}, max |sum| "
+            f"{sums0.abs().max().item():.3e}), inertia rel {e_in / max(abs(float(inertia0)), 1e-30):.3e} "
+            f"({e_in / in_bound:.3f} of its bound)")
+    return labels, inertia, line
+
+
+def dtypes_phase(dev, seed, smi):
+    """[dtypes]: the types beyond float32 through their user-facing calls on one card. uint8 pixel blobs are cast,
+    standardized (``moments_onepass``) and clustered (``lloyd_fused``), summed exactly; the standardized data in
+    bfloat16 and float16 is reduced and multiplied; a complex64 signal goes through ``complex_math``, ``vdot``, a
+    complex product and the lexicographic order; a 2^26-sample signal is convolved in the three modes (and once
+    with cuDNN's TF32 switched on around the call); ``pad`` runs its six new modes on a split array. Both kernels
+    are held against their plain versions on the path's own tensors; every result against float64 (complex128)
+    within the bounds stated above. Returns the kernels' launch counts of the pixel path."""
+    import concurrent.futures
+
+    import numpy as np
+    import scipy.fft
+    import scipy.signal
+    import torch
+
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.core.kernels import chunk_moments, moments_local
+
+    ht.use_device("gpu")
+    rng = np.random.default_rng(seed)
+    steps = {}
+
+    def step(name, fn):
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        out = fn()
+        b.record()
+        torch.cuda.synchronize()
+        steps[name] = (time.perf_counter() - t0, a.elapsed_time(b))
+        return out
+
+    # ---- uint8 pixels: cast, standardize, cluster; counts zeroed just before the path and read just after
+    sections = {}
+    t_host = time.perf_counter()
+    # the convolution's signal first: scipy's float64 reference runs on host threads while the card works
+    a_h = normal32(seed + 4, (N_CONV,))
+    taps = windowed_sinc(M_CONV, CONV_CUTOFF)
+
+    def reference():
+        t0 = time.perf_counter()
+        with scipy.fft.set_workers(8):
+            ref = scipy.signal.fftconvolve(a_h.astype(np.float64), taps.astype(np.float64))
+        return ref, time.perf_counter() - t0
+
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    pending = pool.submit(reference)
+    member_h = rng.integers(0, K_DT, N_DT)
+    centres_h = rng.uniform(DT_LO, DT_HI, (K_DT, F_DT)).astype(np.float32)
+    x_h = np.empty((N_DT, F_DT), np.uint8)
+
+    def pixels(lo, hi, slab):
+        slab *= np.float32(DT_SIGMA)
+        slab += centres_h[member_h[lo:hi]]
+        x_h[lo:hi] = np.clip(np.rint(slab, out=slab), 0, 255, out=slab)
+
+    normal32(seed + 1, (N_DT, F_DT), finish=pixels, out=x_h)
+    t_host = time.perf_counter() - t_host
+    last = [time.perf_counter()]
+
+    def mark(name):  # host seconds of each section, checks included
+        now = time.perf_counter()
+        sections[name] = now - last[0]
+        last[0] = now
+    rows = [int(np.argmax(member_h == c)) for c in range(K_DT)]  # the first row of each blob: the fit's init
+    torch.cuda.synchronize()
+    ht.kernels.reset_kernel_stats()
+    t_wall = time.perf_counter()
+    x = step("array(uint8, split=0)", lambda: ht.array(x_h, split=0))
+    xc = step("astype(float32)", lambda: x.astype(ht.float32))
+    xf = step("/ 255", lambda: xc / 255)
+    del xc
+    mu, sd = step("mean + std", lambda: (ht.mean(xf, axis=0), ht.std(xf, axis=0)))
+    z = step("standardize", lambda: (xf - mu) / sd)
+    init = z[rows]
+    km = step("KMeans fit", lambda: ht.cluster.KMeans(K_DT, init=init, max_iter=ITERS, tol=None).fit(z))
+    s8 = step("sum(uint8, axis=0)", lambda: ht.sum(x, axis=0))
+    m8 = step("max(uint8)", lambda: ht.max(x))
+    torch.cuda.synchronize()
+    t_wall = time.perf_counter() - t_wall
+    launches, stats = dict(ht.LAUNCHES), dict(ht.KERNEL_STATS)
+    print(f"[dtypes] launches {launches} KERNEL_STATS {stats}", flush=True)
+    check(launches["moments_onepass"] == 1 and launches["lloyd_fused"] == ITERS + 1,
+          f"[dtypes] the pixel path should launch moments_onepass once (mean and std) and lloyd_fused {ITERS + 1} "
+          f"times: {launches}")
+    check(not any(k.endswith(".torch") for k in stats), f"[dtypes] a plain version ran on the path: {stats}")
+    check(x.dtype is ht.uint8 and xf.dtype is ht.float32 and s8.dtype is ht.int64 and m8.dtype is ht.uint8,
+          f"[dtypes] types {x.dtype}, {xf.dtype}, {s8.dtype}, {m8.dtype}")
+    check(np.array_equal(s8.larray.cpu().numpy(), x_h.sum(axis=0, dtype=np.int64)), "[dtypes] uint8 sum vs numpy")
+    check(m8.item() == int(x_h.max()), f"[dtypes] uint8 max {m8.item()} vs {x_h.max()}")
+    acc, _ = matched_labels(km.labels_.larray, torch.as_tensor(member_h, device=dev), K_DT,
+                            what="[dtypes] KMeans labels vs the blobs")
+    check(acc > DT_ACC, f"[dtypes] KMeans labels agree with the blobs on {acc} of the rows")
+    # the two kernels on the path's own tensors
+    xa = xf.larray
+    cnt, mean, m2 = moments_local(xa, N_DT)
+    cnt0, mean0, m20 = chunk_moments(xa, N_DT)
+    e_mean, e_m2 = (mean - mean0).abs(), (m2 - m20).abs()
+    check(float(cnt) == float(cnt0) == float(N_DT), "[dtypes] moments counts")
+    check(bool((e_mean <= MEAN_ATOL + MEAN_RTOL * mean0.abs()).all()), f"[dtypes] moments mean: {e_mean.max().item()}")
+    check(bool((e_m2 <= M2_RTOL * m20.abs() + 1e-6).all()), f"[dtypes] moments M2: {e_m2.max().item()}")
+    check(torch.equal(mu.larray, mean), "[dtypes] mean(x, axis=0) is not the moments kernel's mean")
+    _, _, l_init = lloyd_vs_plain("[dtypes] (init)", z.larray, init.larray, N_DT)
+    _, inertia, l_fit = lloyd_vs_plain("[dtypes] (fitted)", z.larray, km.cluster_centers_.larray, N_DT)
+    check(float(inertia) == km.inertia_, "[dtypes] the last Lloyd launch's inertia is not inertia_")
+    warm = {
+        "astype(float32)": time_ms(lambda: x.astype(ht.float32), reps=5, warm=1),
+        "KMeans fit": time_ms(lambda: ht.cluster.KMeans(K_DT, init=init, max_iter=ITERS, tol=None).fit(z), reps=3,
+                              warm=1),
+        "sum(uint8, axis=0)": time_ms(lambda: ht.sum(x, axis=0), reps=5, warm=1),
+        "max(uint8)": time_ms(lambda: ht.max(x), reps=5, warm=1),
+    }
+    print(f"[dtypes] moments_onepass on the path's x/255 {tuple(xa.shape)}: count exact, mean max abs "
+          f"{e_mean.max().item():.3e}, M2 max rel {(e_m2 / m20.abs()).max().item():.3e} (<= {M2_RTOL}), mean == the "
+          f"kernel's mean; from the init centres {l_init}; from the fitted centres {l_fit}", flush=True)
+    print(f"[dtypes] pixels {N_DT} x {F_DT} uint8 ({K_DT} blobs, sigma {DT_SIGMA}): KMeans agrees with the blobs on "
+          f"{acc:.6f} of the rows; sum(axis=0) int64 equals numpy's, max {m8.item()}; the cast moves "
+          f"{N_DT * F_DT * 5} B, bound {N_DT * F_DT * 5 / HBM_BYTES_PER_S * 1e3:.4f} ms; path {t_wall:.4f} s wall "
+          f"(the host's numpy draw before it {t_host:.2f} s)", flush=True)
+    del x, xf, xa, km, init, mu, sd
+    torch.cuda.empty_cache()
+
+    mark("pixels")
+    # ---- half precision: the standardized z in bfloat16 and float16, against float64 of the rounded values
+    half_lines = []
+    # float16 tops out at 65504 and the Gram's diagonal of z is ~2^24: its data is z * 2^-6 (an exact scaling),
+    # whose Gram entries stay near 2^12
+    for name, hdt, u_out, src in (("bfloat16", ht.bfloat16, BF16_U, z), ("float16", ht.float16, F16_U, z * 2.0 ** -6)):
+        zz = step(f"astype({name})", lambda: src.astype(hdt))
+        s = step(f"sum({name}, axis=0)", lambda: ht.sum(zz, axis=0))
+        mn = step(f"mean({name}, axis=0)", lambda: ht.mean(zz, axis=0))
+        vr = step(f"var({name}, axis=0)", lambda: ht.var(zz, axis=0))
+        g = step(f"matmul({name} z.T, z)", lambda: ht.matmul(zz.T, zz))
+        check(all(r.dtype is hdt for r in (zz, s, mn, vr, g)), f"[dtypes] {name} results change type")
+        warm[f"sum({name}, axis=0)"] = time_ms(lambda: ht.sum(zz, axis=0), reps=5, warm=1)
+        warm[f"var({name}, axis=0)"] = time_ms(lambda: ht.var(zz, axis=0), reps=5, warm=1)
+        warm[f"matmul({name} z.T, z)"] = time_ms(lambda: ht.matmul(zz.T, zz), reps=5, warm=1)
+        z64 = zz.larray.double()
+        n = z64.shape[0]
+        abs_sum = z64.abs().sum(dim=0)
+        s_ref = z64.sum(dim=0)
+        m_ref = s_ref / n
+        d = z64 - m_ref
+        v_ref = (d * d).sum(dim=0) / n
+        g_ref, g_abs = z64.T @ z64, z64.abs().T @ z64.abs()
+        del d
+        errs = {}
+        for what, r, ref, bound in (
+            ("sum", s, s_ref, u_out * s_ref.abs() + accumulation_bound(n, abs_sum)),
+            ("mean", mn, m_ref, u_out * m_ref.abs() + accumulation_bound(n, abs_sum) / n
+             + F32_UNIT_ROUNDOFF * m_ref.abs()),
+            # two passes in float32: each (x - m)^2 carries three roundings, the sum the accumulation bound
+            ("var", vr, v_ref, u_out * v_ref + (SUM_LAMBDA * math.sqrt(n) + 4) * F32_UNIT_ROUNDOFF * v_ref),
+            # products of two half values are exact in float32
+            ("matmul", g, g_ref, u_out * g_ref.abs() + accumulation_bound(n, g_abs)),
+        ):
+            e = (r.larray.double() - ref).abs()
+            check(bool((e <= bound).all()), f"[dtypes] {name} {what}: worst {(e / bound).max().item():.3f} of the bound")
+            errs[what] = (e / bound).max().item()
+        half_lines.append(f"{name}: " + ", ".join(f"{k} {v:.3f}" for k, v in errs.items()))
+        del zz, z64, s, mn, vr, g, src
+        torch.cuda.empty_cache()
+    print(f"[dtypes] half precision on the standardized {tuple(z.gshape)} (float16: z * 2^-6): every result keeps its "
+          f"type; worst error "
+          f"as a share of its bound (u_out |ref| + float32 accumulation): " + "; ".join(half_lines), flush=True)
+    del z
+    torch.cuda.empty_cache()
+
+    mark("half")
+    # ---- complex64: a tone plus complex noise, built with ht operations
+    ph_h = (2 * np.pi * ((CX_FREQ * np.arange(N_CX, dtype=np.float64) / N_CX) % 1.0)).astype(np.float32)
+    noise_h = normal32(seed + 2, (2, N_CX)) * np.float32(CX_NOISE)
+    ph, nr, ni = (ht.array(a, split=0) for a in (ph_h, noise_h[0], noise_h[1]))
+    s = step("complex signal", lambda: ht.exp(ph * 1j) + (nr + ni * 1j))
+    check(s.dtype is ht.complex64 and s.split == 0, f"[dtypes] the signal is {s.dtype}, split {s.split}")
+    mag = step("abs", lambda: ht.abs(s))
+    ang = step("angle", lambda: ht.angle(s))
+    cj = step("conj", lambda: ht.conj(s))
+    re, im = step("real + imag", lambda: (ht.real(s), ht.imag(s)))
+    vd = step("vdot(s, s)", lambda: ht.vdot(s, s))
+    mx = step("max (lexicographic)", lambda: ht.max(s))
+    s_rev = ht.flip(s, 0)
+    lt = step("s < flip(s)", lambda: s < s_rev)
+    for name, fn in (("abs", lambda: ht.abs(s)), ("angle", lambda: ht.angle(s)), ("vdot(s, s)", lambda: ht.vdot(s, s)),
+                     ("max (lexicographic)", lambda: ht.max(s))):
+        warm[name] = time_ms(fn, reps=5, warm=1)
+    # the references in complex128 and float64 on the card (the elementwise ones are correctly rounded there to
+    # far below float32's ulp)
+    sl = s.larray
+    s128 = sl.to(torch.complex128)
+    check(mag.dtype is ht.float32 and ang.dtype is ht.float32 and vd.dtype is ht.complex64, "[dtypes] complex types")
+    e_mag = (mag.larray.double() - s128.abs()).abs()
+    check(bool((e_mag <= 4 * F32_UNIT_ROUNDOFF * s128.abs()).all()), f"[dtypes] abs: {e_mag.max().item()}")  # 2 ulp
+    a64 = torch.angle(s128)
+    spacing = torch.as_tensor(np.spacing(a64.abs().float().cpu().numpy()), device=dev).double()
+    e_ang = ((ang.larray.double() - a64).abs() / spacing).max().item()
+    check(e_ang <= 4, f"[dtypes] angle: {e_ang} ulp")  # atan2f within 2 ulp, twice for margin
+    check(torch.equal(cj.larray, sl.conj().resolve_conj()) and torch.equal(re.larray, sl.real)
+          and torch.equal(im.larray, sl.imag), "[dtypes] conj/real/imag are not exact")
+    p2 = (s128.abs() ** 2).sum().item()
+    v_bound = (SUM_LAMBDA * math.sqrt(N_CX) + 3) * F32_UNIT_ROUNDOFF * p2  # |z|^2: two products and an add
+    e_vd = abs(complex(vd.item()) - p2)
+    check(e_vd <= v_bound, f"[dtypes] vdot(s, s) {vd.item()} vs {p2}: {e_vd} > {v_bound}")
+    top_re = sl.real.max()
+    top = complex(top_re.item(), sl.imag[sl.real == top_re].max().item())  # the largest real part, then imaginary
+    check(complex(mx.item()) == top, f"[dtypes] lexicographic max {mx.item()} vs {top}")
+    r = sl.flip(0)
+    want_lt = (sl.real < r.real) | ((sl.real == r.real) & (sl.imag < r.imag))
+    check(torch.equal(lt.larray, want_lt), "[dtypes] complex < is not lexicographic")
+    del s, sl, s128, a64, spacing, r, want_lt, mag, ang, cj, re, im, s_rev, lt, ph, nr, ni
+    parts = normal32(seed + 3, (2, CX_ROWS, F_DT))
+    xc_h = parts[0] + np.complex64(1j) * parts[1]
+    del parts
+    X = ht.array(xc_h, split=0)
+    G = step("conj(X).T @ X (complex)", lambda: ht.matmul(ht.conj(X).T, X))
+    x128 = X.larray.to(torch.complex128)
+    g_ref = x128.conj().T @ x128
+    g_abs = x128.abs().T @ x128.abs()
+    # each complex product a.b carries at most sqrt(5) u |a||b| (Brent, Percival, Zimmermann 2007); the real and
+    # imaginary sums each the accumulation bound of terms bounded by |a||b|
+    g_bound = (SUM_LAMBDA * math.sqrt(CX_ROWS) * math.sqrt(2) + math.sqrt(5)) * F32_UNIT_ROUNDOFF * g_abs
+    e_g = (G.larray.to(torch.complex128) - g_ref).abs()
+    check(G.dtype is ht.complex64 and bool((e_g <= g_bound).all()), f"[dtypes] X^H X: {(e_g / g_bound).max().item()}")
+    print(f"[dtypes] complex64 signal of {N_CX} samples against complex128: abs within 2 ulp, angle within {e_ang:.1f} "
+          f"ulp, conj/real/imag exact, vdot(s, s) {complex(vd.item())} vs {p2:.6f} (error {e_vd:.3e} <= {v_bound:.3e}), "
+          f"the lexicographic max and < exact; conj(X).T @ X of {CX_ROWS} x {F_DT}: worst "
+          f"{(e_g / g_bound).max().item():.3f} of its bound", flush=True)
+    del X, G, x128, g_ref, g_abs, e_g
+    torch.cuda.empty_cache()
+
+    mark("complex")
+    # ---- convolve: 2^26 samples, 1023 taps, three modes, against scipy's float64 fftconvolve
+    a, v = ht.array(a_h, split=0), ht.array(taps)
+    outs = {mode: step(f"convolve {mode}", lambda mode=mode: ht.convolve(a, v, mode)) for mode in ("full", "same",
+                                                                                                   "valid")}
+    for mode in ("full", "same", "valid"):
+        warm[f"convolve {mode}"] = time_ms(lambda mode=mode: ht.convolve(a, v, mode), reps=5, warm=1)
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        outs["same, TF32 on"] = step("convolve same, TF32 on", lambda: ht.convolve(a, v, "same"))
+        check(torch.backends.cudnn.allow_tf32 is True, "[dtypes] convolve did not restore cuDNN's TF32 switch")
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+    ref_full, t_scipy = pending.result()
+    pool.shutdown()
+    fft_err = 4 * math.log2(ref_full.size) * 2.0 ** -53 * np.linalg.norm(a_h.astype(np.float64)) * np.linalg.norm(taps)
+    abs_full = ht.convolve(ht.abs(a).astype(ht.float64), ht.abs(v).astype(ht.float64)).larray  # sum |a||v|, float64
+    spans = {"full": (0, N_CONV + M_CONV - 1), "same": ((M_CONV - 1) // 2, N_CONV), "valid": (M_CONV - 1,
+                                                                                               N_CONV - M_CONV + 1)}
+    conv_lines = []
+    for name, r in outs.items():
+        off, length = spans[name.split(",")[0]]
+        check(r.dtype is ht.float32 and r.gshape == (length,) and r.split == 0, f"[dtypes] convolve {name} metadata")
+        ref = torch.as_tensor(ref_full[off:off + length], device=dev)
+        # M u sum|a||v| per output, plus the float64 FFT's own error, normwise c log2(L) u64 ||a|| ||v|| (c = 4)
+        bound = M_CONV * F32_UNIT_ROUNDOFF * abs_full[off:off + length] + fft_err
+        e = (r.larray.double() - ref).abs()
+        check(bool((e <= bound).all()), f"[dtypes] convolve {name}: worst {(e / bound).max().item():.3f} of M u sum|a||v|")
+        conv_lines.append(f"{name} worst {(e / bound).max().item():.3f} of the bound")
+    del outs, abs_full, ref_full, a, v
+    torch.cuda.empty_cache()
+    flops = 2.0 * N_CONV * M_CONV
+    print(f"[dtypes] convolve of {N_CONV} float32 samples with {M_CONV} windowed-sinc taps against scipy's float64 "
+          f"fftconvolve ({t_scipy:.2f} s on 8 host threads, beside the card's work), M u sum|a||v| per output: " + ", ".join(conv_lines)
+          + f"; bound of one call {flops / FP32_FLOP_PER_S * 1e3:.4f} ms ({flops:.3e} float32 flops)", flush=True)
+
+    mark("convolve")
+    # ---- pad's six new modes on a split array, against numpy
+    p_h = normal32(seed + 5, (N_PAD, N_PAD))
+    p = ht.array(p_h, split=0)
+    pad_lines = []
+    (b0, e0), (b1, e1) = PAD_WIDTH
+
+    def border(a):
+        """The padded entries: the first and last rows, then the first and last columns of the rows between."""
+        mid = a[b0:a.shape[0] - e0]
+        return [a[:b0], a[a.shape[0] - e0:], mid[:, :b1], mid[:, a.shape[1] - e1:]]
+
+    for mode in PAD_MODES:
+        r = step(f"pad {mode}", lambda mode=mode: ht.pad(p, PAD_WIDTH, mode))
+        check(r.split == 0 and r.dtype is ht.float32 and r.gshape == (N_PAD + b0 + e0, N_PAD + b1 + e1),
+              f"[dtypes] pad {mode} metadata")
+        check(torch.equal(r.larray[b0:b0 + N_PAD, b1:b1 + N_PAD], p.larray), f"[dtypes] pad {mode} moved the data")
+        got = np.concatenate([t.cpu().numpy().ravel() for t in border(r.larray)])
+        want = np.pad(p_h, PAD_WIDTH, "constant" if mode == "empty" else mode)  # jnp's empty padding is zeros
+        want = np.concatenate([w.ravel() for w in border(want)])
+        e = ulps(got, want.astype(np.float64))
+        # maximum/minimum/empty exact; median one rounding of a midpoint; linear_ramp numpy's float32 linspace against
+        # one rounding of the float64 ramp; mean a float32 sum of 4096 terms in another order, 2 ulp of its magnitude
+        limit = {"maximum": 0, "minimum": 0, "empty": 0, "median": 1, "linear_ramp": 2}.get(mode)
+        if limit is None:
+            e_abs = np.abs(got.astype(np.float64) - want)
+            bnd = 2 * accumulation_bound(N_PAD, np.abs(p_h).sum(axis=0).max()) / N_PAD + 2 * F32_UNIT_ROUNDOFF * np.abs(want)
+            check(bool(np.all(e_abs <= bnd)), f"[dtypes] pad mean: {e_abs.max()}")
+            pad_lines.append(f"{mode} max abs {e_abs.max():.3e}")
+        else:
+            check(bool(np.all(e <= limit)), f"[dtypes] pad {mode}: {e.max()} ulp")
+            pad_lines.append(f"{mode} {e.max():.0f} ulp")
+    del p
+    torch.cuda.empty_cache()
+    print(f"[dtypes] pad of a split ({N_PAD}, {N_PAD}) float32 array by {PAD_WIDTH} against numpy: "
+          + ", ".join(pad_lines), flush=True)
+    mark("pad")
+    print(f"[dtypes] host seconds per section, checks included: data before the path {t_host:.2f}, "
+          + ", ".join(f"{k} {v:.2f}" for k, v in sections.items()), flush=True)
+    print(f"[dtypes] per step, first calls, host s / CUDA-event ms ({smi}): "
+          + ", ".join(f"{k} {h:.4f} s / {ev:.4f} ms" for k, (h, ev) in steps.items()), flush=True)
+    print(f"[dtypes] warm, CUDA-event ms (median of 5, the fit of 3; {smi}): "
+          + ", ".join(f"{k} {ms:.4f}" for k, ms in warm.items()), flush=True)
+    return {k: launches.get(k, 0) for k in ("moments_onepass", "lloyd_fused", "topk_distance", "chol_panel_fused",
+                                             "threefry_bits")}
+
+
 # ---- [dist]: the main path over torch.distributed, one process per card ------------------------
 DIST_SEED, DIST_QR_SEED, DIST_RIDGE_SEED, DIST_LU_SEED, DIST_SVD_SEED = 7, 8, 9, 10, 14
 N_DIST_SLICE = 1 << 20  # rows of z in the resplit round trip
@@ -1362,6 +1781,8 @@ def _dist_rank(rank, world, store, out_dir):
     result["spectral"] = _dist_spectral(ht, world, rank, timed, same_everywhere, say)
     torch.cuda.empty_cache()
     result["robust"] = _dist_robust(ht, world, rank, timed, same_everywhere, say)
+    torch.cuda.empty_cache()
+    result["dtypes"] = _dist_dtypes(ht, world, rank, timed, same_everywhere, say)
     times = torch.tensor([t_stats, t_fit, t_warm, t_knn, t_knn_w, t_stats_w, t_qr, t_qr_w, t_mm, t_mm_w, t_rs, path_s],
                          dtype=torch.float64, device=dev)
     result["times_max"] = comm.allreduce(times, "max").cpu().tolist()
@@ -2002,6 +2423,120 @@ def _linalg_reference(ht, world, ranks, tmp):
     return out
 
 
+DT_DIST_SEED = 23
+N_DIST_CX = 1 << 24  # complex samples per card for vdot and the lexicographic max
+N_DIST_U8 = 1 << 22  # uint8 rows (x F_DT) per card for the exact sum
+
+
+def _dist_dtypes(ht, world, rank, timed, same_everywhere, say):
+    """[dist]'s steps over the new types: ``convolve`` of N_CONV samples per card over the split-axis halos (each
+    rank sends and receives at most two halos of M_CONV // 2 rows; ``full`` and ``valid`` add the one alltoall that
+    rebalances the longer or shorter result), each mode against one card's ``convolve`` of the whole signal
+    (computed on this rank's card) within 2 M u sum|a||v|; the complex ``vdot`` (one allreduce of one complex
+    scalar) and lexicographic ``max``; the uint8 ``sum``, exact; and the halos of an array whose last rank is empty
+    at four cards, against the rows they must hold."""
+    import numpy as np
+    import torch
+
+    comm = ht.get_comm()
+    steps = {}
+
+    def step(name, fn):
+        out, host, ev = timed(fn)
+        steps[name] = {"host_s": host, "event_ms": ev, "collectives": timed.collectives, "received": timed.received}
+        return out
+
+    halo_bytes = 2 * (M_CONV // 2) * 4  # two halos of M // 2 float32 rows
+    ht.random.seed(DT_DIST_SEED)
+    a = ht.random.randn(N_CONV * world, split=0)
+    v = ht.array(windowed_sinc(M_CONV, CONV_CUTOFF))
+    mine = {mode: step(f"convolve {mode}", lambda mode=mode: ht.convolve(a, v, mode)) for mode in ("full", "same",
+                                                                                                   "valid")}
+    for mode in mine:
+        step(f"warm convolve {mode}", lambda mode=mode: ht.convolve(a, v, mode))
+    for mode, r in mine.items():
+        coll, recv = steps[f"convolve {mode}"]["collectives"], steps[f"convolve {mode}"]["received"]
+        want = set() if world == 1 else {"halo"} if mode == "same" else {"halo", "alltoall"}
+        check(set(coll) == want, f"[dist] convolve {mode} ran {coll}, expected {sorted(want)}")
+        if world > 1:
+            check(coll["halo"]["calls"] == 1 and coll["halo"]["bytes"] <= halo_bytes
+                  and recv["halo"] <= halo_bytes, f"[dist] convolve {mode} halos: {coll['halo']}, received {recv}")
+            if "alltoall" in coll:
+                check(coll["alltoall"]["calls"] == 1, f"[dist] convolve {mode} rebalance: {coll['alltoall']}")
+        check(np.array_equal(r.lshape_map, _ceil_div_map(r.gshape, 0, world)), f"[dist] convolve {mode} layout")
+    # one card's convolve of the whole signal, on this rank's card
+    ht.random.seed(DT_DIST_SEED)
+    whole = ht.random.randn(N_CONV * world)
+    check(torch.equal(whole.larray[comm.chunk(whole.gshape, 0)[2]], a.larray), "[dist] the signal is not split-invariant")
+    worst = {}
+    for mode, r in mine.items():
+        for name in (f"one card convolve {mode}", f"warm one card convolve {mode}"):
+            ref, t_one, ev_one = timed(lambda mode=mode: ht.convolve(whole, v, mode))
+            steps[name] = {"host_s": t_one, "event_ms": ev_one, "collectives": {}, "received": {}}
+        sl = comm.chunk(ref.gshape, 0)[2]
+        mags = ht.convolve(ht.abs(whole), ht.abs(v), mode).larray[sl].double()
+        bound = 2 * M_CONV * F32_UNIT_ROUNDOFF * mags  # both results within M u sum|a||v| of the exact value
+        e = (r.larray.double() - ref.larray[sl].double()).abs()
+        check(bool((e <= bound).all()), f"[dist] convolve {mode} vs one card: worst {(e / bound).max().item():.3f}")
+        worst[mode] = (e / bound).max().item() if e.numel() else 0.0
+        del ref, mags, e
+    del a, whole, mine
+    torch.cuda.empty_cache()
+
+    # complex vdot and lexicographic max across cards
+    ht.random.seed(DT_DIST_SEED + 1)
+    sig = ht.random.randn(N_DIST_CX * world, split=0) + ht.random.randn(N_DIST_CX * world, split=0) * 1j
+    check(sig.dtype is ht.complex64 and sig.split == 0, f"[dist] the complex signal is {sig.dtype}")
+    vd = step("vdot(s, s)", lambda: ht.vdot(sig, sig))
+    coll = steps["vdot(s, s)"]["collectives"]
+    check(coll == ({} if world == 1 else {"allreduce": {"calls": 1, "bytes": 8}}),
+          f"[dist] vdot should run one allreduce of one complex64 scalar: {coll}")
+    mx = step("max (lexicographic)", lambda: ht.max(sig))
+    same_everywhere(torch.view_as_real(vd.larray.reshape(1)), "vdot")
+    same_everywhere(torch.view_as_real(mx.larray.reshape(1)), "complex max")
+    full_sig = sig.resplit(None)
+    p2 = full_sig.larray.abs().double() ** 2
+    v_ref = p2.sum().item()
+    v_bound = (SUM_LAMBDA * math.sqrt(N_DIST_CX * world) + 3) * F32_UNIT_ROUNDOFF * v_ref
+    e_vd = abs(complex(vd.item()) - v_ref)
+    check(e_vd <= v_bound, f"[dist] vdot {vd.item()} vs {v_ref}: {e_vd} > {v_bound}")
+    check(complex(mx.item()) == complex(ht.max(full_sig).item()), "[dist] lexicographic max vs one card")
+    del sig, full_sig, p2
+
+    # uint8 sum, exact
+    ht.random.seed(DT_DIST_SEED + 2)
+    u8 = ht.random.randint(0, 256, size=(N_DIST_U8 * world, F_DT), split=0, dtype=ht.uint8)
+    su = step("sum(uint8, axis=0)", lambda: ht.sum(u8, axis=0))
+    check(su.dtype is ht.int64 and torch.equal(su.larray, u8.resplit(None).larray.sum(dim=0)),
+          "[dist] uint8 sum vs one card")
+    del u8
+
+    # halos where the last rank holds nothing (at four cards: 9 rows in chunks of 3, 3, 3, 0), and a convolve there
+    n_small, hs = 3 * max(world - 1, 1), 2
+    small = ht.arange(n_small * 2, dtype=ht.float32, split=0).reshape((n_small, 2))
+    step("get_halo(2)", lambda: small.get_halo(hs))
+    counts, displs = small.counts_displs()
+
+    def carries(b):
+        return 0 < b < world and counts[b - 1] >= hs and counts[b] >= hs
+
+    rows = torch.arange(n_small * 2, dtype=torch.float32, device=small.larray.device).reshape(n_small, 2)
+    want_prev = rows[displs[rank] - hs:displs[rank]] if carries(rank) else None
+    want_next = rows[displs[rank + 1]:displs[rank + 1] + hs] if carries(rank + 1) else None
+    for got, want, what in ((small.halo_prev, want_prev, "halo_prev"), (small.halo_next, want_next, "halo_next")):
+        check((got is None) == (want is None) and (got is None or torch.equal(got, want)),
+              f"[dist] rank {rank} {what} {got} vs {want}")
+    if world == 4:
+        check(counts == (3, 3, 3, 0) and (rank != 3 or small.halo_prev is None and small.halo_next is None),
+              f"[dist] the last rank should be empty and get no halo: counts {counts}")
+    cs = ht.convolve(small[:, 0], ht.array(np.array([1.0, -2.0, 1.0], np.float32)), "full")
+    check(np.array_equal(cs.numpy(), np.convolve(np.arange(0, 2 * n_small, 2), [1, -2, 1]).astype(np.float32)),
+          "[dist] convolve over an empty last rank")
+    say("dtypes: " + _steps_line(steps) + f"; convolve vs one card, worst share of 2 M u sum|a||v|: "
+        + ", ".join(f"{k} {w:.3f}" for k, w in worst.items()) + f"; halo counts {counts}")
+    return {"steps": steps, "worst": worst, "vdot": complex(vd.item()), "vdot_err": e_vd, "vdot_bound": v_bound}
+
+
 def dist_phase(world: int) -> None:
     """[dist]: the main path at world size ``world`` (one process per card,
     NCCL; weak scaling: N_MAIN rows per card), then the single-process port
@@ -2136,6 +2671,20 @@ def dist_phase(world: int) -> None:
               + "; one card on the whole data: " + ", ".join(f"{k} {v:.4f} s" for k, v in rref.items()), flush=True)
         for r in ranks:
             print(f"[dist] robust r{r['rank']}: " + _steps_line(r["robust"]["steps"]), flush=True)
+        dt = [r["dtypes"] for r in ranks]
+        print(f"[dist] dtypes (weak scaling): convolve of {N_CONV} samples per card ({N_CONV * world} in all) over "
+              f"the halos, slowest rank (first calls): " + ", ".join(
+                  f"{m} {max(d['steps'][f'convolve {m}']['host_s'] for d in dt):.4f} s" for m in ("full", "same", "valid"))
+              + "; warm, CUDA-event ms (slowest rank): " + ", ".join(
+                  f"{m} {max(d['steps'][f'warm convolve {m}']['event_ms'] for d in dt):.4f}"
+                  for m in ("full", "same", "valid"))
+              + "; one card on the whole signal, first / warm: " + ", ".join(
+                  f"{m} {dt[0]['steps'][f'one card convolve {m}']['host_s']:.4f} s / "
+                  f"{dt[0]['steps'][f'warm one card convolve {m}']['event_ms']:.4f} ms" for m in ("full", "same", "valid"))
+              + f"; worst share of the bound per rank {[d['worst'] for d in dt]}; vdot {dt[0]['vdot']} (error "
+              f"{dt[0]['vdot_err']:.3e} <= {dt[0]['vdot_bound']:.3e})", flush=True)
+        for r in ranks:
+            print(f"[dist] dtypes r{r['rank']}: " + _steps_line(r["dtypes"]["steps"]), flush=True)
         tm = ranks[0]["times_max"]
         print(f"[dist] world size {world}; per rank: launches {[r['launches'] for r in ranks]}; fit COLLECTIVES "
               f"{ranks[0]['fit_collectives']}; qr local routes {[r['qr_routes'] for r in ranks]}", flush=True)
@@ -2158,9 +2707,10 @@ def dist_phase(world: int) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive heat_tpu_torch's main path on the cards and check every kernel.")
-    ap.add_argument("--phases", choices=("all", "dist", "spectral", "linalg", "robust"), default="all",
-                    help="all (default): every phase; dist, spectral, linalg or robust: environment, build and that "
-                         "phase only")
+    ap.add_argument("--phases", choices=("all", "dist", "spectral", "linalg", "robust", "dtypes"), default="all",
+                    help="all (default): every phase; dist, spectral, linalg, robust or dtypes: environment, build and "
+                         "that phase only")
+    ap.add_argument("--seed", type=int, default=0, help="seed of [dtypes]' numpy data (default 0)")
     args = ap.parse_args(argv)
     import torch
 
@@ -2199,22 +2749,33 @@ def main(argv=None) -> int:
                 print(f"[build]   {line}")
     check(set(built) >= {"moments", "lloyd", "topk_distance", "panel_update", "threefry"}, f"built {sorted(built)}")
 
-    kernels = single_card_phases(dev) if args.phases == "all" else None
-    torch.cuda.empty_cache()
+    walls = {}
+
+    def phase(name, fn):
+        t_phase = time.perf_counter()
+        out = fn()
+        torch.cuda.empty_cache()
+        walls[name] = time.perf_counter() - t_phase
+        return out
+
+    kernels = phase("kernels and main paths", lambda: single_card_phases(dev)) if args.phases == "all" else None
     if args.phases in ("all", "spectral"):
-        spectral_phase(dev)
-        torch.cuda.empty_cache()
+        phase("spectral", lambda: spectral_phase(dev))
     if args.phases in ("all", "linalg"):
-        linalg_phase(dev)
-        torch.cuda.empty_cache()
+        phase("linalg", lambda: linalg_phase(dev))
     if args.phases in ("all", "robust"):
-        robust_launches = robust_phase(dev)
-        torch.cuda.empty_cache()
+        robust_launches = phase("robust", lambda: robust_phase(dev))
         if kernels is not None:
             for row in kernels:
                 row["launches_robust"] = robust_launches.get(row["name"], 0)
+    if args.phases in ("all", "dtypes"):
+        dtypes_launches = phase("dtypes", lambda: dtypes_phase(dev, args.seed, smi))
+        if kernels is not None:
+            for row in kernels:
+                row["launches_dtypes"] = dtypes_launches.get(row["name"], 0)
     if args.phases in ("all", "dist"):
-        dist_phase(torch.cuda.device_count())
+        phase("dist", lambda: dist_phase(torch.cuda.device_count()))
+    print("[walls] host seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()), flush=True)
     if kernels is not None:
         print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

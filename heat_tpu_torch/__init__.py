@@ -41,9 +41,15 @@ The port goes slice by slice:
    ``topk``/``unique`` along the split axis (``parallel``), exact
    ``percentile``/``median`` and the other statistics, ``__setitem__`` and
    advanced indexing, and ``KMedians``/``KMedoids``, whose centres are exact
-   order statistics found without moving rows.
+   order statistics found without moving rows;
+7. the rest of ``heat_tpu``'s types (uint8, int8, int16, float16,
+   bfloat16, complex64, complex128) through every module and collective,
+   ``complex_math``, the DNDarray's own members with the split-axis halos,
+   ``signal.convolve`` over them, ``pad``'s statistic modes, ``printing``
+   and ``version``.
 """
 from .core import *
-from .core import kernels, linalg, random
+from .core import complex_math, kernels, linalg, printing, random, signal, version
+from .core.version import __version__
 from . import classification, cluster, convert, graph, parallel, spatial
 from .core.kernels import KERNEL_STATS, LAUNCHES

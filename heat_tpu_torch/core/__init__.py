@@ -30,3 +30,8 @@ from .random import *
 from . import tiling
 from .tiling import *
 from .base import *
+from . import complex_math, printing, signal, version
+from .complex_math import *
+from .printing import *
+from .signal import *
+from .version import __version__

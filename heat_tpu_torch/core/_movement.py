@@ -57,8 +57,7 @@ def fetch(
     mine = [(int(lo), int(hi)) for lo, hi in wants(me)]
     if not comm.is_distributed():
         return [local.narrow(axis, lo - s0, hi - lo) for lo, hi in mine]
-    as_bytes = local.dtype == torch.bool  # gloo's all_to_all takes no bool
-    src = local.to(torch.uint8) if as_bytes else local
+    src = local
     empty = src.narrow(axis, 0, 0)
     blocks = []
     for r in range(comm.size):
@@ -83,7 +82,7 @@ def fetch(
     for i in range(len(mine)):
         segs = [pieces[q][i] for q in order if sizes[q][i] > 0]
         t = torch.cat(segs, dim=axis) if segs else empty
-        out.append(t.to(torch.bool) if as_bytes else t)
+        out.append(t)
     return out
 
 

@@ -27,7 +27,7 @@ from . import types
 from .dndarray import DNDarray
 from .stride_tricks import broadcast_shape, sanitize_axis
 
-__all__ = ["_binary_op", "_cum_op", "_local_op", "_local_operand", "_reduce_op"]
+__all__ = ["_binary_op", "_cum_op", "_local_op", "_local_operand", "_real_only", "_reduce_op"]
 
 
 def _as_dndarray(x, device=None, comm=None) -> DNDarray:
@@ -58,6 +58,18 @@ def _local_operand(x: DNDarray, out_shape, out_split: Optional[int]) -> torch.Te
     if x.split == ax:
         return x.larray
     return x.larray[x.comm.chunk(out_shape, out_split)[2][len(out_shape) - x.ndim :]]
+
+
+def _real_only(operation: Callable, name: str, error=TypeError) -> Callable:
+    """``operation`` refusing complex tensors with ``error``, as ``heat_tpu``
+    (jnp) refuses them where complex numbers have no order or no meaning."""
+
+    def run(*tensors, **kwargs):
+        if any(isinstance(t, torch.Tensor) and t.is_complex() for t in tensors):
+            raise error(f"{name} does not support complex-valued inputs")
+        return operation(*tensors, **kwargs)
+
+    return run
 
 
 def _binary_op(
@@ -119,11 +131,12 @@ def _local_op(
     **kwargs,
 ) -> DNDarray:
     """Elementwise op; split is inherited. Float-promoting math functions
-    (``no_cast=False``) compute integer input in float."""
+    (``no_cast=False``) compute integer input in float (float32, or float64
+    for int64); float and complex input keeps its type."""
     if not isinstance(x, DNDarray):
         raise TypeError(f"expected x to be a DNDarray, but was {type(x)}")
     arr = x.larray
-    if not no_cast and out_dtype is None and not arr.is_floating_point():
+    if not no_cast and out_dtype is None and not (arr.is_floating_point() or arr.is_complex()):
         arr = arr.to(types.promote_types(x.dtype, types.float32).torch_type())
     result = operation(arr, **kwargs)
     dtype = out_dtype if out_dtype is not None else types.canonical_heat_type(result.dtype)

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from . import types
-from ._operations import _binary_op, _cum_op, _local_op, _over_axes, _reduce_op
+from ._operations import _binary_op, _cum_op, _local_op, _over_axes, _real_only, _reduce_op
 from .dndarray import DNDarray
 from .stride_tricks import sanitize_axis
 
@@ -79,9 +79,14 @@ def mul(t1, t2, out=None, where=True) -> DNDarray:
 multiply = mul
 
 
+def _true_divide(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    # integers divide in float as jnp does: int64 in float64, smaller ones in float32
+    return torch.true_divide(_inexact(a), _inexact(b))
+
+
 def div(t1, t2, out=None, where=True) -> DNDarray:
     """Elementwise true division."""
-    return _binary_op(torch.true_divide, t1, t2, out=out, where=where)
+    return _binary_op(_true_divide, t1, t2, out=out, where=where)
 
 
 divide = div
@@ -89,7 +94,7 @@ divide = div
 
 def floordiv(t1, t2) -> DNDarray:
     """Elementwise floor division (rounds toward minus infinity)."""
-    return _binary_op(torch.floor_divide, t1, t2)
+    return _binary_op(_real_only(torch.floor_divide, "floor_divide"), t1, t2)
 
 
 floor_divide = floordiv
@@ -97,7 +102,7 @@ floor_divide = floordiv
 
 def mod(t1, t2) -> DNDarray:
     """Elementwise python-style modulo (the sign of the divisor)."""
-    return _binary_op(torch.remainder, t1, t2)
+    return _binary_op(_real_only(torch.remainder, "mod"), t1, t2)
 
 
 remainder = mod
@@ -105,12 +110,12 @@ remainder = mod
 
 def fmod(t1, t2) -> DNDarray:
     """Elementwise C-style remainder (the sign of the dividend)."""
-    return _binary_op(torch.fmod, t1, t2)
+    return _binary_op(_real_only(torch.fmod, "fmod"), t1, t2)
 
 
 def _inexact(t: torch.Tensor) -> torch.Tensor:
     # jnp computes these in float: int64 in float64, smaller types in float32
-    if t.is_floating_point():
+    if t.is_floating_point() or t.is_complex():
         return t
     return t.to(torch.float64 if t.dtype == torch.int64 else torch.float32)
 
@@ -125,12 +130,12 @@ def _copysign(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def hypot(t1, t2) -> DNDarray:
     """Elementwise ``sqrt(t1**2 + t2**2)``."""
-    return _binary_op(_hypot, t1, t2)
+    return _binary_op(_real_only(_hypot, "hypot", ValueError), t1, t2)
 
 
 def copysign(t1, t2) -> DNDarray:
     """Magnitude of ``t1`` with the sign of ``t2``."""
-    return _binary_op(_copysign, t1, t2)
+    return _binary_op(_real_only(_copysign, "copysign"), t1, t2)
 
 
 def pow(t1, t2, out=None, where=True) -> DNDarray:
@@ -322,13 +327,18 @@ def diff(a: DNDarray, n: int = 1, axis: int = -1, prepend=None, append=None) -> 
 
 
 def _int_to_int64(x: DNDarray):
-    # sum/prod accumulate bool and small ints in int64 (torch semantics)
+    # sum/prod accumulate bool and small ints in int64 (torch semantics); half types keep their own
     if types.heat_type_is_exact(x.dtype) and x.dtype is not types.int64:
         return types.int64
+    if x.dtype in (types.float16, types.bfloat16):
+        return x.dtype
     return None
 
 
 def _sum(t: torch.Tensor, axis, keepdims: bool) -> torch.Tensor:
+    if t.dtype in (torch.float16, torch.bfloat16):
+        # half data accumulates in float32, across ranks too; the caller rounds the result once
+        return _over_axes(lambda u, **kw: torch.sum(u, dtype=torch.float32, **kw), t, axis, keepdims)
     return _over_axes(torch.sum, t, axis, keepdims)
 
 

@@ -4,7 +4,18 @@ from __future__ import annotations
 import inspect
 from typing import Dict, List
 
-__all__ = ["BaseEstimator", "ClassificationMixin", "ClusteringMixin", "is_classifier", "is_clusterer", "is_estimator"]
+__all__ = [
+    "BaseEstimator",
+    "ClassificationMixin",
+    "ClusteringMixin",
+    "RegressionMixin",
+    "TransformMixin",
+    "is_classifier",
+    "is_clusterer",
+    "is_estimator",
+    "is_regressor",
+    "is_transformer",
+]
 
 
 class BaseEstimator:
@@ -69,6 +80,19 @@ class ClassificationMixin:
         raise NotImplementedError()
 
 
+class TransformMixin:
+    """Mixin for transformers."""
+
+    def fit(self, x):
+        raise NotImplementedError()
+
+    def fit_transform(self, x):
+        return self.fit(x).transform(x)
+
+    def transform(self, x):
+        raise NotImplementedError()
+
+
 class ClusteringMixin:
     """Mixin for clusterers."""
 
@@ -82,6 +106,22 @@ class ClusteringMixin:
         return self.predict(x)
 
 
+class RegressionMixin:
+    """Mixin for regressors."""
+
+    _estimator_type = "regressor"
+
+    def fit(self, x, y):
+        raise NotImplementedError()
+
+    def fit_predict(self, x, y):
+        self.fit(x, y)
+        return self.predict(x)
+
+    def predict(self, x):
+        raise NotImplementedError()
+
+
 def is_estimator(estimator) -> bool:
     return isinstance(estimator, BaseEstimator)
 
@@ -92,3 +132,11 @@ def is_classifier(estimator) -> bool:
 
 def is_clusterer(estimator) -> bool:
     return getattr(estimator, "_estimator_type", None) == "clusterer"
+
+
+def is_regressor(estimator) -> bool:
+    return getattr(estimator, "_estimator_type", None) == "regressor"
+
+
+def is_transformer(estimator) -> bool:
+    return hasattr(estimator, "transform") and hasattr(estimator, "fit")

@@ -13,15 +13,29 @@ the ceil-div ``chunk``, ``counts_displs_shape`` and ``lshape_map``, so
 that the last ranks may hold nothing — and adds the few collectives the
 port needs, on tensors: ``allreduce``, ``allgather`` of ragged shards
 along an axis, ``alltoall`` of ragged blocks, ``bcast`` (a slab from its
-owner) and ``ring_shift`` (a send to the previous rank with a receive from
-the next). Each one counts itself in :data:`.kernels.COLLECTIVES` where it
-starts.
+owner), ``ring_shift`` (a send to the previous rank with a receive from
+the next) and ``exchange`` (a few sends and receives between neighbours,
+as the split-axis halos need). Each one counts itself in
+:data:`.kernels.COLLECTIVES` where it starts.
+
+Every collective takes every heat type. What a backend lacks is moved in
+a type it has (:func:`_to_wire`): complex as its real view (NCCL has no
+complex type), int16 as int32 (neither gloo nor NCCL has int16), bool as
+uint8. Only ``allreduce`` computes on the values; for complex it takes
+``"sum"`` alone (a complex max or min is lexicographic, which no backend
+reduces: gather the candidates instead).
+
+``SELF`` is a communicator of one rank inside any group: its collectives
+return their input. ``MPI_WORLD``/``MPI_SELF``/``MPICommunication``/
+``MeshCommunication`` are ``heat_tpu``'s names for the same objects; there
+is no MPI underneath.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -30,9 +44,17 @@ import torch.distributed as dist
 from .kernels._dispatch import count_collective
 
 __all__ = [
+    "CUDA_AWARE_MPI",
     "Communication",
+    "MPICommunication",
+    "MPI_SELF",
+    "MPI_WORLD",
+    "MeshCommunication",
+    "SELF",
+    "SPLIT_AXIS",
     "TorchCommunication",
     "WORLD",
+    "comm_context",
     "get_comm",
     "init_distributed",
     "replicated_decision",
@@ -46,6 +68,25 @@ _REDUCE_OPS = {
     "min": dist.ReduceOp.MIN,
     "max": dist.ReduceOp.MAX,
 }
+
+
+# heat_tpu's name of the mesh axis that carries the split dimension
+SPLIT_AXIS = "split"
+# no MPI underneath: NCCL moves device memory itself
+CUDA_AWARE_MPI = False
+
+
+def _to_wire(t: torch.Tensor) -> Tuple[torch.Tensor, Callable[[torch.Tensor], torch.Tensor]]:
+    """``t`` in a type that gloo and NCCL both move, and the function that
+    turns a received tensor of that type back: complex as its real view
+    (one more trailing dimension of 2), int16 as int32, bool as uint8."""
+    if t.is_complex():
+        return torch.view_as_real(t.contiguous()), lambda u: torch.view_as_complex(u.contiguous())
+    if t.dtype == torch.int16:
+        return t.to(torch.int32), lambda u: u.to(torch.int16)
+    if t.dtype == torch.bool:
+        return t.to(torch.uint8), lambda u: u.to(torch.bool)
+    return t, lambda u: u
 
 
 class Communication:
@@ -142,10 +183,13 @@ class TorchCommunication(Communication):
         when no group is started."""
         if not self._started():
             return t
-        out = t.contiguous().clone()
+        if t.is_complex() and op != "sum":
+            raise TypeError(f"allreduce {op!r} of a complex tensor: complex values have no order a backend reduces by")
+        out, back = _to_wire(t.contiguous())
+        out = out.clone()
         count_collective("allreduce", out.numel() * out.element_size())
         dist.all_reduce(out, op=_REDUCE_OPS[op])
-        return out
+        return back(out)
 
     def allgather(self, t: torch.Tensor, axis: int = 0, counts: Optional[Sequence[int]] = None) -> torch.Tensor:
         """The concatenation along ``axis`` of every rank's ``t``, in rank
@@ -162,13 +206,15 @@ class TorchCommunication(Communication):
             counts = [int(p.item()) for p in parts]
         counts = [int(c) for c in counts]
         cap = max(counts)
-        moved = t.movedim(axis, 0)
-        buf = torch.zeros((cap,) + tuple(moved.shape[1:]), dtype=t.dtype, device=t.device)
+        axis = axis % t.ndim
+        w, back = _to_wire(t)
+        moved = w.movedim(axis, 0)
+        buf = torch.zeros((cap,) + tuple(moved.shape[1:]), dtype=w.dtype, device=w.device)
         buf[: moved.shape[0]] = moved
         parts = [torch.empty_like(buf) for _ in range(self.size)]
         count_collective("allgather", buf.numel() * buf.element_size(), buf.numel() * buf.element_size() * self.size)
         dist.all_gather(parts, buf)
-        return torch.cat([p[:c] for p, c in zip(parts, counts)], dim=0).movedim(0, axis)
+        return back(torch.cat([p[:c] for p, c in zip(parts, counts)], dim=0).movedim(0, axis))
 
     def alltoall(self, blocks: Sequence[torch.Tensor], recv_shapes: Sequence[Tuple[int, ...]]) -> List[torch.Tensor]:
         """Send ``blocks[q]`` to rank q and receive one block from every
@@ -176,24 +222,28 @@ class TorchCommunication(Communication):
         blocks have one dtype and device; any of them may be empty."""
         if not self._started():
             return [blocks[0].reshape(recv_shapes[0])]
-        ref = blocks[self.rank]
-        send = torch.cat([b.reshape(-1) for b in blocks])
-        sizes_in = [b.numel() for b in blocks]
-        sizes_out = [int(np.prod(s, dtype=np.int64)) for s in recv_shapes]
+        wired = [_to_wire(b) for b in blocks]
+        back = wired[0][1]
+        extra = (2,) if blocks[0].is_complex() else ()
+        ref = wired[self.rank][0]
+        send = torch.cat([w.reshape(-1) for w, _ in wired])
+        sizes_in = [w.numel() for w, _ in wired]
+        sizes_out = [int(np.prod(tuple(s) + extra, dtype=np.int64)) for s in recv_shapes]
         recv = torch.empty(sum(sizes_out), dtype=ref.dtype, device=ref.device)
         count_collective("alltoall", send.numel() * send.element_size(), recv.numel() * recv.element_size())
         dist.all_to_all_single(recv, send, output_split_sizes=sizes_out, input_split_sizes=sizes_in)
-        return [p.reshape(s) for p, s in zip(torch.split(recv, sizes_out), recv_shapes)]
+        return [back(p.reshape(tuple(s) + extra)) for p, s in zip(torch.split(recv, sizes_out), recv_shapes)]
 
     def bcast(self, t: torch.Tensor, root: int) -> torch.Tensor:
         """Rank ``root``'s ``t`` on every rank; the other ranks pass a
         tensor of the same shape and dtype to receive into."""
         if not self._started():
             return t
-        out = t.contiguous()
+        out, back = _to_wire(t.contiguous())
+        out = out.contiguous()
         count_collective("bcast", out.numel() * out.element_size())
         dist.broadcast(out, src=root)
-        return out
+        return back(out)
 
     def ring_shift(self, t: torch.Tensor) -> torch.Tensor:
         """The next rank's ``t`` (rank + 1, wrapping around): every rank
@@ -201,14 +251,36 @@ class TorchCommunication(Communication):
         same shape and dtype, as one batch of point-to-point operations."""
         if not self._started():
             return t
-        t = t.contiguous()
-        out = torch.empty_like(t)
-        count_collective("ring_shift", t.numel() * t.element_size())
-        ops = [dist.P2POp(dist.isend, t, (self.rank - 1) % self.size),
+        w, back = _to_wire(t.contiguous())
+        w = w.contiguous()
+        out = torch.empty_like(w)
+        count_collective("ring_shift", w.numel() * w.element_size())
+        ops = [dist.P2POp(dist.isend, w, (self.rank - 1) % self.size),
                dist.P2POp(dist.irecv, out, (self.rank + 1) % self.size)]
         for req in dist.batch_isend_irecv(ops):
             req.wait()
-        return out
+        return back(out)
+
+    def exchange(self, op: str, sends: Dict[int, torch.Tensor], recvs: Dict[int, Tuple[int, ...]],
+                 like: torch.Tensor) -> Dict[int, torch.Tensor]:
+        """Point-to-point messages as one batch: ``sends[q]`` goes to rank q,
+        and a tensor of shape ``recvs[p]`` (of ``like``'s dtype and device)
+        comes from rank p. Every rank must post the sends matching the
+        others' receives. Counted once as ``op``, with the bytes sent and
+        received."""
+        if not self._started() or not (sends or recvs):
+            return {}
+        wire, back = _to_wire(like[:0])
+        wired = {q: _to_wire(t.contiguous())[0].contiguous() for q, t in sends.items()}
+        extra = (2,) if like.is_complex() else ()
+        got = {p: torch.empty(tuple(shape) + extra, dtype=wire.dtype, device=like.device) for p, shape in recvs.items()}
+        count_collective(op, sum(t.numel() * t.element_size() for t in wired.values()),
+                         sum(t.numel() * t.element_size() for t in got.values()))
+        ops = [dist.P2POp(dist.isend, t, q) for q, t in sorted(wired.items())]
+        ops += [dist.P2POp(dist.irecv, t, p) for p, t in sorted(got.items())]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return {p: back(t) for p, t in got.items()}
 
     def barrier(self) -> None:
         """Wait until every rank has come here."""
@@ -223,13 +295,30 @@ class TorchCommunication(Communication):
         return f"TorchCommunication(size={self.size}, backend={self.backend})"
 
     def __eq__(self, other) -> bool:
-        return isinstance(other, TorchCommunication)
+        return type(other) is type(self)
 
     def __hash__(self):
-        return hash(TorchCommunication)
+        return hash(type(self))
+
+
+class _SelfCommunication(TorchCommunication):
+    """A communicator of this rank alone, inside any group (``MPI_SELF``):
+    size 1, rank 0, and every collective returns its input."""
+
+    @staticmethod
+    def _started() -> bool:
+        return False
+
+    def __repr__(self) -> str:
+        return "TorchCommunication(SELF)"
 
 
 WORLD = TorchCommunication()
+SELF = _SelfCommunication()
+MPI_WORLD = WORLD
+MPI_SELF = SELF
+MPICommunication = TorchCommunication
+MeshCommunication = TorchCommunication
 
 _default_comm = WORLD
 
@@ -247,6 +336,18 @@ def use_comm(comm: Optional[TorchCommunication] = None) -> None:
     if not isinstance(comm, Communication):
         raise TypeError(f"expected a Communication object, got {type(comm)}")
     _default_comm = comm
+
+
+@contextlib.contextmanager
+def comm_context(comm: TorchCommunication):
+    """Make ``comm`` the default communicator for the ``with`` block."""
+    global _default_comm
+    before = _default_comm
+    use_comm(comm)
+    try:
+        yield comm
+    finally:
+        _default_comm = before
 
 
 def sanitize_comm(comm) -> TorchCommunication:

@@ -17,6 +17,8 @@ import torch
 __all__ = ["Device", "cpu", "gpu", "get_device", "use_device", "sanitize_device"]
 
 _GPU_NAMES = ("gpu", "cuda")
+# the accelerator names a device argument may carry (heat_tpu's list names its TPU kinds too)
+ACCEL_NAMES = _GPU_NAMES
 
 
 class Device:

@@ -21,7 +21,16 @@ from .communication import TorchCommunication, sanitize_comm
 from .devices import Device
 from .stride_tricks import sanitize_axis
 
-__all__ = ["DNDarray"]
+__all__ = ["DNDarray", "LocalIndex"]
+
+
+def _host_tensor(a: np.ndarray) -> torch.Tensor:
+    """A CPU tensor holding a copy of the numpy array ``a``, of its type. A
+    numpy bfloat16 array (``ml_dtypes``', known by its dtype's name) moves
+    its bits through an int16 view."""
+    if types._is_numpy_bfloat16(a.dtype):
+        return torch.from_numpy(np.array(a, order="C", copy=True).view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a, order="C", copy=True))  # host data is copied, never aliased
 
 
 def _to_tensor(array, dtype, device: Device) -> torch.Tensor:
@@ -31,11 +40,22 @@ def _to_tensor(array, dtype, device: Device) -> torch.Tensor:
         t = array
     else:
         a = np.asarray(array)
-        if dtype is None and a.dtype not in types._NP_TO_HEAT:
-            raise TypeError(f"data type {a.dtype} not supported by this slice of the port")
-        t = torch.from_numpy(np.array(a, order="C", copy=True))  # host data is copied, never aliased
+        if dtype is None:
+            types.canonical_heat_type(a.dtype)  # raises for a type heat does not have
+        t = _host_tensor(a)
     tt = None if dtype is None else dtype.torch_type()
     return t.to(device=tdev, dtype=tt)
+
+
+class LocalIndex:
+    """Indexing of this rank's tensor (``DNDarray.lloc``/``loc``): the key
+    applies to ``larray``, and the result is a tensor."""
+
+    def __init__(self, obj: torch.Tensor):
+        self.obj = obj
+
+    def __getitem__(self, key):
+        return self.obj[key]
 
 
 def _redistribute(
@@ -189,6 +209,192 @@ class DNDarray:
         this returns ``self``."""
         return self
 
+    @property
+    def balanced(self) -> bool:
+        """Whether the chunks are in the ceil-div layout: always."""
+        return True
+
+    @property
+    def lcounts(self) -> None:
+        """The rows of each rank in a ragged layout; None, since the port
+        keeps every array in the ceil-div layout."""
+        return None
+
+    def create_lshape_map(self, force_check: bool = False) -> np.ndarray:
+        """The ``lshape_map`` (computed from the layout, never communicated)."""
+        return self.lshape_map
+
+    @property
+    def pshape(self) -> Tuple[int, ...]:
+        """``heat_tpu``'s padded buffer shape: the split extent rounded up to
+        the ranks' ceil-div block times the number of ranks."""
+        if self.__split is None:
+            return self.__gshape
+        shape = list(self.__gshape)
+        shape[self.__split] = -(-shape[self.__split] // self.__comm.size) * self.__comm.size
+        return tuple(shape)
+
+    @property
+    def padded(self) -> bool:
+        """Whether ``heat_tpu``'s buffer of this array would carry tail
+        padding along the split axis."""
+        return self.pshape != self.__gshape
+
+    @property
+    def local_shards(self) -> list:
+        """This rank's shards: its one chunk."""
+        return [self.__array]
+
+    def counts_displs(self) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+        """Every rank's row count and offset along the split axis."""
+        if self.__split is None:
+            raise ValueError("Non-distributed DNDarray. Cannot calculate counts and displacements.")
+        counts = self.lshape_map[:, self.__split]
+        displs = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        return tuple(int(c) for c in counts), tuple(int(d) for d in displs)
+
+    def is_distributed(self) -> bool:
+        """Whether the data is split over more than one rank."""
+        return self.__split is not None and self.__comm.is_distributed()
+
+    @property
+    def gnumel(self) -> int:
+        return self.size
+
+    @property
+    def lnumel(self) -> int:
+        return int(np.prod(self.lshape, dtype=np.int64))
+
+    @property
+    def nbytes(self) -> int:
+        return self.size * self.__array.element_size()
+
+    @property
+    def gnbytes(self) -> int:
+        return self.nbytes
+
+    @property
+    def lnbytes(self) -> int:
+        return self.lnumel * self.__array.element_size()
+
+    @property
+    def stride(self) -> Tuple[int, ...]:
+        """Element strides of the C-contiguous global array."""
+        strides, acc = [], 1
+        for dim in reversed(self.__gshape):
+            strides.append(acc)
+            acc *= dim
+        return tuple(reversed(strides))
+
+    @property
+    def strides(self) -> Tuple[int, ...]:
+        """Byte strides of the C-contiguous global array, numpy-style."""
+        item = self.__array.element_size()
+        return tuple(s * item for s in self.stride)
+
+    @property
+    def real(self) -> "DNDarray":
+        from . import complex_math
+
+        return complex_math.real(self)
+
+    @property
+    def imag(self) -> "DNDarray":
+        from . import complex_math
+
+        return complex_math.imag(self)
+
+    @property
+    def loc(self) -> LocalIndex:
+        return LocalIndex(self.__array)
+
+    @property
+    def lloc(self) -> LocalIndex:
+        """Indexing of this rank's tensor."""
+        return LocalIndex(self.__array)
+
+    def cpu(self) -> "DNDarray":
+        """A copy of the whole array on the host: split None, on the CPU
+        device, on every rank."""
+        return DNDarray(self._logical().detach().cpu().clone(), gshape=self.__gshape, dtype=self.__dtype, split=None,
+                        device=devices.cpu, comm=self.__comm)
+
+    def fill_diagonal(self, value) -> "DNDarray":
+        """Write ``value`` on the main diagonal of a 2-D array, in place of
+        this object (each rank writes the part of the diagonal its chunk
+        holds)."""
+        if self.ndim != 2:
+            raise ValueError("input array must be 2D")
+        n = min(self.__gshape)
+        off = self.__comm.chunk(self.__gshape, self.__split)[0]
+        lo = off if self.__split is not None else 0
+        hi = min(n, lo + (self.lshape[self.__split] if self.__split is not None else n))
+        idx = torch.arange(max(lo, 0), max(hi, lo), device=self.__array.device)
+        new = self.__array.clone()
+        if idx.numel():
+            rows = idx - off if self.__split == 0 else idx
+            cols = idx - off if self.__split == 1 else idx
+            new[rows, cols] = torch.as_tensor(value, device=new.device).to(new.dtype)
+        self.__array = new
+        return self
+
+    # --------------------------------------------------------------- halos
+    def get_halo(self, halo_size: int) -> None:
+        """Fetch the split-axis halos of width ``halo_size``: afterwards
+        ``halo_prev`` holds the last ``halo_size`` rows of the previous
+        rank's chunk and ``halo_next`` the first ``halo_size`` rows of the
+        next rank's. As in ``heat_tpu``, a boundary where either side holds
+        fewer than ``halo_size`` rows carries no halo (that side gets None).
+        Every rank calls it: one batch of at most two sends and two
+        receives per rank, counted as ``"halo"`` in ``COLLECTIVES``. The
+        halos are those of the values at the time of the call."""
+        if not isinstance(halo_size, int) or halo_size < 0:
+            raise (TypeError if not isinstance(halo_size, int) else ValueError)(
+                f"halo_size needs to be a non-negative int, got {halo_size}"
+            )
+        self.__halo_size = halo_size
+        self.__halos = (None, None)
+        split, comm = self.__split, self.__comm
+        if halo_size == 0 or split is None or not comm.is_distributed():
+            return
+        counts = self.lshape_map[:, split]
+        me, t = comm.rank, self.__array
+
+        def carries(b: int) -> bool:  # the boundary between ranks b - 1 and b
+            return 0 < b < comm.size and counts[b - 1] >= halo_size and counts[b] >= halo_size
+
+        shape = list(t.shape)
+        shape[split] = halo_size
+        sends, recvs = {}, {}
+        if carries(me):
+            sends[me - 1] = t.narrow(split, 0, halo_size)
+            recvs[me - 1] = tuple(shape)
+        if carries(me + 1):
+            sends[me + 1] = t.narrow(split, t.shape[split] - halo_size, halo_size)
+            recvs[me + 1] = tuple(shape)
+        got = comm.exchange("halo", sends, recvs, t)
+        self.__halos = (got.get(me - 1), got.get(me + 1))
+
+    @property
+    def halo_size(self) -> int:
+        return getattr(self, "_DNDarray__halo_size", 0)
+
+    @property
+    def halo_prev(self) -> Optional[torch.Tensor]:
+        """The rows received from the previous rank by :meth:`get_halo`, or None."""
+        return getattr(self, "_DNDarray__halos", (None, None))[0]
+
+    @property
+    def halo_next(self) -> Optional[torch.Tensor]:
+        """The rows received from the next rank by :meth:`get_halo`, or None."""
+        return getattr(self, "_DNDarray__halos", (None, None))[1]
+
+    def array_with_halos(self) -> torch.Tensor:
+        """This rank's chunk with its halos on either side along the split
+        axis: ``cat(halo_prev, larray, halo_next)``."""
+        parts = [h for h in (self.halo_prev, self.__array, self.halo_next) if h is not None]
+        return torch.cat(parts, dim=self.__split) if len(parts) > 1 else self.__array
+
     # ----------------------------------------------------------- conversion
     def __resplit_tensor(self, axis: Optional[int]) -> torch.Tensor:
         """This rank's tensor of the array split along ``axis``: a local
@@ -243,8 +449,11 @@ class DNDarray:
         return DNDarray(casted, gshape=self.__gshape, dtype=dtype, split=self.__split, device=self.__device, comm=self.__comm)
 
     def numpy(self) -> np.ndarray:
-        """The global array as a numpy array on the host, on every rank."""
-        return self._logical().detach().cpu().numpy()
+        """The global array as a numpy array on the host, on every rank. numpy
+        has no bfloat16, so a bfloat16 array comes back as float32, which
+        holds every bfloat16 value exactly."""
+        t = self._logical().detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
     def item(self):
         """The single element as a python scalar."""
@@ -1051,9 +1260,8 @@ class DNDarray:
         return triu(self, k)
 
     def __repr__(self) -> str:
-        return (
-            f"DNDarray({self.numpy()!r}, dtype=ht.{self.__dtype.__name__}, "
-            f"device={self.__device}, split={self.__split})"
-        )
+        from . import printing
+
+        return printing.__str__(self)
 
     __str__ = __repr__

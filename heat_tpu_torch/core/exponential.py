@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from ._operations import _binary_op, _local_op
+from ._operations import _binary_op, _local_op, _real_only
 from .dndarray import DNDarray
 
 __all__ = [
@@ -63,14 +63,21 @@ def log1p(x, out=None) -> DNDarray:
     return _local_op(torch.log1p, x, out=out)
 
 
+def _in_float(fn):
+    """``fn`` of two tensors, integer or bool ones taken in float first."""
+    from .arithmetics import _inexact
+
+    return lambda a, b: fn(_inexact(a), _inexact(b))
+
+
 def logaddexp(x1, x2, out=None) -> DNDarray:
     """Elementwise log(exp(x1) + exp(x2))."""
-    return _binary_op(torch.logaddexp, x1, x2, out=out)
+    return _binary_op(_in_float(torch.logaddexp), x1, x2, out=out)
 
 
 def logaddexp2(x1, x2, out=None) -> DNDarray:
     """Elementwise log2(2**x1 + 2**x2)."""
-    return _binary_op(torch.logaddexp2, x1, x2, out=out)
+    return _binary_op(_in_float(torch.logaddexp2), x1, x2, out=out)
 
 
 def sqrt(x, out=None) -> DNDarray:
@@ -99,4 +106,4 @@ def _cbrt(t: torch.Tensor) -> torch.Tensor:
 
 def cbrt(x, out=None) -> DNDarray:
     """Elementwise real cube root."""
-    return _local_op(_cbrt, x, out=out)
+    return _local_op(_real_only(_cbrt, "cbrt"), x, out=out)

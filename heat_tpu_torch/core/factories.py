@@ -14,7 +14,7 @@ import torch
 from . import devices, types
 from .communication import TorchCommunication, sanitize_comm
 from .devices import Device
-from .dndarray import DNDarray, _redistribute
+from .dndarray import DNDarray, _host_tensor, _redistribute
 from .stride_tricks import sanitize_axis, sanitize_shape
 
 __all__ = [
@@ -76,18 +76,18 @@ def array(
     else:
         a = np.asarray(data)
         if a.dtype == np.float64 and dtype is None and not isinstance(data, np.ndarray):
-            # python floats default to float32, like heat_tpu and torch
+            # python floats default to float32, like heat_tpu and torch (python complex stays complex128)
             a = a.astype(np.float32)
         if dtype is None:
-            types.canonical_heat_type(a.dtype)  # raises for types outside this slice
-        elif a.dtype not in types._NP_TO_HEAT:
-            a = a.astype(dtype.numpy_type())
+            types.canonical_heat_type(a.dtype)  # raises for a type heat does not have
+        elif a.dtype not in types._NP_TO_HEAT and not types._is_numpy_bfloat16(a.dtype):
+            a = a.astype(dtype.numpy_type() or np.float32)
         a = a.reshape((1,) * (ndmin - a.ndim) + a.shape)
         gshape = a.shape
         if split is not None:  # only this rank's chunk goes to the device
             a = a[comm.chunk(gshape, sanitize_axis(gshape, split))[2]]
             chunked = True
-        t = torch.from_numpy(np.array(a, copy=True)).to(device=device.torch_device)
+        t = _host_tensor(a).to(device=device.torch_device)
     if dtype is not None:
         t = t.to(dtype.torch_type())
     if is_split is not None:

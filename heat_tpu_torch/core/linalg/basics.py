@@ -15,6 +15,7 @@ the way. Norms over a split axis gather the array, except the default
 """
 from __future__ import annotations
 
+import contextlib
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -70,6 +71,34 @@ def _matmul_out_split(a: DNDarray, b: DNDarray, out_ndim: int) -> Optional[int]:
     return None
 
 
+_HALF = (torch.float16, torch.bfloat16)
+
+
+@contextlib.contextmanager
+def _float32_accumulation(tt: torch.dtype):
+    """For half-precision products: cuBLAS's reduced-precision reductions
+    off for the block (restored after it), so every sum accumulates in
+    float32, as ``heat_tpu``'s products of half types do."""
+    if tt not in _HALF:
+        yield
+        return
+    m = torch.backends.cuda.matmul
+    before = (m.allow_fp16_reduced_precision_reduction, m.allow_bf16_reduced_precision_reduction)
+    m.allow_fp16_reduced_precision_reduction = m.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        m.allow_fp16_reduced_precision_reduction, m.allow_bf16_reduced_precision_reduction = before
+
+
+def _partial_product(x: torch.Tensor, y: torch.Tensor, comm) -> torch.Tensor:
+    """The sum over the ranks of ``x @ y``: half-precision partial products
+    are added in float32 and rounded once."""
+    if x.dtype in _HALF:
+        return comm.allreduce(torch.matmul(x.float(), y.float())).to(x.dtype)
+    return comm.allreduce(torch.matmul(x, y))
+
+
 def _matmul_2d(a: DNDarray, b: DNDarray, tt) -> torch.Tensor:
     """This rank's part of the product of two 2-D operands, at least one
     split, laid out by :func:`_matmul_out_split`."""
@@ -81,9 +110,9 @@ def _matmul_2d(a: DNDarray, b: DNDarray, tt) -> torch.Tensor:
     if sa == 1 and sb in (0, None):
         # the contracted axis is split: a product of the chunks, summed across ranks
         rows = lb if sb == 0 else lb[comm.chunk(b.gshape, 0)[2]]
-        return comm.allreduce(torch.matmul(la, rows))
+        return _partial_product(la, rows, comm)
     if sa is None and sb == 0:
-        return comm.allreduce(torch.matmul(la[comm.chunk(a.gshape, 1)[2]], lb))
+        return _partial_product(la[comm.chunk(a.gshape, 1)[2]], lb, comm)
     if sa == 0:
         return torch.matmul(la, b._logical().to(tt))
     return torch.matmul(a._logical().to(tt), lb)  # (1, 1): the whole a against b's columns
@@ -103,6 +132,16 @@ def matmul(a: DNDarray, b: DNDarray, allow_resplit: bool = False) -> DNDarray:
     split = _matmul_out_split(a, b, len(out_gshape)) if out_gshape else None
     if split is not None:
         split %= len(out_gshape)
+    with _float32_accumulation(tt):
+        result = _matmul_local(a, b, tt, out_gshape, split)
+    if result.ndim == 0:
+        return DNDarray(result, dtype=promoted, split=None, device=a.device, comm=comm)
+    return DNDarray(result, gshape=out_gshape, dtype=promoted, split=split, device=a.device, comm=comm)
+
+
+def _matmul_local(a: DNDarray, b: DNDarray, tt, out_gshape, split) -> torch.Tensor:
+    """This rank's part of ``a @ b`` in the torch type ``tt``."""
+    comm = a.comm
     la, lb = a.larray.to(tt), b.larray.to(tt)
     if not comm.is_distributed() or (a.split is None and b.split is None):
         result = torch.matmul(la, lb)
@@ -120,9 +159,7 @@ def matmul(a: DNDarray, b: DNDarray, allow_resplit: bool = False) -> DNDarray:
     else:
         result = torch.matmul(a._logical().to(tt), b._logical().to(tt))
         result = result[comm.chunk(out_gshape, split)[2]] if result.ndim else result
-    if result.ndim == 0:
-        return DNDarray(result, dtype=promoted, split=None, device=a.device, comm=comm)
-    return DNDarray(result, gshape=out_gshape, dtype=promoted, split=split, device=a.device, comm=comm)
+    return result
 
 
 def transpose(a: DNDarray, axes: Optional[List[int]] = None) -> DNDarray:
@@ -172,12 +209,6 @@ def dot(a: DNDarray, b: DNDarray, out: Optional[DNDarray] = None) -> DNDarray:
     raise NotImplementedError("ht.dot not implemented for >2 dimensions")
 
 
-def _real_only(name: str, *arrs: DNDarray) -> None:
-    """The port has no complex types yet: conjugation is the identity."""
-    if any(x.larray.is_complex() for x in arrs):
-        raise NotImplementedError(f"{name}: complex input is not supported (conj is the identity on real types)")
-
-
 def _chunk_of(result: torch.Tensor, split: Optional[int], comm) -> torch.Tensor:
     """This rank's chunk along ``split`` of a result computed whole."""
     if split is None or not comm.is_distributed():
@@ -186,34 +217,45 @@ def _chunk_of(result: torch.Tensor, split: Optional[int], comm) -> torch.Tensor:
 
 
 def vdot(x1: DNDarray, x2: DNDarray) -> DNDarray:
-    """Dot product of the flattened inputs, a replicated scalar. For real
-    types the conjugation of ``x1`` is the identity (complex input raises
-    ``NotImplementedError``)."""
-    _real_only("vdot", x1, x2)
+    """Dot product of the flattened inputs with ``x1`` conjugated, a
+    replicated scalar. Two operands of one shape, split alike (or one of
+    them replicated), multiply on each rank's chunk, and one ``allreduce``
+    adds the ranks' sums; otherwise the operands are gathered."""
     if x1.size != x2.size:
         raise ValueError(f"vdot: sizes {x1.size} and {x2.size} differ")
     dtype = types.promote_types(x1.dtype, x2.dtype)
-    va, vb = x1._logical().reshape(-1), x2._logical().reshape(-1)
+    comm = x1.comm
+    split = x1.split if x1.split is not None else x2.split
+    chunked = comm.is_distributed() and split is not None and x1.gshape == x2.gshape \
+        and x2.split in (None, split)
+    if chunked:
+        va, vb = (_local_operand(v, x1.gshape, split).reshape(-1) for v in (x1, x2))
+    else:
+        va, vb = x1._logical().reshape(-1), x2._logical().reshape(-1)
     if dtype is types.bool:
         result = torch.any(va & vb)
+        if chunked:
+            result = comm.allreduce(result.to(torch.int32), "max").to(torch.bool)
     else:
         tt = dtype.torch_type()
-        result = torch.sum(va.to(tt) * vb.to(tt), dtype=tt)
-    return DNDarray(result, dtype=dtype, split=None, device=x1.device, comm=x1.comm)
+        va = va.to(tt)
+        result = torch.sum((va.conj() if va.is_complex() else va) * vb.to(tt), dtype=tt)
+        if chunked:
+            result = comm.allreduce(result)
+    return DNDarray(result, dtype=dtype, split=None, device=x1.device, comm=comm)
 
 
 def vecdot(x1: DNDarray, x2: DNDarray, axis: Optional[int] = None, keepdim=None, keepdims: bool = False) -> DNDarray:
     """Dot products of the broadcast inputs along ``axis`` (default -1).
     The result's split is the split of ``x1`` (of ``x2`` if ``x1`` is
     replicated) with the reduced axis removed; its type is that of the
-    sum of the products (integers below int64 sum in int64). For real
-    types the conjugation of ``x1`` is the identity (complex input raises
-    ``NotImplementedError``)."""
-    _real_only("vecdot", x1, x2)
+    sum of the products (integers below int64 sum in int64); ``x1`` is
+    conjugated."""
     keepdims = bool(keepdim or keepdims)
     ndim = max(x1.ndim, x2.ndim)
     axis = sanitize_axis(tuple(np.broadcast_shapes(x1.shape, x2.shape)), -1 if axis is None else axis)
-    prod = torch.mul(x1._logical(), x2._logical())
+    t1 = x1._logical()
+    prod = torch.mul(t1.conj() if t1.is_complex() else t1, x2._logical())
     result = torch.sum(prod, dim=axis, keepdim=keepdims)
     anchor = x1 if x1.split is not None else x2
     split = _reduced_split(anchor.split, axis, ndim, keepdims)

@@ -9,7 +9,7 @@ from __future__ import annotations
 import torch
 
 from . import types
-from ._operations import _binary_op, _local_op, _over_axes, _reduce_op
+from ._operations import _binary_op, _local_op, _over_axes, _real_only, _reduce_op
 from .dndarray import DNDarray
 
 __all__ = [
@@ -81,12 +81,14 @@ def isnan(x) -> DNDarray:
 
 def isneginf(x, out=None) -> DNDarray:
     """Elementwise test for minus infinity."""
-    return _local_op(torch.isneginf, x, out=out, no_cast=True, out_dtype=types.bool)
+    return _local_op(_real_only(torch.isneginf, "isneginf", ValueError), x, out=out, no_cast=True,
+                     out_dtype=types.bool)
 
 
 def isposinf(x, out=None) -> DNDarray:
     """Elementwise test for plus infinity."""
-    return _local_op(torch.isposinf, x, out=out, no_cast=True, out_dtype=types.bool)
+    return _local_op(_real_only(torch.isposinf, "isposinf", ValueError), x, out=out, no_cast=True,
+                     out_dtype=types.bool)
 
 
 def _as_bool(t):
@@ -117,4 +119,5 @@ def logical_xor(x, y) -> DNDarray:
 
 def signbit(x, out=None) -> DNDarray:
     """Elementwise test for a set sign bit (true for -0.0)."""
-    return _local_op(torch.signbit, x, out=out, no_cast=True, out_dtype=types.bool)
+    return _local_op(_real_only(torch.signbit, "signbit", ValueError), x, out=out, no_cast=True,
+                     out_dtype=types.bool)

@@ -500,14 +500,105 @@ def _pad_map(i: np.ndarray, n: int, before: int, mode: str) -> np.ndarray:
     if mode == "symmetric":
         j = j % (2 * n)
         return np.where(j < n, j, 2 * n - 1 - j)
-    raise NotImplementedError(f"pad mode {mode!r} is not supported; use constant, edge, wrap, reflect or symmetric")
+    raise NotImplementedError(f"pad mode {mode!r} is not supported")
+
+
+def _data_rows(comm, out_shape, ax: int, b: int, n: int):
+    """For a pad of ``b`` rows before ``n`` data rows along ``ax``: the data
+    rows (in the input's coordinates) of each rank's result chunk."""
+
+    def want(r):
+        lo, sh, _ = comm.chunk(out_shape, ax, rank=r)
+        s, f = max(lo, b), min(lo + sh[ax], b + n)
+        return [(s - b, f - b)] if f > s else []
+
+    return want
+
+
+_FILL_MODES = ("linear_ramp", "maximum", "mean", "median", "minimum", "empty")
+
+
+def _axis_stat(t: torch.Tensor, gshape, split, ax: int, mode: str, like: DNDarray) -> torch.Tensor:
+    """numpy's pad statistic of ``t`` (this rank's chunk of an array of
+    ``gshape``) along the whole axis ``ax``, with ``ax`` kept as one row:
+    locally off the split axis; along it from the ranks' partial results
+    (one ``allgather``), and the port's exact ``median``. Integer results
+    round half to even, as numpy's ``np.around``."""
+    from . import arithmetics, statistics
+
+    if mode == "median" and t.is_complex():
+        raise ValueError("pad mode 'median' does not support complex input: complex numbers have no order")
+    if mode == "mean" and not (t.is_floating_point() or t.is_complex()) or mode == "median":
+        work = t.to(torch.float64)
+    elif t.dtype in (torch.float16, torch.bfloat16):
+        work = t.to(torch.float32)  # jnp's mean and median of half types accumulate in float32
+    else:
+        work = t
+    if split == ax and like.comm.is_distributed():
+        d = DNDarray(work, gshape=gshape, split=split, device=like.device, comm=like.comm)
+        if mode == "mean":
+            stat = arithmetics.sum(d, axis=ax, keepdims=True).larray / gshape[ax]
+        else:
+            fn = {"maximum": statistics.max, "minimum": statistics.min, "median": statistics.median}[mode]
+            stat = fn(d, axis=ax, keepdims=True).larray
+    elif mode == "mean":
+        stat = work.sum(dim=ax, keepdim=True) / gshape[ax]
+    elif mode == "median":
+        shape = list(work.shape)
+        shape[ax] = 1
+        # an empty chunk (a rank past the end of the split axis) has no median to take: its rows are none
+        stat = torch.quantile(work, 0.5, dim=ax, keepdim=True) if work.numel() else work.new_zeros(shape)
+    else:
+        stat = (statistics._max if mode == "maximum" else statistics._min)(work, ax, True)
+    if not (t.is_floating_point() or t.is_complex()) and mode in ("mean", "median"):
+        stat = torch.round(stat)
+    return stat.to(t.dtype)
+
+
+def _ramp(edge: torch.Tensor, ax: int, width: int, rising: bool) -> torch.Tensor:
+    """numpy's linear ramp of ``width`` rows along ``ax`` between 0 and the
+    edge row: ``edge * k / width`` for k = 0 .. width - 1 (rising, before
+    the data) or k = width - 1 .. 0 (after it), floored for integers."""
+    wide = torch.complex128 if edge.is_complex() else torch.float64
+    k = torch.arange(width, dtype=torch.float64, device=edge.device)
+    if not rising:
+        k = k.flip(0)
+    shape = [1] * edge.ndim
+    shape[ax] = width
+    out = edge.to(wide) * (k / width).reshape(shape)
+    if not (edge.is_floating_point() or edge.is_complex()):
+        out = torch.floor(out)
+    return out.to(edge.dtype)
+
+
+def _fill_blocks(t: torch.Tensor, gshape, split, ax: int, b: int, e: int, mode: str, like: DNDarray):
+    """The ``b`` rows before and the ``e`` rows after the data along ``ax``
+    for one of :data:`_FILL_MODES`, whole along ``ax``."""
+    shape_b, shape_e = list(t.shape), list(t.shape)
+    shape_b[ax], shape_e[ax] = b, e
+    if mode == "empty":
+        return t.new_zeros(shape_b), t.new_zeros(shape_e)
+    if mode == "linear_ramp":
+        n = gshape[ax]
+        if split == ax and like.comm.is_distributed():
+            edges = take_rows(t, gshape, ax, lambda r: np.array([0, n - 1]), like.comm)
+        else:
+            edges = t.index_select(ax, torch.tensor([0, n - 1], device=t.device))
+        first, last = edges.narrow(ax, 0, 1), edges.narrow(ax, 1, 1)
+        return _ramp(first, ax, b, True), _ramp(last, ax, e, False)
+    stat = _axis_stat(t, gshape, split, ax, mode, like)
+    return stat.expand(shape_b), stat.expand(shape_e)
 
 
 def pad(array: DNDarray, pad_width, mode: str = "constant", constant_values=0) -> DNDarray:
     """``array`` padded by ``pad_width`` (numpy's forms; a flat pair pads
-    the last axis) with ``constant_values`` or by the ``edge``, ``wrap``,
-    ``reflect`` or ``symmetric`` rule. Along the split axis each rank
-    fetches the rows its result chunk reads."""
+    the last axis) with ``constant_values``, by the ``edge``, ``wrap``,
+    ``reflect`` or ``symmetric`` rule, or with numpy's ``linear_ramp``
+    (to 0), ``maximum``, ``mean``, ``median`` or ``minimum`` of the whole
+    axis, or ``empty`` (zeros, as jnp gives). Axes pad in order, as numpy
+    pads them. Along the split axis each rank fetches the rows its result
+    chunk reads; the statistics come from the ranks' partial results and
+    the ramps from the two edge rows."""
     if isinstance(pad_width, (int, np.integer)):
         np_pad = [(int(pad_width), int(pad_width))] * array.ndim
     else:
@@ -546,12 +637,7 @@ def pad(array: DNDarray, pad_width, mode: str = "constant", constant_values=0) -
         distributed = _along_split(array, ax)
         if mode == "constant":
             if distributed:
-                def want(r, ax=ax, b=b, n=n):
-                    lo, sh, _ = comm.chunk(out_shape, ax, rank=r)
-                    s, f = max(lo, b), min(lo + sh[ax], b + n)
-                    return [(s - b, f - b)] if f > s else []
-
-                got = take_intervals(t, array.gshape, ax, want, comm)
+                got = take_intervals(t, array.gshape, ax, _data_rows(comm, out_shape, ax, b, n), comm)
                 m = comm.chunk(out_shape, ax)[1][ax]
                 shape_o = list(t.shape)
                 shape_o[ax] = m
@@ -570,6 +656,24 @@ def pad(array: DNDarray, pad_width, mode: str = "constant", constant_values=0) -
             continue
         if n == 0:
             raise ValueError(f"can't extend empty axis {ax} using modes other than 'constant'")
+        if mode in _FILL_MODES:
+            gshape_t = tuple(out_shape[d] if d < ax else array.gshape[d] for d in range(array.ndim))
+            before, after = _fill_blocks(t, gshape_t, split, ax, b, e, mode, array)
+            if distributed:
+                lo, sh, _ = comm.chunk(out_shape, ax)
+                m = sh[ax]
+                got = take_intervals(t, gshape_t, ax, _data_rows(comm, out_shape, ax, b, n), comm)
+                pieces = []
+                if lo < b:
+                    pieces.append(before.narrow(ax, lo, min(lo + m, b) - lo))
+                pieces += got
+                if lo + m > b + n:
+                    start = max(lo, b + n) - (b + n)
+                    pieces.append(after.narrow(ax, start, lo + m - (b + n) - start))
+                t = torch.cat(pieces, dim=ax) if pieces else before.narrow(ax, 0, 0)
+            else:
+                t = torch.cat([before, t, after], dim=ax)
+            continue
         if distributed:
             def src_rows(r, ax=ax, b=b, n=n):
                 lo, sh, _ = comm.chunk(out_shape, ax, rank=r)

@@ -131,6 +131,12 @@ def _chunk(shape, split, comm):
 
 def _float_type(dtype):
     dtype = types.canonical_heat_type(dtype) if dtype is not None else types.float32
+    if dtype in (types.float16, types.bfloat16):
+        # jax draws 16-bit words for these types, a stream threefry_bits does not make yet
+        raise NotImplementedError(
+            f"random floats of dtype {dtype.__name__} need heat_tpu's 16-bit threefry stream, "
+            "which the port does not draw yet (ROADMAP.md, Queue A: 16-bit draws in threefry_bits)"
+        )
     if dtype not in (types.float32, types.float64):
         raise ValueError(f"Unsupported dtype {dtype} for random floats")
     return dtype

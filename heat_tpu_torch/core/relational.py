@@ -2,7 +2,8 @@
 
 Each comparison goes over :func:`._operations._binary_op` (promotion,
 broadcast and split rules) and gives a bool DNDarray; ``equal`` gives one
-python bool.
+python bool. Complex numbers order lexicographically, as in ``heat_tpu``
+(jnp): by the real part, then by the imaginary part.
 """
 from __future__ import annotations
 
@@ -42,9 +43,25 @@ def equal(x, y) -> bool:
     return bool(_reduce_op(_all, res))
 
 
+def _ordered(strict, op):
+    """The comparison ``op``, lexicographic on complex tensors: ``strict``
+    on the real parts, or equal real parts and ``op`` on the imaginary ones."""
+
+    def run(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        if not a.is_complex():
+            return op(a, b)
+        return strict(a.real, b.real) | (a.real == b.real) & op(a.imag, b.imag)
+
+    return run
+
+
+_LT, _LE = _ordered(torch.lt, torch.lt), _ordered(torch.lt, torch.le)
+_GT, _GE = _ordered(torch.gt, torch.gt), _ordered(torch.gt, torch.ge)
+
+
 def ge(x, y) -> DNDarray:
     """Elementwise ``x >= y``."""
-    return _binary_op(torch.ge, x, y)
+    return _binary_op(_GE, x, y)
 
 
 greater_equal = ge
@@ -52,7 +69,7 @@ greater_equal = ge
 
 def gt(x, y) -> DNDarray:
     """Elementwise ``x > y``."""
-    return _binary_op(torch.gt, x, y)
+    return _binary_op(_GT, x, y)
 
 
 greater = gt
@@ -60,7 +77,7 @@ greater = gt
 
 def le(x, y) -> DNDarray:
     """Elementwise ``x <= y``."""
-    return _binary_op(torch.le, x, y)
+    return _binary_op(_LE, x, y)
 
 
 less_equal = le
@@ -68,7 +85,7 @@ less_equal = le
 
 def lt(x, y) -> DNDarray:
     """Elementwise ``x < y``."""
-    return _binary_op(torch.lt, x, y)
+    return _binary_op(_LT, x, y)
 
 
 less = lt

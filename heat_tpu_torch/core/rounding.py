@@ -2,14 +2,17 @@
 
 ``abs``, ``clip``, ``sign``, ``sgn`` and ``nan_to_num`` keep integer types;
 ``ceil``/``floor``/``trunc``/``round``/``fabs``/``modf`` compute integer
-input in float, as ``heat_tpu`` does.
+input in float, as ``heat_tpu`` does. Complex input: ``abs`` is real,
+``round`` rounds both parts, ``sign`` is the sign of the real part and
+``sgn`` is ``z / |z|``; ``ceil``/``floor``/``trunc``/``fabs`` raise
+``TypeError``.
 """
 from __future__ import annotations
 
 import torch
 
 from . import types
-from ._operations import _local_operand, _local_op, _write_out
+from ._operations import _local_operand, _local_op, _real_only, _write_out
 from .dndarray import DNDarray
 
 __all__ = [
@@ -49,7 +52,7 @@ absolute = abs
 
 def fabs(x, out=None) -> DNDarray:
     """Elementwise absolute value in float."""
-    return _local_op(torch.abs, x, out=out)
+    return _local_op(_real_only(torch.abs, "fabs"), x, out=out)
 
 
 def nan_to_num(x, nan=0.0, posinf=None, neginf=None, out=None) -> DNDarray:
@@ -60,17 +63,17 @@ def nan_to_num(x, nan=0.0, posinf=None, neginf=None, out=None) -> DNDarray:
 
 def ceil(x, out=None) -> DNDarray:
     """Elementwise ceiling."""
-    return _local_op(torch.ceil, x, out=out)
+    return _local_op(_real_only(torch.ceil, "ceil"), x, out=out)
 
 
 def floor(x, out=None) -> DNDarray:
     """Elementwise floor."""
-    return _local_op(torch.floor, x, out=out)
+    return _local_op(_real_only(torch.floor, "floor"), x, out=out)
 
 
 def trunc(x, out=None) -> DNDarray:
     """Elementwise rounding toward zero."""
-    return _local_op(torch.trunc, x, out=out)
+    return _local_op(_real_only(torch.trunc, "trunc"), x, out=out)
 
 
 def clip(x, min=None, max=None, out=None, *, a_min=None, a_max=None) -> DNDarray:
@@ -108,11 +111,17 @@ def modf(x, out=None):
     return frac, integ
 
 
+def _round(t: torch.Tensor, decimals: int = 0) -> torch.Tensor:
+    if t.is_complex():
+        return torch.complex(torch.round(t.real, decimals=decimals), torch.round(t.imag, decimals=decimals))
+    return torch.round(t, decimals=decimals)
+
+
 def round(x, decimals: int = 0, out=None, dtype=None) -> DNDarray:
     """Round half to even to ``decimals`` decimals, cast to ``dtype`` if given."""
     if dtype is not None:
         dtype = types.canonical_heat_type(dtype)
-    res = _local_op(torch.round, x, out=out, decimals=decimals)
+    res = _local_op(_round, x, out=out, decimals=decimals)
     if dtype is not None:
         res = res.astype(dtype)
     return res
@@ -122,7 +131,15 @@ def sign(x, out=None) -> DNDarray:
     """Elementwise sign: -1, 0 or 1 (NaN for NaN)."""
     if isinstance(x, DNDarray) and x.dtype is types.bool:
         raise TypeError("sign does not accept dtype bool")
-    return _local_op(torch.sign, x, out=out, no_cast=True)
+    return _local_op(_sign, x, out=out, no_cast=True)
 
 
-sgn = sign
+def _sign(t: torch.Tensor) -> torch.Tensor:
+    return torch.sign(t.real).to(t.dtype) if t.is_complex() else torch.sign(t)
+
+
+def sgn(x, out=None) -> DNDarray:
+    """Elementwise sign; for complex input ``z / |z|`` (0 where z is 0)."""
+    if isinstance(x, DNDarray) and x.dtype is types.bool:
+        raise TypeError("sgn does not accept dtype bool")
+    return _local_op(lambda t: torch.sgn(t) if t.is_complex() else torch.sign(t), x, out=out, no_cast=True)

@@ -31,7 +31,12 @@ computed in one read and memoized, so ``ht.mean(x)`` followed by
   per-column moments with :func:`_panel_cols_merge`;
 - other float panels (float64, ``axis=1``) use a plain shifted-sums
   program, as ``heat_tpu`` uses its XLA program there;
-- integer inputs, >2-D inputs and tuple axes reduce directly.
+- integer inputs, >2-D inputs and tuple axes reduce directly;
+- float16 and bfloat16 reduce directly in float32, and the result takes
+  the input's type; complex input reduces its real and imaginary parts
+  directly (the mean is complex, the variance the parts' sum, real). None
+  of them reaches the kernel, as in ``heat_tpu``, which sends only
+  float32 to ``moments_onepass``.
 
 The memo key is the tensor's identity *and* its ``_version``: torch
 tensors are mutable, so an in-place update (``x.larray.add_(1)``) bumps the
@@ -227,41 +232,72 @@ def _moments(x: DNDarray, axis, where):
     if not isinstance(x, DNDarray):
         raise TypeError(f"expected x to be a DNDarray, but was {type(x)}")
     axis_s = sanitize_axis(x.shape, axis)
+    axes = range(x.ndim) if axis_s is None else ((axis_s,) if isinstance(axis_s, int) else axis_s)
+    across = x.split is not None and x.split in axes and x.comm.is_distributed()
+    if x.larray.is_complex():
+        # |z - m|^2 = (re - m_re)^2 + (im - m_im)^2: the parts' moments, on the direct route
+        parts = []
+        for part in (x.larray.real, x.larray.imag):
+            p = DNDarray(part, gshape=x.gshape, split=x.split, device=x.device, comm=x.comm)
+            stats = _direct_moments(p, axis_s, where)
+            parts.append(moments_sharded(*stats, x.comm) if across else stats)
+        (c, m_re, m2_re), (_, m_im, m2_im) = parts
+        return axis_s, (c, torch.complex(m_re, m_im), m2_re + m2_im)
     stats = None if where is not None else _moments_panel(x, axis_s)
     if stats is None:
         # where= masks cannot key the memo: they decline to a direct reduction
         stats = _direct_moments(x, axis_s, where)
-    axes = range(x.ndim) if axis_s is None else ((axis_s,) if isinstance(axis_s, int) else axis_s)
-    if x.split is not None and x.split in axes and x.comm.is_distributed():
+    if across:
         stats = moments_sharded(*stats, x.comm)
     return axis_s, stats
+
+
+def _moment_type(x: DNDarray, result: torch.Tensor) -> torch.Tensor:
+    """A moment in ``heat_tpu``'s type: a half-precision input's own."""
+    return result.to(x.larray.dtype) if x.larray.dtype in (torch.float16, torch.bfloat16) else result
 
 
 def mean(x: DNDarray, axis=None, where=None) -> DNDarray:
     """Arithmetic mean along ``axis``. A following ``std``/``var`` on the
     same tensor reuses the memoized moments and reads no data."""
     axis_s, (_, m, _) = _moments(x, axis, where)
-    return _wrap_moment(x, axis_s, m)
+    return _wrap_moment(x, axis_s, _moment_type(x, m))
 
 
 def var(x: DNDarray, axis=None, ddof: int = 0, where=None) -> DNDarray:
     """Variance along ``axis`` with ``ddof`` delta degrees of freedom."""
     axis_s, (c, _, m2) = _moments(x, axis, where)
-    return _wrap_moment(x, axis_s, (m2 / (c - ddof)).to(m2.dtype))
+    return _wrap_moment(x, axis_s, _moment_type(x, (m2 / (c - ddof)).to(m2.dtype)))
 
 
 def std(x: DNDarray, axis=None, ddof: int = 0, where=None) -> DNDarray:
     """Standard deviation along ``axis`` with ``ddof`` delta degrees of freedom."""
     axis_s, (c, _, m2) = _moments(x, axis, where)
-    return _wrap_moment(x, axis_s, torch.sqrt(m2 / (c - ddof)).to(m2.dtype))
+    return _wrap_moment(x, axis_s, _moment_type(x, torch.sqrt(m2 / (c - ddof)).to(m2.dtype)))
 
 
 # ----------------------------------------------------------------- extrema
+def _lex_extreme(t: torch.Tensor, axis, keepdims: bool, largest: bool) -> torch.Tensor:
+    """The lexicographic maximum (``largest``) or minimum of a complex
+    tensor: the extreme real part, then the extreme imaginary part among
+    the elements that have it."""
+    red = torch.amax if largest else torch.amin
+    re = _over_axes(red, t.real, axis, True)
+    fill = float("-inf") if largest else float("inf")
+    im = _over_axes(red, torch.where(t.real == re, t.imag, fill), axis, True)
+    out = torch.complex(re, im)
+    return out if keepdims else out.reshape(_reduced_shape(t.shape, axis, False))
+
+
 def _max(t: torch.Tensor, axis, keepdims: bool) -> torch.Tensor:
+    if t.is_complex():
+        return _lex_extreme(t, axis, keepdims, True)
     return _over_axes(torch.amax, t, axis, keepdims)
 
 
 def _min(t: torch.Tensor, axis, keepdims: bool) -> torch.Tensor:
+    if t.is_complex():
+        return _lex_extreme(t, axis, keepdims, False)
     return _over_axes(torch.amin, t, axis, keepdims)
 
 
@@ -271,7 +307,7 @@ def _nan_skipping(reduce, fill: float):
 
     def run(t: torch.Tensor, axis, keepdims: bool) -> torch.Tensor:
         if not t.is_floating_point():
-            return reduce(t, axis, keepdims)
+            return reduce(t, axis, keepdims)  # integers hold no NaN; complex NaN is not skipped
         nan = torch.isnan(t)
         r = reduce(t.masked_fill(nan, fill), axis, keepdims)
         return r.masked_fill(_over_axes(torch.all, nan, axis, keepdims), float("nan"))
@@ -303,14 +339,26 @@ def nanmin(x: DNDarray, axis=None, out=None, keepdim=None, keepdims=None) -> DND
     return _reduce_op(_NANMIN, x, axis=axis, out=out, keepdims=bool(keepdim or keepdims))
 
 
+def _maximum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    from .relational import _GE
+
+    return torch.where(_GE(a, b), a, b) if a.is_complex() else torch.maximum(a, b)
+
+
+def _minimum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    from .relational import _LE
+
+    return torch.where(_LE(a, b), a, b) if a.is_complex() else torch.minimum(a, b)
+
+
 def maximum(x1, x2, out=None) -> DNDarray:
-    """Elementwise maximum; NaN wins."""
-    return _binary_op(torch.maximum, x1, x2, out=out)
+    """Elementwise maximum; NaN wins; complex numbers order lexicographically."""
+    return _binary_op(_maximum, x1, x2, out=out)
 
 
 def minimum(x1, x2, out=None) -> DNDarray:
-    """Elementwise minimum; NaN wins."""
-    return _binary_op(torch.minimum, x1, x2, out=out)
+    """Elementwise minimum; NaN wins; complex numbers order lexicographically."""
+    return _binary_op(_minimum, x1, x2, out=out)
 
 
 def _arg_reduce(op, x: DNDarray, axis, out) -> DNDarray:
@@ -322,6 +370,8 @@ def _arg_reduce(op, x: DNDarray, axis, out) -> DNDarray:
     arr = x.larray
     if arr.dtype == torch.bool:
         arr = arr.to(torch.uint8)
+    if arr.is_complex():
+        raise TypeError(f"{op.__name__} does not accept complex input, as heat_tpu does not")
     comm, split = x.comm, x.split
     if split is not None and axis in (None, split) and comm.is_distributed():
         result = _arg_across_ranks(op, x, arr, axis)
@@ -386,6 +436,8 @@ def _reject_stream(x, name: str) -> None:
         )
     if not isinstance(x, DNDarray):
         raise TypeError(f"{name} expects a DNDarray, got {type(x).__name__}")
+    if types.heat_type_is_complexfloating(x.dtype):
+        raise ValueError(f"{name} does not support complex input: complex numbers have no order to rank by")
 
 
 def _inexact(dtype: torch.dtype) -> torch.dtype:
@@ -565,12 +617,12 @@ def median(x: DNDarray, axis=None, keepdim: bool = False, keepdims=None) -> DNDa
         # jnp.median ravels (or merges the axes into a last one) and keeps the result replicated
         axes = tuple(range(x.ndim)) if axis_s is None else axis_s
         view, keepdim_shape = _tuple_axis_view(x, axes)
-        res = _midpoint_median(view.larray.to(_inexact(view.larray.dtype)), -1)
+        res = _moment_type(x, _midpoint_median(view.larray.to(_inexact(view.larray.dtype)), -1))
         if kd:
             res = res.reshape(keepdim_shape)
         return DNDarray(res, dtype=types.canonical_heat_type(res.dtype), split=None, device=x.device, comm=x.comm)
     t = x.larray.to(_inexact(x.larray.dtype))
-    res = _midpoint_median(t, axis_s)
+    res = _moment_type(x, _midpoint_median(t, axis_s))
     if kd:
         res = res.unsqueeze(axis_s)
     split = _reduced_split(x.split, axis_s, x.ndim, kd)

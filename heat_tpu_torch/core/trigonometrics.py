@@ -6,6 +6,8 @@ integer input computes in float.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from . import types
@@ -117,7 +119,7 @@ def cosh(x, out=None) -> DNDarray:
 
 def deg2rad(x, out=None) -> DNDarray:
     """Degrees to radians."""
-    return _local_op(torch.deg2rad, x, out=out)
+    return _local_op(lambda t: t * (math.pi / 180.0) if t.is_complex() else torch.deg2rad(t), x, out=out)
 
 
 radians = deg2rad
@@ -125,7 +127,7 @@ radians = deg2rad
 
 def rad2deg(x, out=None) -> DNDarray:
     """Radians to degrees."""
-    return _local_op(torch.rad2deg, x, out=out)
+    return _local_op(lambda t: t * (180.0 / math.pi) if t.is_complex() else torch.rad2deg(t), x, out=out)
 
 
 degrees = rad2deg

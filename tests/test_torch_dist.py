@@ -242,7 +242,7 @@ def test_replicated_results_are_bit_identical_on_every_rank(group, case):
 
     skip = {"rank", "device", "decision", "collectives_before", "port:fills", "port:chunk_elems"}  # facts of one rank
     for key in per_rank[0]:
-        if key in skip or key.startswith("meta:"):
+        if key in skip or key.startswith(("meta:", "port:rank:")):
             continue
         first = dict(leaves(per_rank[0][key], key))
         for rank, res in enumerate(per_rank[1:], 1):
@@ -409,6 +409,9 @@ NON_ARRAY = {
     "init_distributed", "replicated_decision", "broadcast_shapes", "sanitize_distribution", "sanitize_in",
     "sanitize_in_tensor", "sanitize_infinity", "sanitize_lshape", "sanitize_out", "sanitize_sequence",
     "sanitize_slice", "sanitize_split", "validate_layout",
+    "can_cast", "comm_context", "heat_type_is_complexfloating", "heat_type_is_inexact", "heat_type_of",
+    "issubdtype", "is_regressor", "is_transformer", "get_printoptions", "set_printoptions", "local_printing",
+    "global_printing", "print0",
 }
 EXPLICIT = {
     "array", "zeros", "ones", "full", "eye", "arange", "zeros_like", "ones_like", "full_like", "empty", "empty_like",
@@ -424,6 +427,8 @@ EXPLICIT = {
     "row_stack", "shape", "sort", "split", "squeeze", "stack", "swapaxes", "tile", "topk", "unfold", "unique",
     "vsplit", "vstack", "scalar_to_1d", "percentile", "median", "nanmean", "average", "cov", "skew", "kurtosis",
     "histc", "histogram", "bincount", "bucketize", "digitize",
+    # complex numbers and signal processing
+    "angle", "conj", "conjugate", "imag", "real", "iscomplex", "isreal", "convolve",
 }
 
 
@@ -464,3 +469,32 @@ def test_nccl_group_matches_world_size_1():
     for rank, res in enumerate(per_rank):
         env = res["environment"]
         assert env["backend"]["value"] == "nccl" and env["device"]["value"] == f"cuda:{rank}"
+
+
+def test_halos_are_one_batch_of_at_most_two_messages(group):
+    """get_halo: every rank sends at most two halos of halo_size rows (in
+    one batch, counted once) and gets at most two; the empty last rank
+    sends and gets nothing; array_with_halos is the chunk and the halos it
+    got."""
+    per_rank = _case(group, "halos")
+    row_bytes = {"a93_s0": 3 * 4, "a95_s1": 9 * 4, "i95_s0": 5 * 4, "c645_s2": 6 * 4 * 4}
+    for rank, res in enumerate(per_rank):
+        for name, rb in row_bytes.items():
+            for hs in (1, 2, 3, 4):
+                calls = res[f"port:rank:{name}:{hs}:halo_calls"]["value"]
+                sent = res[f"port:rank:{name}:{hs}:halo_bytes"]["value"]
+                assert calls <= 1 and sent <= 2 * hs * rb, (rank, name, hs, calls, sent)
+                extra = res[f"port:rank:{name}:{hs}:with_halos"]["value"] - res[f"port:rank:{name}:{hs}:lshape"]["value"]
+                assert extra == sent // rb, (rank, name, hs, extra, sent)  # as many rows got as sent
+        assert res["port:rank:a93_s0:1:halo_calls"]["value"] == (0 if rank == WORLD - 1 else 1), rank
+
+
+def test_complex_vdot_is_one_allreduce_of_the_scalar(group):
+    for rank, res in enumerate(_case(group, "complex")):
+        assert res["port:vdot_collectives"]["value"] == {"allreduce": 1}, rank
+
+
+def test_ring_shift_moves_the_small_and_half_types(group):
+    for rank, res in enumerate(_case(group, "small_dtypes")):
+        for name in ("uint8", "int8", "int16", "float16", "bfloat16"):
+            assert res[f"port:{name}:ring_shift_ok"]["value"] is True, (rank, name)

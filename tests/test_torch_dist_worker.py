@@ -6,7 +6,8 @@ A case is a function of the package module ``ht`` that returns
 arrays, or :class:`Raised` for a call that raised). Names starting with
 ``world:`` hold values that depend on the world size (``lshape_map``
 lists), ``meta:`` arrays whose values are undefined (``empty``), and
-``port:`` facts of the port alone. The same code drives
+``port:`` facts of the port alone (``port:rank:`` ones that differ by
+rank). The same code drives
 ``heat_tpu_torch`` in every rank of the group and ``heat_tpu`` on a
 device mesh of the same size in the test process, on the same numpy
 inputs made from seeds. :func:`pack` turns a result into plain values
@@ -55,16 +56,19 @@ def is_port(ht) -> bool:
 def pack(v, port: bool):
     """A case result as plain, picklable values."""
     if hasattr(v, "gshape") and hasattr(v, "lshape_map"):
+        glob = np.asarray(v.numpy())
         out = {
             "kind": "array",
-            "global": np.asarray(v.numpy()),
+            # numpy has no bfloat16: heat_tpu's ml_dtypes array widened to float32, as the port's numpy() gives it
+            "global": glob.astype(np.float32) if glob.dtype.name == "bfloat16" else glob,
             "dtype": v.dtype.__name__,
             "gshape": tuple(int(s) for s in v.gshape),
             "split": v.split,
             "lshape_map": np.asarray(v.lshape_map),
         }
         if port:
-            out["local"] = v.larray.detach().cpu().numpy()
+            local = v.larray.detach().cpu()
+            out["local"] = (local.float() if str(local.dtype) == "torch.bfloat16" else local).numpy()
         return out
     if isinstance(v, Raised):
         return {"kind": "raises", "type": v.type, "message": v.message}
@@ -926,6 +930,170 @@ def case_kmedians(ht):
         out.update({f"{name}:centers": kd.cluster_centers_, f"{name}:labels": kd.labels_, f"{name}:n_iter": kd.n_iter_})
     if coll is not None:
         out["port:kmedians_collectives"] = coll
+    return out
+
+
+def _halo_stack(ht, x, which):
+    """heat_tpu's stack of one side's halos over every inter-shard boundary
+    that carries one; for the port the same stack built from each rank's own
+    ``halo_prev``/``halo_next`` (rank r + 1 holds boundary r's previous-side
+    halo, rank r its next-side one), gathered in rank order."""
+    if not is_port(ht):
+        h = getattr(x, which)
+        return None if h is None else np.asarray(h)
+    import torch
+
+    comm, h = x.comm, getattr(x, which)
+    shape = list(x.gshape)
+    shape[x.split] = x.halo_size
+    held = torch.tensor([h is not None])
+    mine = h if h is not None else torch.zeros(shape, dtype=x.larray.dtype)
+    flags = comm.allgather(held, 0, [1] * comm.size)
+    parts = comm.allgather(mine.unsqueeze(0), 0, [1] * comm.size)
+    keep = [r for r in range(comm.size) if bool(flags[r])]
+    return parts[keep].numpy() if keep else None
+
+
+def case_halos(ht):
+    """get_halo along the split axis: 9 rows in chunks of 3, 3, 3, 0 (the
+    empty last rank lends and gets nothing), halos of 1 to 4 rows (a chunk
+    shorter than the halo carries none), a column split and a 3-D array;
+    for the port also each rank's array_with_halos length and the halo
+    batch's COLLECTIVES."""
+    out = {}
+    arrays = {"a93_s0": ht.array(A93, split=0), "a95_s1": ht.array(A95, split=1),
+              "i95_s0": ht.array(I95, split=0), "c645_s2": ht.array(C645, split=2)}
+    for name, x in arrays.items():
+        for hs in (1, 2, 3, 4):
+            before = {k: dict(v) for k, v in ht.kernels.COLLECTIVES.items()} if is_port(ht) else None
+            x.get_halo(hs)
+            if is_port(ht):
+                after = ht.kernels.COLLECTIVES.get("halo", {"calls": 0, "bytes": 0})
+                prior = before.get("halo", {"calls": 0, "bytes": 0})
+                out[f"port:rank:{name}:{hs}:halo_calls"] = after["calls"] - prior["calls"]
+                out[f"port:rank:{name}:{hs}:halo_bytes"] = after["bytes"] - prior["bytes"]
+                out[f"port:rank:{name}:{hs}:with_halos"] = int(x.array_with_halos().shape[x.split])
+                out[f"port:rank:{name}:{hs}:lshape"] = int(x.lshape[x.split])
+            out[f"{name}:{hs}:size"] = x.halo_size
+            out[f"{name}:{hs}:prev"] = _halo_stack(ht, x, "halo_prev")
+            out[f"{name}:{hs}:next"] = _halo_stack(ht, x, "halo_next")
+    return out
+
+
+SIG = _rng(12).normal(size=41).astype(np.float32)
+TAPS = {m: _rng(13 + m).normal(size=m).astype(np.float32) for m in (1, 3, 4, 5, 9)}
+
+
+def case_convolve(ht):
+    """convolve of a split signal over the halos: 41 samples (chunks of 11,
+    11, 11, 8) with kernels of 1 to 9 taps in the three modes; 9 samples
+    (an empty last rank) with 3 taps; 7 samples (chunks of 2 shorter than a
+    5-tap kernel's halo: the gathered route); float64, int32 and complex64
+    signals; a kernel longer than the signal (the operands swap)."""
+    out = {}
+    a = ht.array(SIG, split=0)
+    for m, taps in TAPS.items():
+        for mode in ("full", "same", "valid"):
+            out[f"{m}:{mode}"] = attempt(lambda: ht.convolve(a, ht.array(taps), mode))
+    for n, m in ((9, 3), (7, 5)):
+        for mode in ("full", "same", "valid"):
+            out[f"n{n}:{m}:{mode}"] = ht.convolve(ht.array(SIG[:n], split=0), ht.array(TAPS[m]), mode)
+    out["float64"] = ht.convolve(ht.array(SIG.astype(np.float64), split=0), ht.array(TAPS[5].astype(np.float64)))
+    out["int32"] = ht.convolve(ht.array(np.round(SIG * 4).astype(np.int32), split=0), ht.array(np.array([1, 2, 1], np.int32)))
+    out["complex64"] = ht.convolve(ht.array((SIG + 1j * SIG[::-1]).astype(np.complex64), split=0),
+                                   ht.array(TAPS[3].astype(np.complex64)), "same")
+    out["swap"] = ht.convolve(ht.array(SIG[:5], split=0), ht.array(SIG, split=0), "full")
+    return out
+
+
+CPX = (_rng(14).normal(size=(9, 5)) + 1j * np.round(_rng(15).normal(size=(9, 5)))).astype(np.complex64)
+CPX[:, 2] = np.round(CPX[:, 2].real) + 1j * CPX[:, 2].imag  # equal real parts: the imaginary part decides
+
+
+def case_complex(ht):
+    """Complex arrays across ranks: vdot (one allreduce of the scalar),
+    sums, means and variances along the split axis, the lexicographic
+    max/min and comparisons, complex_math, a complex product over a split
+    contracted axis, and resplit (alltoall)/gather of complex chunks.
+    heat_tpu's XLA program cannot reduce a complex max over a sharded axis
+    on the CPU (UNIMPLEMENTED), so those references are numpy's, whose
+    complex order is the same lexicographic one."""
+    c0, c1 = ht.array(CPX, split=0), ht.array(CPX, split=1)
+
+    def lex(fn, name, axis):
+        return fn() if is_port(ht) else ht.array(getattr(np, name)(CPX, axis=axis))
+    out = {}
+    if is_port(ht):
+        before = {k: dict(v) for k, v in ht.kernels.COLLECTIVES.items()}
+        out["vdot"] = ht.vdot(c0, c0)
+        out["port:vdot_collectives"] = {k: v["calls"] - before.get(k, {}).get("calls", 0)
+                                        for k, v in ht.kernels.COLLECTIVES.items()
+                                        if v["calls"] != before.get(k, {}).get("calls", 0)}
+    else:
+        out["vdot"] = ht.vdot(c0, c0)
+    out.update({
+        "vdot_s1": ht.vdot(c1, c1), "vecdot": ht.vecdot(c0, c0), "sum0": ht.sum(c0, axis=0), "sum": ht.sum(c1),
+        "mean0": ht.mean(c0, axis=0), "var0": ht.var(c0, axis=0), "std": ht.std(c1),
+        "max": lex(lambda: ht.max(c0), "max", None), "min0": lex(lambda: ht.min(c0, axis=0), "min", 0),
+        "max1": lex(lambda: ht.max(c1, axis=1), "max", 1), "maximum": ht.maximum(c0, ht.array(CPX[::-1].copy())),
+        "lt": c0 < ht.array(CPX[::-1].copy(), split=0), "ge": c1 >= 0.5 + 0.5j, "abs": ht.abs(c0),
+        "angle": ht.angle(c1), "conj": ht.conj(c0), "conjugate": ht.conjugate(c1), "real": ht.real(c1),
+        "imag": ht.imag(c0), "iscomplex": ht.iscomplex(c0), "isreal": ht.isreal(ht.real(c1)),
+        "matmul": ht.matmul(ht.conj(c0).T, c0), "resplit": c0.resplit(1), "gather": c1.resplit(None),
+        "argmax": attempt(lambda: ht.argmax(c0)),
+    })
+    return out
+
+
+SMALL = {
+    "uint8": _rng(16).integers(0, 255, size=(9, 5)).astype(np.uint8),
+    "int8": _rng(17).integers(-128, 127, size=(9, 5)).astype(np.int8),
+    "int16": _rng(18).integers(-3000, 3000, size=(9, 5)).astype(np.int16),
+    "float16": _rng(19).normal(size=(9, 5)).astype(np.float16),
+}
+
+
+def case_small_dtypes(ht):
+    """The small and half types moved across ranks (gloo takes no int16: it
+    moves as int32): resplit both ways (alltoall), gather, the split-axis
+    sum, max and mean, a setitem across ranks, and bfloat16 through the
+    same; for the port also ring_shift of each rank's chunk."""
+    out = {}
+    for name, host in list(SMALL.items()) + [("bfloat16", SMALL["float16"])]:
+        x0 = ht.array(host, split=0)
+        if name == "bfloat16":
+            x0 = x0.astype(ht.bfloat16)
+        x1 = x0.resplit(1)
+        y = x0.copy()
+        y[2:7, 1] = 3
+        out.update({
+            f"{name}:s0": x0, f"{name}:to1": x1, f"{name}:back": x1.resplit(0), f"{name}:gather": x0.resplit(None),
+            f"{name}:sum0": ht.sum(x0, axis=0), f"{name}:max": ht.max(x0), f"{name}:mean0": ht.mean(x0, axis=0),
+            f"{name}:setitem": y,
+        })
+        if is_port(ht) and ht.get_comm().size == 4:  # 9 rows: chunks of 3, 3, 3 and an empty one
+            import torch
+
+            comm = ht.get_comm()
+            mine = x0.larray if x0.lshape[0] == 3 else x0.larray.new_zeros((3, 5))
+            got = comm.ring_shift(mine)
+            nxt = (comm.rank + 1) % comm.size
+            whole = x0.numpy()
+            want = whole[3 * nxt:3 * nxt + 3] if nxt < 3 else np.zeros((3, 5), whole.dtype)
+            got_h = got.float().numpy() if got.dtype == torch.bfloat16 else got.numpy()
+            out[f"port:{name}:ring_shift_ok"] = bool(np.array_equal(got_h, want))
+    return out
+
+
+def case_pad_modes(ht):
+    """pad's statistic and ramp modes along and beside the split axis (9
+    rows on 4 ranks: an empty last chunk), float32 and int32."""
+    out = {}
+    for split in (0, 1):
+        for name, host in (("f", A95), ("i", I95)):
+            x = ht.array(host, split=split)
+            for mode in ("linear_ramp", "maximum", "mean", "median", "minimum", "empty"):
+                out[f"{name}{split}:{mode}"] = ht.pad(x, ((2, 3), (1, 2)), mode)
     return out
 
 
