@@ -6,12 +6,14 @@ NVIDIA Hopper card and the CUDA toolkit:
 
     python3 chip_smoke.py                  # every phase; [dist] on every visible card
     python3 chip_smoke.py --phases dist    # the build and [dist] only
+    python3 chip_smoke.py --phases stream  # the build and [stream] only
 
 Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. Environment: the card, its power limit, torch and CUDA versions.
 2. Build: every ``heat_tpu_torch/core/kernels/csrc/*.cu`` with ``nvcc`` for
-   ``sm_90a`` (in parallel), with ptxas' register / shared-memory report.
+   ``sm_90a`` (in parallel), with ptxas' register / shared-memory report,
+   and the native library of ``heat_tpu_torch/native/src`` with ``g++``.
 3. Each kernel against its plain PyTorch version on the card, at several
    shapes, main-path shapes included, with the tolerances below;
    ``lloyd_fused`` on both of its routes (``resident`` and ``general``),
@@ -98,9 +100,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    the weak-scaling efficiency of the warm fit; then ``[robust]``'s steps at
    2^24 x 32 per card (the split-axis sort receiving at most 3x each
    rank's share, percentiles by the key-bisection selection, cross-rank writes,
-   KMedians) against one process on the same data. ``--phases dist`` runs
-   only phases 1, 2 and 6; ``--phases spectral``, ``linalg`` or ``robust``
-   only 1, 2 and that phase.
+   KMedians) against one process on the same data; then the stream path:
+   a save of 2^24 x 32 blobs from every rank (each writes its rows), a
+   split-0 load (each reads only its rows), ``StreamingMoments`` and
+   ``StreamingKMeans`` (10 epochs) over a split-0 ``ChunkIterator`` with
+   their collectives gated (two and one ``allreduce`` per chunk), and
+   ``merge_processes`` of per-rank moments through ``tree_merge`` (log2 P
+   rounds, bit-identical on every rank), against one card. ``--phases dist``
+   runs only phases 1, 2 and 6; ``--phases spectral``, ``linalg``,
+   ``robust``, ``dtypes`` or ``stream`` only 1, 2 and that phase.
+7. ``[stream]`` (after ``[dtypes]``, before ``[dist]``): the out-of-core path
+   at 2^24 x 32 float32 (2 GiB) on one card, see :func:`stream_phase`.
 
 The line before last is one JSON object ``{"kernels": [...]}`` (not
 printed with ``--phases dist``); the last line is
@@ -1198,6 +1208,22 @@ def accumulation_bound(n, abs_sum):
     return SUM_LAMBDA * math.sqrt(n) * F32_UNIT_ROUNDOFF * abs_sum
 
 
+def moments_vs_plain(tag, xa):
+    """``moments_onepass`` on the (n, f) tensor ``xa`` against its plain version, within phase 3's MEAN/M2
+    tolerances; returns the line to print."""
+    from heat_tpu_torch.core.kernels import chunk_moments, moments_local
+
+    n = xa.shape[0]
+    cnt, mean, m2 = moments_local(xa, n)
+    cnt0, mean0, m20 = chunk_moments(xa, n)
+    e_mean, e_m2 = (mean - mean0).abs(), (m2 - m20).abs()
+    check(float(cnt) == float(cnt0) == float(n), f"{tag} moments counts")
+    check(bool((e_mean <= MEAN_ATOL + MEAN_RTOL * mean0.abs()).all()), f"{tag} moments mean: {e_mean.max().item()}")
+    check(bool((e_m2 <= M2_RTOL * m20.abs() + 1e-6).all()), f"{tag} moments M2: {e_m2.max().item()}")
+    return (f"moments_onepass on {tuple(xa.shape)}: count exact, mean max abs {e_mean.max().item():.3e}, M2 max rel "
+            f"{(e_m2 / m20.abs()).max().item():.3e} (<= {M2_RTOL})")
+
+
 def lloyd_vs_plain(tag, data, cen, n):
     """``lloyd_fused`` on ``data`` from the centres ``cen`` against its plain version; returns (labels, inertia,
     the line to print). Labels may differ only at near-ties, and a row labelled otherwise moves its counts and
@@ -1557,6 +1583,383 @@ def dtypes_phase(dev, seed, smi):
                                              "threefry_bits")}
 
 
+# ---- [stream]: the out-of-core path, one card --------------------------------------------------------------------
+# [main]'s blob recipe from numpy (centres N(0, 8^2), unit noise, row c of the first K_MAIN in blob c) at N_MAIN x
+# F_MAIN float32 (2 GiB), written as a classic netCDF CDF-2 file (CDF-1's offsets stop at 2 GiB) and streamed back in
+# chunks of STREAM_CHUNK rows: 8 chunks a pass, 2 read ahead by the Prefetcher
+STREAM_CHUNK, STREAM_DEPTH, STREAM_EPOCHS = 1 << 21, 2, 10
+STREAM_FREE = 3 << 30  # bytes of free disk the phase needs: the 2 GiB file, the 0.3 GiB CSV, and room
+STREAM_Q = (1.0, 25.0, 50.0, 75.0, 99.0)
+STREAM_BINS = 64
+N_CSV, CSV_CHUNK = 1 << 20, 1 << 18  # the CSV round trip: 2^20 x 32 rows (0.3 GB of text), 4 chunks a pass
+HLL_DISTINCT = 1_000_003  # the HyperLogLog column: N_MAIN values with this many distinct ones
+ZIPF_A, ZIPF_TOP = 1.5, 10  # the Count-Min column: Zipf(a) integers; the true top ZIPF_TOP must be among the candidates
+STREAM_SEED_OFFSET = 100  # [stream]'s numpy streams start at --seed + this (the other phases keep theirs)
+# Chan's merge in float32 of C chunk states: each merge rounds ~10 times on values bounded by the largest chunk mean
+# M (delta, delta * n_b / n, the sum, and the chunk mean's own rounding), so |mean - ref| <= (10 C + 1) u M; M2's
+# terms are positive, each merge rounding them ~8 times, and the delta^2 term carries the means' error:
+# |var - ref| <= (8 C + 2) u var + 10 C u M^2
+MERGE_MEAN_ROUNDINGS, MERGE_M2_ROUNDINGS = 10, 8
+
+
+def stream_space(tag="[stream]", prefix="chip_smoke_stream_"):
+    """A new directory with STREAM_FREE bytes free for a phase's stream files: in the temp directory, else in the
+    repository's git-ignored chiprun_out/; fails naming what both have."""
+    base = tempfile.gettempdir()
+    free = shutil.disk_usage(base).free
+    if free < STREAM_FREE:
+        alt = os.path.join(ROOT, "chiprun_out")
+        os.makedirs(alt, exist_ok=True)
+        alt_free = shutil.disk_usage(alt).free
+        check(alt_free >= STREAM_FREE, f"{tag} needs {STREAM_FREE} B free: {base} has {free}, {alt} {alt_free}")
+        base = alt
+    return tempfile.mkdtemp(prefix=prefix, dir=base)
+
+
+def stream_blobs(seed):
+    """[main]'s blob recipe with numpy: (x, member, centres), x float32 (N_MAIN, F_MAIN)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    centres = (rng.standard_normal((K_MAIN, F_MAIN)) * 8.0).astype(np.float32)
+    member = rng.integers(0, K_MAIN, N_MAIN)
+    member[:K_MAIN] = np.arange(K_MAIN)
+
+    def blobs(lo, hi, slab):
+        slab += centres[member[lo:hi]]
+        x[lo:hi] = slab
+
+    x = np.empty((N_MAIN, F_MAIN), np.float32)
+    normal32(seed + 1, (N_MAIN, F_MAIN), finish=blobs, out=x)
+    return x, member, centres
+
+
+def merge_bounds(x_dev, chunk, var):
+    """The Chan-merge bounds above for the moments of the float32 (n, f) tensor ``x_dev`` streamed in ``chunk``-row
+    chunks: (mean bound, var bound) per column."""
+    import torch
+
+    n = x_dev.shape[0]
+    c = -(-n // chunk)
+    means = torch.stack([x_dev[i:i + chunk].double().mean(dim=0) for i in range(0, n, chunk)])
+    m = means.abs().amax(dim=0)
+    u = F32_UNIT_ROUNDOFF
+    return ((MERGE_MEAN_ROUNDINGS * c + 1) * u * m,
+            (MERGE_M2_ROUNDINGS * c + 2) * u * var + MERGE_MEAN_ROUNDINGS * c * u * m * m)
+
+
+def stream_phase(dev, seed, smi):
+    """[stream]: the out-of-core path on one card, through the entry points a user calls. Blobs (2 GiB) -> ``save``
+    as classic netCDF CDF-2 -> ``load`` split 0 -> a ``ChunkIterator`` over the file through a ``Prefetcher`` into
+    ``StreamingMoments`` (``moments_onepass`` once per chunk) -> ``StreamingKMeans`` global and minibatch
+    (``lloyd_fused`` once per chunk and epoch) -> the KLL ``percentile`` of the iterator, ``StreamingHistogram`` and
+    ``StreamingCov`` -> ``HyperLogLog`` and ``CountMinTopK`` on integer columns -> a CSV round trip through the native
+    parser and a pass over it -> the float16/bfloat16 ``rand``/``randn`` draws (``threefry_bits``' 16-bit kinds, bit
+    for bit against the plain version). Every result is held against the in-memory path or float64 within the bounds
+    stated beside it. Returns the kernels' launches over the streamed path."""
+    import numpy as np
+    import torch
+
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.core.kernels import THREEFRY_KERNEL, forced_mode, lloyd_local, moments_local
+    from heat_tpu_torch.core.kernels import threefry_bits, threefry_plain
+
+    ht.use_device("gpu")
+    steps, launched, lines = {}, {}, []
+    seed = seed + STREAM_SEED_OFFSET
+
+    def step(name, fn):
+        """fn() with its host seconds, CUDA-event ms and the kernel launches it made."""
+        torch.cuda.synchronize()
+        before = dict(ht.LAUNCHES)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        out = fn()
+        b.record()
+        torch.cuda.synchronize()
+        delta = {k: v - before.get(k, 0) for k, v in ht.LAUNCHES.items() if v != before.get(k, 0)}
+        steps[name] = (time.perf_counter() - t0, a.elapsed_time(b), delta)
+        for k, v in delta.items():
+            launched[k] = launched.get(k, 0) + v
+        return out
+
+    def rate(name, nbytes, rows):
+        host = steps[name][0]
+        return f"{nbytes / host / 1e9:.3f} GB/s, {rows / host:.4e} rows/s"
+
+    d = stream_space()
+    try:
+        t0 = time.perf_counter()
+        x_h, member_h, _ = stream_blobs(seed)
+        t_data = time.perf_counter() - t0
+        path = os.path.join(d, "x.nc")
+        x = ht.array(x_h, split=0)
+        nbytes = x_h.nbytes
+        # the in-memory references first: their launches are not the streamed path's
+        mu_mem, var_mem = ht.mean(x, axis=0).larray.double(), ht.var(x, axis=0).larray.double()
+        init = ht.array(x_h[:K_MAIN])
+        km_mem = ht.cluster.KMeans(K_MAIN, init=init, max_iter=STREAM_EPOCHS, tol=None).fit(x)
+        torch.cuda.synchronize()
+        ht.kernels.reset_kernel_stats()
+        step("save (netCDF CDF-2)", lambda: ht.save(x, path, "x", format="NETCDF3_64BIT"))
+        check(os.path.getsize(path) >= nbytes, f"[stream] the file holds {os.path.getsize(path)} B")
+        y = step("load split 0", lambda: ht.load(path, "x", split=0))
+        check(y.gshape == x.gshape and y.split == 0 and y.dtype is ht.float32 and y.larray.is_cuda, "[stream] load")
+        dx, dy = _digest(x.larray), _digest(y.larray)
+        check(dx == dy, f"[stream] the loaded array's digest {dy} is not the saved one's {dx}")
+        del y
+        torch.cuda.empty_cache()
+        lines.append(f"save {rate('save (netCDF CDF-2)', nbytes, N_MAIN)}, load {rate('load split 0', nbytes, N_MAIN)}; "
+                     f"digest {dx} equal")
+
+        it = ht.stream.ChunkIterator(path, STREAM_CHUNK, dataset="x")
+        check(len(it) == N_MAIN // STREAM_CHUNK, f"[stream] {len(it)} chunks")
+        ht.stream.reset_stream_stats()
+
+        def moments_pass():
+            m = ht.stream.StreamingMoments()
+            for c in ht.stream.Prefetcher(it, depth=STREAM_DEPTH):
+                m.update(c)
+            return m
+
+        sm = step("StreamingMoments pass", moments_pass)
+        stats = dict(ht.STREAM_STATS)
+        n_chunks = len(it)
+        check(steps["StreamingMoments pass"][2] == {"moments_onepass": n_chunks},
+              f"[stream] one moments_onepass launch per chunk: {steps['StreamingMoments pass'][2]}")
+        check(ht.KERNEL_STATS.get("moments_onepass.cuda") == n_chunks and stats["chunks"] == n_chunks
+              and stats["bytes_read"] == nbytes, f"[stream] routes {dict(ht.KERNEL_STATS)}, STREAM_STATS {stats}")
+        mb, vb = merge_bounds(x.larray, STREAM_CHUNK, var_mem)
+        e_mean, e_var = (sm.mean.larray.double() - mu_mem).abs(), (sm.var.larray.double() - var_mem).abs()
+        check(bool((e_mean <= mb).all()) and bool((e_var <= vb).all()),
+              f"[stream] moments vs in-memory: mean {(e_mean / mb).max().item():.3f}, var "
+              f"{(e_var / vb).max().item():.3f} of the bound")
+        # and against float64, as [dist] holds its streamed moments
+        x64 = x.larray.double()
+        mu64, var64 = x64.mean(dim=0), x64.var(dim=0, unbiased=False)
+        del x64
+        mb64, vb64 = merge_bounds(x.larray, STREAM_CHUNK, var64)
+        e_mean64, e_var64 = (sm.mean.larray.double() - mu64).abs(), (sm.var.larray.double() - var64).abs()
+        check(bool((e_mean64 <= mb64).all()) and bool((e_var64 <= vb64).all()),
+              f"[stream] moments vs float64: mean {(e_mean64 / mb64).max().item():.3f}, var "
+              f"{(e_var64 / vb64).max().item():.3f} of the bound")
+        # the two kernels on the path's own tensors: the file's first window, read and staged as the pass does
+        chunk = it._stage(next(it._windows())).larray
+        check(chunk.shape == (STREAM_CHUNK, F_MAIN) and chunk.is_cuda, f"[stream] the staged chunk {chunk.shape}")
+        l_mom = moments_vs_plain("[stream] (file chunk)", chunk)
+        one_ms = time_ms(lambda: moments_local(x.larray[:STREAM_CHUNK]), reps=5, warm=1)
+        busy = n_chunks * one_ms / 1e3 / steps["StreamingMoments pass"][0]
+        lines.append(f"StreamingMoments pass {rate('StreamingMoments pass', nbytes, N_MAIN)}; mean worst "
+                     f"{(e_mean / mb).max().item():.3f}, var {(e_var / vb).max().item():.3f} of the merge bound (vs "
+                     f"float64 {(e_mean64 / mb64).max().item():.3f}, {(e_var64 / vb64).max().item():.3f}); {l_mom} on "
+                     f"the file's first chunk; "
+                     f"STREAM_STATS {stats}; moments_onepass {one_ms:.4f} ms a chunk: device busy share {busy:.4f}")
+
+        # StreamingKMeans: the global fit is KMeans with the sums re-associated: centres within the accumulation
+        # bound of the per-cluster sums (both within lambda sqrt(n_c) u sum|x| of the exact, so twice that apart)
+        fit = step("StreamingKMeans global fit", lambda: ht.cluster.StreamingKMeans(
+            K_MAIN, init=init, max_iter=STREAM_EPOCHS, tol=None).fit(it, prefetch_depth=STREAM_DEPTH))
+        check(steps["StreamingKMeans global fit"][2] == {"lloyd_fused": n_chunks * STREAM_EPOCHS},
+              f"[stream] one lloyd_fused launch per chunk and epoch: {steps['StreamingKMeans global fit'][2]}")
+        check(fit.n_iter_ == STREAM_EPOCHS, f"[stream] {fit.n_iter_} epochs")
+        lab = km_mem.labels_.larray
+        onehot = torch.nn.functional.one_hot(lab.long(), K_MAIN).to(torch.float32)
+        abs_sums = (onehot.T @ x.larray.abs()).double()
+        counts = onehot.sum(dim=0).double()
+        c_bound = (2 * SUM_LAMBDA * torch.sqrt(counts)[:, None] * F32_UNIT_ROUNDOFF * abs_sums / counts[:, None]
+                   + 2 * F32_UNIT_ROUNDOFF * km_mem.cluster_centers_.larray.double().abs())
+        e_c = (fit.cluster_centers_.larray.double() - km_mem.cluster_centers_.larray.double()).abs()
+        check(bool((e_c <= c_bound).all()), f"[stream] centres vs KMeans: {(e_c / c_bound).max().item():.3f} of the bound")
+        pred = fit.predict(x).larray
+        check(torch.equal(pred, km_mem.predict(x).larray), "[stream] the streamed fit's labels differ from KMeans'")
+        member_d = torch.as_tensor(member_h, device=dev)
+        acc, _ = matched_labels(pred, member_d, K_MAIN, what="[stream] StreamingKMeans labels vs the blobs")
+        check(acc > DT_ACC, f"[stream] StreamingKMeans agrees with the blobs on {acc} of the rows")
+        mini = step("StreamingKMeans minibatch", lambda: ht.cluster.StreamingKMeans(
+            K_MAIN, init=init, max_iter=1, algorithm="minibatch").fit(it, prefetch_depth=STREAM_DEPTH))
+        check(steps["StreamingKMeans minibatch"][2] == {"lloyd_fused": n_chunks},
+              f"[stream] minibatch: one launch per chunk {steps['StreamingKMeans minibatch'][2]}")
+        acc_mb, _ = matched_labels(mini.predict(x).larray, member_d, K_MAIN, what="[stream] minibatch labels")
+        check(acc_mb > DT_ACC, f"[stream] minibatch agrees with the blobs on {acc_mb} of the rows")
+        _, _, l_init = lloyd_vs_plain("[stream] (file chunk, init)", chunk, init.larray, STREAM_CHUNK)
+        _, _, l_fit = lloyd_vs_plain("[stream] (file chunk, fitted)", chunk, fit.cluster_centers_.larray, STREAM_CHUNK)
+        del chunk
+        host_fit = steps["StreamingKMeans global fit"][0]
+        lloyd_ms = time_ms(lambda: lloyd_local(x.larray[:STREAM_CHUNK], init.larray), reps=5, warm=1)
+        lines.append(f"StreamingKMeans global {STREAM_EPOCHS} epochs {host_fit:.3f} s ({nbytes * STREAM_EPOCHS / host_fit / 1e9:.3f} "
+                     f"GB/s read), centres worst {(e_c / c_bound).max().item():.3f} of the bound, labels equal "
+                     f"KMeans', blobs {acc:.6f}; lloyd_fused {lloyd_ms:.4f} ms a chunk: device busy share "
+                     f"{n_chunks * STREAM_EPOCHS * lloyd_ms / 1e3 / host_fit:.4f}; minibatch one pass, blobs {acc_mb:.6f}; "
+                     f"on the file's first chunk from the init centres {l_init}; from the fitted centres {l_fit}")
+        del km_mem, onehot, lab, pred, mini
+
+        # KLL percentiles of the iterator: each within the sketch's own eps of rank against the exact ranks
+        qs = step("percentile (KLL)", lambda: ht.percentile(it, list(STREAM_Q)))
+        # the same pass folded into a sketch of its own: percentile(it) must answer as it does, so its eps bounds
+        # the answer
+        sk = ht.stream.KLLSketch()
+        for c in ht.stream.Prefetcher(it, depth=STREAM_DEPTH):
+            sk.update(c)
+        check(torch.equal(sk.percentile(list(STREAM_Q)).larray, qs.larray),
+              "[stream] percentile(it) differs from a KLLSketch folded over the same pass")
+        flat = x.larray.reshape(-1)
+        n_all = flat.numel()
+        worst = 0.0
+        for q, v in zip(STREAM_Q, qs.larray.tolist()):
+            lo, hi = int((flat < v).sum()), int((flat <= v).sum())
+            target = q / 100 * (n_all - 1)
+            err = max(0.0, lo - target, target - hi) / n_all
+            check(err <= sk.eps, f"[stream] KLL percentile {q}: rank error {err} > eps {sk.eps}")
+            worst = max(worst, err / sk.eps)
+        lines.append(f"KLL percentiles {[round(v, 4) for v in qs.larray.tolist()]} at {list(STREAM_Q)}: rank error "
+                     f"worst {worst:.3f} of eps {sk.eps:.5f}")
+
+        # histogram and covariance in one pass
+        lo_r, hi_r = float(flat.min()) - 1.0, float(flat.max()) + 1.0
+        del flat
+
+        def hist_cov_pass():
+            h, cv = ht.stream.StreamingHistogram(STREAM_BINS, (lo_r, hi_r)), ht.stream.StreamingCov()
+            for c in ht.stream.Prefetcher(it, depth=STREAM_DEPTH):
+                h.update(c)
+                cv.update(c)
+            return h, cv
+
+        hist, cov = step("StreamingHistogram + StreamingCov pass", hist_cov_pass)
+        counts_h = hist.hist.larray.long()
+        check(int(counts_h.sum()) == N_MAIN * F_MAIN, f"[stream] histogram counts sum to {int(counts_h.sum())}")
+        d64 = x.larray.double() - mu64
+        cov64 = (d64.T @ d64) / (N_MAIN - 1)
+        a_abs = d64.abs().T @ d64.abs() / (N_MAIN - 1)
+        del d64
+        # each chunk's float32 co-moment of n_b rows is within (lambda sqrt(n_b) + 4) u sum|d_i d_j| of its exact
+        # value (the products and the centring rounded too), and C merges add 3 roundings each of the same terms
+        cv_bound = (SUM_LAMBDA * math.sqrt(STREAM_CHUNK) + 4 + 3 * n_chunks) * F32_UNIT_ROUNDOFF * a_abs
+        e_cov = (cov.cov.larray.double() - cov64).abs()
+        check(bool((e_cov <= cv_bound).all()), f"[stream] cov: {(e_cov / cv_bound).max().item():.3f} of the bound")
+        lines.append(f"StreamingHistogram ({STREAM_BINS} bins over [{lo_r:.3f}, {hi_r:.3f}]) counts sum to "
+                     f"{N_MAIN * F_MAIN} exactly; StreamingCov vs float64 worst {(e_cov / cv_bound).max().item():.3f} "
+                     f"of the bound; pass {rate('StreamingHistogram + StreamingCov pass', nbytes, N_MAIN)}")
+        del cov64, a_abs, e_cov, hist, cov
+
+        # sketches of integer columns, streamed from host arrays
+        col = (np.random.default_rng(seed + 2).permutation(N_MAIN) % HLL_DISTINCT).astype(np.float32)[:, None]
+        hll = step("HyperLogLog", lambda: _fold_all(ht, ht.stream.HyperLogLog(), col))
+        est = hll.distinct()
+        check(abs(est - HLL_DISTINCT) <= 3 * hll.rel_error * HLL_DISTINCT,
+              f"[stream] HyperLogLog {est} vs {HLL_DISTINCT} (3 sigma {3 * hll.rel_error * HLL_DISTINCT})")
+        zipf = np.random.default_rng(seed + 3).zipf(ZIPF_A, N_MAIN)
+        zipf = np.minimum(zipf, 1 << 20).astype(np.float32)[:, None]
+        cm = step("CountMinTopK", lambda: _fold_all(ht, ht.stream.CountMinTopK(), zipf))
+        vals, cnts = np.unique(zipf, return_counts=True)
+        top = set(vals[np.argsort(-cnts, kind="stable")][:ZIPF_TOP].tolist())
+        cands = set(cm.topk()[0].larray.tolist())
+        check(top <= cands, f"[stream] Count-Min candidates miss the true top {ZIPF_TOP}: {sorted(top - cands)}")
+        lines.append(f"HyperLogLog {est:.1f} distinct of {HLL_DISTINCT} ({(est - HLL_DISTINCT) / HLL_DISTINCT:+.4f}, 3 "
+                     f"sigma {3 * hll.rel_error:.4f}); CountMinTopK holds the true top {ZIPF_TOP} of {N_MAIN} Zipf({ZIPF_A}) "
+                     f"values")
+        del col, zipf
+
+        # CSV: 2^20 rows through save_csv and the native parser; a pass over it (loadtxt's windows, heat_tpu's route)
+        csv_path = os.path.join(d, "x.csv")
+        xs = ht.array(x_h[:N_CSV], split=0)
+        step("save_csv", lambda: ht.save_csv(xs, csv_path))
+        ht.kernels.reset_kernel_stats()
+        yc = step("load_csv", lambda: ht.load_csv(csv_path, split=0))
+        check(ht.KERNEL_STATS.get("csv.native") == 1 and "csv.python" not in ht.KERNEL_STATS,
+              f"[stream] load_csv's route {dict(ht.KERNEL_STATS)}")
+        # %f keeps 6 decimals (|error| <= 5e-7), then one rounding to float32
+        e_csv = (yc.larray.double() - xs.larray.double()).abs()
+        c_bnd = 5e-7 + F32_UNIT_ROUNDOFF * xs.larray.double().abs() + 1e-12
+        check(bool((e_csv <= c_bnd).all()), f"[stream] CSV values: {(e_csv / c_bnd).max().item():.3f} of the bound")
+        csv_it = ht.stream.ChunkIterator(csv_path, CSV_CHUNK)
+
+        def csv_pass():
+            m = ht.stream.StreamingMoments()
+            for c in ht.stream.Prefetcher(csv_it, depth=STREAM_DEPTH):
+                m.update(c)
+            return m
+
+        smc = step("StreamingMoments over the CSV", csv_pass)
+        check(steps["StreamingMoments over the CSV"][2] == {"moments_onepass": N_CSV // CSV_CHUNK},
+              f"[stream] CSV pass launches {steps['StreamingMoments over the CSV'][2]}")
+        mu_c, var_c = ht.mean(yc, axis=0).larray.double(), ht.var(yc, axis=0).larray.double()
+        mbc, vbc = merge_bounds(yc.larray, CSV_CHUNK, var_c)
+        check(bool(((smc.mean.larray.double() - mu_c).abs() <= mbc).all())
+              and bool(((smc.var.larray.double() - var_c).abs() <= vbc).all()), "[stream] CSV pass moments")
+        l_csv = moments_vs_plain("[stream] (CSV chunk)", csv_it._stage(next(csv_it._windows())).larray)
+        csv_bytes = os.path.getsize(csv_path)
+        lines.append(f"CSV {N_CSV} x {F_MAIN} ({csv_bytes} B): save_csv {steps['save_csv'][0]:.3f} s, load_csv (native) "
+                     f"{rate('load_csv', csv_bytes, N_CSV)}, values within the %f bound; a pass of {N_CSV // CSV_CHUNK} "
+                     f"chunks (loadtxt windows) {rate('StreamingMoments over the CSV', csv_bytes, N_CSV)}; {l_csv} on "
+                     f"its first chunk")
+        del xs, yc, smc
+
+        # 16-bit draws: rand/randn in float16 and bfloat16 through threefry_bits' 16-bit kinds, one launch each,
+        # against the plain version from the same state, bit for bit
+        clock_mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                                         capture_output=True, text=True, check=True).stdout.split()[0])
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        int_rate = INT32_OPS_PER_CLOCK_PER_SM * sms * clock_mhz * 1e6
+        n16 = N_MAIN * F_MAIN
+        draw_lines = []
+        ht.random.seed(seed)
+        for fn in ("rand", "randn"):
+            for tname in ("float16", "bfloat16"):
+                state = ht.random.get_state()
+                r = step(f"{fn} {tname}", lambda: getattr(ht.random, fn)(N_MAIN, F_MAIN, dtype=getattr(ht, tname),
+                                                                         split=0))
+                check(steps[f"{fn} {tname}"][2] == {"threefry_bits": 1} and r.dtype is getattr(ht, tname),
+                      f"[stream] {fn} {tname}: {steps[f'{fn} {tname}'][2]}, {r.dtype}")
+                after = ht.random.get_state()
+                ht.random.set_state(state)
+                with forced_mode(THREEFRY_KERNEL, "torch"):
+                    r0 = getattr(ht.random, fn)(N_MAIN, F_MAIN, dtype=getattr(ht, tname), split=0)
+                check(ht.random.get_state() == after, "[stream] the plain draw moved the counter otherwise")
+                check(torch.equal(r.larray.view(torch.int16), r0.larray.view(torch.int16)),
+                      f"[stream] {fn} {tname}: threefry_bits differs from its plain version")
+                key = ht.random._fold_in(ht.random._prng_key(state[1]), state[2] & 0x7FFFFFFF)
+                kind = ("uniform" if fn == "rand" else "normal") + ("16" if tname == "float16" else "bf16")
+                layout = ht.random.chunk_layout((N_MAIN, F_MAIN), None, 0, 0)
+                lo = ht.random._rounded(0.0 if fn == "rand" else -1.0 + (2.0 ** -11 if tname == "float16" else 2.0 ** -8),
+                                        getattr(ht, tname))
+                scale = ht.random._rounded(ht.random._rounded(1.0, getattr(ht, tname)) - lo, getattr(ht, tname))
+                k_ms = time_ms(lambda: threefry_bits(key, layout, kind, dev, lo, scale), reps=10, warm=2)
+                p_ms = time_ms(lambda: threefry_plain(key, layout, kind, dev, lo, scale), reps=2, warm=1)
+                check(torch.equal(threefry_bits(key, layout, kind, dev, lo, scale).view(torch.int16),
+                                  r.larray.reshape(-1).view(torch.int16)), f"[stream] {kind}: the draw's own key")
+                # the bound: 2 B written per element (nothing read); the INT32 count of THREEFRY_INT32_OPS at 64 a
+                # clock per SM is an estimate beside it, no bound: the compiler issues some integer adds on the FMA
+                # pipe and merges others (IADD3, LOP3), and the uniform kinds run faster than it
+                b_bytes = n16 * 2 / HBM_BYTES_PER_S * 1e3
+                b_int = THREEFRY_INT32_OPS * n16 / int_rate * 1e3
+                draw_lines.append(f"{fn} {tname} ({kind}) kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+                                  f"{b_bytes:.4f} ms (bytes; share {b_bytes / k_ms:.3f}), INT32 estimate {b_int:.4f} ms "
+                                  f"({b_int / k_ms:.3f} of the kernel's time)")
+                del r, r0
+        lines.append(f"16-bit draws of ({N_MAIN}, {F_MAIN}), each bit-identical to the plain version: "
+                     + "; ".join(draw_lines))
+        del x, init, it, sm, fit
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    for line in lines:
+        print(f"[stream] {line}", flush=True)
+    print(f"[stream] per step, host s / CUDA-event ms / launches ({smi}): "
+          + ", ".join(f"{k} {h:.4f} s / {ev:.4f} ms / {la}" for k, (h, ev, la) in steps.items()), flush=True)
+    print(f"[stream] launches over the streamed path {launched}; host data {t_data:.2f} s", flush=True)
+    return {k: launched.get(k, 0) for k in ("moments_onepass", "lloyd_fused", "topk_distance", "chol_panel_fused",
+                                             "threefry_bits")}
+
+
+def _fold_all(ht, sketch, col):
+    """``sketch`` updated with every STREAM_CHUNK-row chunk of the host column ``col``."""
+    for c in ht.stream.ChunkIterator(col, STREAM_CHUNK):
+        sketch.update(c)
+    return sketch
+
+
 # ---- [dist]: the main path over torch.distributed, one process per card ------------------------
 DIST_SEED, DIST_QR_SEED, DIST_RIDGE_SEED, DIST_LU_SEED, DIST_SVD_SEED = 7, 8, 9, 10, 14
 N_DIST_SLICE = 1 << 20  # rows of z in the resplit round trip
@@ -1783,6 +2186,8 @@ def _dist_rank(rank, world, store, out_dir):
     result["robust"] = _dist_robust(ht, world, rank, timed, same_everywhere, say)
     torch.cuda.empty_cache()
     result["dtypes"] = _dist_dtypes(ht, world, rank, timed, same_everywhere, say)
+    torch.cuda.empty_cache()
+    result["stream"] = _dist_stream(ht, world, rank, timed, same_everywhere, say, out_dir)
     times = torch.tensor([t_stats, t_fit, t_warm, t_knn, t_knn_w, t_stats_w, t_qr, t_qr_w, t_mm, t_mm_w, t_rs, path_s],
                          dtype=torch.float64, device=dev)
     result["times_max"] = comm.allreduce(times, "max").cpu().tolist()
@@ -2537,6 +2942,161 @@ def _dist_dtypes(ht, world, rank, timed, same_everywhere, say):
     return {"steps": steps, "worst": worst, "vdot": complex(vd.item()), "vdot_err": e_vd, "vdot_bound": v_bound}
 
 
+DIST_STREAM_SEED = 24
+
+
+def _stream_dist_data(ht):
+    """[dist]'s stream data: [main]'s blob recipe at N_MAIN rows in all (strong scaling), drawn split 0 with the
+    port's split-invariant stream, so one process draws the same global array; row c of the first K_MAIN in blob c."""
+    import torch
+
+    ht.random.seed(DIST_STREAM_SEED)
+    true = ht.random.randn(K_MAIN, F_MAIN) * 8.0
+    member = ht.random.randint(0, K_MAIN, size=(N_MAIN,), split=0, dtype=ht.int64)
+    off = member.comm.chunk(member.gshape, 0)[0]
+    if off < K_MAIN:
+        member.larray[: K_MAIN - off] = torch.arange(off, K_MAIN, device=member.larray.device)
+    return ht.random.randn(N_MAIN, F_MAIN, split=0) + ht.DNDarray(true.larray[member.larray], gshape=(N_MAIN, F_MAIN),
+                                                                  split=0)
+
+
+def _dist_stream(ht, world, rank, timed, same_everywhere, say, out_dir):
+    """[dist]'s stream steps on N_MAIN x F_MAIN blobs in all: a save from every rank (each writes its rows into the
+    one file, in rank order), a split-0 load (each reads only its rows: the reader's row windows are recorded),
+    ``StreamingMoments`` and ``StreamingKMeans`` (STREAM_EPOCHS epochs) over a split-0 ``ChunkIterator`` of the file,
+    gated on their collectives (two ``allreduce`` per chunk for the moments, one per chunk and epoch for the fit),
+    and ``merge_processes`` of per-rank moments through ``tree_merge`` (log2 P rounds, bit-identical on every
+    rank). Returns what the parent holds against one process."""
+    import torch
+
+    from heat_tpu_torch.core import _netcdf3
+
+    comm = ht.get_comm()
+    steps = {}
+
+    def step(name, fn):
+        out, host, ev = timed(fn)
+        steps[name] = {"host_s": host, "event_ms": ev, "collectives": timed.collectives}
+        return out
+
+    x = _stream_dist_data(ht)
+    path = os.path.join(out_dir, "stream_x.nc")
+    step("save", lambda: ht.save(x, path, "x", format="NETCDF3_64BIT"))
+    reads, real_read = [], _netcdf3.NetCDF3File.read
+
+    def spy(self, variable, start=0, stop=None):
+        reads.append((start, stop))
+        return real_read(self, variable, start, stop)
+
+    _netcdf3.NetCDF3File.read = spy
+    try:
+        y = step("load", lambda: ht.load(path, "x", split=0))
+    finally:
+        _netcdf3.NetCDF3File.read = real_read
+    off, lsh, _ = comm.chunk(x.gshape, 0)
+    check(reads == [(off, off + lsh[0])], f"[dist] stream: rank {rank} read rows {reads}, not its [{off}, "
+                                          f"{off + lsh[0]})")
+    check(y.gshape == x.gshape and torch.equal(y.larray, x.larray), "[dist] stream: the load differs from the save")
+    digest = _digest(y.larray)
+    del y
+    it = ht.stream.ChunkIterator(path, STREAM_CHUNK, dataset="x")
+    n_chunks = len(it)
+    ht.kernels.reset_kernel_stats()
+
+    def moments():
+        m = ht.stream.StreamingMoments()
+        for c in ht.stream.Prefetcher(it, depth=STREAM_DEPTH):
+            m.update(c)
+        return m
+
+    sm = step("StreamingMoments pass", moments)
+    calls = {k: v["calls"] for k, v in steps["StreamingMoments pass"]["collectives"].items()}
+    want = {"allreduce": 2 * n_chunks} if world > 1 else {}  # a chunk of one rank is not split across ranks
+    check(calls == want, f"[dist] stream: the moments pass ran {calls}, not moments_sharded's {want}")
+    check(ht.LAUNCHES["moments_onepass"] == n_chunks, f"[dist] stream: moments launches {dict(ht.LAUNCHES)}")
+    init = x[:K_MAIN].resplit(None)
+    ht.kernels.reset_kernel_stats()
+    fit = step("StreamingKMeans fit", lambda: ht.cluster.StreamingKMeans(
+        K_MAIN, init=init, max_iter=STREAM_EPOCHS, tol=None).fit(it, prefetch_depth=STREAM_DEPTH))
+    calls = {k: v["calls"] for k, v in steps["StreamingKMeans fit"]["collectives"].items()}
+    want = {"allreduce": n_chunks * STREAM_EPOCHS}  # lloyd_sharded sums over the group at any size, as KMeans'
+    check(calls == want, f"[dist] stream: the fit ran {calls}, not one allreduce per chunk and epoch {want}")
+    check(ht.LAUNCHES["lloyd_fused"] == n_chunks * STREAM_EPOCHS, f"[dist] stream: lloyd launches {dict(ht.LAUNCHES)}")
+    for name, t in (("streamed mean", sm.mean.larray), ("streamed var", sm.var.larray),
+                    ("streamed centres", fit.cluster_centers_.larray)):
+        same_everywhere(t, name)
+    # per-rank moments of this rank's own rows, merged across the ranks
+    mine = ht.stream.StreamingMoments()
+    part = max(1, STREAM_CHUNK // world)
+    for a in range(0, lsh[0], part):
+        mine.update(ht.DNDarray(x.larray[a:a + part], comm=ht.SELF))
+    step("merge_processes", mine.merge_processes)
+    calls = {k: v["calls"] for k, v in steps["merge_processes"]["collectives"].items()}
+    rounds = ht.tree_merge_rounds(world)
+    check(calls == ({"tree_merge": rounds} if world > 1 else {}),
+          f"[dist] stream: merge_processes ran {calls}, not {rounds} tree_merge rounds")
+    same_everywhere(mine.mean.larray, "merged mean")
+    same_everywhere(mine.var.larray, "merged var")
+    say("stream: " + "; ".join(f"{k} {v['host_s']:.4f} s host, {v['event_ms']:.4f} ms events, COLLECTIVES "
+                               f"{v['collectives']}" for k, v in steps.items()))
+    out = {"digest": digest, "rows": (off, lsh[0]), "mean": sm.mean.larray.cpu(), "var": sm.var.larray.cpu(),
+           "centers": fit.cluster_centers_.larray.cpu(), "merged_mean": mine.mean.larray.cpu(),
+           "merged_var": mine.var.larray.cpu(), "steps": steps, "rounds": rounds, "chunks": n_chunks}
+    del x, sm, fit, mine, it, init
+    torch.cuda.empty_cache()
+    return out
+
+
+def _stream_reference(ht, world, ranks, tmp):
+    """One process on [dist]'s stream data and the file the ranks saved: the file loads equal to the draw, each
+    rank's chunk digested as the rank digested it; one card's streamed moments (timed: the strong-scaling baseline)
+    and in-memory moments and KMeans against the ranks' within the merge and accumulation bounds."""
+    import torch
+
+    ht.use_device("gpu")
+    x = _stream_dist_data(ht)
+    path = os.path.join(tmp, "stream_x.nc")
+    y = ht.load(path, "x", split=0)
+    check(torch.equal(y.larray, x.larray), f"[dist] stream: the file {world} rank(s) saved differs from the draw")
+    for r in ranks:
+        off, n = r["stream"]["rows"]
+        check(_digest(y.larray[off:off + n]) == r["stream"]["digest"], f"[dist] stream: rank {r['rank']}'s chunk digest")
+    del y
+    it = ht.stream.ChunkIterator(path, STREAM_CHUNK, dataset="x")
+    t0 = time.perf_counter()
+    sm1 = ht.stream.StreamingMoments()
+    for c in ht.stream.Prefetcher(it, depth=STREAM_DEPTH):
+        sm1.update(c)
+    torch.cuda.synchronize()
+    t_one = time.perf_counter() - t0
+    var64 = x.larray.double().var(dim=0, unbiased=False)
+    mu64 = x.larray.double().mean(dim=0)
+    mb, vb = merge_bounds(x.larray, STREAM_CHUNK // max(world, 1), var64)  # the ranks' finer chunks: more merges
+    mb1, vb1 = merge_bounds(x.larray, STREAM_CHUNK, var64)
+    st = ranks[0]["stream"]
+    worst = 0.0
+    for name, got, ref, bound in (("mean", st["mean"], mu64, mb + mb1), ("var", st["var"], var64, vb + vb1),
+                                  ("one card mean", sm1.mean.larray, mu64, mb1), ("one card var", sm1.var.larray,
+                                                                                   var64, vb1),
+                                  ("merged mean", st["merged_mean"], mu64, mb), ("merged var", st["merged_var"], var64,
+                                                                                 vb)):
+        e = (got.to(x.larray.device).double() - ref).abs()
+        check(bool((e <= bound).all()), f"[dist] stream {name} vs float64: {(e / bound).max().item():.3f} of the bound")
+        worst = max(worst, (e / bound).max().item())
+    km = ht.cluster.KMeans(K_MAIN, init=x[:K_MAIN], max_iter=STREAM_EPOCHS, tol=None).fit(x)
+    onehot = torch.nn.functional.one_hot(km.labels_.larray.long(), K_MAIN).to(torch.float32)
+    abs_sums = (onehot.T @ x.larray.abs()).double()
+    counts = onehot.sum(dim=0).double()
+    c_ref = km.cluster_centers_.larray.double()
+    c_bound = (2 * SUM_LAMBDA * torch.sqrt(counts)[:, None] * F32_UNIT_ROUNDOFF * abs_sums / counts[:, None]
+               + 2 * F32_UNIT_ROUNDOFF * c_ref.abs())
+    e_c = (st["centers"].to(x.larray.device).double() - c_ref).abs()
+    check(bool((e_c <= c_bound).all()), f"[dist] stream centres vs one card's KMeans: {(e_c / c_bound).max().item():.3f}")
+    del x, onehot, km
+    torch.cuda.empty_cache()
+    return {"t_one_pass": t_one, "worst": worst, "centres": (e_c / c_bound).max().item()}
+
+
 def dist_phase(world: int) -> None:
     """[dist]: the main path at world size ``world`` (one process per card,
     NCCL; weak scaling: N_MAIN rows per card), then the single-process port
@@ -2548,7 +3108,7 @@ def dist_phase(world: int) -> None:
     import heat_tpu_torch as ht
     from heat_tpu_torch.spatial.distance import _quadratic_expand
 
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    tmp = stream_space("[dist]", "chip_smoke_dist_")  # the ranks' stream steps write a 2 GiB file here
     try:
         print(f"[dist] spawning {world} rank(s) over NCCL, {N_MAIN} x {F_MAIN} rows per card", flush=True)
         t0 = time.perf_counter()
@@ -2685,6 +3245,17 @@ def dist_phase(world: int) -> None:
               f"{dt[0]['vdot_err']:.3e} <= {dt[0]['vdot_bound']:.3e})", flush=True)
         for r in ranks:
             print(f"[dist] dtypes r{r['rank']}: " + _steps_line(r["dtypes"]["steps"]), flush=True)
+        sref = _stream_reference(ht, world, ranks, tmp)
+        sst = [r["stream"] for r in ranks]
+        print(f"[dist] stream {N_MAIN} x {F_MAIN} in all (strong scaling), {sst[0]['chunks']} chunks of {STREAM_CHUNK} "
+              f"rows: a save from {world} rank(s) loads back equal, each rank read only its rows; COLLECTIVES per rank: "
+              f"moments pass {[s['steps']['StreamingMoments pass']['collectives'] for s in sst]}, fit "
+              f"{[s['steps']['StreamingKMeans fit']['collectives'] for s in sst]}, merge_processes "
+              f"{[s['steps']['merge_processes']['collectives'] for s in sst]} ({sst[0]['rounds']} tree_merge rounds); "
+              f"moments within {sref['worst']:.3f} of the merge bound of float64, centres {sref['centres']:.3f} of the "
+              f"accumulation bound of one card's KMeans; slowest rank (first calls): " + ", ".join(
+                  f"{k} {max(s['steps'][k]['host_s'] for s in sst):.4f} s" for k in sst[0]["steps"])
+              + f"; one card's moments pass over the same file {sref['t_one_pass']:.4f} s", flush=True)
         tm = ranks[0]["times_max"]
         print(f"[dist] world size {world}; per rank: launches {[r['launches'] for r in ranks]}; fit COLLECTIVES "
               f"{ranks[0]['fit_collectives']}; qr local routes {[r['qr_routes'] for r in ranks]}", flush=True)
@@ -2707,10 +3278,10 @@ def dist_phase(world: int) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive heat_tpu_torch's main path on the cards and check every kernel.")
-    ap.add_argument("--phases", choices=("all", "dist", "spectral", "linalg", "robust", "dtypes"), default="all",
-                    help="all (default): every phase; dist, spectral, linalg, robust or dtypes: environment, build and "
-                         "that phase only")
-    ap.add_argument("--seed", type=int, default=0, help="seed of [dtypes]' numpy data (default 0)")
+    ap.add_argument("--phases", choices=("all", "dist", "spectral", "linalg", "robust", "dtypes", "stream"),
+                    default="all", help="all (default): every phase; dist, spectral, linalg, robust, dtypes or stream: "
+                                        "environment, build and that phase only")
+    ap.add_argument("--seed", type=int, default=0, help="seed of [dtypes]' and [stream]'s numpy data (default 0)")
     args = ap.parse_args(argv)
     import torch
 
@@ -2748,6 +3319,11 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"[build]   {line}")
     check(set(built) >= {"moments", "lloyd", "topk_distance", "panel_update", "threefry"}, f"built {sorted(built)}")
+    from heat_tpu_torch import native
+
+    t0 = time.perf_counter()
+    lib = native.build()  # the CSV parser and file stream (g++), built here so that no step's time holds it
+    print(f"[build] native: {time.perf_counter() - t0:.2f} s -> {os.path.relpath(lib, ROOT)}", flush=True)
 
     walls = {}
 
@@ -2773,6 +3349,11 @@ def main(argv=None) -> int:
         if kernels is not None:
             for row in kernels:
                 row["launches_dtypes"] = dtypes_launches.get(row["name"], 0)
+    if args.phases in ("all", "stream"):
+        stream_launches = phase("stream", lambda: stream_phase(dev, args.seed, smi))
+        if kernels is not None:
+            for row in kernels:
+                row["launches_stream"] = stream_launches.get(row["name"], 0)
     if args.phases in ("all", "dist"):
         phase("dist", lambda: dist_phase(torch.cuda.device_count()))
     print("[walls] host seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()), flush=True)

@@ -46,10 +46,18 @@ The port goes slice by slice:
    bfloat16, complex64, complex128) through every module and collective,
    ``complex_math``, the DNDarray's own members with the split-axis halos,
    ``signal.convolve`` over them, ``pad``'s statistic modes, ``printing``
-   and ``version``.
+   and ``version``;
+8. ``heat_tpu``'s float16/bfloat16 random stream, file I/O (``load``/
+   ``save``: HDF5, classic netCDF through the port's own reader and
+   writer, CSV through the native parser of ``native/``) and the
+   out-of-core ``stream`` path: ``ChunkIterator`` and ``Prefetcher``, the
+   streaming estimators (``moments_onepass`` per chunk) and sketches,
+   ``percentile``/``median`` of a ``ChunkIterator``, ``tree_merge``, and
+   ``cluster.StreamingKMeans`` (``lloyd_fused`` per chunk).
 """
 from .core import *
-from .core import complex_math, kernels, linalg, printing, random, signal, version
+from .core import complex_math, io, kernels, linalg, printing, random, signal, version
 from .core.version import __version__
-from . import classification, cluster, convert, graph, parallel, spatial
+from . import classification, cluster, convert, graph, parallel, spatial, stream
 from .core.kernels import KERNEL_STATS, LAUNCHES
+from .stream import STREAM_STATS

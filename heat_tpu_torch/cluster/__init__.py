@@ -3,3 +3,4 @@ from .kmeans import KMeans
 from .kmedians import KMedians
 from .kmedoids import KMedoids
 from .spectral import Spectral
+from .streaming import StreamingKMeans

@@ -30,8 +30,9 @@ from .random import *
 from . import tiling
 from .tiling import *
 from .base import *
-from . import complex_math, printing, signal, version
+from . import complex_math, io, printing, signal, version
 from .complex_math import *
+from .io import *
 from .printing import *
 from .signal import *
 from .version import __version__

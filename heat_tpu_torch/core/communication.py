@@ -54,10 +54,13 @@ __all__ = [
     "SPLIT_AXIS",
     "TorchCommunication",
     "WORLD",
+    "collective_lockstep",
     "comm_context",
     "get_comm",
     "init_distributed",
     "replicated_decision",
+    "tree_merge",
+    "tree_merge_rounds",
     "use_comm",
     "sanitize_comm",
 ]
@@ -428,3 +431,105 @@ def replicated_decision(flag, comm: Optional[TorchCommunication] = None) -> bool
         return bool(flag)
     t = torch.tensor([1 if flag else 0], dtype=torch.int32, device=comm.device())
     return bool(comm.allreduce(t, "max").item())
+
+
+def collective_lockstep(tree):
+    """``tree`` unchanged: the port's collectives are already in lockstep.
+
+    ``heat_tpu`` blocks here under several controllers, because XLA may run
+    two independent collective-bearing programs at once and interleave their
+    collectives differently on each process. In the port one Python thread
+    per rank issues every collective, in program order, onto one CUDA stream
+    (NCCL) or the gloo queue, so every rank starts the same collectives in
+    the same order without waiting here; blocking would only stall the
+    stream. It is kept so that code written against ``heat_tpu`` reads the
+    same."""
+    return tree
+
+
+def tree_merge_rounds(nproc: int) -> int:
+    """The exchange rounds :func:`tree_merge` takes for ``nproc`` ranks:
+    ``log2 nproc`` on a power of two, else 0 (it gathers instead)."""
+    nproc = int(nproc)
+    if nproc <= 1 or nproc & (nproc - 1):
+        return 0
+    return nproc.bit_length() - 1
+
+
+def _flatten(state):
+    """The tensors of a nested tuple/list ``state``, and a function that
+    rebuilds the structure from such a list."""
+    if isinstance(state, (tuple, list)):
+        parts = [_flatten(s) for s in state]
+        leaves = [leaf for p in parts for leaf in p[0]]
+        counts = [len(p[0]) for p in parts]
+
+        def build(ls):
+            out, i = [], 0
+            for (_, b), c in zip(parts, counts):
+                out.append(b(ls[i : i + c]))
+                i += c
+            return type(state)(out)
+
+        return leaves, build
+    return [state], lambda ls: ls[0]
+
+
+def _pack(leaves) -> torch.Tensor:
+    """The leaves' bytes, concatenated (one message, bit-exact)."""
+    return torch.cat([t.contiguous().reshape(-1).view(torch.uint8) for t in leaves])
+
+
+def _unpack(buf: torch.Tensor, like) -> list:
+    out, i = [], 0
+    for t in like:
+        n = t.numel() * t.element_size()
+        out.append(buf[i : i + n].clone().view(t.dtype).reshape(t.shape))  # a copy: aligned for the view
+        i += n
+    return out
+
+
+def tree_merge(state, combine, *, label: str = "collective.tree_merge", active: bool = True,
+               comm: Optional[TorchCommunication] = None):
+    """One state per rank merged into the same global state on every rank
+    in ``log2 P`` rounds: an XOR butterfly in which round ``d`` pairs rank
+    ``r`` with ``r ^ d`` (one send and one receive each, counted as
+    ``COLLECTIVES["tree_merge"]``).
+
+    ``state`` is a nested tuple/list of tensors on the group's device, of
+    the same structure, shapes and types on every rank; ``combine(a, b)``
+    is an associative function of two such states, ``a`` the lower rank's,
+    that keeps shapes and types. Both ranks of a pair apply ``combine``
+    with the lower rank's state first, so every rank builds the same
+    balanced bracketing ``s_0 + s_1 + ... + s_{P-1}`` and holds a
+    bit-identical result (``heat_tpu``'s rank-ordered butterfly). A world
+    size that is not a power of two gathers every state instead (one
+    ``allgather``) and folds them in rank order. ``active=False`` or a
+    world of one rank returns ``state``."""
+    from . import _hooks
+
+    comm = sanitize_comm(comm)
+    nproc = comm.size
+    if not active or nproc == 1:
+        return state
+    leaves, build = _flatten(state)
+    _hooks.fault_point(label, leaves=len(leaves), shapes=tuple(tuple(t.shape) for t in leaves),
+                       dtypes=tuple(str(t.dtype) for t in leaves))
+    buf = _pack(leaves)
+    if nproc & (nproc - 1):  # no butterfly off powers of two
+        allb = comm.allgather(buf.unsqueeze(0), 0, [1] * nproc)
+        acc = build(_unpack(allb[0], leaves))
+        for r in range(1, nproc):
+            acc = combine(acc, build(_unpack(allb[r], leaves)))
+        return acc
+    acc = state
+    d = 1
+    while d < nproc:
+        partner = comm.rank ^ d
+        got = comm.exchange("tree_merge", {partner: buf}, {partner: tuple(buf.shape)}, buf)[partner]
+        other = build(_unpack(got, leaves))
+        acc = combine(acc, other) if comm.rank & d == 0 else combine(other, acc)
+        leaves, _ = _flatten(acc)
+        buf = _pack(leaves)
+        d <<= 1
+    return acc

@@ -28,14 +28,28 @@
 // polynomials in w = -log1p(-u^2), the coefficients of threefry.py's
 // _ERFINV32 / _ERFINV64), each product and sum rounded on its own as the
 // plain version's torch operations round them.
+//
+// The 16-bit kinds follow jax's _uniform for float16 and bfloat16: float16
+// draws 16-bit words (the low half of x0 ^ x1) and takes their top 10 bits
+// as the mantissa; bfloat16 draws 8-bit words (the low byte; jax widens
+// the word where the mantissa has fewer than 8 bits) and takes their top 7.
+// Every operation after that is rounded to the 16-bit type, as XLA rounds
+// it: each is computed in float32 and rounded once, which is the IEEE
+// 16-bit result because float32's 24 bits are at least 2p + 2 for p = 11
+// and p = 8. A 16-bit normal is round(round(erfinv32(u)) * round(sqrt 2)).
 #include <cstdint>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
 
-enum Kind { kBits32 = 0, kBits64 = 1, kUniform32 = 2, kUniform64 = 3, kNormal32 = 4, kNormal64 = 5 };
+enum Kind {
+    kBits32 = 0, kBits64 = 1, kUniform32 = 2, kUniform64 = 3, kNormal32 = 4, kNormal64 = 5,
+    kUniform16 = 6, kNormal16 = 7, kUniformBf16 = 8, kNormalBf16 = 9
+};
 
 __constant__ float kErfinv32Lt5[9] = {2.81022636e-08f, 3.43273939e-07f, -3.5233877e-06f, -4.39150654e-06f,
                                       0.00021858087f, -0.00125372503f, -0.00417768164f, 0.246640727f, 1.50140941f};
@@ -73,12 +87,21 @@ __device__ __forceinline__ double horner64(const double* c, int n, double t) {
     return q;
 }
 
-// sqrt(2) * erfinv(u) for |u| < 1
-__device__ __forceinline__ float normal32(float u) {
+// erfinv(u) for |u| < 1, float32
+__device__ __forceinline__ float erfinv32(float u) {
     const float w = -log1pf(-__fmul_rn(u, u));
     const float p = w < 5.0f ? horner32(kErfinv32Lt5, 9, __fsub_rn(w, 2.5f))
                              : horner32(kErfinv32Ge5, 9, __fsub_rn(__fsqrt_rn(w), 3.0f));
-    return __fmul_rn(__fmul_rn(p, u), 1.41421356f);
+    return __fmul_rn(p, u);
+}
+
+// sqrt(2) * erfinv(u) for |u| < 1
+__device__ __forceinline__ float normal32(float u) { return __fmul_rn(erfinv32(u), 1.41421356f); }
+
+// x rounded to float16 (HALF) or bfloat16, as a float
+template <bool HALF>
+__device__ __forceinline__ float round16(float x) {
+    return HALF ? __half2float(__float2half_rn(x)) : __bfloat162float(__float2bfloat16_rn(x));
 }
 
 __device__ __forceinline__ double normal64(double u) {
@@ -140,6 +163,19 @@ threefry_kernel(void* __restrict__ out, uint32_t k0, uint32_t k1, long long base
             const float lo_f = (float)lo;
             const float u = fmaxf(lo_f, __fadd_rn(__fmul_rn(f, (float)scale), lo_f));
             static_cast<float*>(out)[e] = KIND == kUniform32 ? u : normal32(u);
+        } else if (KIND == kUniform16 || KIND == kNormal16 || KIND == kUniformBf16 || KIND == kNormalBf16) {
+            constexpr bool kHalf = KIND == kUniform16 || KIND == kNormal16;
+            const uint32_t b = x0 ^ x1;
+            const float f = kHalf ? __half2float(__ushort_as_half((unsigned short)(((b & 0xFFFFu) >> 6) | 0x3C00u))) - 1.0f
+                                  : __bfloat162float(__ushort_as_bfloat16((unsigned short)(((b & 0xFFu) >> 1) | 0x3F80u))) -
+                                        1.0f;
+            const float lo_f = (float)lo;
+            float r = fmaxf(lo_f, round16<kHalf>(__fadd_rn(round16<kHalf>(__fmul_rn(f, (float)scale)), lo_f)));
+            if (KIND == kNormal16 || KIND == kNormalBf16) {
+                r = round16<kHalf>(__fmul_rn(round16<kHalf>(erfinv32(r)), round16<kHalf>(1.41421356f)));
+            }
+            static_cast<unsigned short*>(out)[e] =
+                kHalf ? __half_as_ushort(__float2half_rn(r)) : __bfloat16_as_ushort(__float2bfloat16_rn(r));
         } else {
             const unsigned long long b = ((unsigned long long)x0 << 32) | x1;
             const double f = __longlong_as_double((long long)((b >> 12) | 0x3FF0000000000000ull)) - 1.0;
@@ -151,8 +187,8 @@ threefry_kernel(void* __restrict__ out, uint32_t k0, uint32_t k1, long long base
 
 }  // namespace
 
-// Fill out (rows * cols elements of the kind's type: uint32, uint64, float or
-// double) on `stream` with `blocks` blocks of kThreads threads. Returns the
+// Fill out (rows * cols elements of the kind's type: uint32, uint64, float,
+// double, float16 or bfloat16) on `stream` with `blocks` blocks of kThreads threads. Returns the
 // launch's CUDA error code (0 on success).
 extern "C" int threefry_fill(void* out, int kind, unsigned int k0, unsigned int k1, long long base,
                              long long row_stride, long long rows, long long cols, double lo, double scale,
@@ -181,6 +217,15 @@ extern "C" int threefry_fill(void* out, int kind, unsigned int k0, unsigned int 
             threefry_kernel<kNormal64><<<blocks, kThreads, 0, s>>>(out, k0, k1, base, row_stride, rows, cols, lo,
                                                                     scale);
             break;
+#define TF_LAUNCH16(K) \
+        case K:          \
+            threefry_kernel<K><<<blocks, kThreads, 0, s>>>(out, k0, k1, base, row_stride, rows, cols, lo, scale); \
+            break;
+        TF_LAUNCH16(kUniform16)
+        TF_LAUNCH16(kNormal16)
+        TF_LAUNCH16(kUniformBf16)
+        TF_LAUNCH16(kNormalBf16)
+#undef TF_LAUNCH16
         default:
             return (int)cudaErrorInvalidValue;
     }

@@ -22,7 +22,20 @@ Kinds: ``"bits32"`` (int32 tensor holding the uint32 bits ``x0 ^ x1``),
 with ``f`` in [1, 2) from the top 23 / 52 bits, as jax's ``_uniform``),
 ``"normal32"`` / ``"normal64"`` (``sqrt(2) * erfinv(u)`` of that ``u``, as
 jax's ``_normal_real``, with XLA's erfinv: Giles' polynomials in
-``w = -log1p(-u^2)``, :func:`_erf_inv`).
+``w = -log1p(-u^2)``, :func:`_erf_inv`), and the 16-bit kinds
+``"uniform16"`` / ``"normal16"`` (float16) and ``"uniformbf16"`` /
+``"normalbf16"`` (bfloat16). jax draws narrower words for these: float16
+takes the low 16 bits of ``x0 ^ x1`` and its top 10 as the mantissa;
+bfloat16 takes only the low 8 bits (jax's ``_uniform`` draws 8-bit words
+where the mantissa has fewer than 8 bits) and their top 7. Every
+operation after that rounds to the 16-bit type, as XLA computes them:
+``u = max(lo, round(round(f * scale) + lo))``, and a normal is
+``round(round(erfinv(u)) * round(sqrt(2)))`` with the float32 erfinv
+(XLA's 16-bit erf_inv is the float32 one, rounded once). A float32
+product or sum of two 16-bit values rounded once to 16 bits is the
+IEEE 16-bit result (float32's 24 bits are at least 2p + 2 for p = 11 and
+p = 8), so the plain version and the kernel compute in float32 and round
+after each operation.
 
 This is not a port of a TPU kernel: XLA fuses threefry into one pass on
 the TPU. Bound on the card: the bytes written (3.35 TB/s), though the
@@ -48,7 +61,11 @@ THREEFRY_KERNEL = register_kernel(
 )
 
 KINDS = {"bits32": (0, torch.int32), "bits64": (1, torch.int64), "uniform32": (2, torch.float32),
-         "uniform64": (3, torch.float64), "normal32": (4, torch.float32), "normal64": (5, torch.float64)}
+         "uniform64": (3, torch.float64), "normal32": (4, torch.float32), "normal64": (5, torch.float64),
+         "uniform16": (6, torch.float16), "normal16": (7, torch.float16), "uniformbf16": (8, torch.bfloat16),
+         "normalbf16": (9, torch.bfloat16)}
+# 16-bit kinds: (type, mask of the word jax draws, shift of its mantissa bits, bits of 1.0)
+_HALF = {"16": (torch.float16, 0xFFFF, 6, 0x3C00), "bf16": (torch.bfloat16, 0xFF, 1, 0x3F80)}
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _BLOCK = 1 << 22  # elements per block of the plain version
@@ -148,6 +165,9 @@ def _convert(x0: torch.Tensor, x1: torch.Tensor, kind: str, lo: float, scale: fl
     # (x0 << 32) | x1 as an int64 bit pattern: x0 - 2^32 where its top bit is set, times 2^32, cannot overflow
     if kind == "bits64":
         return torch.where(x0 >= 1 << 31, x0 - (1 << 32), x0) * (1 << 32) | x1
+    half = _HALF.get(kind[6:] if kind.startswith("normal") else kind[7:])
+    if half is not None:
+        return _convert16(x0 ^ x1, kind, half, lo, scale)
     if kind.endswith("32"):
         f = ((((x0 ^ x1) >> 9) | 0x3F800000).to(torch.int32)).view(torch.float32) - 1.0
     else:
@@ -156,6 +176,22 @@ def _convert(x0: torch.Tensor, x1: torch.Tensor, kind: str, lo: float, scale: fl
     if kind.startswith("uniform"):
         return u
     return _erf_inv(u) * float(np.sqrt(2).astype(np.float32 if kind == "normal32" else np.float64))
+
+
+def _convert16(b: torch.Tensor, kind: str, half, lo: float, scale: float) -> torch.Tensor:
+    """The 16-bit kinds of :func:`_convert` from the 32-bit words ``b``:
+    float32 arithmetic rounded to the 16-bit type after each operation."""
+    dt, mask, shift, one = half
+
+    def rnd(t):
+        return t.to(dt).to(torch.float32)
+
+    f = ((((b & mask) >> shift) | one).to(torch.int16)).view(dt).to(torch.float32) - 1.0  # exact
+    lo_t = torch.tensor(lo, dtype=torch.float32)
+    u = torch.maximum(lo_t, rnd(rnd(f * scale) + lo_t))
+    if kind.startswith("normal"):
+        u = rnd(rnd(_erf_inv(u)) * rnd(torch.tensor(float(np.sqrt(2)), dtype=torch.float32)))
+    return u.to(dt)
 
 
 def threefry_plain(key, layout: Layout, kind: str, device=None, lo: float = 0.0, scale: float = 1.0) -> torch.Tensor:

@@ -14,8 +14,10 @@ plain version on the CPU (:mod:`.kernels.threefry`), which also converts
 them to floats in the same pass as ``jax.random`` does: uniform as jax's
 ``_uniform``, normal as ``sqrt(2) * erfinv(u)`` with ``u`` uniform in
 (-1, 1) and XLA's erfinv (it differs from XLA's result in the last bits
-where the two ``log1p`` round differently). ``randint`` is jax's 64-bit
-``_randint`` (two 64-bit draws and a modular combination), and
+where the two ``log1p`` round differently). float16 and bfloat16 draws
+are jax's narrower ones (16-bit words for float16, 8-bit words for
+bfloat16), rounded to the 16-bit type after every operation. ``randint``
+is jax's 64-bit ``_randint`` (two 64-bit draws and a modular combination), and
 ``randperm``/``permutation`` are jax's ``_shuffle``: rounds of a stable
 sort by fresh 32-bit keys.
 """
@@ -131,28 +133,32 @@ def _chunk(shape, split, comm):
 
 def _float_type(dtype):
     dtype = types.canonical_heat_type(dtype) if dtype is not None else types.float32
-    if dtype in (types.float16, types.bfloat16):
-        # jax draws 16-bit words for these types, a stream threefry_bits does not make yet
-        raise NotImplementedError(
-            f"random floats of dtype {dtype.__name__} need heat_tpu's 16-bit threefry stream, "
-            "which the port does not draw yet (ROADMAP.md, Queue A: 16-bit draws in threefry_bits)"
-        )
-    if dtype not in (types.float32, types.float64):
+    if dtype not in (types.float16, types.bfloat16, types.float32, types.float64):
         raise ValueError(f"Unsupported dtype {dtype} for random floats")
     return dtype
 
 
+# the kind suffix of each float type's draw (threefry_bits' kinds)
+_KIND_SUFFIX = {"float16": "16", "bfloat16": "bf16", "float32": "32", "float64": "64"}
+
+
+def _rounded(value: float, dtype) -> float:
+    """``value`` rounded to ``dtype`` (a heat float type), as a python float."""
+    return float(torch.tensor(float(value), dtype=torch.float64).to(dtype.torch_type()).item())
+
+
 def _float_draw(kind: str, shape, dtype, split, device, comm, lo: float = 0.0, hi: float = 1.0) -> DNDarray:
     """A draw of ``kind`` (``"uniform"`` or ``"normal"``) over jax's uniform
-    ``max(lo, u * (hi - lo) + lo)``, u in [0, 1), in ``dtype``."""
+    ``max(lo, u * (hi - lo) + lo)``, u in [0, 1), in ``dtype``: ``lo``,
+    ``hi`` and their difference rounded to ``dtype``."""
     device = devices.sanitize_device(device)
     comm = sanitize_comm(comm)
     key = _next_key(int(np.prod(shape, dtype=np.int64)) if shape else 1)
     split, lshape, layout = _chunk(shape, split, comm)
-    npt = np.float32 if dtype is types.float32 else np.float64
-    scale = float(npt(hi) - npt(lo))
-    kind += "32" if dtype is types.float32 else "64"
-    t = _fill(key, layout, kind, device.torch_device, float(npt(lo)), scale).reshape(lshape)
+    lo = _rounded(lo, dtype)
+    scale = _rounded(_rounded(hi, dtype) - lo, dtype)
+    kind += _KIND_SUFFIX[dtype.__name__]
+    t = _fill(key, layout, kind, device.torch_device, lo, scale).reshape(lshape)
     return DNDarray(t, gshape=shape, dtype=dtype, split=split, device=device, comm=comm)
 
 
@@ -176,8 +182,9 @@ def randn(*d, dtype=types.float32, split=None, device=None, comm=None) -> DNDarr
     uniform in (-1, 1) (jax's ``_normal_real``)."""
     shape = sanitize_shape(d) if d else ()
     dtype = _float_type(dtype)
-    npt = np.float32 if dtype is types.float32 else np.float64
-    return _float_draw("normal", shape, dtype, split, device, comm, lo=np.nextafter(npt(-1.0), npt(0.0)))
+    minus_one = torch.tensor(-1.0, dtype=dtype.torch_type())
+    lo = float(torch.nextafter(minus_one, torch.zeros_like(minus_one)).item())
+    return _float_draw("normal", shape, dtype, split, device, comm, lo=lo)
 
 
 def _urem(v: torch.Tensor, s: int) -> torch.Tensor:

@@ -428,14 +428,37 @@ def argmin(x: DNDarray, axis=None, out=None, **kwargs) -> DNDarray:
 
 
 # --------------------------------------------------------- order statistics
-def _reject_stream(x, name: str) -> None:
-    if type(x).__name__ == "ChunkIterator":
-        raise NotImplementedError(
-            f"{name} of a ChunkIterator (the streaming KLL sketch) needs the port's stream module, "
-            "which is not ported yet (ROADMAP.md, Queue A item 10)"
+def _is_stream(x) -> bool:
+    from ..stream.chunked import ChunkIterator
+
+    return isinstance(x, ChunkIterator)
+
+
+def _streaming_percentile(chunks, q_host: np.ndarray, axis, kd: bool) -> DNDarray:
+    """One pass of a ``ChunkIterator`` through a KLL sketch: approximate
+    percentiles of all its elements, within the sketch's ``eps`` of rank
+    (``heat_tpu``'s streaming route)."""
+    if axis is not None:
+        raise ValueError(
+            "streaming percentile/median folds all elements (axis=None "
+            f"semantics); per-axis reduction is not supported, got axis={axis}"
         )
+    if kd:
+        raise ValueError("keepdim is not supported on the streaming path")
+    from ..stream.sketch import KLLSketch
+
+    sk = KLLSketch()
+    for chunk in chunks:
+        sk.update(chunk)
+    return sk.percentile(q_host.tolist())
+
+
+def _reject_stream(x, name: str) -> None:
     if not isinstance(x, DNDarray):
-        raise TypeError(f"{name} expects a DNDarray, got {type(x).__name__}")
+        raise TypeError(
+            f"{name} expects a DNDarray (exact, in-memory) or a heat_tpu_torch.stream.ChunkIterator "
+            f"(single-pass approximate KLL sketch path), got {type(x).__name__}"
+        )
     if types.heat_type_is_complexfloating(x.dtype):
         raise ValueError(f"{name} does not support complex input: complex numbers have no order to rank by")
 
@@ -553,6 +576,9 @@ def percentile(x: DNDarray, q, axis=None, out=None, interpolation: str = "linear
     q_host = np.asarray(q.numpy() if isinstance(q, DNDarray) else q)
     if q_host.size and not np.all((q_host >= 0) & (q_host <= 100)):
         raise ValueError("percentiles must be in the range [0, 100]")
+    if _is_stream(x):
+        res = _streaming_percentile(x, q_host, axis, kd)
+        return _write_out(out, res) if out is not None else res
     _reject_stream(x, "percentile")
     axis_s = sanitize_axis(x.shape, axis)
     method = {"lower": "lower", "higher": "higher", "midpoint": "midpoint", "nearest": "nearest",
@@ -607,6 +633,8 @@ def median(x: DNDarray, axis=None, keepdim: bool = False, keepdims=None) -> DNDa
     percentile there (linear rule, replicated; the selection, no
     gather); elsewhere ``jnp.median``'s midpoint, split as a reduction."""
     kd = bool(keepdim or keepdims)
+    if _is_stream(x):
+        return _streaming_percentile(x, np.asarray(50.0), axis, kd)
     _reject_stream(x, "median")
     axis_s = sanitize_axis(x.shape, axis)
     if x.split is not None and x.comm.is_distributed() and (axis_s is None or axis_s == x.split):

@@ -429,6 +429,9 @@ EXPLICIT = {
     "histc", "histogram", "bincount", "bucketize", "digitize",
     # complex numbers and signal processing
     "angle", "conj", "conjugate", "imag", "real", "iscomplex", "isreal", "convolve",
+    # file I/O and the stream's communication helpers
+    "load", "load_csv", "load_hdf5", "load_netcdf", "save", "save_csv", "save_hdf5", "save_netcdf", "supports_hdf5",
+    "supports_netcdf", "tree_merge", "tree_merge_rounds", "collective_lockstep",
 }
 
 
@@ -498,3 +501,38 @@ def test_ring_shift_moves_the_small_and_half_types(group):
     for rank, res in enumerate(_case(group, "small_dtypes")):
         for name in ("uint8", "int8", "int16", "float16", "bfloat16"):
             assert res[f"port:{name}:ring_shift_ok"]["value"] is True, (rank, name)
+
+
+def test_stream_passes_run_their_collectives_per_chunk(group):
+    """Over 4 split-0 chunks: StreamingKMeans one allreduce per chunk per
+    epoch (4 epochs), StreamingMoments the two of moments_sharded per
+    chunk, StreamingCov two, the histogram and HyperLogLog one; nothing
+    else (no gather of a chunk)."""
+    want = {"StreamingKMeans": 16, "StreamingMoments": 8, "StreamingCov": 8, "StreamingHistogram": 4,
+            "HyperLogLog": 4}
+    for rank, res in enumerate(_case(group, "stream")):
+        assert res["chunks"]["value"] == 4
+        for name, n in want.items():
+            assert res[f"port:calls:{name}"]["value"] == {"allreduce": n}, (rank, name, res[f"port:calls:{name}"])
+
+
+def test_tree_merge_takes_two_rounds_and_brackets_by_rank(group):
+    """merge_processes of per-rank moments: log2(4) = 2 butterfly rounds,
+    the merged state equal to one pass over all rows (and bit-identical on
+    every rank, by the replicated-results test); a combine that is not
+    commutative shows the balanced rank-ordered bracketing
+    (s0 + s1) + (s2 + s3) with a + b = 2a + b: 4 s0 + 2 s1 + 2 s2 + s3."""
+    for res in _case(group, "stream"):
+        assert res["port:tree_merge_calls"]["value"] == 2
+        assert res["port:merged_close"]["value"] is True
+        assert res["port:kll_within_eps"]["value"] is True
+        first, second = res["port:tree_merge_rank_order"]["items"]
+        assert first["value"] == 4 * 1 + 2 * 2 + 2 * 3 + 4
+        assert [i["value"] for i in second["items"]] == [0, 6, 12]
+
+
+def test_csv_split_load_parses_byte_ranges_natively(group):
+    for res in _case(group, "io"):
+        routes = res["port:csv_routes"]["value"]
+        # every whole-file load through the native parser; the one row window through heat_tpu's Python route
+        assert routes == {"csv.native": 7, "csv.python": 1}, routes

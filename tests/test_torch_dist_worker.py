@@ -1097,6 +1097,127 @@ def case_pad_modes(ht):
     return out
 
 
+# the directory the ranks of a group share for the files of case_io (set by main); elsewhere a fresh one
+CASE_DIR = None
+
+
+def _case_dir():
+    import tempfile
+
+    return CASE_DIR or tempfile.mkdtemp(prefix="ht_case_")
+
+
+IO_FORMATS = (("h5", ".h5", ("x",), {}), ("cdf1", ".nc", ("x",), {"format": "NETCDF3_CLASSIC"}),
+              ("cdf2", ".nc", ("x",), {"format": "NETCDF3_64BIT"}), ("csv", ".csv", (), {}))
+
+
+def case_io(ht):
+    """Saves of split arrays (every rank writes its rows in rank order) and
+    split-0/1 loads (every rank reads only its rows) of HDF5, classic
+    netCDF and CSV files, 9 rows on 4 ranks (an empty last chunk), and a
+    row window; for the port also the CSV parser's route."""
+    d = _case_dir()
+    out = {"supports": (ht.supports_hdf5(), ht.supports_netcdf())}
+    if is_port(ht):
+        ht.kernels.reset_kernel_stats()
+    for fmt, ext, args, kw in IO_FORMATS:
+        path = os.path.join(d, f"io_{fmt}{ext}")
+        for ssave in (0, 1):
+            ht.save(ht.array(A95, split=ssave), path, *args, **kw)
+            for split in (None, 0, 1):
+                out[f"{fmt}:save{ssave}:load{split}"] = ht.load(path, *args, split=split)
+        out[f"{fmt}:window"] = ht.load(path, *args, split=0, start=2, stop=8)
+    one = os.path.join(d, "io_direct")
+    ht.save_hdf5(ht.array(A93, split=0), one + ".h5", "y")
+    ht.save_netcdf(ht.array(A93, split=1), one + ".nc", "y", format="NETCDF3_64BIT")
+    ht.save_csv(ht.array(I95, split=0), one + ".csv")
+    out.update({
+        "direct:h5": ht.load_hdf5(one + ".h5", "y", split=1),
+        "direct:nc": ht.load_netcdf(one + ".nc", "y", split=0, start=1),
+        "direct:csv": ht.load_csv(one + ".csv", dtype=ht.int32, split=0),
+    })
+    if is_port(ht):
+        out["port:csv_routes"] = {k: v for k, v in ht.KERNEL_STATS.items() if k.startswith("csv.")}
+    return out
+
+
+def case_stream(ht):
+    """The stream path over split-0 chunks (203 rows in chunks of 64: the
+    tail of 11 rows leaves the last rank 2): StreamingMoments, Cov,
+    Histogram, HyperLogLog, CountMinTopK and StreamingKMeans (global and
+    minibatch); for the port also the collectives of each pass, the KLL
+    percentiles against numpy within the sketch's bound, and
+    merge_processes of per-rank moments through tree_merge."""
+    it = ht.stream.ChunkIterator(BLOBS, 64, split=0)
+    out = {}
+
+    def host(t):
+        return t.detach().cpu().numpy() if is_port(ht) else np.asarray(t)
+
+    def folded(est):
+        if is_port(ht):
+            ht.kernels.reset_kernel_stats()
+        for c in ht.stream.Prefetcher(it, depth=2):
+            est.update(c)
+        if is_port(ht):
+            out[f"port:calls:{type(est).__name__}"] = {k: v["calls"] for k, v in ht.kernels.COLLECTIVES.items()}
+        return est
+
+    m = folded(ht.stream.StreamingMoments(ddof=1))
+    cov = folded(ht.stream.StreamingCov())
+    hist = folded(ht.stream.StreamingHistogram(8, (-30.0, 30.0)))
+    hll = folded(ht.stream.HyperLogLog(8))
+    ints = ht.stream.ChunkIterator(np.round(BLOBS).astype(np.float32), 50, split=0)
+    cm = ht.stream.CountMinTopK(256, 4, 8)
+    for c in ints:
+        cm.update(c)
+    if is_port(ht):
+        ht.kernels.reset_kernel_stats()
+    km = ht.cluster.StreamingKMeans(3, init=ht.array(BLOBS[:3]), max_iter=4, tol=None).fit(it, prefetch_depth=2)
+    if is_port(ht):
+        out["port:calls:StreamingKMeans"] = {k: v["calls"] for k, v in ht.kernels.COLLECTIVES.items()}
+    mb = ht.cluster.StreamingKMeans(3, init=ht.array(BLOBS[:3]), max_iter=1, algorithm="minibatch").fit(it)
+    cands, counts = cm.topk(4)
+    out.update({
+        "mean": m.mean, "var": m.var, "cov": cov.cov, "hist": hist.hist, "hll": host(hll._regs),
+        "hll_distinct": hll.distinct(), "cm_table": host(cm._table).astype(np.int64), "cm_top": cands,
+        "cm_counts": counts, "km_centers": km.cluster_centers_, "km_inertia": km.inertia_,
+        "mb_centers": mb.cluster_centers_, "chunks": len(it), "lockstep": ht.collective_lockstep(m.mean),
+        "rounds4": ht.tree_merge_rounds(4), "rounds3": ht.tree_merge_rounds(3),
+    })
+    if is_port(ht):
+        comm = ht.get_comm()
+        q = np.array([1.0, 25.0, 50.0, 75.0, 99.0])
+        kll = ht.stream.KLLSketch()
+        for c in it:
+            kll.update(c)
+        sx = np.sort(BLOBS.ravel())
+        got = kll.percentile(q).numpy()
+        target = q / 100 * (sx.size - 1)
+        lo, hi = np.searchsorted(sx, got, "left"), np.searchsorted(sx, got, "right")
+        err = np.maximum(0.0, np.maximum(lo - target, target - hi)) / sx.size  # the closest rank among ties
+        out["port:kll_within_eps"] = bool((err <= kll.eps).all())
+        out["port:kll"] = got
+        # per-rank moments of this rank's own rows, merged in log2(4) = 2 rounds of the butterfly
+        mine = ht.stream.StreamingMoments()
+        for c in ht.stream.ChunkIterator(BLOBS[comm.rank::comm.size], 16, comm=ht.SELF):
+            mine.update(c)
+        ht.kernels.reset_kernel_stats()
+        mine.merge_processes()
+        out["port:tree_merge_calls"] = ht.kernels.COLLECTIVES.get("tree_merge", {}).get("calls", 0)
+        whole = ht.stream.StreamingMoments()
+        for c in ht.stream.ChunkIterator(BLOBS, 64, split=None):
+            whole.update(c)
+        out["port:merged_mean"] = mine.mean.numpy()
+        out["port:merged_var"] = mine.var.numpy()
+        out["port:merged_close"] = bool(np.allclose(mine.mean.numpy(), whole.mean.numpy(), rtol=1e-5, atol=1e-5)
+                                        and np.allclose(mine.var.numpy(), whole.var.numpy(), rtol=1e-5, atol=1e-5))
+        state = (ht.array(np.float32(comm.rank + 1)).larray, ht.array(np.arange(3, dtype=np.int64) * comm.rank).larray)
+        merged = ht.tree_merge(state, lambda a, b: (a[0] * 2 + b[0], a[1] + b[1]))
+        out["port:tree_merge_rank_order"] = (float(merged[0]), merged[1].tolist())
+    return out
+
+
 CASES = {
     name[len("case_"):]: fn for name, fn in sorted(globals().items()) if name.startswith("case_") and callable(fn)
 }
@@ -1136,6 +1257,8 @@ def main():
         ht.use_device("cpu")
     ht.init_distributed(backend=args.backend, init_method=f"file://{args.store}", world_size=args.world,
                         rank=args.rank, local_rank=args.rank, timeout=180)
+    global CASE_DIR
+    CASE_DIR = args.out
     results = run_cases(ht, args.cases.split(","), port=True)
     ht.get_comm().barrier()
     with open(os.path.join(args.out, f".rank{args.rank}.pkl"), "wb") as fh:

@@ -493,3 +493,21 @@ def test_threefry_kernel_matches_plain(cuda, kind, shape, split, chunk):
         torch.testing.assert_close(got, want, rtol=2 * torch.finfo(got.dtype).eps, atol=0.0)
     else:
         assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,lo", [("uniform16", 0.0), ("normal16", -1 + 2.0 ** -11), ("uniformbf16", 0.0),
+                                     ("normalbf16", -1 + 2.0 ** -8)])
+@pytest.mark.parametrize("shape,split,chunk", [((1 << 20,), None, None), ((1000, 33), 0, (100, 517)),
+                                               ((9, 5000), 1, (1250, 1250))])
+def test_threefry_16_bit_kinds_match_plain_bit_for_bit(cuda, kind, lo, shape, split, chunk):
+    """The float16 and bfloat16 kinds bit for bit: the kernel and the plain
+    version round to 16 bits after every operation in the same order
+    (the normal's float32 erfinv as in the 32-bit kinds)."""
+    key = (0x2545F491, 0x6C078965)
+    layout = chunk_layout(shape, None, 0, 0) if split is None else chunk_layout(shape, split, *chunk)
+    scale = 1.0 if lo == 0.0 else 2.0  # 1 - lo rounds to 2 in both 16-bit types
+    got = threefry_bits(key, layout, kind, cuda, lo, scale)
+    want = threefry_plain(key, layout, kind, cuda, lo, scale)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and torch.equal(got.view(torch.int16), want.view(torch.int16))

@@ -183,12 +183,22 @@ def test_raises_as_heat_tpu(name, call):
 
 
 def test_a_chunk_iterator_names_the_stream_module():
+    """A real ChunkIterator streams through the KLL sketch (its values are
+    held in tests/test_torch_sketch.py); any other object that is not an
+    array is refused with a TypeError that names the stream's
+    ChunkIterator, as heat_tpu refuses it."""
     class ChunkIterator:
         pass
 
-    for fn in (lambda c: htt.median(c), lambda c: htt.percentile(c, 50)):
-        with pytest.raises(NotImplementedError, match="stream"):
-            fn(ChunkIterator())
+    for mod in (htt, htj):
+        for fn in (lambda c: mod.median(c), lambda c: mod.percentile(c, 50)):
+            with pytest.raises(TypeError, match="ChunkIterator"):
+                fn(ChunkIterator())
+    it = htt.stream.ChunkIterator(np.arange(1000, dtype=np.float32).reshape(250, 4), 64, device="cpu")
+    sk = htt.stream.KLLSketch()
+    for chunk in it:
+        sk.update(chunk)
+    assert abs(float(htt.median(it).item()) - 499.5) <= 1000 * sk.eps
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64, np.int32, np.int64])

@@ -699,13 +699,11 @@ def test_every_name_of_the_slice_is_exported_and_covered():
 # imported before). Later slices shrink these lists; a name the port gains
 # must leave them.
 STILL_MISSING = {
-    # I/O, stream, layouts, lazy, frame, resilience and serve (ROADMAP.md, Queue A items 4-12)
+    # layouts, lazy, frame, resilience and serve (ROADMAP.md, Queue A items 6-12)
     "heat_tpu": [
         "COMPILE_STATS", "FUSE_STATS", "Frame", "HEALTH_STATS", "LAYOUT_STATS", "LOCKSTEP_STATS", "LazyDNDarray",
-        "MOVE_STATS", "RECOVERY_STATS", "SERVE_STATS", "SHUFFLE_STATS", "STREAM_STATS", "SplitTiles",
-        "collective_lockstep", "fuse", "lazy", "load", "load_csv", "load_hdf5", "load_netcdf", "replicated_frame",
-        "replicated_ids", "reset_fuse_stats", "save", "save_csv", "save_hdf5", "save_netcdf", "supports_hdf5",
-        "supports_netcdf", "tree_merge", "tree_merge_rounds",
+        "MOVE_STATS", "RECOVERY_STATS", "SERVE_STATS", "SHUFFLE_STATS", "SplitTiles", "fuse", "lazy",
+        "replicated_frame", "replicated_ids", "reset_fuse_stats",
     ],
     "heat_tpu.linalg": [],
     # DNDarray's members: health_check waits for resilience.validate (ROADMAP.md, Queue A item 10)
@@ -716,11 +714,12 @@ STILL_MISSING = {
         "attention", "halo_exchange", "make_hierarchical_mesh", "make_mesh", "reshape_via_flatmove",
         "ring_attention", "ring_map", "ring_reduce", "ulysses_attention",
     ],
+    # grouping by key waits for frame (ROADMAP.md, Queue A item 9)
+    "heat_tpu.stream": ["StreamingGroupBy"],
 }
 # submodules heat_tpu imports when it is imported, and the port has no counterpart of yet
 STILL_MISSING_MODULES = [
-    "analysis", "frame", "io", "naive_bayes", "nn", "optim", "regression", "resilience", "serve", "stream",
-    "utils",
+    "analysis", "frame", "naive_bayes", "nn", "optim", "regression", "resilience", "serve", "utils",
 ]
 
 

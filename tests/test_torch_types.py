@@ -377,9 +377,15 @@ def test_moments_of_half_and_complex_skip_the_kernel(t):
 
 
 def test_random_draws_of_half_types_wait_for_the_16_bit_stream():
-    for fn in (lambda: htt.random.rand(4, dtype=htt.float16), lambda: htt.random.randn(4, dtype=htt.bfloat16)):
-        with pytest.raises(NotImplementedError, match="16-bit"):
-            fn()
+    """The 16-bit stream is ported: heat_tpu's float16 rand and bfloat16
+    randn bit for bit (tests/test_torch_random16.py holds the rest)."""
+    for name, t in (("rand", "float16"), ("randn", "bfloat16")):
+        htt.random.seed(5)
+        htj.random.seed(5)
+        a = getattr(htt.random, name)(4, dtype=getattr(htt, t))
+        b = getattr(htj.random, name)(4, dtype=getattr(htj, t))
+        assert a.dtype.__name__ == t
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b.numpy()).astype(np.float32))
 
 
 @pytest.mark.parametrize("t", ["uint8", "int8", "int16"])
