@@ -7,6 +7,7 @@ NVIDIA Hopper card and the CUDA toolkit:
     python3 chip_smoke.py                  # every phase; [dist] on every visible card
     python3 chip_smoke.py --phases dist    # the build and [dist] only
     python3 chip_smoke.py --phases stream  # the build and [stream] only
+    python3 chip_smoke.py --phases layout  # the build and [layout] only
 
 Phases (any failure raises and exits non-zero; nothing is caught):
 
@@ -106,11 +107,26 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``StreamingKMeans`` (10 epochs) over a split-0 ``ChunkIterator`` with
    their collectives gated (two and one ``allreduce`` per chunk), and
    ``merge_processes`` of per-rank moments through ``tree_merge`` (log2 P
-   rounds, bit-identical on every rank), against one card. ``--phases dist``
+   rounds, bit-identical on every rank), against one card; last, the
+   ragged-layout path at 2^24 x 32 rows per card (:func:`_dist_layout`:
+   ``redistribute_`` to the (0.40, 0.30, 0.20, 0.10) map and to the
+   empty-shard (0.50, 0.25, 0.25, 0) map, standardize in place, ``z + y``
+   from the head-skewed layout, cumsum/nonzero/sum/max/copy/astype,
+   ``KMeans.fit`` with its one rebalance; every step gated on its
+   rebalances and moves, every move on the bytes received; labels against
+   the ceil-div fit's), then ring and Ulysses attention, ``halo_exchange``,
+   ``ring_map``/``ring_reduce`` and ``bucket_move``. ``--phases dist``
    runs only phases 1, 2 and 6; ``--phases spectral``, ``linalg``,
-   ``robust``, ``dtypes`` or ``stream`` only 1, 2 and that phase.
+   ``robust``, ``dtypes``, ``stream`` or ``layout`` only 1, 2 and that
+   phase.
 7. ``[stream]`` (after ``[dtypes]``, before ``[dist]``): the out-of-core path
    at 2^24 x 32 float32 (2 GiB) on one card, see :func:`stream_phase`.
+8. ``[layout]`` (after ``[stream]``, before ``[dist]``): ``moments_onepass``
+   and ``lloyd_fused`` at the row counts a ragged layout hands them (0
+   among them: no launch, the neutral state), the attentions at world size
+   1 on (8, 2^15, 128) against float64, tiles and flatmove on 2^24 x 32;
+   see :func:`layout_phase`. The kernels' rows of the JSON line carry
+   ``launches_layout``: rank 0's launches on ``[dist]``'s layout path.
 
 The line before last is one JSON object ``{"kernels": [...]}`` (not
 printed with ``--phases dist``); the last line is
@@ -1211,25 +1227,31 @@ def accumulation_bound(n, abs_sum):
 def moments_vs_plain(tag, xa):
     """``moments_onepass`` on the (n, f) tensor ``xa`` against its plain version, within phase 3's MEAN/M2
     tolerances; returns the line to print."""
+    import torch
+
     from heat_tpu_torch.core.kernels import chunk_moments, moments_local
 
     n = xa.shape[0]
     cnt, mean, m2 = moments_local(xa, n)
     cnt0, mean0, m20 = chunk_moments(xa, n)
     e_mean, e_m2 = (mean - mean0).abs(), (m2 - m20).abs()
-    check(float(cnt) == float(cnt0) == float(n), f"{tag} moments counts")
+    # the count is a float32 in both: n itself up to 2^24, n rounded to float32 past it
+    check(float(cnt) == float(cnt0) == float(torch.tensor(n, dtype=torch.float32)), f"{tag} moments counts")
     check(bool((e_mean <= MEAN_ATOL + MEAN_RTOL * mean0.abs()).all()), f"{tag} moments mean: {e_mean.max().item()}")
     check(bool((e_m2 <= M2_RTOL * m20.abs() + 1e-6).all()), f"{tag} moments M2: {e_m2.max().item()}")
-    return (f"moments_onepass on {tuple(xa.shape)}: count exact, mean max abs {e_mean.max().item():.3e}, M2 max rel "
+    return (f"moments_onepass on {tuple(xa.shape)}: count exact (in float32), mean max abs {e_mean.max().item():.3e}, M2 max rel "
             f"{(e_m2 / m20.abs()).max().item():.3e} (<= {M2_RTOL})")
 
 
-def lloyd_vs_plain(tag, data, cen, n):
+def lloyd_vs_plain(tag, data, cen, n, expansion=False):
     """``lloyd_fused`` on ``data`` from the centres ``cen`` against its plain version; returns (labels, inertia,
     the line to print). Labels may differ only at near-ties, and a row labelled otherwise moves its counts and
     values between two clusters. Per cluster c, both versions add the n_c <= n rows' float32 values in their own
     order: each sum is within SUM_LAMBDA's bound, lambda sqrt(n) u sum|x|, of the exact one, so the two are within twice
     that of each other (the rows that moved added to the bound); the inertia, a sum of n positive terms, likewise.
+    With ``expansion``, the inertia's bound also holds each row's d2 = (|x|^2 + |c|^2) - 2 x.c, evaluated in its own
+    order by each version, within gamma_{f+2} (|x| + |c|)^2 of the exact one (f + 2 roundings in a chain, as the kNN
+    bound above): the cancellation that dominates where few rows lie near their centre (n = 1).
     Phase 3's SUMS_RTOL of the largest |sum| assumes columns of either sign: a cluster of pixel rows sums values of
     one sign, where sum|x| = |sum x|."""
     import torch
@@ -1260,6 +1282,9 @@ def lloyd_vs_plain(tag, data, cen, n):
     check(bool((e <= bound).all()), f"{tag} lloyd sums: worst {(e / bound).max().item():.3f} of the bound")
     e_in = abs(float(inertia) - float(inertia0))
     in_bound = 2 * SUM_LAMBDA * math.sqrt(n) * F32_UNIT_ROUNDOFF * abs(float(inertia0)) + two[diff].sum().item()
+    if expansion:
+        norms = data[:n].double().norm(dim=1) + cen.double().norm(dim=1)[labels0[:n].long()]
+        in_bound += 2 * _gamma(data.shape[1] + 2) * float((norms * norms).sum())
     check(e_in <= in_bound, f"{tag} lloyd inertia: {e_in} > {in_bound}")
     line = (f"lloyd_fused on {tuple(data.shape)}: labels differ on {int(diff.sum())} rows ({int(near.sum())} near-tie "
             f"rows), sums worst {(e / bound).max().item():.3f} of the bound (max abs {e.max().item():.3e}, max |sum| "
@@ -2010,7 +2035,7 @@ def _ceil_div_map(gshape, split, world):
     return out
 
 
-def _dist_rank(rank, world, store, out_dir):
+def _dist_rank(rank, world, store, out_dir, seed=0):
     """One rank of the [dist] phase: the main path on this rank's card over
     NCCL, its checks that need no single-process reference, and its times;
     what the parent compares goes to ``out_dir/rank{rank}.pt``."""
@@ -2188,6 +2213,8 @@ def _dist_rank(rank, world, store, out_dir):
     result["dtypes"] = _dist_dtypes(ht, world, rank, timed, same_everywhere, say)
     torch.cuda.empty_cache()
     result["stream"] = _dist_stream(ht, world, rank, timed, same_everywhere, say, out_dir)
+    torch.cuda.empty_cache()
+    result["layout"] = _dist_layout(ht, world, rank, timed, same_everywhere, say, seed)
     times = torch.tensor([t_stats, t_fit, t_warm, t_knn, t_knn_w, t_stats_w, t_qr, t_qr_w, t_mm, t_mm_w, t_rs, path_s],
                          dtype=torch.float64, device=dev)
     result["times_max"] = comm.allreduce(times, "max").cpu().tolist()
@@ -3097,10 +3124,234 @@ def _stream_reference(ht, world, ranks, tmp):
     return {"t_one_pass": t_one, "worst": worst, "centres": (e_c / c_bound).max().item()}
 
 
-def dist_phase(world: int) -> None:
+def _dist_layout(ht, world, rank, timed, same_everywhere, say, seed):
+    """The slice's path across ranks, at N_MAIN rows per card of [main]'s blobs (numpy from ``seed``), twice: with
+    the skewed map (0.40, 0.30, 0.20, 0.10) and with the empty-shard map (0.50, 0.25, 0.25, 0) (their analogues at
+    other world sizes, see ``layout_shares``): ``redistribute_`` (one move), standardize in place (no move,
+    ``moments_onepass`` on the rank's ragged rows), ``z + y`` with y in the head-skewed layout (one move, z's
+    layout kept), ``cumsum``/``nonzero``/``sum``/``max``/``copy``/``astype`` (nothing moves), ``KMeans.fit`` (one
+    rebalance, 31 ``lloyd_fused``). Each step is gated on its (rebalances, moves), each move on the bytes the rank
+    received (exactly the rows it lacked); the standardized data, labels and centres are held against the same
+    steps on the ceil-div layout. Beside the path: ring and Ulysses attention (H, N, D) = (8, N_ATT_CARD x world,
+    128), full and causal, N divisible and not, against each other and float64; ``halo_exchange`` (halo 2),
+    ``ring_map`` of squared distances against ``cdist(use_ring=True)``, ``ring_reduce`` of the row minima, and a
+    ``bucket_move`` of N_MAIN rows a rank by a skewed matrix."""
+    import numpy as np
+    import torch
+
+    from heat_tpu_torch.core.kernels import RECEIVED
+    from heat_tpu_torch.parallel import flatmove
+    from heat_tpu_torch.spatial.distance import _quadratic_expand
+
+    comm = ht.get_comm()
+    dev = ht.get_device().torch_device
+    seed = seed + LAYOUT_SEED_OFFSET
+    n, row_bytes = N_MAIN * world, F_MAIN * 4
+    canon = list(comm.counts_displs_shape((n, F_MAIN), 0)[0])
+    lo = sum(canon[:rank])
+    x_np = layout_blobs(seed, n, lo, lo + canon[rank])
+    steps, moves = {}, {}
+
+    def step(name, fn, rebalances, moved):
+        """fn() timed; gated on its (rebalances, ragged moves)."""
+        c0 = (ht.LAYOUT_STATS["rebalances"], ht.MOVE_STATS["ragged_moves"])
+        out, host, ev = timed(fn)
+        got = (ht.LAYOUT_STATS["rebalances"] - c0[0], ht.MOVE_STATS["ragged_moves"] - c0[1])
+        check(got == (rebalances, moved), f"[dist] layout {name}: (rebalances, moves) {got}, want {(rebalances, moved)}")
+        steps[name] = {"host_s": host, "event_ms": ev, "collectives": timed.collectives, "received": timed.received}
+        return out
+
+    def received(name, old, new, op="flatmove.ragged"):
+        """The move of ``name`` brought exactly the rows of this rank's new range it did not hold."""
+        a, b, c, d = sum(new[:rank]), sum(new[: rank + 1]), sum(old[:rank]), sum(old[: rank + 1])
+        want = ((b - a) - max(0, min(b, d) - max(a, c))) * row_bytes
+        got = steps[name]["received"].get(op, 0)
+        check(got == want, f"[dist] layout {name}: received {got} B, the rows it lacked are {want} B")
+        moves[name] = {"bytes": got, "gb_per_s": got / steps[name]["host_s"] / 1e9}
+
+    def tmap(counts):
+        t = np.tile(np.asarray([n, F_MAIN], dtype=np.int64), (world, 1))
+        t[:, 0] = counts
+        return t
+
+    # ---- the ceil-div reference, outside the path
+    x0 = ht.array(x_np, is_split=0)
+    del x_np
+    mu0, sd0 = ht.mean(x0, axis=0), ht.std(x0, axis=0)
+    z0 = (x0 - mu0) / sd0
+    init = z0[:K_MAIN].resplit(None)
+    km0 = ht.cluster.KMeans(n_clusters=K_MAIN, init=init, max_iter=ITERS, tol=None).fit(z0)
+    nz0 = ht.nonzero(ht.abs(z0) > 2)
+    sum0, max0, abs0 = z0.sum().item(), z0.max().item(), float(ht.sum(ht.abs(z0)).item())
+    c0 = km0.cluster_centers_.larray
+    launches = {}
+    for tag, kind in (("skewed", "tail"), ("empty shard", "empty")):
+        counts = layout_counts(n, layout_shares(world, kind))
+        head = counts[::-1]
+        x = x0.copy()
+        ht.kernels.reset_kernel_stats()
+        step(f"{tag}: redistribute_", lambda: x.redistribute_(target_map=tmap(counts)), 0, int(counts != canon))
+        check(list(x.lshape_map[:, 0]) == counts and x.lshape[0] == counts[rank], f"[dist] layout {tag}: lshape_map")
+        if counts != canon:
+            received(f"{tag}: redistribute_", canon, counts)
+        mom = ht.LAUNCHES["moments_onepass"]
+        z = step(f"{tag}: standardize", lambda: (x - ht.mean(x, axis=0)) / ht.std(x, axis=0), 0, 0)
+        check(ht.LAUNCHES["moments_onepass"] - mom == (1 if counts[rank] else 0),
+              f"[dist] layout {tag}: moments_onepass launches {ht.LAUNCHES['moments_onepass'] - mom} on "
+              f"{counts[rank]} rows")
+        check(z.lcounts == x.lcounts, f"[dist] layout {tag}: z's layout {z.lcounts}")
+        mu, sd = ht.mean(x, axis=0).larray, ht.std(x, axis=0).larray
+        e_mu = (mu - mu0.larray).abs().max().item()
+        e_sd = (sd - sd0.larray).abs().max().item()
+        check(bool(((mu - mu0.larray).abs() <= MEAN_ATOL + MEAN_RTOL * mu0.larray.abs()).all())
+              and bool(((sd - sd0.larray).abs() <= M2_RTOL * sd0.larray.abs()).all()),
+              f"[dist] layout {tag}: mean/std against the ceil-div layout's: {e_mu}, {e_sd}")
+        same = torch.equal(mu, mu0.larray) and torch.equal(sd, sd0.larray)
+        del x
+        y = x0.copy()
+        step(f"{tag}: y redistribute_ (head-skewed)", lambda: y.redistribute_(target_map=tmap(head)), 0,
+             int(head != canon))
+        w = step(f"{tag}: z + y", lambda: z + y, 0, int(head != counts))
+        check(w.lcounts == z.lcounts, f"[dist] layout {tag}: z + y's layout {w.lcounts}")
+        if head != counts:
+            received(f"{tag}: z + y", head, counts)
+        del y, w
+
+        cs, nz, s, m, cp, a = (step(f"{tag}: {name}", fn, 0, 0) for name, fn in (
+            ("cumsum", lambda: ht.cumsum(z, 0)), ("nonzero", lambda: ht.nonzero(ht.abs(z) > 2)),
+            ("sum", lambda: z.sum()), ("max", lambda: z.max()), ("copy", lambda: z.copy()),
+            ("astype", lambda: z.astype(ht.float64))))
+        check(cs.lcounts == cp.lcounts == a.lcounts == z.lcounts, f"[dist] layout {tag}: layouts of step 5")
+        bound = 2 * accumulation_bound(n * F_MAIN, abs0) + 2 * F32_UNIT_ROUNDOFF * abs0
+        check(abs(s.item() - sum0) <= bound, f"[dist] layout {tag}: sum {s.item()} vs {sum0} (bound {bound})")
+        if same:  # z is z0's bits in another layout: nonzero and max are exact
+            check(nz.gshape == nz0.gshape and torch.equal(nz.larray, nz0.larray) and m.item() == max0,
+                  f"[dist] layout {tag}: nonzero {nz.gshape} vs {nz0.gshape}, max {m.item()} vs {max0}")
+        del cs, nz, cp, a
+        lloyd = ht.LAUNCHES["lloyd_fused"]
+        km = step(f"{tag}: KMeans fit", lambda: ht.cluster.KMeans(n_clusters=K_MAIN, init=init, max_iter=ITERS,
+                                                                    tol=None).fit(z), int(counts != canon),
+                  int(counts != canon))
+        check(ht.LAUNCHES["lloyd_fused"] - lloyd == ITERS + 1, f"[dist] layout {tag}: lloyd_fused launches "
+                                                                f"{ht.LAUNCHES['lloyd_fused'] - lloyd}")
+        check(z.balanced, f"[dist] layout {tag}: the fit left z ragged")
+        if counts != canon:
+            received(f"{tag}: KMeans fit", counts, canon)
+        # z, rebalanced by the fit, against the ceil-div run's: |dz| <= (|dmu| + |z| |dsd|) / sd + 4 u |z|
+        dz = (z.larray - z0.larray).abs()
+        zb = ((mu - mu0.larray).abs() + z0.larray.abs() * (sd - sd0.larray).abs()) / sd0.larray \
+            + 4 * F32_UNIT_ROUNDOFF * z0.larray.abs()
+        check(bool((dz <= zb).all()), f"[dist] layout {tag}: z against the ceil-div run: max {dz.max().item()}")
+        check(torch.equal(km.labels_.larray, km0.labels_.larray), f"[dist] layout {tag}: labels differ from the "
+                                                                   f"ceil-div fit's")
+        e_c = (km.cluster_centers_.larray - c0).abs().max().item()
+        check(e_c <= CENTERS_RTOL * c0.abs().max().item(), f"[dist] layout {tag}: centres {e_c}")
+        for name, t in (("mean", mu), ("std", sd), ("centres", km.cluster_centers_.larray)):
+            same_everywhere(t, f"layout {tag} {name}")
+        launches[tag] = {k: v for k, v in ht.LAUNCHES.items() if v}
+        say(f"layout {tag} {counts}: " + "; ".join(
+            f"{k} {v['host_s']:.4f} s host, {v['event_ms']:.4f} ms events" for k, v in steps.items() if k.startswith(tag))
+            + f"; moves " + ", ".join(f"{k.split(': ')[1]} {v['bytes']} B at {v['gb_per_s']:.3f} GB/s"
+                                       for k, v in moves.items() if k.startswith(tag))
+            + f"; mean/std {'bit-identical to' if same else 'within the merge bound of'} the ceil-div run's "
+              f"({e_mu:.3e}, {e_sd:.3e}), labels identical, centres {e_c:.3e}; launches {launches[tag]}")
+        del z, km
+        torch.cuda.empty_cache()
+    del z0, km0, nz0, mu0, sd0
+
+    # ---- beside the path: ring and Ulysses attention
+    att = {}
+    for na in (N_ATT_CARD * world, N_ATT_CARD * world - 3):
+        q_np, k_np, v_np = attention_qkv(seed, na)
+        a_lo, a_n = comm.chunk((na,), 0)[0], comm.chunk((na,), 0)[1][0]
+        q, k, v = (torch.from_numpy(t).to(dev).transpose(0, 1).contiguous() for t in (q_np, k_np, v_np))  # (H, N, D)
+        qr, kr, vr = (ht.array(t[:, a_lo : a_lo + a_n], is_split=1) for t in (q, k, v))
+        qu, ku, vu = (ht.array(t[a_lo : a_lo + a_n], is_split=0) for t in (q_np, k_np, v_np))
+        del q_np, k_np, v_np
+        pick = np.random.default_rng(seed + rank).choice(a_n, min(ATT_SAMPLES, a_n), replace=False)
+        pick.sort()
+        for causal in (False, True):
+            key = f"N={na} {'causal' if causal else 'full'}"
+            ring, t_r, ev_r = timed(lambda: ht.parallel.ring_attention(qr, kr, vr, causal=causal))
+            c_ring = timed.collectives
+            uly, t_u, ev_u = timed(lambda: ht.parallel.ulysses_attention(qu, ku, vu, causal=causal))
+            c_uly = timed.collectives
+            want_r = {"ring_shift": 2 * (world - 1)} if world > 1 else {}
+            check({k_: v_["calls"] for k_, v_ in c_ring.items()} == want_r, f"[dist] ring attention {key}: {c_ring}")
+            check({k_: v_["calls"] for k_, v_ in c_uly.items()} == {"alltoall": 2}, f"[dist] ulysses {key}: {c_uly}")
+            w_r, e_r = attention_check(f"[dist] ring {key}", ring.larray[:, pick], q, k, v, a_lo + pick, causal)
+            w_u, e_u = attention_check(f"[dist] ulysses {key}", uly.larray[pick].transpose(0, 1), q, k, v,
+                                       a_lo + pick, causal)
+            e_ru = (ring.larray - uly.larray.transpose(0, 1)).abs().max().item()
+            att[key] = {"ring_host_s": t_r, "ring_ms": ev_r, "ulysses_host_s": t_u, "ulysses_ms": ev_u,
+                        "ring_calls": c_ring, "ulysses_calls": c_uly, "e_ring": e_r, "w_ring": w_r, "e_uly": e_u,
+                        "w_uly": w_u, "e_ring_uly": e_ru}
+            del ring, uly
+        del q, k, v, qr, kr, vr, qu, ku, vu
+        torch.cuda.empty_cache()
+    say("attention (H, N, D) = (8, N, 128): " + "; ".join(
+        f"{k_} ring {v_['ring_ms']:.4f} ms ({v_['ring_calls']}), ulysses {v_['ulysses_ms']:.4f} ms "
+        f"({v_['ulysses_calls']}), float64 {v_['e_ring']:.3e} / {v_['e_uly']:.3e} ({v_['w_ring']:.3f} / "
+        f"{v_['w_uly']:.3f} of the bound), ring vs ulysses {v_['e_ring_uly']:.3e}" for k_, v_ in att.items()))
+
+    # ---- halo_exchange, ring_map, ring_reduce, bucket_move
+    halo, t_h, ev_h = timed(lambda: ht.parallel.halo_exchange(x0, 2))
+    c_h = timed.collectives
+    xl = x0.larray
+    ends = comm.allgather(torch.cat([xl[:2], xl[-2:]]).unsqueeze(0), 0, [1] * world)
+    ext = halo.larray[0]
+    check(halo.gshape == (world, canon[0] + 4, F_MAIN) and torch.equal(ext[2:-2], xl)
+          and torch.equal(ext[:2], ends[(rank - 1) % world][2:]) and torch.equal(ext[-2:], ends[(rank + 1) % world][:2]),
+          "[dist] halo_exchange: blocks or halos")
+    a = ht.array(xl[:N_ATT_CARD], is_split=0)
+    d2 = _quadratic_expand
+    rm, t_rm, ev_rm = timed(lambda: ht.parallel.ring_map(d2, a, a))
+    c_rm = timed.collectives
+    cd = ht.spatial.cdist(a, a, quadratic_expansion=True, use_ring=True).larray
+    # cdist = sqrt(d2) of the same tiles: cd^2 = d2 (1 + d1)^2 (1 + d2'), within 3.01 u d2 of it
+    e_rm = ((rm.larray - cd * cd).abs() - 4 * F32_UNIT_ROUNDOFF * rm.larray.abs()).max().item()
+    check(e_rm <= 0, f"[dist] ring_map against cdist(use_ring=True)^2 beyond 4 u d2: {e_rm}")
+    rr, t_rr, ev_rr = timed(lambda: ht.parallel.ring_reduce(
+        lambda u, w_: d2(u, w_).amin(1), torch.minimum, lambda u: torch.full((u.shape[0],), float("inf"), device=dev),
+        a, a))
+    c_rr = timed.collectives
+    check(torch.equal(rr.larray, rm.larray.amin(1)), "[dist] ring_reduce's row minima against ring_map's")
+    del rm, cd, rr, a
+    torch.cuda.empty_cache()
+    matrix = [layout_counts(canon[r], layout_shares(world, "tail")) for r in range(world)]
+    seg = [sum(matrix[rank][:d]) for d in range(world + 1)]
+    sums = torch.stack([xl[seg[d] : seg[d + 1]].double().sum(0) for d in range(world)])  # what each rank gets of mine
+    sent = comm.allgather(sums.unsqueeze(0), 0, [1] * world)  # (P, P, F)
+    before = dict(ht.MOVE_STATS)
+    got, t_b, ev_b = timed(lambda: flatmove.bucket_move(xl, 0, matrix, comm))
+    c_b, r_b = timed.collectives, timed.received.get("flatmove.bucket", 0)
+    check({k_: ht.MOVE_STATS[k_] - before[k_] for k_ in ("ragged_moves", "bucket_moves")} ==
+          {"ragged_moves": 1, "bucket_moves": 1}, "[dist] bucket_move's MOVE_STATS")
+    inc = [matrix[r][rank] for r in range(world)]
+    check(got.shape[0] == sum(inc) and r_b == (sum(inc) - inc[rank]) * row_bytes,
+          f"[dist] bucket_move received {got.shape[0]} rows, {r_b} B")
+    off = np.concatenate([[0], np.cumsum(inc)])
+    gsum = torch.stack([got[off[r] : off[r + 1]].double().sum(0) for r in range(world)])
+    check(bool(torch.allclose(gsum, sent[:, rank], rtol=1e-12, atol=1e-9)), "[dist] bucket_move: the rows received")
+    say(f"halo_exchange (halo 2) {ev_h:.4f} ms ({c_h}); ring_map of squared distances at {N_ATT_CARD} rows a card "
+        f"{ev_rm:.4f} ms ({c_rm}), ring_reduce {ev_rr:.4f} ms; bucket_move of {canon[rank]} rows (matrix row "
+        f"{matrix[rank]}) {ev_b:.4f} ms, received {r_b} B at {r_b / t_b / 1e9 if r_b else 0.0:.3f} GB/s ({c_b})")
+    steps.update({"halo_exchange": {"host_s": t_h, "event_ms": ev_h, "collectives": c_h},
+                  "ring_map": {"host_s": t_rm, "event_ms": ev_rm, "collectives": c_rm},
+                  "ring_reduce": {"host_s": t_rr, "event_ms": ev_rr, "collectives": c_rr},
+                  "bucket_move": {"host_s": t_b, "event_ms": ev_b, "collectives": c_b}})
+    moves["bucket_move"] = {"bytes": r_b, "gb_per_s": r_b / t_b / 1e9 if r_b else 0.0}
+    del got, halo, x0, xl
+    torch.cuda.empty_cache()
+    return {"steps": steps, "moves": moves, "launches": launches, "attention": att}
+
+
+def dist_phase(world: int, seed: int = 0) -> dict:
     """[dist]: the main path at world size ``world`` (one process per card,
     NCCL; weak scaling: N_MAIN rows per card), then the single-process port
-    on the same global data in this process, and the comparison."""
+    on the same global data in this process, and the comparison; then the
+    layout path's steps (:func:`_dist_layout`). Returns rank 0's kernel
+    launches on the layout path."""
     import numpy as np
     import torch
     import torch.multiprocessing as mp
@@ -3112,7 +3363,7 @@ def dist_phase(world: int) -> None:
     try:
         print(f"[dist] spawning {world} rank(s) over NCCL, {N_MAIN} x {F_MAIN} rows per card", flush=True)
         t0 = time.perf_counter()
-        mp.start_processes(_dist_rank, args=(world, os.path.join(tmp, "store"), tmp), nprocs=world, join=True,
+        mp.start_processes(_dist_rank, args=(world, os.path.join(tmp, "store"), tmp, seed), nprocs=world, join=True,
                            start_method="spawn")
         ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(world)]
         print(f"[dist] {world} rank(s) done in {time.perf_counter() - t0:.1f} s (spawn and start included)", flush=True)
@@ -3272,16 +3523,267 @@ def dist_phase(world: int) -> None:
         print(f"[dist] warm fit: {world} card(s) x {N_MAIN} rows {tm[2]:.4f} s ({ITERS / tm[2]:.1f} it/s); one card, "
               f"{N_MAIN} rows, one process {t1:.4f} s; weak-scaling efficiency t(1 card) / t({world} cards) "
               f"{t1 / tm[2]:.3f}", flush=True)
+        lay = [r["layout"] for r in ranks]
+        for r, lr in enumerate(lay):
+            print(f"[dist] layout r{r}: " + _steps_line(lr["steps"]) + "; moves " + ", ".join(
+                f"{k} {v['bytes']} B at {v['gb_per_s']:.3f} GB/s" for k, v in lr["moves"].items()), flush=True)
+        slow = {k: max(lr["steps"][k]["host_s"] for lr in lay) for k in lay[0]["steps"]}
+        print(f"[dist] layout path at {N_MAIN} x {F_MAIN} rows a card ({N_MAIN * world} in all), slowest rank's host s: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in slow.items()) + "; attention, slowest rank's CUDA-event ms: "
+              + ", ".join(f"{k} ring {max(lr['attention'][k]['ring_ms'] for lr in lay):.4f} / ulysses "
+                          f"{max(lr['attention'][k]['ulysses_ms'] for lr in lay):.4f}" for k in lay[0]["attention"])
+              + f"; launches per rank {[lr['launches'] for lr in lay]}", flush=True)
+        path = {}
+        for per_map in lay[0]["launches"].values():
+            for k, v in per_map.items():
+                path[k] = path.get(k, 0) + v
+        return path
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---- [layout]: ragged layouts, the flatmove primitives, tiles and the attentions
+LAYOUT_SEED_OFFSET = 200  # [layout]'s and [dist]'s layout steps draw their numpy streams from --seed + this
+LAYOUT_SLAB = 1 << 20      # rows of one independently seeded slab of the layout data
+LAYOUT_ROWS = (0, 1, 1023, (1 << 21) + 7)  # row counts of the kernel checks, beside the path's ragged shards
+N_LAYOUT_PATH = 1 << 26    # the path's rows at four cards, whose shard sizes the kernels are checked at
+H_ATT, D_ATT, N_ATT_ONE, N_ATT_CARD = 8, 128, 1 << 15, 1 << 13  # attention: one card's N, and [dist]'s per card
+ATT_SAMPLES = 256          # query rows a head (a rank's) held against float64
+ATT_TPP = 64               # SquareDiagTiles' tiles per process on the 2^24 x 32 data
+
+
+def layout_shares(world, kind):
+    """Row shares of the path's maps: ``tail`` (0.40, 0.30, 0.20, 0.10) at four ranks (w, w - 1, ..., 1 over their
+    sum at w), ``head`` its reverse, ``empty`` (0.50, 0.25, 0.25, 0) (half on the first rank, none on the last)."""
+    if kind == "empty":
+        return [1.0] if world == 1 else [1.0, 0.0] if world == 2 else \
+            [0.5] + [0.5 / (world - 2)] * (world - 2) + [0.0]
+    w = [float(world - r) for r in range(world)]
+    w = [v / sum(w) for v in w]
+    return w if kind == "tail" else w[::-1]
+
+
+def layout_counts(n, shares):
+    """An integer partition of n by ``shares`` (largest remainders, ties to the lower rank)."""
+    raw = [n * s for s in shares]
+    counts = [int(math.floor(v)) for v in raw]
+    for r in sorted(range(len(raw)), key=lambda r: (counts[r] - raw[r], r))[: n - sum(counts)]:
+        counts[r] += 1
+    return counts
+
+
+def layout_blobs(seed, n, lo, hi):
+    """Rows [lo, hi) of [main]'s blob recipe at n rows (k = 8, f = 32, float32) with numpy: the centres from
+    ``seed``, each LAYOUT_SLAB-row slab of memberships and noise from its own child stream, so that a rank draws
+    only its rows and every world size sees the same global array."""
+    import concurrent.futures
+
+    import numpy as np
+
+    centres = (np.random.default_rng(seed).standard_normal((K_MAIN, F_MAIN)) * 8.0).astype(np.float32)
+    kids = np.random.SeedSequence(seed + 1).spawn(-(-n // LAYOUT_SLAB))
+    out = np.empty((hi - lo, F_MAIN), np.float32)
+
+    def fill(s):
+        a, b = s * LAYOUT_SLAB, min((s + 1) * LAYOUT_SLAB, n)
+        rng = np.random.default_rng(kids[s])
+        member = rng.integers(0, K_MAIN, b - a)
+        if a == 0:
+            member[:K_MAIN] = np.arange(K_MAIN)
+        slab = rng.standard_normal((b - a, F_MAIN), dtype=np.float32) + centres[member]
+        c, d = max(a, lo), min(b, hi)
+        out[c - lo : d - lo] = slab[c - a : d - a]
+
+    slabs = range(lo // LAYOUT_SLAB, -(-hi // LAYOUT_SLAB))
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        list(pool.map(fill, slabs))
+    return out
+
+
+def attention_qkv(seed, n, lo=0, hi=None):
+    """Rows [lo, hi) of the (n, H_ATT, D_ATT) float32 q, k and v from ``seed`` (N(0, 1), one stream per tensor and
+    LAYOUT_SLAB-row slab, so that a rank may draw its rows alone)."""
+    import numpy as np
+
+    hi = n if hi is None else hi
+    out = []
+    for t in range(3):
+        kids = np.random.SeedSequence(seed + 10 + t).spawn(-(-n // LAYOUT_SLAB))
+        parts = []
+        for s in range(lo // LAYOUT_SLAB, -(-hi // LAYOUT_SLAB)):
+            a, b = s * LAYOUT_SLAB, min((s + 1) * LAYOUT_SLAB, n)
+            slab = np.random.default_rng(kids[s]).standard_normal((b - a, H_ATT, D_ATT), dtype=np.float32)
+            parts.append(slab[max(a, lo) - a : min(b, hi) - a])
+        out.append(np.concatenate(parts))
+    return out
+
+
+def attention_check(tag, out_hnd, q, k, v, rows, causal):
+    """``out_hnd`` (H, len(rows), D), the attention of the query rows at the global positions ``rows``, against float64 dense attention of the same rows over all N keys of the (H, N, D) tensors q, k and v. The bound
+    per row, from the online fold's error (Higham and Mary's probabilistic bound, lambda = SUM_LAMBDA): a score is a
+    float32 sum of D products scaled once, within eta = lambda sqrt(D) u scale max_j sum_d |q_d k_jd| + 2 u of the
+    exact one, which moves each softmax weight by a factor within 2 eta (the exp's rounding included) and so the
+    output, a convex combination of rows of v, by 2 eta max|v|; the float32 sums of the numerator and denominator
+    over N keys (and two rescalings a key slice) add 2 lambda sqrt(N + 2 S) u max|v| each, S <= N. Returns the worst
+    share of the bound and the max abs error."""
+    import torch
+
+    n, d = k.shape[1], k.shape[2]
+    scale = 1.0 / math.sqrt(d)
+    q64, k64, v64 = q[:, rows].double(), k.double(), v.double()
+    s = torch.matmul(q64, k64.transpose(1, 2)) * scale
+    pos = torch.as_tensor(rows, device=s.device)
+    if causal:
+        s = s.masked_fill(torch.arange(n, device=s.device)[None, None, :] > pos[None, :, None], float("-inf"))
+    ref = torch.matmul(torch.softmax(s, dim=-1), v64)
+    eta = SUM_LAMBDA * math.sqrt(d) * F32_UNIT_ROUNDOFF * scale * torch.matmul(q64.abs(), k64.abs().transpose(1, 2)) \
+        .amax(dim=-1) + 2 * F32_UNIT_ROUNDOFF
+    vmax = v64.abs().amax(dim=(1, 2))[:, None]
+    bound = (2 * eta + 4 * SUM_LAMBDA * math.sqrt(3 * n) * F32_UNIT_ROUNDOFF + 2 * F32_UNIT_ROUNDOFF) * vmax
+    err = (out_hnd.double() - ref).abs().amax(dim=-1)
+    worst = (err / bound).max().item()
+    check(worst <= 1.0, f"{tag}: attention against float64 at {worst:.3f} of its bound (max abs {err.max().item():.3e})")
+    return worst, err.max().item()
+
+
+def event_ms(fn, reps=3):
+    """Median CUDA-event ms of ``reps`` calls of ``fn`` after one warm call, and the last result."""
+    import torch
+
+    out = fn()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times), out
+
+
+def layout_phase(dev, seed, smi):
+    """[layout] on one card: ``moments_onepass`` and ``lloyd_fused`` at the row counts a ragged layout hands them
+    (0, 1, 1023, 2^21 + 7 and the shard sizes of the path's maps of 2^26 rows over four cards) against their plain
+    versions, with no launch and the neutral state at 0 rows; ``attention``, ``ring_attention`` and
+    ``ulysses_attention`` at world size 1 on (H, N, D) = (8, 2^15, 128), full and causal, against float64 on
+    ATT_SAMPLES query rows a head; ``SplitTiles``/``SquareDiagTiles`` reads and writes on the 2^24 x 32 blobs against
+    numpy; ``reshape_via_flatmove`` and ``strided_take`` at world size 1."""
+    import numpy as np
+    import torch
+
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.core.kernels import assign_stats, chunk_moments, lloyd_local, moments_local
+    from heat_tpu_torch.parallel import flatmove
+
+    ht.use_device("gpu")
+    seed = seed + LAYOUT_SEED_OFFSET
+    t_phase = time.perf_counter()
+    # ---- the kernels at the row counts of ragged shards
+    shards = sorted({c for kind in ("tail", "head", "empty") for c in layout_counts(N_LAYOUT_PATH,
+                                                                                    layout_shares(4, kind))})
+    rows = sorted(set(LAYOUT_ROWS) | set(shards))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    cen = torch.randn(K_MAIN, F_MAIN, device=dev, generator=gen) * 8.0
+    for n in rows:
+        x = cen[torch.randint(0, K_MAIN, (n,), device=dev, generator=gen)] + torch.randn(n, F_MAIN, device=dev,
+                                                                                          generator=gen)
+        before = dict(ht.LAUNCHES)
+        if n == 0:
+            cnt, mean, m2 = moments_local(x)
+            sums, counts, labels, inertia = lloyd_local(x, cen)
+            torch.cuda.synchronize()
+            check(dict(ht.LAUNCHES) == before, f"[layout] a launch at 0 rows: {before} -> {dict(ht.LAUNCHES)}")
+            plain = chunk_moments(x), assign_stats(x, cen)
+            check(float(cnt) == 0 and not bool(mean.abs().any() or m2.abs().any()) and not bool(sums.abs().any())
+                  and not bool(counts.any()) and labels.numel() == 0 and float(inertia) == 0
+                  and all(not bool(t.abs().any()) for t in (*plain[0], *plain[1][:2])),
+                  "[layout] the wrappers at 0 rows should give the neutral state, as their plain versions do")
+            print("[layout] n=0: moments_onepass and lloyd_fused launch nothing and return the merge's neutral state "
+                  "(count 0, mean 0, M2 0; sums 0, counts 0, no labels, inertia 0), as their plain versions", flush=True)
+            continue
+        line_m = moments_vs_plain(f"[layout] n={n}", x)
+        _, _, line_l = lloyd_vs_plain(f"[layout] n={n}", x, cen, n, expansion=True)
+        launched = {k: v - before.get(k, 0) for k, v in ht.LAUNCHES.items() if v != before.get(k, 0)}
+        check(launched == {"moments_onepass": 1, "lloyd_fused": 1}, f"[layout] n={n} launches {launched}")
+        print(f"[layout] n={n}{' (a shard of the path)' if n in shards else ''}: {line_m}; {line_l}", flush=True)
+        del x
+    torch.cuda.empty_cache()
+
+    # ---- the attentions at world size 1
+    q_np, k_np, v_np = attention_qkv(seed, N_ATT_ONE)
+    q, k, v = (torch.from_numpy(a).to(dev).transpose(0, 1).contiguous() for a in (q_np, k_np, v_np))  # (H, N, D)
+    samples = np.random.default_rng(seed + 5).choice(N_ATT_ONE, ATT_SAMPLES, replace=False)
+    samples.sort()
+    qd, kd, vd = (ht.array(t, split=1) for t in (q, k, v))
+    qu, ku, vu = (ht.array(torch.from_numpy(a).to(dev), split=0) for a in (q_np, k_np, v_np))
+    lines = []
+    for causal in (False, True):
+        ms_ring, ring = event_ms(lambda: ht.parallel.ring_attention(qd, kd, vd, causal=causal))
+        ms_uly, uly = event_ms(lambda: ht.parallel.ulysses_attention(qu, ku, vu, causal=causal))
+
+        def dense():
+            return torch.cat([ht.parallel.attention(q[h : h + 1], k[h : h + 1], v[h : h + 1], causal=causal)[:, samples]
+                              for h in range(H_ATT)])
+
+        ms_dense, dense_rows = event_ms(dense, reps=1)
+        tag = f"[layout] {'causal' if causal else 'full'} attention (8, 2^15, 128)"
+        w_ring, e_ring = attention_check(f"{tag} ring", ring.larray[:, samples], q, k, v, samples, causal)
+        w_uly, e_uly = attention_check(f"{tag} ulysses", uly.larray[samples].transpose(0, 1), q, k, v, samples, causal)
+        w_den, e_den = attention_check(f"{tag} dense", dense_rows, q, k, v, samples, causal)
+        flop = 4 * H_ATT * N_ATT_ONE * N_ATT_ONE * D_ATT / (2 if causal else 1)
+        lines.append(f"{tag}: ring_attention {ms_ring:.4f} ms, ulysses_attention {ms_uly:.4f} ms (CUDA events, median "
+                     f"of 3), dense attention one head at a time {ms_dense:.4f} ms; float32 flop bound "
+                     f"{4 * H_ATT * N_ATT_ONE * N_ATT_ONE * D_ATT / FP32_FLOP_PER_S * 1e3:.4f} ms "
+                     f"({flop / 1e12:.3f} TFLOP of useful work); against float64 on {ATT_SAMPLES} rows a head: ring "
+                     f"{e_ring:.3e} ({w_ring:.3f} of the bound), ulysses {e_uly:.3e} ({w_uly:.3f}), dense {e_den:.3e} "
+                     f"({w_den:.3f})")
+        del ring, uly
+        torch.cuda.empty_cache()
+    for line in lines:
+        print(line, flush=True)
+    del q, k, v, qd, kd, vd, qu, ku, vu
+    torch.cuda.empty_cache()
+
+    # ---- tiles, reshape and strided take on the 2^24 x 32 blobs
+    x_np = layout_blobs(seed, N_MAIN, 0, N_MAIN)
+    x = ht.array(x_np, split=0)
+    t0 = time.perf_counter()
+    tiles = ht.SplitTiles(x)
+    check(np.array_equal(tiles[0, 0], x_np), "[layout] SplitTiles[0, 0]")
+    tiles[0] = x_np[::-1].copy()
+    check(np.array_equal(x.numpy(), x_np[::-1]), "[layout] SplitTiles[0] = ...")
+    x = ht.array(x_np, split=0)
+    sq = ht.tiling.SquareDiagTiles(x, ATT_TPP)
+    edge = sq.row_indices[1]
+    for key in ((3, 0), (slice(10, 12), 0), (sq.tile_rows - 1, 0)):
+        lo = key[0].start * edge if isinstance(key[0], slice) else key[0] * edge
+        hi = key[0].stop * edge if isinstance(key[0], slice) else min(lo + edge, N_MAIN)
+        check(np.array_equal(sq[key], x_np[lo:hi]), f"[layout] SquareDiagTiles{key}")
+        sq[key] = -x_np[lo:hi]
+        x_np[lo:hi] = -x_np[lo:hi]
+    check(np.array_equal(x.numpy(), x_np), "[layout] SquareDiagTiles writes")
+    t_tiles = time.perf_counter() - t0
+    comm = x.comm
+    ms_rs, got = event_ms(lambda: flatmove.reshape_via_flatmove(x.larray, x.gshape, (N_MAIN // 2, 2 * F_MAIN), comm))
+    check(torch.equal(got, x.larray.reshape(N_MAIN // 2, 2 * F_MAIN)), "[layout] reshape_via_flatmove")
+    ms_st, (got, m) = event_ms(lambda: flatmove.strided_take(x.larray, 0, N_MAIN, 1, N_MAIN, 3, comm))
+    check(m == len(range(1, N_MAIN, 3)) and torch.equal(got, x.larray[1::3]), "[layout] strided_take")
+    print(f"[layout] SplitTiles (1 x 1 tiles at world size 1: the whole 2 GiB) and SquareDiagTiles({ATT_TPP} tiles a "
+          f"process, {edge}-row tiles) reads and writes equal numpy ({t_tiles:.3f} s host, the host copies included); "
+          f"reshape_via_flatmove (2^24, 32) -> (2^23, 64) {ms_rs:.4f} ms, strided_take [1::3] {ms_st:.4f} ms (CUDA "
+          f"events, one card: local copies)", flush=True)
+    print(f"[layout] phase {time.perf_counter() - t_phase:.1f} s ({smi})", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive heat_tpu_torch's main path on the cards and check every kernel.")
-    ap.add_argument("--phases", choices=("all", "dist", "spectral", "linalg", "robust", "dtypes", "stream"),
-                    default="all", help="all (default): every phase; dist, spectral, linalg, robust, dtypes or stream: "
-                                        "environment, build and that phase only")
-    ap.add_argument("--seed", type=int, default=0, help="seed of [dtypes]' and [stream]'s numpy data (default 0)")
+    ap.add_argument("--phases", choices=("all", "dist", "spectral", "linalg", "robust", "dtypes", "stream", "layout"),
+                    default="all", help="all (default): every phase; dist, spectral, linalg, robust, dtypes, stream or "
+                                        "layout: environment, build and that phase only")
+    ap.add_argument("--seed", type=int, default=0, help="seed of [dtypes]', [stream]'s and the layout steps' numpy data "
+                                                        "(default 0)")
     args = ap.parse_args(argv)
     import torch
 
@@ -3354,8 +3856,13 @@ def main(argv=None) -> int:
         if kernels is not None:
             for row in kernels:
                 row["launches_stream"] = stream_launches.get(row["name"], 0)
+    if args.phases in ("all", "layout"):
+        phase("layout", lambda: layout_phase(dev, args.seed, smi))
     if args.phases in ("all", "dist"):
-        phase("dist", lambda: dist_phase(torch.cuda.device_count()))
+        layout_launches = phase("dist", lambda: dist_phase(torch.cuda.device_count(), args.seed))
+        if kernels is not None:
+            for row in kernels:
+                row["launches_layout"] = layout_launches.get(row["name"], 0)
     print("[walls] host seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()), flush=True)
     if kernels is not None:
         print(json.dumps({"kernels": kernels}))

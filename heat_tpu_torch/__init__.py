@@ -53,11 +53,21 @@ The port goes slice by slice:
    out-of-core ``stream`` path: ``ChunkIterator`` and ``Prefetcher``, the
    streaming estimators (``moments_onepass`` per chunk) and sketches,
    ``percentile``/``median`` of a ``ChunkIterator``, ``tree_merge``, and
-   ``cluster.StreamingKMeans`` (``lloyd_fused`` per chunk).
+   ``cluster.StreamingKMeans`` (``lloyd_fused`` per chunk);
+9. ragged layouts: ``redistribute_`` to any partition of the split axis
+   (empty ranks included), elementwise operations, reductions, cumulative
+   operations, ``nonzero``, ``copy`` and ``astype`` computed in place, one
+   move to align two layouts, ``balance_`` (``LAYOUT_STATS``,
+   ``MOVE_STATS``); ``SplitTiles`` and the tile views; and the rest of
+   ``parallel``: ``flatmove``, ``halo_exchange``, ``ring_map``/
+   ``ring_reduce``, ``make_mesh``/``make_hierarchical_mesh``, and
+   ``ring_attention``/``ulysses_attention`` (forward).
 """
 from .core import *
 from .core import complex_math, io, kernels, linalg, printing, random, signal, version
 from .core.version import __version__
 from . import classification, cluster, convert, graph, parallel, spatial, stream
+from .core.dndarray import LAYOUT_STATS
 from .core.kernels import KERNEL_STATS, LAUNCHES
+from .parallel.flatmove import MOVE_STATS
 from .stream import STREAM_STATS

@@ -9,6 +9,11 @@ injector is installed. A test installs one with :func:`set_injector` to
 make a site raise or corrupt a payload, which exercises the retry and
 atomic-rename paths on the CPU.
 
+A deadline runner bounds the blocking calls that may wedge on the
+interconnect: :func:`guarded_call` runs such a call (``"flatmove.ragged"``,
+...) through the runner :func:`set_deadline_runner` installed, or directly
+when none is.
+
 Observers only record: :func:`observe` reports an event (the
 ``"stream.*"`` family of the chunked pipeline: ``stream.chunk`` with
 ``rows`` and ``nbytes``, ``stream.prefetch_hit``, ``stream.stall``,
@@ -23,12 +28,17 @@ from __future__ import annotations
 
 from typing import Callable, Dict, Optional
 
-__all__ = ["add_observer", "fault_point", "get_injector", "observe", "remove_observer", "set_injector"]
+__all__ = [
+    "add_observer", "fault_point", "get_deadline_runner", "get_injector", "guarded_call", "observe",
+    "remove_observer", "set_deadline_runner", "set_injector",
+]
 
 # the active injector: fn(name, ctx) -> None; it may raise to simulate a fault at
 # the site, or change mutable ctx values (a bytearray payload) in place. None: off.
 _INJECTOR: Optional[Callable[[str, Dict], None]] = None
 _OBSERVERS = []
+# the active deadline runner: fn(label, callable, args, kwargs) -> result. None: calls run inline.
+_DEADLINE_RUNNER = None
 
 
 def set_injector(injector: Optional[Callable[[str, Dict], None]]):
@@ -55,6 +65,28 @@ def fault_point(name: str, **ctx) -> Dict:
     if _INJECTOR is not None:
         _INJECTOR(name, ctx)
     return ctx
+
+
+def set_deadline_runner(runner):
+    """Install (or with None remove) the process-wide deadline runner;
+    returns the previous one, so contexts nest."""
+    global _DEADLINE_RUNNER
+    prev = _DEADLINE_RUNNER
+    _DEADLINE_RUNNER = runner
+    return prev
+
+
+def get_deadline_runner():
+    return _DEADLINE_RUNNER
+
+
+def guarded_call(label: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` under the deadline runner, which names the
+    call ``label`` in any timeout it raises; a direct call when no runner
+    is installed."""
+    if _DEADLINE_RUNNER is None:
+        return fn(*args, **kwargs)
+    return _DEADLINE_RUNNER(label, fn, args, kwargs)
 
 
 def add_observer(fn):

@@ -16,6 +16,17 @@ here over torch tensors, on each rank's chunk:
   empty-chunk rules are those of the local function;
 - a cumulative op along the split axis adds (or multiplies by) the
   exclusive prefix of the ranks' totals.
+
+A ragged array (:mod:`.dndarray`) computes in place, as in ``heat_tpu``
+(``heat_tpu/core/_operations.py:116-268``): every rule above reads each
+rank's rows and the layout's counts, so a reduction of the rows held, the
+exclusive prefix of the ragged counts and an empty rank's neutral value
+come out of the same code; the result keeps the layout wherever the split
+axis survives. A binary op takes the first ragged operand's layout: an
+operand in another layout (ragged or ceil-div) is aligned into it with one
+``ragged_move``, a replicated one is sliced to this rank's rows. Ops that
+change the shape of their input, and the ``out=``/``where=`` forms,
+rebalance first (they read ``larray``).
 """
 from __future__ import annotations
 
@@ -72,6 +83,51 @@ def _real_only(operation: Callable, name: str, error=TypeError) -> Callable:
     return run
 
 
+def _ragged_operand(op: DNDarray, out_shape, j: int, lcounts, comm) -> Optional[torch.Tensor]:
+    """``op``'s tensor as it meets this rank's rows of a result of
+    ``out_shape`` in the ragged layout ``lcounts`` along ``j``: its own
+    rows where it is in that layout, one ``ragged_move`` where it is split
+    along ``j`` in another, this rank's rows of a replicated operand, the
+    whole of an operand that broadcasts along ``j``; None where it needs the
+    ceil-div route."""
+    from ..parallel.flatmove import ragged_move
+
+    jo = j - (len(out_shape) - op.ndim)
+    if jo < 0 or op.gshape[jo] == 1:
+        return op._logical()
+    if op.gshape[jo] != out_shape[j]:
+        return None
+    # lcounts is replicated metadata: every rank takes the same branch, so all reach the same ragged_move
+    if op.lcounts is not None:
+        if op.split != jo:
+            return None
+        return op._raw if op.lcounts == tuple(lcounts) else ragged_move(op._raw, jo, op.lcounts, lcounts, comm)
+    if op.split == jo:
+        return ragged_move(op._raw, jo, comm.counts_displs_shape(op.gshape, jo)[0], lcounts, comm)
+    if op.split is not None:
+        return None
+    start = sum(lcounts[: comm.rank])
+    return op._logical().narrow(jo, start, lcounts[comm.rank])
+
+
+def _ragged_binary(operation: Callable, a: DNDarray, b: DNDarray, out_shape, j: int, tt, device, comm,
+                   fn_kwargs) -> Optional[DNDarray]:
+    """A binary op computed in the first ragged operand's layout, or None
+    where the pair takes the ceil-div route (the ragged operand broadcasts
+    along the split axis)."""
+    target = a if a.lcounts is not None else b
+    jt = j - (len(out_shape) - target.ndim)
+    if jt < 0 or target.gshape[jt] != out_shape[j]:
+        return None
+    lcounts = target.lcounts
+    la = _ragged_operand(a, out_shape, j, lcounts, comm)
+    lb = _ragged_operand(b, out_shape, j, lcounts, comm) if la is not None else None
+    if lb is None:
+        return None
+    result = operation(la.to(tt), lb.to(tt), **fn_kwargs)
+    return DNDarray._from_ragged(result, out_shape, types.canonical_heat_type(result.dtype), j, lcounts, device, comm)
+
+
 def _binary_op(
     operation: Callable,
     t1,
@@ -104,6 +160,10 @@ def _binary_op(
         raise ValueError(f"DNDarrays must have the same split axes, found {a.split} and {b.split}")
     out_split = sa if sa is not None else sb
     tt = promoted.torch_type()
+    if out is None and where is True and out_split is not None and (a.lcounts is not None or b.lcounts is not None):
+        res = _ragged_binary(operation, a, b, out_shape, out_split, tt, device, comm, fn_kwargs)
+        if res is not None:
+            return res
     la, lb = (_local_operand(v, out_shape, out_split).to(tt) for v in (a, b))
     result = operation(la, lb, **fn_kwargs)
     _, lshape, slices = comm.chunk(out_shape, out_split)
@@ -130,17 +190,27 @@ def _local_op(
     out_dtype=None,
     **kwargs,
 ) -> DNDarray:
-    """Elementwise op; split is inherited. Float-promoting math functions
-    (``no_cast=False``) compute integer input in float (float32, or float64
-    for int64); float and complex input keeps its type."""
+    """Elementwise op; split and layout are inherited (a ragged array
+    computes in place; an op that changes the shape rebalances it first).
+    Float-promoting math functions (``no_cast=False``) compute integer
+    input in float (float32, or float64 for int64); float and complex input
+    keeps its type."""
     if not isinstance(x, DNDarray):
         raise TypeError(f"expected x to be a DNDarray, but was {type(x)}")
-    arr = x.larray
+    arr = x._raw
     if not no_cast and out_dtype is None and not (arr.is_floating_point() or arr.is_complex()):
         arr = arr.to(types.promote_types(x.dtype, types.float32).torch_type())
     result = operation(arr, **kwargs)
     dtype = out_dtype if out_dtype is not None else types.canonical_heat_type(result.dtype)
-    res = DNDarray(result.to(dtype.torch_type()), gshape=x.gshape, dtype=dtype, split=x.split, device=x.device, comm=x.comm)
+    if x.lcounts is not None:
+        if tuple(result.shape) != tuple(arr.shape):
+            x.balance_()
+            return _local_op(operation, x, out=out, no_cast=no_cast, out_dtype=out_dtype, **kwargs)
+        res = DNDarray._from_ragged(result.to(dtype.torch_type()), x.gshape, dtype, x.split, x.lcounts, x.device,
+                                    x.comm)
+    else:
+        res = DNDarray(result.to(dtype.torch_type()), gshape=x.gshape, dtype=dtype, split=x.split, device=x.device,
+                       comm=x.comm)
     if out is not None:
         return _write_out(out, res)
     return res
@@ -156,37 +226,43 @@ def _reduce_op(
     **kwargs,
 ) -> DNDarray:
     """Reduction along ``axis``. ``operation(tensor, axis, keepdims,
-    **kwargs)`` receives the sanitized axis (None, int or tuple)."""
+    **kwargs)`` receives the sanitized axis (None, int or tuple). A ragged
+    array reduces the rows each rank holds; where the split axis survives,
+    the result keeps the layout."""
     if not isinstance(x, DNDarray):
         raise TypeError(f"expected x to be a DNDarray, but was {type(x)}")
     axis = sanitize_axis(x.shape, axis)
     comm, split = x.comm, x.split
     axes = tuple(range(x.ndim)) if axis is None else ((axis,) if isinstance(axis, int) else tuple(axis))
+    raw = x._raw
     if split is not None and split in axes and comm.is_distributed():
-        local = x.larray
+        local = raw
         if local.shape[split] == 0:
             # an empty chunk: a stand-in of one row gives the partial's shape and type; it is skipped below
             local = local.new_zeros(tuple(1 if d == split else s for d, s in enumerate(local.shape)))
         partial = operation(local, axis, True, **kwargs)
         parts = comm.allgather(partial.unsqueeze(0), 0, [1] * comm.size)
         keep = [r for r, n in enumerate(x.lshape_map[:, split]) if n > 0]
-        result = operation(parts[keep], 0, False, **kwargs) if keep else operation(x.larray, axis, True, **kwargs)
+        result = operation(parts[keep], 0, False, **kwargs) if keep else operation(raw, axis, True, **kwargs)
         if not keepdims:
             result = result.reshape(_reduced_shape(x.gshape, axis, False))
     else:
-        result = operation(x.larray, axis, keepdims, **kwargs)
+        result = operation(raw, axis, keepdims, **kwargs)
     dtype = out_dtype if out_dtype is not None else types.canonical_heat_type(result.dtype)
-    res = DNDarray(
-        result.to(dtype.torch_type()),
-        gshape=_reduced_shape(x.gshape, axis, keepdims),
-        dtype=dtype,
-        split=_reduced_split(split, axis, x.ndim, keepdims),
-        device=x.device,
-        comm=comm,
-    )
+    res = _like_layout(x, result.to(dtype.torch_type()), _reduced_shape(x.gshape, axis, keepdims), dtype,
+                       _reduced_split(split, axis, x.ndim, keepdims))
     if out is not None:
         return _write_out(out, res)
     return res
+
+
+def _like_layout(x: DNDarray, t: torch.Tensor, gshape, dtype, split: Optional[int]) -> DNDarray:
+    """The result ``t`` (this rank's part, of global ``gshape``, split along
+    ``split``) of an op over ``x`` that keeps ``x``'s split axis as
+    ``split``: in ``x``'s ragged layout where ``x`` has one, else ceil-div."""
+    if x.lcounts is not None and split is not None:
+        return DNDarray._from_ragged(t, gshape, dtype, split, x.lcounts, x.device, x.comm)
+    return DNDarray(t, gshape=gshape, dtype=dtype, split=split, device=x.device, comm=x.comm)
 
 
 def _over_axes(fn: Callable, t: torch.Tensor, axis, keepdims: bool) -> torch.Tensor:
@@ -204,13 +280,14 @@ def _cum_op(
     """Cumulative op along one axis (``operation(tensor, axis)``); split
     and shape are inherited. Along the split axis each rank then applies
     ``combine`` (``torch.add`` for a sum, ``torch.mul`` for a product) with
-    the exclusive prefix of the ranks' totals."""
+    the exclusive prefix of the ranks' totals (by the ragged counts of a
+    ragged array, which keeps its layout)."""
     if not isinstance(x, DNDarray):
         raise TypeError(f"expected x to be a DNDarray, but was {type(x)}")
     axis = sanitize_axis(x.shape, axis)
     if axis is None:
         raise NotImplementedError("cumulative ops require an explicit axis")
-    arr = x.larray
+    arr = x._raw
     if dtype is not None:
         arr = arr.to(types.canonical_heat_type(dtype).torch_type())
     result = operation(arr, axis)
@@ -225,8 +302,7 @@ def _cum_op(
         if n and before:
             prefix = operation(totals.index_select(axis, torch.tensor(before, device=totals.device)), axis)
             result = combine(result, prefix.narrow(axis, len(before) - 1, 1))
-    res = DNDarray(result, gshape=x.gshape, dtype=types.canonical_heat_type(result.dtype), split=x.split,
-                   device=x.device, comm=comm)
+    res = _like_layout(x, result, x.gshape, types.canonical_heat_type(result.dtype), x.split)
     if out is not None:
         return _write_out(out, res)
     return res

@@ -248,18 +248,19 @@ class TorchCommunication(Communication):
         dist.broadcast(out, src=root)
         return back(out)
 
-    def ring_shift(self, t: torch.Tensor) -> torch.Tensor:
-        """The next rank's ``t`` (rank + 1, wrapping around): every rank
-        sends its ``t`` to the previous rank and receives one tensor of the
-        same shape and dtype, as one batch of point-to-point operations."""
-        if not self._started():
+    def ring_shift(self, t: torch.Tensor, shift: int = 1) -> torch.Tensor:
+        """Rank ``rank + shift``'s ``t`` (wrapping around; by default the
+        next rank's): every rank sends its ``t`` to rank ``rank - shift`` and
+        receives one tensor of the same shape and dtype, as one batch of
+        point-to-point operations. With one rank, ``t`` itself."""
+        if not self._started() or self.size == 1:
             return t
         w, back = _to_wire(t.contiguous())
         w = w.contiguous()
         out = torch.empty_like(w)
         count_collective("ring_shift", w.numel() * w.element_size())
-        ops = [dist.P2POp(dist.isend, w, (self.rank - 1) % self.size),
-               dist.P2POp(dist.irecv, out, (self.rank + 1) % self.size)]
+        ops = [dist.P2POp(dist.isend, w, (self.rank - shift) % self.size),
+               dist.P2POp(dist.irecv, out, (self.rank + shift) % self.size)]
         for req in dist.batch_isend_irecv(ops):
             req.wait()
         return back(out)
@@ -505,7 +506,9 @@ def tree_merge(state, combine, *, label: str = "collective.tree_merge", active: 
     bit-identical result (``heat_tpu``'s rank-ordered butterfly). A world
     size that is not a power of two gathers every state instead (one
     ``allgather``) and folds them in rank order. ``active=False`` or a
-    world of one rank returns ``state``."""
+    world of one rank returns ``state``. Each merge counts one in
+    ``MOVE_STATS["tree_merges"]`` and its rounds in
+    ``MOVE_STATS["tree_merge_rounds"]`` (0 for the gather)."""
     from . import _hooks
 
     comm = sanitize_comm(comm)
@@ -515,6 +518,10 @@ def tree_merge(state, combine, *, label: str = "collective.tree_merge", active: 
     leaves, build = _flatten(state)
     _hooks.fault_point(label, leaves=len(leaves), shapes=tuple(tuple(t.shape) for t in leaves),
                        dtypes=tuple(str(t.dtype) for t in leaves))
+    from ..parallel.flatmove import MOVE_STATS
+
+    MOVE_STATS["tree_merges"] += 1
+    MOVE_STATS["tree_merge_rounds"] += tree_merge_rounds(nproc)
     buf = _pack(leaves)
     if nproc & (nproc - 1):  # no butterfly off powers of two
         allb = comm.allgather(buf.unsqueeze(0), 0, [1] * nproc)

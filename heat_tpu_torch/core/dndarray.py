@@ -2,12 +2,22 @@
 
 Counterpart of ``heat_tpu/core/dndarray.py``. ``heat_tpu`` wraps one global
 ``jax.Array`` sharded over a mesh; the port follows Heat's own SPMD model
-instead: every process (rank) holds its own tensor, ``larray``, which is
-its ceil-div chunk of the global array along ``split`` (the whole array
-when ``split`` is None). Chunks are always in that layout — the layout of
-``heat_tpu``'s padded shards, so ``lshape_map`` reads the same in both
-packages, and the last ranks may hold nothing. ``numpy()``, ``item()``,
-``tolist()`` and ``repr`` give the global value on every rank.
+instead: every process (rank) holds its own tensor of the global array
+along ``split`` (the whole array when ``split`` is None). ``numpy()``,
+``item()``, ``tolist()`` and ``repr`` give the global value on every rank.
+
+Layouts. An array is in the ceil-div layout (rank r holds the rows of
+``comm.chunk``, the layout of ``heat_tpu``'s padded shards, so the last
+ranks may hold nothing) unless ``redistribute_`` gave it another partition
+of its split extent: then it is *ragged*, and rank r holds exactly
+``lcounts[r]`` rows (any number, zero included; no padding, no mask, as in
+Heat). ``lshape_map``, ``counts_displs``, ``local_shards``, ``lcounts``,
+``balanced`` and ``numpy()`` reflect the map. Elementwise operations,
+reductions, cumulative operations, ``nonzero``, ``copy`` and ``astype``
+compute on a ragged array in place (:mod:`._operations`); every other
+consumer reads :attr:`larray`, which first rebalances the array into the
+ceil-div layout in place (``balance_``: one move, counted in
+``LAYOUT_STATS["rebalances"]``).
 """
 from __future__ import annotations
 
@@ -21,7 +31,11 @@ from .communication import TorchCommunication, sanitize_comm
 from .devices import Device
 from .stride_tricks import sanitize_axis
 
-__all__ = ["DNDarray", "LocalIndex"]
+__all__ = ["DNDarray", "LAYOUT_STATS", "LocalIndex"]
+
+# Rebalances of a ragged array into the ceil-div layout that balance_ carried
+# out (a call on a balanced array counts nothing), as heat_tpu counts them.
+LAYOUT_STATS = {"rebalances": 0}
 
 
 def _host_tensor(a: np.ndarray) -> torch.Tensor:
@@ -133,16 +147,58 @@ class DNDarray:
         self.__gshape = gshape
         self.__dtype = dtype
         self.__array = tensor
+        self.__lcounts = None
+
+    @classmethod
+    def _from_ragged(cls, tensor: torch.Tensor, gshape, dtype, split: int, lcounts, device=None,
+                     comm=None) -> "DNDarray":
+        """An array whose rank r holds exactly ``lcounts[r]`` rows along
+        ``split`` (``tensor`` is this rank's), ``heat_tpu``'s ``_from_ragged``.
+        ``lcounts`` must partition the split extent; where it is the
+        ceil-div map the array is simply balanced."""
+        comm = sanitize_comm(comm)
+        gshape = tuple(int(s) for s in gshape)
+        lcounts = tuple(int(c) for c in lcounts)
+        if len(lcounts) != comm.size or sum(lcounts) != gshape[split] or min(lcounts, default=0) < 0:
+            raise ValueError(f"lcounts {lcounts} do not partition extent {gshape[split]} over {comm.size} shards")
+        if lcounts == comm.counts_displs_shape(gshape, split)[0]:
+            return cls(tensor, gshape=gshape, dtype=dtype, split=split, device=device, comm=comm)
+        want = list(gshape)
+        want[split] = lcounts[comm.rank]
+        if tuple(tensor.shape) != tuple(want):
+            raise ValueError(f"local tensor of shape {tuple(tensor.shape)} is not rank {comm.rank}'s {tuple(want)} "
+                             f"of gshape {gshape} in the layout {lcounts} along {split}")
+        out = cls.__new__(cls)
+        out.__comm = comm
+        out.__device = devices.sanitize_device(device if device is not None else tensor.device)
+        out.__dtype = types.canonical_heat_type(dtype if dtype is not None else tensor.dtype)
+        out.__split = split
+        out.__gshape = gshape
+        out.__array = tensor.to(device=out.__device.torch_device, dtype=out.__dtype.torch_type())
+        out.__lcounts = lcounts
+        return out
 
     # ------------------------------------------------------------------ meta
     @property
     def larray(self) -> torch.Tensor:
-        """This rank's tensor: its chunk of the global array."""
+        """This rank's tensor: its chunk of the global array in the ceil-div
+        layout. A ragged array is rebalanced in place first (``balance_``):
+        every consumer that needs the ceil-div chunks (products, ``resplit``,
+        indexing, I/O, the estimators) reads this."""
+        if self.__lcounts is not None:
+            self.balance_()
+        return self.__array
+
+    @property
+    def _raw(self) -> torch.Tensor:
+        """This rank's tensor as it lies, ragged or not: for the operations
+        that compute in any layout. Everything else reads :attr:`larray`."""
         return self.__array
 
     def _logical(self) -> torch.Tensor:
-        """The whole global array on this rank: ``larray`` where the array is
-        replicated or the world has size 1, else an ``allgather``."""
+        """The whole global array on this rank: the tensor where the array
+        is replicated or the world has size 1, else an ``allgather`` of the
+        ranks' rows as they lie (a ragged array is not rebalanced)."""
         if self.__split is None or not self.__comm.is_distributed():
             return self.__array
         counts = self.lshape_map[:, self.__split]
@@ -187,7 +243,11 @@ class DNDarray:
     @property
     def lshape_map(self) -> np.ndarray:
         """(size, ndim) map of every rank's chunk shape — computed, not
-        communicated."""
+        communicated; a ragged array's counts along the split axis."""
+        if self.__lcounts is not None:
+            out = np.tile(np.asarray(self.__gshape, dtype=np.int64), (self.__comm.size, 1))
+            out[:, self.__split] = self.__lcounts
+            return out
         return self.__comm.lshape_map(self.__gshape, self.__split)
 
     @property
@@ -199,26 +259,30 @@ class DNDarray:
         return int(np.prod(self.__gshape, dtype=np.int64))
 
     def is_balanced(self, force_check: bool = False) -> bool:
-        """Whether the chunks are in the ceil-div layout: always, in the port
-        (every operation that changes extents rebalances, as ``balance_``
-        would)."""
-        return True
+        """Whether the chunks are in the ceil-div layout: False only after a
+        ``redistribute_`` to another partition of the split extent."""
+        return self.__lcounts is None
 
     def balance_(self) -> "DNDarray":
-        """Bring the chunks into the ceil-div layout; they always are, so
-        this returns ``self``."""
+        """Rebalance a ragged array into the ceil-div layout in place: one
+        move (:func:`heat_tpu_torch.parallel.flatmove.ragged_move`), counted
+        in ``LAYOUT_STATS["rebalances"]``. A balanced array is left as it is
+        and nothing is counted."""
+        if self.__lcounts is not None:
+            LAYOUT_STATS["rebalances"] += 1
+            self._ragged_redistribute(self.__comm.counts_displs_shape(self.__gshape, self.__split)[0])
         return self
 
     @property
     def balanced(self) -> bool:
-        """Whether the chunks are in the ceil-div layout: always."""
-        return True
+        """Whether the chunks are in the ceil-div layout."""
+        return self.__lcounts is None
 
     @property
-    def lcounts(self) -> None:
-        """The rows of each rank in a ragged layout; None, since the port
-        keeps every array in the ceil-div layout."""
-        return None
+    def lcounts(self) -> Optional[Tuple[int, ...]]:
+        """Every rank's rows along the split axis when the array is ragged,
+        else None. Replicated metadata: the same tuple on every rank."""
+        return self.__lcounts
 
     def create_lshape_map(self, force_check: bool = False) -> np.ndarray:
         """The ``lshape_map`` (computed from the layout, never communicated)."""
@@ -227,18 +291,22 @@ class DNDarray:
     @property
     def pshape(self) -> Tuple[int, ...]:
         """``heat_tpu``'s padded buffer shape: the split extent rounded up to
-        the ranks' ceil-div block times the number of ranks."""
+        the ranks' ceil-div block (a ragged array's largest count) times the
+        number of ranks."""
         if self.__split is None:
             return self.__gshape
         shape = list(self.__gshape)
-        shape[self.__split] = -(-shape[self.__split] // self.__comm.size) * self.__comm.size
+        if self.__lcounts is not None:
+            shape[self.__split] = max(1, max(self.__lcounts)) * self.__comm.size
+        else:
+            shape[self.__split] = -(-shape[self.__split] // self.__comm.size) * self.__comm.size
         return tuple(shape)
 
     @property
     def padded(self) -> bool:
-        """Whether ``heat_tpu``'s buffer of this array would carry tail
-        padding along the split axis."""
-        return self.pshape != self.__gshape
+        """Whether ``heat_tpu``'s buffer of this array would carry padding
+        along the split axis (a ragged array's always does)."""
+        return self.__lcounts is not None or self.pshape != self.__gshape
 
     @property
     def local_shards(self) -> list:
@@ -306,12 +374,12 @@ class DNDarray:
 
     @property
     def loc(self) -> LocalIndex:
-        return LocalIndex(self.__array)
+        return LocalIndex(self.larray)
 
     @property
     def lloc(self) -> LocalIndex:
-        """Indexing of this rank's tensor."""
-        return LocalIndex(self.__array)
+        """Indexing of this rank's tensor (``larray``)."""
+        return LocalIndex(self.larray)
 
     def cpu(self) -> "DNDarray":
         """A copy of the whole array on the host: split None, on the CPU
@@ -326,11 +394,11 @@ class DNDarray:
         if self.ndim != 2:
             raise ValueError("input array must be 2D")
         n = min(self.__gshape)
+        new = self.larray.clone()
         off = self.__comm.chunk(self.__gshape, self.__split)[0]
         lo = off if self.__split is not None else 0
         hi = min(n, lo + (self.lshape[self.__split] if self.__split is not None else n))
-        idx = torch.arange(max(lo, 0), max(hi, lo), device=self.__array.device)
-        new = self.__array.clone()
+        idx = torch.arange(max(lo, 0), max(hi, lo), device=new.device)
         if idx.numel():
             rows = idx - off if self.__split == 0 else idx
             cols = idx - off if self.__split == 1 else idx
@@ -399,8 +467,9 @@ class DNDarray:
     def __resplit_tensor(self, axis: Optional[int]) -> torch.Tensor:
         """This rank's tensor of the array split along ``axis``: a local
         slice (None -> a), an ``allgather`` (a -> None) or an ``alltoall``
-        (a -> b)."""
-        src, comm, t = self.__split, self.__comm, self.__array
+        (a -> b). A ragged array is rebalanced first."""
+        t = self.larray
+        src, comm = self.__split, self.__comm
         if axis == src or not comm.is_distributed():
             return t
         if axis is None:
@@ -422,7 +491,8 @@ class DNDarray:
         return torch.cat(comm.alltoall(blocks, shapes), dim=src)
 
     def resplit(self, axis: Optional[int] = None) -> "DNDarray":
-        """A copy split along ``axis``."""
+        """A copy split along ``axis``, in the ceil-div layout (a ragged
+        array is rebalanced in place first, as in ``heat_tpu``)."""
         axis = sanitize_axis(self.__gshape, axis)
         t = self.__resplit_tensor(axis)
         if t is self.__array:
@@ -430,14 +500,18 @@ class DNDarray:
         return DNDarray(t, gshape=self.__gshape, dtype=self.__dtype, split=axis, device=self.__device, comm=self.__comm)
 
     def resplit_(self, axis: Optional[int] = None) -> "DNDarray":
-        """Split this array along ``axis`` in place."""
+        """Split this array along ``axis`` in place; the split it has already
+        leaves it as it is (a ragged layout too)."""
         axis = sanitize_axis(self.__gshape, axis)
+        if axis == self.__split:
+            return self
         self.__array = self.__resplit_tensor(axis)
         self.__split = axis
         return self
 
     def astype(self, dtype, copy: bool = True) -> "DNDarray":
-        """Cast to ``dtype``; ``copy=False`` casts in place of this object."""
+        """Cast to ``dtype``; ``copy=False`` casts in place of this object.
+        The layout is kept: a ragged array casts its rows where they lie."""
         dtype = types.canonical_heat_type(dtype)
         casted = self.__array.to(dtype.torch_type())
         if not copy:
@@ -446,12 +520,16 @@ class DNDarray:
             return self
         if casted is self.__array:
             casted = casted.clone()
+        if self.__lcounts is not None:
+            return DNDarray._from_ragged(casted, self.__gshape, dtype, self.__split, self.__lcounts, self.__device,
+                                         self.__comm)
         return DNDarray(casted, gshape=self.__gshape, dtype=dtype, split=self.__split, device=self.__device, comm=self.__comm)
 
     def numpy(self) -> np.ndarray:
         """The global array as a numpy array on the host, on every rank. numpy
         has no bfloat16, so a bfloat16 array comes back as float32, which
-        holds every bfloat16 value exactly."""
+        holds every bfloat16 value exactly. A ragged array is gathered as it
+        lies and keeps its layout (``heat_tpu`` rebalances it first)."""
         t = self._logical().detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
@@ -549,7 +627,8 @@ class DNDarray:
         step then fetches the mirror image; a bool mask of a split-0 array's
         shape selects on every rank and rebalances; an integer array on
         split axis 0 fetches the rows it names; other keys index the
-        gathered array."""
+        gathered array. A ragged array is rebalanced first."""
+        self.balance_()
         if isinstance(key, DNDarray) and key.ndim == 2 and self.ndim > 1 and key.gshape[1] == self.ndim \
                 and types.heat_type_is_exact(key.dtype) and key.dtype is not types.bool:
             # a coordinate list, as nonzero gives it: one row per element
@@ -758,7 +837,9 @@ class DNDarray:
         the array's shape writes on every rank: a scalar locally, a 1-D
         value of one entry per selected element by the exclusive scan of the
         ranks' counts; an integer array on split axis 0 writes on the owners
-        of its rows; other keys write into the gathered array."""
+        of its rows; other keys write into the gathered array. A ragged
+        array is rebalanced first."""
+        self.balance_()
         if isinstance(key, DNDarray) and key.dtype is types.bool and key.gshape == self.__gshape:
             return self.__mask_setitem(key, value)
         nkey = self.__normalize_key(key)
@@ -909,16 +990,60 @@ class DNDarray:
         return manipulations.unique(self, sorted=sorted, return_inverse=return_inverse, axis=axis)
 
     def redistribute_(self, lshape_map=None, target_map=None) -> "DNDarray":
-        """Bring the chunks into the layout ``target_map``. The port keeps the
-        ceil-div layout, so that is the one map accepted (None means it);
-        ``lshape_map`` must describe the current layout."""
+        """Move the rows into the layout ``target_map``, a (size, ndim) map of
+        every rank's shape, in place (``heat_tpu``'s rules and messages):
+
+        - the current map: nothing moves;
+        - any other partition of the split extent (skewed, empty ranks): one
+          move (:func:`heat_tpu_torch.parallel.flatmove.ragged_move`); the
+          array is ragged afterwards unless the map is the ceil-div one;
+        - the ceil-div map of another split axis: ``resplit_``.
+
+        ``lshape_map``, where given, must describe the current layout."""
         current = self.lshape_map
-        for name, m in (("lshape_map", lshape_map), ("target_map", target_map)):
-            if m is not None and not np.array_equal(np.asarray(m), current):
-                raise NotImplementedError(
-                    f"{name} {np.asarray(m).tolist()} is not the ceil-div layout {current.tolist()}; "
-                    "the port keeps every array in that layout"
+        if lshape_map is not None:
+            given = np.asarray(lshape_map)
+            if given.shape != current.shape or not np.array_equal(given, current):
+                raise ValueError(
+                    f"lshape_map {given.tolist()} does not describe this array's current layout {current.tolist()}"
                 )
+        if target_map is None:
+            return self
+        target = np.asarray(target_map)
+        size, ndim = self.__comm.size, self.ndim
+        if target.shape != (size, ndim):
+            raise ValueError(f"target_map must have shape {(size, ndim)}, got {target.shape}")
+        if (target < 0).any():
+            raise ValueError("target_map entries must be non-negative")
+        if np.array_equal(target, current):
+            return self
+        split = self.__split
+        if split is not None:
+            counts = target[:, split]
+            if all((target[:, k] == self.__gshape[k]).all() for k in range(ndim) if k != split) \
+                    and int(counts.sum()) == self.__gshape[split]:
+                return self._ragged_redistribute(tuple(int(c) for c in counts))
+        for axis in ([split] if split is not None else []) + [k for k in range(ndim) if k != split]:
+            if np.array_equal(target, self.__comm.lshape_map(self.__gshape, axis)):
+                return self.resplit_(axis)
+        raise ValueError(
+            "target_map neither partitions the split extent nor matches the canonical layout of any split axis"
+        )
+
+    def _ragged_redistribute(self, counts: Tuple[int, ...]) -> "DNDarray":
+        """Move the rows along the split axis, in place, so that rank r holds
+        ``counts[r]`` of them: one ``ragged_move``, nothing where the layout
+        is already that one. Every rank calls it with the same counts."""
+        from ..parallel.flatmove import ragged_move
+
+        split = self.__split
+        counts = tuple(int(c) for c in counts)
+        current = tuple(int(c) for c in self.lshape_map[:, split])
+        if counts == current:
+            return self
+        self.__array = ragged_move(self.__array, split, current, counts, self.__comm)
+        canonical = self.__comm.counts_displs_shape(self.__gshape, split)[0]
+        self.__lcounts = None if counts == tuple(canonical) else counts
         return self
 
     # ----------------------------------------------------------- arithmetic
@@ -1092,7 +1217,8 @@ class DNDarray:
         return self.__set_from(self / other)
 
     def __set_from(self, result: "DNDarray") -> "DNDarray":
-        self.__array = result.larray
+        self.__array = result._raw
+        self.__lcounts = result.lcounts
         self.__gshape = result.gshape
         self.__dtype = result.dtype
         self.__split = result.split

@@ -19,14 +19,16 @@ def nonzero(x: DNDarray) -> DNDarray:
     chunk's coordinates, one ``allgather`` of the ranks' counts and their
     exclusive scan give every coordinate its slot in the result, and one
     ``alltoall`` sends it to the rank that owns that slot
-    (:func:`heat_tpu_torch.parallel.dscan.nonzero_scan`)."""
+    (:func:`heat_tpu_torch.parallel.dscan.nonzero_scan`). A ragged array is
+    scanned where its rows lie, offset by the ragged displacements."""
     from ..parallel.dscan import nonzero_scan
 
     if not isinstance(x, DNDarray):
         raise TypeError(f"expected x to be a DNDarray, but was {type(x)}")
     comm = x.comm
     if x.split is not None and comm.is_distributed():
-        result, total = nonzero_scan(x.larray, x.gshape, x.split, comm)
+        ragged = x.counts_displs() if x.lcounts is not None else None
+        result, total = nonzero_scan(x._raw, x.gshape, x.split, comm, ragged=ragged)
         gshape = (total, x.ndim)
     else:
         result = torch.nonzero(x.larray)

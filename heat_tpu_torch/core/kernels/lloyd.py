@@ -202,14 +202,20 @@ def lloyd_local(xa: torch.Tensor, centers: torch.Tensor, n_valid: Optional[int] 
 
     A CUDA tensor runs the hand-written kernels (float32) of the route
     :func:`lloyd_route` names, for any f and k; a CPU tensor runs
-    :func:`assign_stats`."""
+    :func:`assign_stats`. A buffer of no rows (a ragged layout's empty
+    rank) gives zero sums, counts and inertia and no labels, and launches
+    nothing."""
     if xa.ndim != 2 or centers.ndim != 2 or xa.shape[1] != centers.shape[1]:
         raise ValueError(f"bad operand shapes {tuple(xa.shape)} x {tuple(centers.shape)}")
-    if xa.shape[0] < 1 or centers.shape[0] < 1:
-        raise ValueError("lloyd_local needs at least one row and one center")
+    if centers.shape[0] < 1:
+        raise ValueError("lloyd_local needs at least one center")
     if xa.device != centers.device:
         raise ValueError(f"x on {xa.device} but centers on {centers.device}")
     n_valid = xa.shape[0] if n_valid is None else int(n_valid)
+    if xa.shape[0] == 0:
+        k, f = centers.shape
+        z = xa.new_zeros((), dtype=torch.float32)
+        return (z.new_zeros((k, f)), z.new_zeros(k), torch.zeros(0, dtype=torch.int32, device=xa.device), z)
     if xa.is_cuda:
         return _lloyd_cuda(xa.to(torch.float32).contiguous(), centers.to(torch.float32).contiguous(), n_valid)
     if xa.device.type != "cpu":
@@ -229,15 +235,8 @@ def lloyd_sharded(xa: torch.Tensor, centers: torch.Tensor, comm, mode: str = "cu
     k·f + k + 1 values in one ``allreduce`` (at k·f = 256 floats its cost
     is the collective's latency, not its bytes)."""
     k, f = centers.shape
-    if xa.shape[0] > 0:
-        step = lloyd_local if mode == "cuda" else assign_stats
-        sums, counts, labels, inertia = step(xa, centers, xa.shape[0])
-    else:
-        dt = torch.float32 if mode == "cuda" else xa.dtype
-        sums = torch.zeros((k, f), dtype=dt, device=xa.device)
-        counts = torch.zeros(k, dtype=dt, device=xa.device)
-        labels = torch.zeros(0, dtype=torch.int32, device=xa.device)
-        inertia = torch.zeros((), dtype=dt, device=xa.device)
+    step = lloyd_local if mode == "cuda" else assign_stats
+    sums, counts, labels, inertia = step(xa, centers, xa.shape[0])
     if comm is None or comm.backend is None:  # replicated data, or no process group: nothing to sum
         return sums, counts, labels, inertia
     packed = comm.allreduce(torch.cat([sums.reshape(-1), counts.to(sums.dtype), inertia.reshape(1).to(sums.dtype)]))

@@ -50,7 +50,7 @@ def chunk_moments(xa: torch.Tensor, n_valid=None) -> Tuple[torch.Tensor, torch.T
     n = xa.shape[0]
     nv = n if n_valid is None else int(n_valid)
     valid = (torch.arange(n, device=xa.device) < nv).unsqueeze(1)
-    shift = xa[0:1, :]
+    shift = xa[0:1, :] if n else xa.new_zeros((1, xa.shape[1]))  # no rows: the neutral state (0, 0, 0)
     xs = torch.where(valid, xa - shift, torch.zeros((), dtype=xa.dtype, device=xa.device))
     nb = valid.sum().to(xa.dtype)
     nb1 = torch.clamp(nb, min=1.0)
@@ -140,13 +140,17 @@ def moments_local(xa: torch.Tensor, n_valid: Optional[int] = None):
 
     A CUDA tensor runs the hand-written kernel; a CPU tensor runs
     :func:`chunk_moments`. Returns float32 tensors: count (0-d), mean (f,)
-    and M2 (f,)."""
+    and M2 (f,). A buffer of no rows (a ragged layout's empty rank) gives
+    the merge's neutral state (0, 0, 0) and launches nothing."""
     if xa.ndim != 2:
         raise ValueError(f"moments_local expects a 2-D buffer, got {tuple(xa.shape)}")
-    if xa.shape[0] < 1 or xa.shape[1] < 1:
-        raise ValueError(f"moments_local needs at least one row and one column, got {tuple(xa.shape)}")
+    if xa.shape[1] < 1:
+        raise ValueError(f"moments_local needs at least one column, got {tuple(xa.shape)}")
     n_valid = xa.shape[0] if n_valid is None else int(n_valid)
     xa = xa.to(torch.float32).contiguous()
+    if xa.shape[0] == 0:
+        z = xa.new_zeros(xa.shape[1])
+        return xa.new_zeros(()), z, z.clone()
     if xa.is_cuda:
         return _moments_cuda(xa, n_valid)
     if xa.device.type != "cpu":

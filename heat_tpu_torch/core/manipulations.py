@@ -104,16 +104,16 @@ def _write(out: DNDarray, res: DNDarray) -> DNDarray:
 
 # ------------------------------------------------------------------ layout
 def balance(array: DNDarray, copy: bool = False) -> DNDarray:
-    """``array`` in the ceil-div layout (always the case in the port), or a
-    copy of it with ``copy``."""
+    """``array`` rebalanced into the ceil-div layout in place (a ragged
+    array moves once; a balanced one is left as it is), or a copy of it,
+    rebalanced, with ``copy``."""
     out = array.copy() if copy else array
     return out.balance_()
 
 
 def redistribute(arr: DNDarray, lshape_map=None, target_map=None) -> DNDarray:
-    """A copy of ``arr`` in the layout ``target_map``. The port keeps every
-    array in the ceil-div layout, so only that map is accepted; ``lshape_map``
-    must describe ``arr``'s layout."""
+    """A copy of ``arr`` moved into the layout ``target_map``
+    (:meth:`DNDarray.redistribute_`); ``arr`` keeps its own."""
     out = arr.copy()
     return out.redistribute_(lshape_map=lshape_map, target_map=target_map)
 

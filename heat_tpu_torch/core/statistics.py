@@ -44,7 +44,12 @@ version and the next call recomputes instead of serving stale moments.
 
 Across ranks each rank computes its chunk's moments (a rank with an empty
 chunk contributes (0, 0, 0) and launches nothing), and
-:func:`kernels.moments_sharded` combines them by Chan's formulas. The
+:func:`kernels.moments_sharded` combines them by Chan's formulas. A ragged
+array takes the same route on the rows each rank holds: ``heat_tpu``
+declines its panel there and takes a masked reduction, the port runs
+``moments_onepass`` on each rank's rows and merges; the results agree
+within the merge's rounding, and the moments keep the layout where the
+split axis survives. The
 extrema reduce as every ``_reduce_op`` does; ``argmin``/``argmax`` over
 the split axis gather each rank's best value and its global index and keep
 the lowest index among the best.
@@ -59,7 +64,9 @@ import numpy as np
 import torch
 
 from . import factories, types
-from ._operations import _binary_op, _local_operand, _over_axes, _reduce_op, _reduced_shape, _reduced_split, _write_out
+from ._operations import (
+    _binary_op, _like_layout, _local_operand, _over_axes, _reduce_op, _reduced_shape, _reduced_split, _write_out,
+)
 from .dndarray import DNDarray
 from .kernels import MOMENTS_KERNEL, chunk_moments, dispatch_mode, moments_local, moments_sharded, record_dispatch
 from .stride_tricks import sanitize_axis
@@ -160,7 +167,7 @@ def _moments_panel(x: DNDarray, axis_s):
         return None
     if axis_s is not None and not isinstance(axis_s, int):
         return None
-    arr = x.larray
+    arr = x._raw
     if arr.dtype not in (torch.float32, torch.float64):
         return None
     if arr.numel() == 0:  # an empty chunk of a non-empty array: nothing to read, nothing to launch
@@ -199,21 +206,16 @@ def _moments_panel(x: DNDarray, axis_s):
 def _wrap_moment(x: DNDarray, axis_s, result: torch.Tensor) -> DNDarray:
     """Wrap a finalized moment with the reduced split and shape."""
     result = torch.as_tensor(result)
-    out_shape = _reduced_shape(x.gshape, axis_s, False)
-    return DNDarray(
-        result.reshape(_reduced_shape(x.lshape, axis_s, False)),
-        gshape=out_shape,
-        dtype=types.canonical_heat_type(result.dtype),
-        split=_reduced_split(x.split, axis_s, x.ndim, False),
-        device=x.device,
-        comm=x.comm,
-    )
+    return _like_layout(x, result.reshape(_reduced_shape(x.lshape, axis_s, False)),
+                        _reduced_shape(x.gshape, axis_s, False), types.canonical_heat_type(result.dtype),
+                        _reduced_split(x.split, axis_s, x.ndim, False))
 
 
 def _direct_moments(x: DNDarray, axis_s, where=None):
     """(count, mean, M2) by a direct two-pass reduction over the logical
-    tensor, with an optional boolean ``where`` mask broadcast to ``x``."""
-    t = x.larray.to(_float_type(x.larray))
+    tensor, with an optional boolean ``where`` mask broadcast to ``x``
+    (which the caller has rebalanced)."""
+    t = x._raw.to(_float_type(x._raw))
     dims = tuple(range(t.ndim)) if axis_s is None else ((axis_s,) if isinstance(axis_s, int) else tuple(axis_s))
     if where is None:
         w = torch.ones_like(t)
@@ -234,11 +236,13 @@ def _moments(x: DNDarray, axis, where):
     axis_s = sanitize_axis(x.shape, axis)
     axes = range(x.ndim) if axis_s is None else ((axis_s,) if isinstance(axis_s, int) else axis_s)
     across = x.split is not None and x.split in axes and x.comm.is_distributed()
-    if x.larray.is_complex():
+    if where is not None:
+        x.balance_()  # the mask meets the ceil-div chunks
+    if x._raw.is_complex():
         # |z - m|^2 = (re - m_re)^2 + (im - m_im)^2: the parts' moments, on the direct route
         parts = []
-        for part in (x.larray.real, x.larray.imag):
-            p = DNDarray(part, gshape=x.gshape, split=x.split, device=x.device, comm=x.comm)
+        for part in (x._raw.real, x._raw.imag):
+            p = _like_layout(x, part, x.gshape, types.canonical_heat_type(part.dtype), x.split)
             stats = _direct_moments(p, axis_s, where)
             parts.append(moments_sharded(*stats, x.comm) if across else stats)
         (c, m_re, m2_re), (_, m_im, m2_im) = parts
@@ -254,7 +258,7 @@ def _moments(x: DNDarray, axis, where):
 
 def _moment_type(x: DNDarray, result: torch.Tensor) -> torch.Tensor:
     """A moment in ``heat_tpu``'s type: a half-precision input's own."""
-    return result.to(x.larray.dtype) if x.larray.dtype in (torch.float16, torch.bfloat16) else result
+    return result.to(x._raw.dtype) if x._raw.dtype in (torch.float16, torch.bfloat16) else result
 
 
 def mean(x: DNDarray, axis=None, where=None) -> DNDarray:
@@ -720,6 +724,7 @@ def average(x: DNDarray, axis=None, weights=None, returned: bool = False):
             n = x.size if axis is None else _count_over(x, sanitize_axis(x.shape, axis))
             return result, factories.full_like(result, float(n))
         return result
+    x.balance_()  # the weights meet the ceil-div chunks
     axis_s = sanitize_axis(x.shape, axis)
     if isinstance(weights, DNDarray):
         wt = weights

@@ -37,13 +37,14 @@ def unique_merge(local: torch.Tensor, comm) -> torch.Tensor:
     return cands
 
 
-def nonzero_scan(local: torch.Tensor, gshape, split: int, comm) -> Tuple[torch.Tensor, int]:
+def nonzero_scan(local: torch.Tensor, gshape, split: int, comm, ragged=None) -> Tuple[torch.Tensor, int]:
     """This rank's ceil-div chunk of the (count, ndim) coordinates of the
     nonzero elements of an array of ``gshape`` split along ``split``, in
-    row-major order, and their count."""
+    row-major order, and their count. ``ragged=(counts, displs)`` scans a
+    ragged array in place: this rank's rows start at ``displs[rank]``."""
     from ..core.dndarray import _redistribute
 
-    off = comm.chunk(gshape, split)[0]
+    off = comm.chunk(gshape, split)[0] if ragged is None else int(ragged[1][comm.rank])
     coords = torch.nonzero(local)
     coords[:, split] += off
     if not comm.is_distributed():

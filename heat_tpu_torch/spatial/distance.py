@@ -86,11 +86,12 @@ def _ring(metric: Callable, xa: torch.Tensor, y: DNDarray, tt: torch.dtype) -> t
     chunks, padded to the longest, rotate to the previous rank ``p - 1``
     times; the chunk of rank ``q`` fills the columns of ``q``'s rows."""
     comm = y.comm
+    yl = y.larray  # ceil-div chunks: a ragged y is rebalanced before its map is read
     counts = [int(c) for c in y.lshape_map[:, 0]]
     starts = [sum(counts[:q]) for q in range(comm.size)]
     out = torch.empty((xa.shape[0], y.gshape[0]), dtype=tt, device=xa.device)
     buf = torch.zeros((max(counts), y.gshape[1]), dtype=tt, device=xa.device)
-    buf[: counts[comm.rank]] = y.larray
+    buf[: counts[comm.rank]] = yl
     for step in range(comm.size):
         q = (comm.rank + step) % comm.size  # whose chunk this rank holds
         if counts[q]:

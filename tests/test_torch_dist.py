@@ -21,7 +21,15 @@ factorization rotates by a different orthogonal matrix on each package),
 and the same for the iterative solvers, the SVDs (singular pairs with a
 fixed sign) and spectral clustering's Laplacians: Krylov and singular
 vectors built from float32 products summed in another order drift by a
-few 1e-6 in entries of size 1e-3 to 1.
+few 1e-6 in entries of size 1e-3 to 1. The attentions (case ``parallel``)
+atol 2e-5: an output row is a convex combination of rows of v from an
+online softmax over N <= 24 keys folded in another order (P blocks
+against one), a few float32 roundings of sums of N terms of size <= 4,
+N u max|v| = 24 * 2^-24 * 4 = 6e-6.
+
+Ragged results are held to heat_tpu's layout (``lshape_map``, ``lcounts``)
+and the rank's rows as they lie; counter deltas (``LAYOUT_STATS`` and
+``MOVE_STATS``) must equal heat_tpu's.
 
 A case whose reference is the port itself (``PORT_ONLY``: the port's own
 bookkeeping) is not held against heat_tpu; the random draws are held
@@ -54,6 +62,7 @@ WORKER = Path(W.__file__).resolve()
 WORLD = 4
 RTOL, ATOL = 1e-5, 1e-6
 QR_RTOL, QR_ATOL = 1e-4, 1e-5
+ATTN_ATOL = 2e-5
 GROUP_TIMEOUT = 420  # seconds for the whole group, start to exit
 _RUN_ID = os.environ.get("PYTEST_XDIST_TESTRUNUID") or uuid.uuid4().hex
 
@@ -176,10 +185,14 @@ def compare(port: dict, ref: dict, rank: int, what: str, rtol=RTOL, atol=ATOL, l
         assert port["dtype"] == ref["dtype"], f"{what}: dtype {port['dtype']} vs {ref['dtype']}"
         assert port["gshape"] == ref["gshape"], f"{what}: gshape {port['gshape']} vs {ref['gshape']}"
         assert port["split"] == ref["split"], f"{what}: split {port['split']} vs {ref['split']}"
-        lmap = _ceil_div_map(ref["gshape"], ref["split"], world)
+        # heat_tpu's layout, ragged or ceil-div; against a reference of another world size, the ceil-div one
+        lmap = np.asarray(ref["lshape_map"]) if lshape_map else _ceil_div_map(ref["gshape"], ref["split"], world)
         if lshape_map:
-            np.testing.assert_array_equal(port["lshape_map"], ref["lshape_map"], err_msg=f"{what}: lshape_map")
-        np.testing.assert_array_equal(port["lshape_map"], lmap, err_msg=f"{what}: ceil-div lshape_map")
+            assert port["lcounts"] == ref["lcounts"], f"{what}: lcounts {port['lcounts']} vs {ref['lcounts']}"
+            if ref["lcounts"] is None:
+                np.testing.assert_array_equal(lmap, _ceil_div_map(ref["gshape"], ref["split"], world),
+                                              err_msg=f"{what}: ceil-div lshape_map")
+        np.testing.assert_array_equal(port["lshape_map"], lmap, err_msg=f"{what}: lshape_map")
         chunk = _chunk(ref["global"], lmap, ref["split"], rank)
         if meta_only:
             assert port["local"].shape == chunk.shape, what
@@ -210,6 +223,8 @@ def _ceil_div_map(gshape, split, world):
 
 
 def _tolerance(case):
+    if case == "parallel":
+        return RTOL, ATTN_ATOL
     return (QR_RTOL, QR_ATOL) if case in ("qr", "solver", "svd", "spectral") else (RTOL, ATOL)
 
 
@@ -536,3 +551,55 @@ def test_csv_split_load_parses_byte_ranges_natively(group):
         routes = res["port:csv_routes"]["value"]
         # every whole-file load through the native parser; the one row window through heat_tpu's Python route
         assert routes == {"csv.native": 7, "csv.python": 1}, routes
+
+
+def test_each_redistribute_is_one_move_receiving_only_the_rows_a_rank_lacks(group):
+    """A redistribute to a new partition of the split axis is one
+    ragged_move (no rebalance), and the bytes each rank receives are the
+    rows of its new range it did not hold."""
+    for rank, res in enumerate(_case(group, "redistribute")):
+        for split in (0, 1):
+            for name in ("tail", "head", "empty", "skew"):
+                assert res[f"s{split}:{name}:counters"]["value"] == {
+                    "rebalances": 0, "ragged_moves": 1, "bucket_moves": 0}, (rank, split, name)
+                got, lacked = (i["value"] for i in res[f"port:rank:s{split}:{name}:received"]["items"])
+                assert got == lacked, (rank, split, name, got, lacked)
+        assert res["balance_:counters"]["value"] == {"rebalances": 1, "ragged_moves": 1, "bucket_moves": 0}
+
+
+def test_ragged_arrays_compute_in_place_and_align_with_one_move(group):
+    """The ragged discipline's counters on every rank: elementwise ops,
+    reductions, cumulative ops, nonzero, copy and astype move nothing and
+    rebalance nothing; unequal layouts align with one move into the first
+    ragged operand's layout; getitem, setitem and out= rebalance once."""
+    zero = {"rebalances": 0, "ragged_moves": 0, "bucket_moves": 0}
+    one_move = {"rebalances": 0, "ragged_moves": 1, "bucket_moves": 0}
+    one_rebalance = {"rebalances": 1, "ragged_moves": 1, "bucket_moves": 0}
+    for rank, res in enumerate(_case(group, "ragged_ops")):
+        assert res["in_place:counters"]["value"] == zero and res["empty:counters"]["value"] == zero, rank
+        assert res["mismatch:counters"]["value"] == one_move and res["round_trip:counters"]["value"] == one_move
+        assert res["canonical_first:counters"]["value"] == one_move
+        assert res["mismatch"]["lcounts"] == res["add"]["lcounts"] == res["canonical_first"]["lcounts"]
+        for name in ("getitem", "setitem", "out"):
+            assert res[f"{name}:counters"]["value"] == one_rebalance, (rank, name)
+        kept, equal, counters = (i["value"] for i in res["port:iadd"]["items"])
+        assert kept and equal and counters == zero, (rank, res["port:iadd"])  # x += 1 keeps the ragged layout
+    for rank, res in enumerate(_case(group, "ragged_kmeans")):
+        assert res["z:counters"]["value"] == zero and res["z:lcounts"]["kind"] == "seq", rank
+        assert res["fit:counters"]["value"]["rebalances"] == 1 and res["z_after_fit:balanced"]["value"] is True
+
+
+def test_tree_merge_is_counted_in_move_stats(group):
+    """merge_processes at four ranks: one tree_merge of log2(4) = 2 rounds in
+    MOVE_STATS, as heat_tpu counts it."""
+    for rank, res in enumerate(_case(group, "stream")):
+        assert res["port:tree_merge_counted"]["value"] == {"tree_merges": 1, "tree_merge_rounds": 2}, rank
+
+
+def test_meshes_are_device_meshes_of_the_ranks(group):
+    """make_mesh/make_hierarchical_mesh in a running group: DeviceMeshes of
+    the ranks with heat_tpu's shapes and axis names."""
+    for rank, res in enumerate(_case(group, "parallel")):
+        assert res["port:mesh:flat"]["value"] == repr(("DeviceMesh", (WORLD,), ("split",), list(range(WORLD)))), rank
+        assert res["port:mesh:hierarchical"]["value"] == repr(
+            ("DeviceMesh", (2, WORLD // 2), ("nodes", "split"), [[0, 1], [2, 3]])), rank

@@ -54,8 +54,12 @@ def is_port(ht) -> bool:
 
 
 def pack(v, port: bool):
-    """A case result as plain, picklable values."""
+    """A case result as plain, picklable values. The layout is read before
+    the values: heat_tpu's ``numpy()`` rebalances a ragged array, the port's
+    gathers it as it lies; the port's ``local`` is this rank's rows as they
+    lie (``_raw``)."""
     if hasattr(v, "gshape") and hasattr(v, "lshape_map"):
+        lshape_map, lcounts = np.asarray(v.lshape_map), v.lcounts
         glob = np.asarray(v.numpy())
         out = {
             "kind": "array",
@@ -64,10 +68,11 @@ def pack(v, port: bool):
             "dtype": v.dtype.__name__,
             "gshape": tuple(int(s) for s in v.gshape),
             "split": v.split,
-            "lshape_map": np.asarray(v.lshape_map),
+            "lshape_map": lshape_map,
+            "lcounts": None if lcounts is None else tuple(int(c) for c in lcounts),
         }
         if port:
-            local = v.larray.detach().cpu()
+            local = v._raw.detach().cpu()
             out["local"] = (local.float() if str(local.dtype) == "torch.bfloat16" else local).numpy()
         return out
     if isinstance(v, Raised):
@@ -947,7 +952,7 @@ def _halo_stack(ht, x, which):
     shape = list(x.gshape)
     shape[x.split] = x.halo_size
     held = torch.tensor([h is not None])
-    mine = h if h is not None else torch.zeros(shape, dtype=x.larray.dtype)
+    mine = h if h is not None else torch.zeros(shape, dtype=x._raw.dtype)
     flags = comm.allgather(held, 0, [1] * comm.size)
     parts = comm.allgather(mine.unsqueeze(0), 0, [1] * comm.size)
     keep = [r for r in range(comm.size) if bool(flags[r])]
@@ -1203,8 +1208,10 @@ def case_stream(ht):
         for c in ht.stream.ChunkIterator(BLOBS[comm.rank::comm.size], 16, comm=ht.SELF):
             mine.update(c)
         ht.kernels.reset_kernel_stats()
+        moves = dict(ht.MOVE_STATS)
         mine.merge_processes()
         out["port:tree_merge_calls"] = ht.kernels.COLLECTIVES.get("tree_merge", {}).get("calls", 0)
+        out["port:tree_merge_counted"] = {k: ht.MOVE_STATS[k] - moves[k] for k in ("tree_merges", "tree_merge_rounds")}
         whole = ht.stream.StreamingMoments()
         for c in ht.stream.ChunkIterator(BLOBS, 64, split=None):
             whole.update(c)
@@ -1215,6 +1222,283 @@ def case_stream(ht):
         state = (ht.array(np.float32(comm.rank + 1)).larray, ht.array(np.arange(3, dtype=np.int64) * comm.rank).larray)
         merged = ht.tree_merge(state, lambda a, b: (a[0] * 2 + b[0], a[1] + b[1]))
         out["port:tree_merge_rank_order"] = (float(merged[0]), merged[1].tolist())
+    return out
+
+
+# ------------------------------------------------- ragged layouts, flatmove, the parallel primitives
+RAG = _rng(12).integers(-8, 9, size=(19, 5)).astype(np.float32)  # small integers: sums exact in any order
+
+
+def _tmap(counts, gshape, split):
+    """A target map: ``gshape`` on every rank, ``counts`` along ``split``."""
+    t = np.tile(np.asarray(gshape, dtype=np.int64), (len(counts), 1))
+    t[:, split] = counts
+    return t
+
+
+def _maps(p, n):
+    """Partitions of n over p ranks: all on the last, all on the first, an
+    empty last rank, and a skew with an empty rank inside."""
+    if p == 1:
+        return {"one": [n]}
+    tail, head = [0] * p, [0] * p
+    tail[-1], head[0] = n, n
+    empty = [n // 2] + [(n - n // 2) // (p - 2)] * (p - 2) + [0] if p > 2 else [n, 0]
+    empty[-2] += n - sum(empty)
+    skew = [n - n // 3 - n // 4, 0] + [n // 3] + [n // 4] + [0] * (p - 4) if p >= 4 else head[::-1]
+    return {"tail": tail, "head": head, "empty": empty, "skew": skew}
+
+
+class _Counters:
+    """LAYOUT_STATS/MOVE_STATS deltas of the ``with`` block."""
+
+    def __init__(self, ht):
+        self.ht = ht
+
+    def __enter__(self):
+        self.before = (dict(self.ht.LAYOUT_STATS), dict(self.ht.MOVE_STATS))
+        return self
+
+    def __exit__(self, *exc):
+        lay, mov = self.before
+        self.delta = {"rebalances": self.ht.LAYOUT_STATS["rebalances"] - lay["rebalances"],
+                      **{k: self.ht.MOVE_STATS[k] - mov[k] for k in ("ragged_moves", "bucket_moves")}}
+        return False
+
+
+def _ragged(ht, full, split, counts):
+    x = ht.array(full, split=split)
+    x.redistribute_(target_map=_tmap(counts, full.shape, split))
+    return x
+
+
+def case_redistribute(ht):
+    """Tail, head and empty-shard maps on split 0 and split 1, a chain of
+    ragged-to-ragged moves, balance_, resplit_ of a ragged array, the
+    out-of-place forms and the lshape_map hint, with the counters of each."""
+    p = ht.get_comm().size
+    out = {}
+    for split, full in ((0, RAG), (1, np.ascontiguousarray(RAG.T))):
+        for name, counts in _maps(p, full.shape[split]).items():
+            x = ht.array(full, split=split)
+            seen = dict(ht.kernels.RECEIVED) if is_port(ht) else None
+            with _Counters(ht) as c:
+                x.redistribute_(target_map=_tmap(counts, full.shape, split))
+            out[f"s{split}:{name}"], out[f"s{split}:{name}:counters"] = x, c.delta
+            if is_port(ht):  # the bytes this rank received, and the rows it lacked
+                comm = ht.get_comm()
+                got = ht.kernels.RECEIVED.get("flatmove.ragged", 0) - seen.get("flatmove.ragged", 0)
+                lo, hi = sum(counts[: comm.rank]), sum(counts[: comm.rank + 1])
+                c_lo, c_n = comm.chunk(full.shape, split)[0], comm.chunk(full.shape, split)[1][split]
+                lacked = (hi - lo) - max(0, min(hi, c_lo + c_n) - max(lo, c_lo))
+                out[f"port:rank:s{split}:{name}:received"] = (got, lacked * full.size // full.shape[split] * 4)
+            out[f"s{split}:{name}:balanced"] = (x.balanced, x.is_balanced(), x.counts_displs())
+    maps = list(_maps(p, RAG.shape[0]).values())
+    x = ht.array(RAG, split=0)
+    with _Counters(ht) as c:
+        for counts in maps + maps[::-1]:
+            x.redistribute_(target_map=_tmap(counts, RAG.shape, 0))
+    out["chain"], out["chain:counters"] = x, c.delta
+    b = _ragged(ht, RAG, 0, maps[0])
+    with _Counters(ht) as c:
+        b.balance_()
+        b.balance_()  # balanced already: nothing moves, nothing counted
+    out["balance_"], out["balance_:counters"] = b, c.delta
+    r = _ragged(ht, RAG, 0, maps[-1])
+    with _Counters(ht) as c:
+        r.resplit_(0)  # its own split: stays ragged
+        r.resplit_(1)
+    out["resplit_"], out["resplit_:counters"] = r, c.delta
+    src = _ragged(ht, RAG, 0, maps[1])
+    with _Counters(ht) as c:
+        moved = ht.redistribute(src, target_map=_tmap(maps[0], RAG.shape, 0))
+        bal = ht.balance(src, copy=True)
+    out.update({"redistribute": moved, "balance_copy": bal, "out_of_place:counters": c.delta,
+                "hint": attempt(lambda: src.redistribute_(lshape_map=src.comm.lshape_map(src.gshape, 0))),
+                "to_split_1": _ragged(ht, RAG, 0, maps[2]).redistribute_(target_map=_tmap(
+                    [int(v) for v in ht.get_comm().lshape_map(RAG.shape, 1)[:, 1]], RAG.shape, 1)),
+                "bad_sum": attempt(lambda: ht.array(RAG, split=0).redistribute_(
+                    target_map=_tmap([RAG.shape[0] + 1] + [0] * (p - 1), RAG.shape, 0)))})
+    out["src"] = src  # unchanged by the out-of-place forms
+    return out
+
+
+def case_ragged_ops(ht):
+    """Elementwise ops, reductions, cumulative ops, nonzero, copy and astype
+    on ragged arrays with no rebalance and no move; a move only to align
+    two layouts (into the first ragged operand's); a rebalance for getitem,
+    setitem and out=."""
+    p = ht.get_comm().size
+    maps = _maps(p, RAG.shape[0])
+    tail, head = maps.get("tail", [RAG.shape[0]]), maps.get("head", [RAG.shape[0]])
+    x, y = _ragged(ht, RAG, 0, tail), _ragged(ht, RAG + 1.0, 0, tail)
+    with _Counters(ht) as c:
+        res = {
+            "add": x + y, "mul": x * y, "sum": x.sum(), "sum0": ht.sum(x, axis=0), "max": ht.max(x),
+            "min1": ht.min(x, axis=1), "sum1_kd": ht.sum(x, axis=1, keepdims=True), "mean1": ht.mean(x, axis=1),
+            "mean0": ht.mean(x, axis=0), "std0": ht.std(x, axis=0), "nonzero": ht.nonzero(x),
+            "cumsum0": ht.cumsum(x, 0), "cumsum1": ht.cumsum(x, 1), "cumprod0": ht.cumprod(x / 8.0, 0),
+            "copy": x.copy(), "astype": x.astype(ht.float64), "abs_gt": ht.abs(x) > 2, "exp": ht.exp(x / 8.0),
+            "row": x - ht.array(RAG[0]), "repl": ht.array(RAG) * x, "scalar": 2.5 * x - 1,
+        }
+    res["in_place:counters"] = c.delta
+    e = _ragged(ht, RAG, 0, maps.get("empty", [RAG.shape[0]]))
+    with _Counters(ht) as c:
+        res.update({"e_nonzero": ht.nonzero(e > 3), "e_sum0": ht.sum(e, axis=0), "e_max0": ht.max(e, axis=0),
+                    "e_cumsum": ht.cumsum(e, 0), "e_mean0": ht.mean(e, axis=0)})
+    res["empty:counters"] = c.delta
+    a, b = _ragged(ht, RAG, 0, tail), _ragged(ht, RAG * 2.0, 0, head)
+    with _Counters(ht) as c:
+        res["mismatch"] = a + b
+    res["mismatch:counters"] = c.delta
+    with _Counters(ht) as c:
+        res["canonical_first"] = ht.array(RAG, split=0) - a
+    res["canonical_first:counters"] = c.delta
+    t = ht.array(RAG, split=0)
+    target = _tmap(tail, RAG.shape, 0)
+    with _Counters(ht) as c:
+        t.redistribute_(target_map=target)
+        z = (t + 1.0) * 2.0
+        z.redistribute_(target_map=target)
+    res["round_trip"], res["round_trip:counters"] = z, c.delta
+    g, s, o = _ragged(ht, RAG, 0, head), _ragged(ht, RAG, 0, head), _ragged(ht, RAG, 0, head)
+    with _Counters(ht) as c:
+        res["getitem"] = g[1:-1]
+    res["getitem:counters"] = c.delta
+    with _Counters(ht) as c:
+        s[1] = 7.0
+    res["setitem"], res["setitem:counters"] = s, c.delta
+    with _Counters(ht) as c:
+        res["out"] = ht.add(o, 1.0, out=ht.zeros(RAG.shape, split=0))
+    res["out:counters"] = c.delta
+    # consumers of the ceil-div layout, values only: the halos (the skip rule on the ragged counts) and a product
+    for side in ("halo_prev", "halo_next"):  # a fresh array each: heat_tpu's first halo read rebalances it
+        hx = _ragged(ht, RAG, 0, maps.get("skew", head))
+        hx.get_halo(2)
+        res[side] = _halo_stack(ht, hx, side)
+    mm = _ragged(ht, RAG, 0, tail)
+    res["matmul"] = ht.matmul(mm.T, mm)
+    if is_port(ht):  # heat_tpu rebalances the sum and keeps x's old lcounts (ROADMAP.md, Queue C caveats)
+        i = _ragged(ht, RAG, 0, head)
+        with _Counters(ht) as c:
+            i += 1.0
+        res["port:iadd"] = (i.lcounts == tuple(head) or p == 1, bool(np.array_equal(i.numpy(), RAG + 1.0)), c.delta)
+    return res
+
+
+def case_ragged_kmeans(ht):
+    """The slice's path at a small size: a skewed map with an empty rank,
+    standardize in place, KMeans on the ragged array (one rebalance, at the
+    fit's first read of larray)."""
+    p = ht.get_comm().size
+    n = BLOBS.shape[0]
+    counts = [n // 2, n // 4, n - n // 2 - n // 4] + [0] * (p - 3) if p >= 3 else [n] + [0] * (p - 1)
+    x = _ragged(ht, BLOBS, 0, counts)
+    init = ht.array(((BLOBS - BLOBS.mean(0)) / BLOBS.std(0))[:3].astype(np.float32))
+    with _Counters(ht) as c:
+        z = (x - ht.mean(x, axis=0)) / ht.std(x, axis=0)
+    out = {"z:counters": c.delta, "z:lcounts": z.lcounts}
+    with _Counters(ht) as c:
+        km = ht.cluster.KMeans(n_clusters=3, init=init, max_iter=5, tol=None).fit(z)
+    out.update({"fit:counters": c.delta, "z_after_fit:balanced": z.balanced, "labels": km.labels_,
+                "centers": km.cluster_centers_, "inertia": float(km.inertia_), "z": z})
+    return out
+
+
+def _jax_ragged(ht, buf, gshape, split, counts):
+    """heat_tpu's ragged DNDarray of a padded buffer (blocks of ``buf``
+    holding ``counts`` rows each)."""
+    return ht.DNDarray._from_ragged(buf, gshape, ht.canonical_heat_type(buf.dtype), split, counts,
+                                    comm=ht.get_comm())
+
+
+def case_flatmove(ht):
+    """ragged_move, bucket_move, strided_take and reshape_via_flatmove: the
+    port on each rank's tensor, heat_tpu on its padded buffers."""
+    comm = ht.get_comm()
+    p, me = comm.size, comm.rank
+    fm = ht.parallel.flatmove
+    out = {}
+    x = ht.array(RAG, split=0)
+    canon = [int(c) for c in comm.lshape_map(RAG.shape, 0)[:, 0]]
+    for name, counts in _maps(p, RAG.shape[0]).items():
+        with _Counters(ht) as c:
+            if is_port(ht):
+                moved = ht.DNDarray._from_ragged(fm.ragged_move(x.larray, 0, canon, counts, comm), RAG.shape,
+                                                 x.dtype, 0, counts, comm=comm)
+            else:
+                buf = fm.ragged_move(x.larray, 0, canon, counts, max(1, max(counts)), comm)
+                moved = _jax_ragged(ht, buf, RAG.shape, 0, counts)
+        out[f"ragged:{name}"], out[f"ragged:{name}:counters"] = moved, c.delta
+    # bucket_move: rank r sends (r + d) % 3 rows of its own block to rank d
+    matrix = [[(r + d) % 3 for d in range(p)] for r in range(p)]
+    src = [RAG[3 * r : 3 * r + sum(matrix[r])] for r in range(p)]
+    recv = [sum(matrix[r][d] for r in range(p)) for d in range(p)]
+    with _Counters(ht) as c:
+        if is_port(ht):
+            got = fm.bucket_move(ht.array(src[me]).larray, 0, matrix, comm)
+            bucket = ht.DNDarray._from_ragged(got, (sum(recv), 5), ht.float32, 0, recv, comm=comm)
+        else:
+            block = max(len(s_) for s_ in src)
+            buf = ht.array(np.concatenate([np.pad(s_, ((0, block - len(s_)), (0, 0))) for s_ in src])).larray
+            got = fm.bucket_move(buf, 0, matrix, max(recv), comm)
+            bucket = _jax_ragged(ht, got, (sum(recv), 5), 0, recv)
+    out["bucket"], out["bucket:counters"] = bucket, c.delta
+    for start, stop, step in ((1, 19, 3), (0, 19, 1), (17, 19, 5), (5, 5, 2)):
+        if is_port(ht):
+            t, m = fm.strided_take(x.larray, 0, 19, start, stop, step, comm)
+            taken = ht.DNDarray(t, gshape=(m, 5), split=0, comm=comm)
+        else:
+            t, m = fm.strided_take(x.larray, 0, 19, start, stop, step, comm)
+            taken = ht.DNDarray._from_buffer(t, (m, 5), ht.float32, 0, comm=comm)
+        out[f"strided:{start}:{stop}:{step}"] = taken
+    for shape in ((5, 19), (95,), (1, 95)):
+        t = fm.reshape_via_flatmove(x.larray, RAG.shape, shape, comm)
+        out[f"reshape:{shape}"] = ht.DNDarray(t, gshape=shape, split=0, comm=comm) if is_port(ht) else \
+            ht.DNDarray._from_buffer(t, shape, ht.float32, 0, comm=comm)
+    return out
+
+
+_ATT2 = {n: [_rng(20 + i).normal(size=(n, 8)).astype(np.float32) for i in range(3)] for n in (24, 23)}
+_ATT3 = {n: [_rng(30 + i).normal(size=(n, h, 8)).astype(np.float32) for i in range(3)] for n, h in ((24, 4), (23, 3))}
+
+
+def case_parallel(ht):
+    """halo_exchange, ring_map, ring_reduce, ring_attention and
+    ulysses_attention, full and causal, divisible and not: the port on
+    DNDarrays, heat_tpu on its global arrays (wrapped back for the
+    comparison)."""
+    comm = ht.get_comm()
+    par = ht.parallel
+    port = is_port(ht)
+
+    def inp(a):
+        return ht.array(a, split=0) if port else ht.array(a, split=0)._logical()
+
+    def res(v):
+        return v if port else ht.array(v, split=0)
+
+    out = {}
+    for h in (1, 2):
+        for name, a in (("rag", RAG), ("div", RAG[:16])):
+            out[f"halo:{name}:{h}"] = res(par.halo_exchange(inp(a), h, comm))
+    # tiles written with operators and methods both array types have (this module imports neither backend)
+    d2 = lambda a, b: ((a[:, None, :] - b[None, :, :]) ** 2).sum(-1)  # noqa: E731
+    row_min = lambda t: t.amin(1) if hasattr(t, "amin") else t.min(axis=1)  # noqa: E731
+    xs, ys = RAG[:8], RAG[4:16] / 2.0
+    out["ring_map"] = res(par.ring_map(d2, inp(xs), inp(ys), comm))
+    out["ring_map_indivisible"] = attempt(lambda: par.ring_map(d2, inp(RAG), inp(ys), comm))
+    out["ring_reduce"] = res(par.ring_reduce(lambda a, b: row_min(d2(a, b)), lambda s_, t: s_ + (t - s_) * (t < s_),
+                                             lambda a: a[:, 0] * 0 + 1e30, inp(xs), inp(ys), comm))
+    for n, qkv in _ATT2.items():
+        for causal in (False, True):
+            out[f"ring:{n}:{causal}"] = res(par.ring_attention(*(inp(a) for a in qkv), comm, causal=causal))
+    for n, qkv in _ATT3.items():
+        for causal in (False, True):
+            out[f"ulysses:{n}:{causal}"] = res(par.ulysses_attention(*(inp(a) for a in qkv), comm, causal=causal))
+    if port:  # where a group runs, a DeviceMesh of the ranks (every rank builds it)
+        for name, m in (("flat", par.make_mesh()), ("hierarchical", par.make_hierarchical_mesh(2))):
+            out[f"port:mesh:{name}"] = repr((type(m).__name__, tuple(m.shape), tuple(m.mesh_dim_names), m.mesh.tolist()))
     return out
 
 

@@ -135,7 +135,10 @@ def test_moments_local_validation():
     with pytest.raises(ValueError):
         moments_local(torch.zeros(4))
     with pytest.raises(ValueError):
-        moments_local(torch.zeros((0, 3)))
+        moments_local(torch.zeros((5, 0)))
+    # no rows (a ragged layout's empty rank): the merge's neutral state, no error
+    cnt, mean, m2 = moments_local(torch.zeros((0, 3)))
+    assert float(cnt) == 0 and not mean.any() and not m2.any() and mean.shape == (3,)
 
 
 # -------------------------------------------------------------------- lloyd
@@ -165,7 +168,10 @@ def test_lloyd_local_validation():
     with pytest.raises(ValueError):
         lloyd_local(torch.zeros((5, 3)), torch.zeros((2, 4)))
     with pytest.raises(ValueError):
-        lloyd_local(torch.zeros((0, 3)), torch.zeros((2, 3)))
+        lloyd_local(torch.zeros((5, 3)), torch.zeros((0, 3)))
+    # no rows (a ragged layout's empty rank): zero statistics and no labels, no error
+    sums, counts, labels, inertia = lloyd_local(torch.zeros((0, 3)), torch.zeros((2, 3)))
+    assert sums.shape == (2, 3) and not sums.any() and not counts.any() and labels.shape == (0,) and float(inertia) == 0
 
 
 # -------------------------------------------------------------------- top-k

@@ -199,5 +199,9 @@ def test_manipulation_methods_ride_on_the_functions():
     x = htt.array(C3, split=0)
     assert x.reshape((12, 5)).gshape == (12, 5) and x.flatten().split == 0 and x.ravel().gshape == (60,)
     assert x.redistribute_() is x
-    with pytest.raises(NotImplementedError):
+    # a map that is no layout of x: heat_tpu's error, type and message
+    with pytest.raises(ValueError) as want, comm_context(SELF):
+        htj.array(C3, split=0).redistribute_(target_map=np.array([[2, 4, 5]]))
+    with pytest.raises(ValueError) as got:
         x.redistribute_(target_map=np.array([[2, 4, 5]]))
+    assert str(got.value) == str(want.value)

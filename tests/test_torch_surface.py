@@ -699,21 +699,16 @@ def test_every_name_of_the_slice_is_exported_and_covered():
 # imported before). Later slices shrink these lists; a name the port gains
 # must leave them.
 STILL_MISSING = {
-    # layouts, lazy, frame, resilience and serve (ROADMAP.md, Queue A items 6-12)
+    # lazy, frame, resilience and serve (ROADMAP.md, Queue A items 7-12)
     "heat_tpu": [
-        "COMPILE_STATS", "FUSE_STATS", "Frame", "HEALTH_STATS", "LAYOUT_STATS", "LOCKSTEP_STATS", "LazyDNDarray",
-        "MOVE_STATS", "RECOVERY_STATS", "SERVE_STATS", "SHUFFLE_STATS", "SplitTiles", "fuse", "lazy",
-        "replicated_frame", "replicated_ids", "reset_fuse_stats",
+        "COMPILE_STATS", "FUSE_STATS", "Frame", "HEALTH_STATS", "LOCKSTEP_STATS", "LazyDNDarray", "RECOVERY_STATS",
+        "SERVE_STATS", "SHUFFLE_STATS", "fuse", "lazy", "replicated_frame", "replicated_ids", "reset_fuse_stats",
     ],
     "heat_tpu.linalg": [],
     # DNDarray's members: health_check waits for resilience.validate (ROADMAP.md, Queue A item 10)
     "DNDarray": ["health_check"],
-    # the port's parallel package has the sort and top-k; the mesh, halo, ring, flatmove and attention
-    # primitives are still to port (ROADMAP.md, Queue A item 7)
-    "heat_tpu.parallel": [
-        "attention", "halo_exchange", "make_hierarchical_mesh", "make_mesh", "reshape_via_flatmove",
-        "ring_attention", "ring_map", "ring_reduce", "ulysses_attention",
-    ],
+    # the port's parallel package has every name (ROADMAP.md, Queue A item 6)
+    "heat_tpu.parallel": [],
     # grouping by key waits for frame (ROADMAP.md, Queue A item 9)
     "heat_tpu.stream": ["StreamingGroupBy"],
 }
