@@ -8,6 +8,7 @@ NVIDIA Hopper card and the CUDA toolkit:
     python3 chip_smoke.py --phases dist    # the build and [dist] only
     python3 chip_smoke.py --phases stream  # the build and [stream] only
     python3 chip_smoke.py --phases layout  # the build and [layout] only
+    python3 chip_smoke.py --phases train   # the build and [train] only
 
 Phases (any failure raises and exits non-zero; nothing is caught):
 
@@ -127,6 +128,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    1 on (8, 2^15, 128) against float64, tiles and flatmove on 2^24 x 32;
    see :func:`layout_phase`. The kernels' rows of the JSON line carry
    ``launches_layout``: rank 0's launches on ``[dist]``'s layout path.
+9. ``[train]`` (after ``[layout]``, before ``[dist]``): the ML long tail and
+   the training path on one card: ``entry()``'s Lloyd step at 2^24 x 32 (one
+   ``lloyd_fused`` launch, against the plain step), GaussianNB on 2^24 x 32
+   blobs (``moments_onepass`` in its variance smoothing; statistics against
+   float64 and the plain path), Lasso at 10^7 x 65 against float64
+   coordinate descent, one epoch of an MNIST-shaped CNN through
+   ``MNISTDataset``/``DataLoader`` (shuffled)/``DataParallel`` (20 steps against a
+   plain torch loop, a checkpoint round trip), and the ring and Ulysses
+   attention gradients at (8, 2^15, 128) against float64; see
+   :func:`train_phase`. The kernels' rows carry ``launches_train``.
+   ``[dist]`` ends with the same steps across the cards
+   (:func:`_dist_train`): DataParallel over the epoch split by rank
+   (parameters bit-identical after every step, within DP_RTOL of one card's
+   run on the global batches), DASO's diverge-and-meet and schedule at an
+   even world size >= 4, GaussianNB at 2^24 x 32 and Lasso at 10^7 rows a
+   card against one process, the attention gradients against float64, and
+   ``entry.dryrun_body``.
 
 The line before last is one JSON object ``{"kernels": [...]}`` (not
 printed with ``--phases dist``); the last line is
@@ -2215,6 +2233,10 @@ def _dist_rank(rank, world, store, out_dir, seed=0):
     result["stream"] = _dist_stream(ht, world, rank, timed, same_everywhere, say, out_dir)
     torch.cuda.empty_cache()
     result["layout"] = _dist_layout(ht, world, rank, timed, same_everywhere, say, seed)
+    torch.cuda.empty_cache()
+    t_train = time.perf_counter()
+    result["train"] = _dist_train(ht, world, rank, timed, same_everywhere, say, out_dir, seed)
+    result["train"]["wall"] = time.perf_counter() - t_train
     times = torch.tensor([t_stats, t_fit, t_warm, t_knn, t_knn_w, t_stats_w, t_qr, t_qr_w, t_mm, t_mm_w, t_rs, path_s],
                          dtype=torch.float64, device=dev)
     result["times_max"] = comm.allreduce(times, "max").cpu().tolist()
@@ -3361,6 +3383,7 @@ def dist_phase(world: int, seed: int = 0) -> dict:
 
     tmp = stream_space("[dist]", "chip_smoke_dist_")  # the ranks' stream steps write a 2 GiB file here
     try:
+        mnist_files(os.path.join(tmp, "mnist"), seed + TRAIN_SEED_OFFSET)  # the training steps' data, for every rank
         print(f"[dist] spawning {world} rank(s) over NCCL, {N_MAIN} x {F_MAIN} rows per card", flush=True)
         t0 = time.perf_counter()
         mp.start_processes(_dist_rank, args=(world, os.path.join(tmp, "store"), tmp, seed), nprocs=world, join=True,
@@ -3533,6 +3556,18 @@ def dist_phase(world: int, seed: int = 0) -> dict:
               + ", ".join(f"{k} ring {max(lr['attention'][k]['ring_ms'] for lr in lay):.4f} / ulysses "
                           f"{max(lr['attention'][k]['ulysses_ms'] for lr in lay):.4f}" for k in lay[0]["attention"])
               + f"; launches per rank {[lr['launches'] for lr in lay]}", flush=True)
+        for r in ranks:
+            print(f"[dist] train r{r['rank']}: " + _steps_line(r["train"]["steps"]), flush=True)
+        t_ref = time.perf_counter()
+        tref = _train_reference(ht, world, ranks, tmp, seed)
+        t_ref = time.perf_counter() - t_ref
+        tr = [r["train"] for r in ranks]
+        print(f"[dist] train at {world} card(s): slowest rank's wall {max(t['wall'] for t in tr):.1f} s (DataParallel "
+              f"epoch {max(t['dp']['t_epoch'] for t in tr):.4f} s, {MNIST_BATCH * tr[0]['dp']['steps'] / max(t['dp']['t_epoch'] for t in tr):.0f} "
+              f"images/s; GaussianNB fit {max(t['steps']['GaussianNB fit']['host_s'] for t in tr):.4f} s; Lasso "
+              f"{LASSO_DIST_ITERS} sweeps {max(t['steps']['Lasso fit']['host_s'] for t in tr):.4f} s"
+              + (f"; DASO {DASO_DIST_BATCHES} batches {max(t['daso']['t'] for t in tr):.4f} s" if "daso" in tr[0] else "")
+              + f"); the one-process references {t_ref:.1f} s; {tref}", flush=True)
         path = {}
         for per_map in lay[0]["launches"].values():
             for k, v in per_map.items():
@@ -3777,13 +3812,764 @@ def layout_phase(dev, seed, smi):
     print(f"[layout] phase {time.perf_counter() - t_phase:.1f} s ({smi})", flush=True)
 
 
+# ---- [train]: the ML long tail and the training path on one card
+TRAIN_SEED_OFFSET = 300      # [train]'s and [dist]'s training steps draw their numpy streams from --seed + this
+N_GNB_MORE, N_GNB_PRED = 1 << 22, 1 << 20  # GaussianNB: a partial_fit chunk and held-out rows beside N_MAIN
+GNB_SCALE = 4.0              # blob centres ~ N(0, 4^2); blob c's spread 0.5 + c / 8 per feature
+GNB_ACC = 0.999
+N_LASSO, F_LASSO = 10 ** 7, 64  # Heat's lasso protocol's ~1e7 rows, bench.py's 64 features, + the intercept
+LASSO_LAM, LASSO_ITERS, LASSO_NOISE = 0.01, 100, 0.1
+MNIST_N, MNIST_BATCH, MNIST_LR, MNIST_MOMENTUM = 60000, 256, 0.05, 0.9
+MNIST_MEAN, MNIST_STD = 0.1307, 0.3081  # torchvision's MNIST normalization
+DP_CHECK_STEPS = 20          # DataParallel held against a plain torch loop after this many steps
+# DataParallel on one card against the plain loop on the same batches: the same operations in the same order, but
+# cuDNN may pick another algorithm for one of two equal convolutions; float32 roundings of the products, amplified
+# by 20 steps of SGD with momentum, stay orders of magnitude below 1e-4 of a parameter tensor's largest entry
+DP_RTOL = 1e-4
+# the attention gradients against float64: each is a float32 sum over N keys (or queries) of products of float32
+# probabilities (each within a few u of exact) and float32 products of D terms; normwise, within 4 lambda sqrt(N) u
+# of the float64 gradient (Higham and Mary's probabilistic bound, lambda = SUM_LAMBDA)
+ATT_GRAD_RTOL = 4 * 8.0 * math.sqrt(1 << 15) * 2.0 ** -24
+ATT_GRAD_BLOCK = 512         # query rows a block of the float64 reference
+
+
+def mnist_files(root, seed, n=None):
+    """Write MNIST-shaped IDX files (``train-images-idx3-ubyte``: n x 28 x 28 uint8; ``train-labels-idx1-ubyte``)
+    under ``root``, made from ``seed``: noise in [0, 60) and, for class c, a bright 10 x 5 bar at a position of its
+    own (rows 4 + 10 (c // 5), columns 1 + 5 (c % 5)). Returns (images, labels)."""
+    import struct
+
+    import numpy as np
+
+    n = MNIST_N if n is None else n
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, 10, n).astype(np.uint8)
+    images = rng.integers(0, 60, (n, 28, 28), dtype=np.uint8)
+    for c in range(10):
+        r, col = 4 + 10 * (c // 5), 1 + 5 * (c % 5)
+        sel = labels == c
+        images[sel, r : r + 10, col : col + 5] += rng.integers(150, 196, (int(sel.sum()), 10, 5), dtype=np.uint8)
+    os.makedirs(root, exist_ok=True)
+    with open(os.path.join(root, "train-images-idx3-ubyte"), "wb") as f:
+        f.write(struct.pack(">HBB", 0, 0x08, 3) + struct.pack(">III", n, 28, 28) + images.tobytes())
+    with open(os.path.join(root, "train-labels-idx1-ubyte"), "wb") as f:
+        f.write(struct.pack(">HBB", 0, 0x08, 1) + struct.pack(">I", n) + labels.tobytes())
+    return images, labels
+
+
+def mnist_cnn():
+    """The training path's CNN, of ``heat_tpu_torch.nn``'s torch-named layers (NCHW)."""
+    import heat_tpu_torch as ht
+
+    nn = ht.nn
+    return nn.Sequential(nn.Conv2d(1, 32, 3), nn.ReLU(), nn.MaxPool2d(2), nn.Conv2d(32, 64, 3), nn.ReLU(),
+                         nn.MaxPool2d(2), nn.Flatten(), nn.Linear(1600, 128), nn.ReLU(), nn.Linear(128, 10))
+
+
+def mnist_loader(ht, root, split=0):
+    """MNISTDataset -> Dataset (Normalize, then a channel axis), shuffled once from the random stream (the first
+    epoch's order; the loader reshuffles after every later epoch) -> DataLoader (batch MNIST_BATCH). Seed the
+    stream first: the same seed gives the same batches at every world size."""
+    vt = ht.nn.vision_transforms
+    ds = ht.utils.data.MNISTDataset(root, split=split)
+    tf = vt.Compose([vt.Normalize((MNIST_MEAN,), (MNIST_STD,)), lambda t: t.unsqueeze(1)])
+    dset = ht.utils.data.Dataset([ds.data, ds.targets], transforms=[tf, None])
+    dset.shuffle()
+    return ds, ht.utils.data.DataLoader(dset, batch_size=MNIST_BATCH)
+
+
+def gnb_centres(ht):
+    """GaussianNB's 8 blob centres, N(0, GNB_SCALE^2) draws of the random stream."""
+    return (ht.random.randn(K_MAIN, F_MAIN) * GNB_SCALE).larray
+
+
+def gnb_blobs(ht, n, centres):
+    """GaussianNB's data: n rows x 32 of the 8 blobs at ``centres`` drawn with ht.random (split 0), blob c with
+    spread 0.5 + c / 8 per feature; returns (x, labels)."""
+    import torch
+
+    member = ht.random.randint(0, K_MAIN, size=(n,), split=0, dtype=ht.int64)
+    spread = 0.5 + torch.arange(K_MAIN, device=centres.device, dtype=torch.float32) / 8.0
+    noise = ht.random.randn(n, F_MAIN, split=0)
+    m = member.larray
+    x = ht.DNDarray(noise.larray * spread[m][:, None] + centres[m], gshape=(n, F_MAIN), split=0)
+    return x, member
+
+
+def class_stats64(xs, ys, k):
+    """float64 per-class counts, means, population variances and sums of |x| and x^2 over the (x, y) tensor pairs,
+    in chunks of 2^22 rows."""
+    import torch
+
+    dev = xs[0].device
+    cnt = torch.zeros(k, dtype=torch.float64, device=dev)
+    s1 = torch.zeros(k, xs[0].shape[1], dtype=torch.float64, device=dev)
+    s2, sa = torch.zeros_like(s1), torch.zeros_like(s1)
+    for x, y in zip(xs, ys):
+        for r0 in range(0, x.shape[0], 1 << 22):
+            xc, yc = x[r0 : r0 + (1 << 22)].double(), y[r0 : r0 + (1 << 22)]
+            oh = torch.nn.functional.one_hot(yc.long(), k).double()
+            cnt += oh.sum(0)
+            s1 += oh.T @ xc
+            s2 += oh.T @ (xc * xc)
+            sa += oh.T @ xc.abs()
+    mean = s1 / cnt[:, None]
+    return cnt, mean, s2 / cnt[:, None] - mean * mean, sa, s2
+
+
+def lasso_cd64(X, y, lam, sweeps):
+    """The port's coordinate descent (``regression/lasso.py``) in float64 for exactly ``sweeps`` sweeps; returns
+    (theta, residual)."""
+    import torch
+
+    Xc = X.double().T.contiguous()
+    r = y.double().clone()
+    n, m = X.shape
+    col_sq = (Xc * Xc).sum(1)
+    theta = torch.zeros(m, dtype=torch.float64, device=X.device)
+    thr = lam * n
+    for _ in range(sweeps):
+        for j in range(m):
+            rho = torch.dot(Xc[j], r + Xc[j] * theta[j])
+            new = rho if j == 0 else torch.sign(rho) * torch.clamp(rho.abs() - thr, min=0.0)
+            new = new / col_sq[j]
+            r -= Xc[j] * (new - theta[j])
+            theta[j] = new
+    return theta, r
+
+
+def attention_grad64(q, k, v, dout, causal, block=ATT_GRAD_BLOCK):
+    """Dense attention of (H, N, D) tensors and its gradients for the output gradient ``dout``, in float64, a block
+    of query rows at a time (no (N, N) matrix held): (out, dq, dk, dv)."""
+    import torch
+
+    q, k, v, dout = (t.double() for t in (q, k, v, dout))
+    n, d = k.shape[1], k.shape[2]
+    scale = 1.0 / math.sqrt(d)
+    out, dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    for a in range(0, n, block):
+        qb, gb = q[:, a : a + block], dout[:, a : a + block]
+        s = torch.matmul(qb, k.transpose(1, 2)) * scale
+        if causal:
+            rows = torch.arange(a, a + qb.shape[1], device=q.device)
+            s = s.masked_fill(torch.arange(n, device=q.device)[None, None, :] > rows[None, :, None], float("-inf"))
+        p = torch.softmax(s, dim=-1)
+        del s
+        ob = torch.matmul(p, v)
+        dsum = (gb * ob).sum(-1, keepdim=True)
+        ds = p * (torch.matmul(gb, v.transpose(1, 2)) - dsum)
+        dv += torch.matmul(p.transpose(1, 2), gb)
+        del p
+        out[:, a : a + block] = ob
+        dq[:, a : a + block] = torch.matmul(ds, k) * scale
+        dk += torch.matmul(ds.transpose(1, 2), qb) * scale
+        del ds
+    return out, dq, dk, dv
+
+
+def normwise(got, want):
+    """Per head (axis 0), ||got - want||_F / ||want||_F; the largest."""
+    g, w = got.double().reshape(got.shape[0], -1), want.reshape(want.shape[0], -1)
+    return ((g - w).norm(dim=1) / w.norm(dim=1)).max().item()
+
+
+def daso_schedule_replay(losses, total, warmup, cooldown, max_skips, patience=2, threshold=0.05):
+    """(global_skip, batches_to_wait, epoch) after each epoch_loss_logic call of ``losses``, by heat_tpu's rules
+    written out here: warmup syncs every batch at once, cooldown every batch with skip 1; in between a loss that has
+    not improved (relative threshold) for more than ``patience`` epochs halves the skip, or resets it to
+    ``max_skips`` at skip 1."""
+    skip, wait, epoch, best, bad, out = 4, 1, 0, float("inf"), 0, []
+    for loss in losses:
+        if epoch < warmup:
+            skip, wait = 0, 0
+        elif epoch >= total - cooldown:
+            skip, wait = 1, 0
+        else:
+            wait = 1
+            skip = 4 if skip == 0 else skip
+            if loss < best * (1.0 - threshold):
+                best, bad = loss, 0
+            else:
+                bad += 1
+            if bad > patience:
+                bad = 0
+                skip = max_skips if skip <= 1 else skip // 2
+        epoch += 1
+        out.append((skip, wait, epoch))
+    return out
+
+
+def train_phase(dev, seed, smi):
+    """[train] on one card: ``entry()``'s Lloyd step at 2^24 x 32 (one ``lloyd_fused`` launch) against the plain
+    step; GaussianNB on 8 blobs of 2^24 x 32 (fit, a 2^22-row partial_fit, predict on 2^20 rows: its class
+    statistics against float64 and against the path through the plain versions, accuracy, its ``moments_onepass``
+    launches, the kernel on the path's own input); Lasso at 10^7 x 65 (the fit and 1-sweep fits, theta against the
+    same coordinate descent in float64, sweeps/s against the bytes bound); one epoch of an MNIST-shaped CNN through
+    MNISTDataset, DataLoader and DataParallel (the loss falls, 20 steps against a plain torch loop, a checkpoint
+    round trip, step ms and images/s); ring and Ulysses attention backward at (8, 2^15, 128) against float64.
+    Returns the phase's kernel launches."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    import heat_tpu_torch as ht
+    from heat_tpu_torch import entry as ht_entry
+    from heat_tpu_torch.core.kernels import forced_mode
+
+    ht.use_device("gpu")
+    seed = seed + TRAIN_SEED_OFFSET
+    t_phase = time.perf_counter()
+    launches = {}
+
+    def count(before):
+        for k_, v_ in ht.LAUNCHES.items():
+            launches[k_] = launches.get(k_, 0) + v_ - before.get(k_, 0)
+
+    # ---- entry(): one Lloyd step at (2^24, 32), k = 8
+    ht.random.seed(seed)
+    centres = gnb_centres(ht)
+    x, member = gnb_blobs(ht, N_MAIN, centres)
+    xa = x.larray
+    cen0 = xa[:K_MAIN].clone()
+    fn, example = ht_entry.entry()
+    check(tuple(fn(*example).shape) == (K_MAIN, F_MAIN), "[train] entry() on its example arguments")
+    torch.cuda.synchronize()
+    ht.kernels.reset_kernel_stats()
+    new = fn(xa, cen0)
+    torch.cuda.synchronize()
+    check(dict(ht.LAUNCHES).get("lloyd_fused") == 1 and sum(ht.LAUNCHES.values()) == 1,
+          f"[train] entry()'s step should launch lloyd_fused exactly once: {dict(ht.LAUNCHES)}")
+    count({})
+    with forced_mode("lloyd_fused", "torch"):
+        new0 = fn(xa, cen0)
+    cdiff = (new - new0).abs().max().item()
+    check(cdiff <= CENTERS_RTOL * new0.abs().max().item(), f"[train] entry()'s step vs the plain step: {cdiff}")
+    _, _, line_l = lloyd_vs_plain("[train] entry", xa, cen0, N_MAIN)
+    ms_entry, _ = event_ms(lambda: fn(xa, cen0))
+    ms_entry_plain, _ = event_ms(lambda: _plain(fn, xa, cen0), reps=1)
+    print(f"[train] entry(): fn at ({N_MAIN}, {F_MAIN}), k = {K_MAIN}: 1 lloyd_fused launch; new centres vs the plain "
+          f"step max abs {cdiff:.3e} (<= {CENTERS_RTOL} of max |c|); {line_l}; {ms_entry:.4f} ms (CUDA events, median "
+          f"of 3), plain step {ms_entry_plain:.4f} ms", flush=True)
+
+    # ---- GaussianNB: fit, partial_fit, predict
+    x2, member2 = gnb_blobs(ht, N_GNB_MORE, centres)
+    xq, member_q = gnb_blobs(ht, N_GNB_PRED, centres)
+    line_m = moments_vs_plain("[train] gnb", xa)
+    torch.cuda.synchronize()
+    before = dict(ht.LAUNCHES)
+    t0 = time.perf_counter()
+    nb = ht.naive_bayes.GaussianNB().fit(x, member)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nb.partial_fit(x2, member2)
+    torch.cuda.synchronize()
+    t_pfit = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pred = nb.predict(xq)
+    torch.cuda.synchronize()
+    t_pred = time.perf_counter() - t0
+    gnb_launches = {k_: v_ - before.get(k_, 0) for k_, v_ in ht.LAUNCHES.items() if v_ != before.get(k_, 0)}
+    count(before)
+    check(gnb_launches == {"moments_onepass": 2}, f"[train] GaussianNB launches {gnb_launches}: one moments_onepass "
+          f"for each fit's variance smoothing")
+    acc = (pred.larray == member_q.larray).float().mean().item()
+    check(acc >= GNB_ACC, f"[train] GaussianNB accuracy {acc}")
+    cnt, mean64, var64, sabs, s2 = class_stats64([xa, x2.larray], [member.larray, member2.larray], K_MAIN)
+    theta, sigma = nb.theta_.larray.double(), nb.sigma_.larray.double() - nb.epsilon_
+    check(torch.equal(nb.class_count_.larray.double(), cnt), "[train] GaussianNB class counts")
+    # the one-hot products add n_c float32 terms per class (within the accumulation bound), then a Welford merge of
+    # two chunks (a few roundings of |mean|); the variance E[x^2] - mean^2 also carries mean^2's error
+    b_mean = (accumulation_bound(N_MAIN, 1.0) * sabs / cnt[:, None] + 8 * F32_UNIT_ROUNDOFF * mean64.abs())
+    b_var = (accumulation_bound(N_MAIN, 1.0) * s2 / cnt[:, None] + 2 * (mean64.abs() + b_mean) * b_mean
+             + 8 * F32_UNIT_ROUNDOFF * (s2 / cnt[:, None]))
+    w_mean = ((theta - mean64).abs() / b_mean).max().item()
+    w_var = ((sigma - var64).abs() / b_var).max().item()
+    check(w_mean <= 1.0 and w_var <= 1.0, f"[train] GaussianNB against float64: means {w_mean:.3f}, variances "
+          f"{w_var:.3f} of their bounds")
+    with forced_mode("moments_onepass", "torch"):
+        nb0 = ht.naive_bayes.GaussianNB().fit(x, member)
+        nb0.partial_fit(x2, member2)
+    e_eps = abs(nb.epsilon_ - nb0.epsilon_) / nb0.epsilon_
+    check(torch.equal(nb.theta_.larray, nb0.theta_.larray) and e_eps <= M2_RTOL, f"[train] GaussianNB vs the plain "
+          f"path: theta equal, eps rel {e_eps}")
+    e_sig = (nb.sigma_.larray - nb0.sigma_.larray).abs().max().item()
+    check(e_sig <= 2 * abs(nb.epsilon_ - nb0.epsilon_) + 4 * F32_UNIT_ROUNDOFF * nb0.sigma_.larray.abs().max().item(),
+          f"[train] GaussianNB sigma vs the plain path: {e_sig}")
+    check(torch.equal(nb0.predict(xq).larray, pred.larray), "[train] GaussianNB predictions vs the plain path")
+    print(f"[train] GaussianNB on {N_MAIN} x {F_MAIN} blobs (+ {N_GNB_MORE} by partial_fit, predict on {N_GNB_PRED}): "
+          f"fit {t_fit:.4f} s, partial_fit {t_pfit:.4f} s, predict {t_pred:.4f} s (host, first calls); accuracy {acc:.5f}; "
+          f"launches {gnb_launches}; against float64 means {w_mean:.3f}, variances {w_var:.3f} of their bounds; the "
+          f"plain path's theta equal, eps rel {e_eps:.3e}, sigma max abs {e_sig:.3e}, predictions equal; {line_m}",
+          flush=True)
+    del x, member, x2, member2, xq, member_q, xa, nb, nb0, pred, new, new0
+    torch.cuda.empty_cache()
+
+    # ---- Lasso at 10^7 x 65
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    X = torch.empty(N_LASSO, F_LASSO + 1, device=dev)
+    X[:, 0] = 1.0
+    X[:, 1:] = torch.randn(N_LASSO, F_LASSO, device=dev, generator=gen)
+    coef = torch.randn(F_LASSO + 1, device=dev, generator=gen) * (torch.rand(F_LASSO + 1, device=dev,
+                                                                             generator=gen) < 0.25)
+    coef[0] = 1.5
+    y = X @ coef + LASSO_NOISE * torch.randn(N_LASSO, device=dev, generator=gen)
+    xd, yd = ht.array(X, split=0, copy=False), ht.array(y, split=0, copy=False)
+    torch.cuda.synchronize()
+    before = dict(ht.LAUNCHES)
+    t0 = time.perf_counter()
+    las = ht.regression.Lasso(lam=LASSO_LAM, max_iter=LASSO_ITERS).fit(xd, yd)
+    torch.cuda.synchronize()
+    t_las = time.perf_counter() - t0
+    check(dict(ht.LAUNCHES) == before, "[train] Lasso launches no kernel of the TPU's")
+    one_ms = event_ms(lambda: ht.regression.Lasso(lam=LASSO_LAM, max_iter=1).fit(xd, yd), reps=3)[0]
+    theta = las.theta.larray.reshape(-1).double()
+    th64, r64 = lasso_cd64(X, y, LASSO_LAM, las.n_iter)
+    # each rho is a float32 sum of n products x_ij (r_i + x_ij theta_j) (within the accumulation bound of
+    # B_j = sum_i |x_ij| (|r_i| + |x_ij theta_j|)), divided by ||x_j||^2: per sweep, per coordinate; 2 n_iter sweeps'
+    # worth bounds what the sweeps carry forward
+    X64abs_r = torch.zeros(F_LASSO + 1, dtype=torch.float64, device=dev)
+    col_sq = torch.zeros_like(X64abs_r)
+    for r0 in range(0, N_LASSO, 1 << 22):
+        xc = X[r0 : r0 + (1 << 22)].double()
+        X64abs_r += xc.abs().T @ r64[r0 : r0 + (1 << 22)].abs()
+        col_sq += (xc * xc).sum(0)
+    b_theta = 2 * las.n_iter * accumulation_bound(N_LASSO, 1.0) * (X64abs_r + th64.abs() * col_sq) / col_sq
+    w_theta = ((theta - th64).abs() / b_theta).max().item()
+    check(w_theta <= 1.0, f"[train] Lasso theta against float64 coordinate descent: {w_theta:.3f} of the bound")
+    e_true = (theta - coef.double()).abs().max().item()
+    check(e_true <= 0.05, f"[train] Lasso theta against the generating coefficients: {e_true}")
+    sweep_bound = 2 * N_LASSO * (F_LASSO + 1) * 4 / HBM_BYTES_PER_S * 1e3
+    print(f"[train] Lasso(lam={LASSO_LAM}, max_iter={LASSO_ITERS}) on {N_LASSO} x {F_LASSO + 1}: {las.n_iter} sweeps "
+          f"in {t_las:.4f} s host ({las.n_iter / t_las:.2f} sweeps/s, the column-major copy included); a 1-sweep fit "
+          f"{one_ms:.4f} ms (CUDA events, median of 3: copy, column norms and one sweep); bound "
+          f"2 n (f + 1) 4 B / 3.35 TB/s = {sweep_bound:.4f} ms a sweep; theta vs float64 coordinate descent of "
+          f"{las.n_iter} sweeps max abs {(theta - th64).abs().max().item():.3e} ({w_theta:.3f} of the bound), vs the "
+          f"generating coefficients {e_true:.3e}", flush=True)
+    del X, y, xd, yd, las, th64, r64
+    torch.cuda.empty_cache()
+
+    # ---- training: MNIST-shaped IDX files -> MNISTDataset -> DataLoader -> DataParallel(CNN)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        images, labels = mnist_files(tmp, seed)
+        ht.random.seed(seed)
+        ds, loader = mnist_loader(ht, tmp)
+        vt = ht.nn.vision_transforms
+        check(torch.equal(vt.ToTensor()(images[0]).to(dev), ds.data.larray[0])
+              and torch.equal(ds.targets.larray.cpu(), torch.as_tensor(labels.astype(np.int64))),
+              "[train] MNISTDataset against ToTensor of the IDX images and the labels")
+        torch.manual_seed(seed)
+        model = mnist_cnn().to(dev)
+        init_state = copy.deepcopy(model.state_dict())
+        dp = ht.nn.DataParallel(model, optimizer=torch.optim.SGD(model.parameters(), lr=MNIST_LR,
+                                                                 momentum=MNIST_MOMENTUM))
+        ce = ht.nn.CrossEntropyLoss()
+        losses, snap = [], None
+        torch.cuda.synchronize()
+        before = dict(ht.LAUNCHES)
+        t0 = time.perf_counter()
+        for step, (xb, yb) in enumerate(loader):
+            losses.append(dp.train_step(ce, xb, yb))
+            if step == 0:
+                torch.cuda.synchronize()
+                t_first = time.perf_counter() - t0
+            if step == DP_CHECK_STEPS - 1:
+                snap = {k_: v_.detach().clone() for k_, v_ in model.state_dict().items()}
+        torch.cuda.synchronize()
+        t_epoch = time.perf_counter() - t0
+        check(dict(ht.LAUNCHES) == before, "[train] the training loop launches no kernel of the TPU's")
+        steps = len(losses)
+        lv = torch.stack(losses).cpu()
+        first, last = lv[:10].mean().item(), lv[-10:].mean().item()
+        check(steps == MNIST_N // MNIST_BATCH and last < 0.5 * first, f"[train] {steps} steps, loss {first} -> {last}")
+        # the plain loop: the same initialization, the same first batches (the same seed, the same shuffle)
+        plain = mnist_cnn().to(dev)
+        plain.load_state_dict(init_state)
+        popt = torch.optim.SGD(plain.parameters(), lr=MNIST_LR, momentum=MNIST_MOMENTUM)
+        ht.random.seed(seed)
+        _, loader0 = mnist_loader(ht, tmp)
+        for step, (xb, yb) in enumerate(loader0):
+            if step == DP_CHECK_STEPS:
+                break
+            popt.zero_grad()
+            ce(plain(xb.larray), yb.larray).backward()
+            popt.step()
+        worst, identical = 0.0, True
+        for k_, v_ in plain.state_dict().items():
+            e = (snap[k_].double() - v_.double()).abs().max().item()
+            identical = identical and torch.equal(snap[k_], v_)
+            worst = max(worst, e / max(v_.abs().max().item(), 1e-30))
+        check(worst <= DP_RTOL, f"[train] DataParallel after {DP_CHECK_STEPS} steps vs the plain loop: {worst}")
+        # a checkpoint round trip, bit for bit
+        state = {"model": model.state_dict(), "optimizer": {k_: v_ for k_, v_ in dp.state_dict().items()
+                                                             if k_.startswith("opt.")}}
+        ht.utils.save_checkpoint(os.path.join(tmp, "ckpt"), state, step=steps, metadata={"phase": "train"})
+        like = {"model": copy.deepcopy(init_state), "optimizer": {k_: np.zeros_like(v_) for k_, v_ in
+                                                                   state["optimizer"].items()}}
+        got, got_step, meta = ht.utils.load_checkpoint(os.path.join(tmp, "ckpt"), like=like)
+        check(got_step == steps and meta == {"phase": "train"}
+              and all(torch.equal(got["model"][k_], v_) for k_, v_ in state["model"].items())
+              and all(np.array_equal(got["optimizer"][k_], v_) for k_, v_ in state["optimizer"].items()),
+              "[train] checkpoint round trip")
+        step_ms = (t_epoch - t_first) / (steps - 1) * 1e3
+        print(f"[train] one epoch of the CNN on {MNIST_N} MNIST-shaped images (IDX files written from the seed), "
+              f"MNISTDataset -> DataLoader({MNIST_BATCH}, shuffled) -> DataParallel, SGD momentum {MNIST_MOMENTUM}: {steps} "
+              f"steps in {t_epoch:.4f} s (first step {t_first * 1e3:.2f} ms; then {step_ms:.4f} ms a step, "
+              f"{MNIST_BATCH / step_ms * 1e3:.0f} images/s); loss {first:.4f} (first 10 steps) -> {last:.4f} (last 10); "
+              f"after {DP_CHECK_STEPS} steps against the plain torch loop: max rel {worst:.3e} (bit-identical: "
+              f"{identical}); checkpoint of {len(state['model'])} + {len(state['optimizer'])} tensors round-trips bit "
+              f"for bit", flush=True)
+        del model, plain, dp, ds, loader, loader0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # ---- the attention gradients at world size 1
+    q_np, k_np, v_np = attention_qkv(seed, N_ATT_ONE)
+    q, k, v = (torch.from_numpy(a).to(dev).transpose(0, 1).contiguous() for a in (q_np, k_np, v_np))  # (H, N, D)
+    dout = torch.randn(q.shape, device=dev, generator=gen)
+    lines = []
+    for causal in (False, True):
+        ref = attention_grad64(q, k, v, dout, causal)
+
+        def ring_bw():
+            ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            o = ht.parallel.ring_attention(*(ht.DNDarray(t, split=1) for t in ts), causal=causal)
+            (o.larray * dout).sum().backward()
+            return [o.larray.detach()] + [t.grad for t in ts]
+
+        def ulysses_bw():
+            ts = [t.transpose(0, 1).contiguous().requires_grad_(True) for t in (q, k, v)]
+            o = ht.parallel.ulysses_attention(*(ht.DNDarray(t, split=0) for t in ts), causal=causal)
+            (o.larray * dout.transpose(0, 1)).sum().backward()
+            return [o.larray.detach().transpose(0, 1)] + [t.grad.transpose(0, 1) for t in ts]
+
+        for name, fn_bw in (("ring", ring_bw), ("ulysses", ulysses_bw)):
+            ms, res = event_ms(fn_bw, reps=2)
+            errs = [normwise(g, r) for g, r in zip(res, ref)]
+            check(max(errs) <= ATT_GRAD_RTOL, f"[train] {name} attention ({'causal' if causal else 'full'}) gradients "
+                  f"against float64: {errs} (normwise, <= {ATT_GRAD_RTOL:.3e})")
+            lines.append(f"{name} {'causal' if causal else 'full'}: forward + backward {ms:.4f} ms (CUDA events, median "
+                         f"of 2); out, dq, dk, dv against float64 normwise " + ", ".join(f"{e:.3e}" for e in errs))
+            del res
+        del ref
+        torch.cuda.empty_cache()
+    print(f"[train] attention gradients at (8, 2^15, 128), world size 1 (<= {ATT_GRAD_RTOL:.3e}): " + "; ".join(lines),
+          flush=True)
+    del q, k, v, dout
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    print(f"[train] phase {wall:.1f} s ({smi}); launches {launches}", flush=True)
+    return launches
+
+
+def _plain(fn, xa, cen):
+    """``fn(xa, cen)`` through ``lloyd_fused``'s plain version."""
+    from heat_tpu_torch.core.kernels import forced_mode
+
+    with forced_mode("lloyd_fused", "torch"):
+        return fn(xa, cen)
+
+
+LASSO_DIST_ITERS = 20  # [dist]'s Lasso: a fixed number of sweeps (tol 0), so that every world size runs as many
+DASO_DIST_BATCHES = 8  # [dist]'s DASO: batches of the MNIST epoch with a sync every 2
+
+
+def _param_digest(model):
+    """An integer digest of every parameter's bits (equal digests: bit-identical parameters, barring a collision)."""
+    import torch
+
+    bits = torch.cat([p.detach().reshape(-1).view(torch.int32).to(torch.int64) for p in model.parameters()])
+    w = torch.arange(1, bits.numel() + 1, device=bits.device, dtype=torch.int64) % 1000003 + 1
+    return (bits * w).sum().reshape(1)
+
+
+def _lasso_chunk(seed, rank, n, dev):
+    """Rank ``rank``'s rows of [dist]'s Lasso data (its own stream) and the generating coefficients."""
+    import torch
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    coef = torch.randn(F_LASSO + 1, device=dev, generator=g) * (torch.rand(F_LASSO + 1, device=dev, generator=g) < 0.25)
+    coef[0] = 1.5
+    g.manual_seed(seed * 1000 + rank + 1)
+    X = torch.empty(n, F_LASSO + 1, device=dev)
+    X[:, 0] = 1.0
+    X[:, 1:] = torch.randn(n, F_LASSO, device=dev, generator=g)
+    y = X @ coef + LASSO_NOISE * torch.randn(n, device=dev, generator=g)
+    return X, y, coef
+
+
+def _dist_train(ht, world, rank, timed, same_everywhere, say, out_dir, seed):
+    """[dist]'s training path on this rank: DataParallel over the MNIST epoch (parameters bit-identical on every
+    rank after every step), DASO's diverge-and-meet on a (2 x P/2) mesh and its schedule against a host replay (at
+    an even world size >= 4), GaussianNB at 2^24 x 32 rows and Lasso at 10^7 rows a card (split 0), the ring and
+    Ulysses gradients against float64, and the entry module's dry-run body. Returns what the parent compares."""
+    import numpy as np
+    import torch
+
+    from heat_tpu_torch.entry import dryrun_body
+
+    comm = ht.get_comm()
+    dev = ht.get_device().torch_device
+    seed = seed + TRAIN_SEED_OFFSET
+    out, steps_t = {}, {}
+
+    # ---- DataParallel over the epoch, the global batches split by rank
+    ht.random.seed(seed)
+    ds, loader = mnist_loader(ht, os.path.join(out_dir, "mnist"))
+    torch.manual_seed(seed)
+    model = mnist_cnn().to(dev)
+    dp = ht.nn.DataParallel(model, optimizer=torch.optim.SGD(model.parameters(), lr=MNIST_LR, momentum=MNIST_MOMENTUM))
+    ce = ht.nn.CrossEntropyLoss()
+    losses, digests = [], []
+    ht.kernels.reset_kernel_stats()
+    torch.cuda.synchronize()
+    comm.barrier()
+    t0 = time.perf_counter()
+    for step, (xb, yb) in enumerate(loader):
+        losses.append(dp.train_step(ce, xb, yb))
+        digests.append(_param_digest(model))
+        if step == DP_CHECK_STEPS - 1:
+            out["dp_snapshot"] = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    torch.cuda.synchronize()
+    t_epoch = time.perf_counter() - t0
+    coll = {k: v["calls"] for k, v in ht.kernels.COLLECTIVES.items()}
+    d = torch.cat(digests)
+    every = comm.allgather(d.unsqueeze(0), 0, [1] * world)
+    check(bool((every == every[0]).all()), "[dist] DataParallel parameters differ between ranks after some step")
+    lv = torch.stack(losses).cpu()
+    steps = len(losses)
+    check(lv[-10:].mean() < 0.5 * lv[:10].mean(), f"[dist] DataParallel loss {lv[:10].mean()} -> {lv[-10:].mean()}")
+    steps_t["DataParallel epoch"] = {"host_s": t_epoch, "event_ms": float("nan"), "collectives": coll}
+    out["dp"] = {"steps": steps, "t_epoch": t_epoch, "loss": (lv[:10].mean().item(), lv[-10:].mean().item()),
+                 "rows": xb.lshape[0]}
+    say(f"DataParallel: {steps} steps of {MNIST_BATCH} global rows ({xb.lshape[0]} on this rank in the last batch) in "
+        f"{t_epoch:.4f} s ({t_epoch / steps * 1e3:.4f} ms a step, {MNIST_BATCH * steps / t_epoch:.0f} images/s over "
+        f"{world} card(s)); parameters bit-identical on every rank after each of the {steps} steps; loss "
+        f"{out['dp']['loss'][0]:.4f} -> {out['dp']['loss'][1]:.4f}; COLLECTIVES {coll}")
+    del dp, ds, loader
+    torch.cuda.empty_cache()
+
+    # ---- DASO: replicas diverge between syncs and meet at them; the schedule against a host replay
+    if world >= 4 and world % 2 == 0:
+        ht.random.seed(seed)
+        _, loader = mnist_loader(ht, os.path.join(out_dir, "mnist"))
+        torch.manual_seed(seed)
+        net = mnist_cnn().to(dev)
+        mesh = ht.parallel.make_hierarchical_mesh(n_slow=2)
+        daso = ht.optim.DASO(torch.optim.SGD(net.parameters(), lr=MNIST_LR), total_epochs=4, warmup_epochs=0,
+                             cooldown_epochs=0)
+        net = daso.init(net, mesh)
+        daso.epoch, daso.global_skip, daso.batches_to_wait = 1, 2, 0  # a sync every 2 batches, applied at once
+        gaps = []
+        t0 = time.perf_counter()
+        for b, (xb, yb) in enumerate(loader):
+            if b == DASO_DIST_BATCHES:
+                break
+            net, _ = daso.step(lambda m, xx, yy: ce(m(xx), yy), net, xb, yb)
+            w = torch.cat([p.detach().reshape(-1) for p in net.parameters()])
+            gaps.append(float(ht.nn.data_parallel.group_allreduce(w * (1.0 if daso._group == 0 else -1.0),
+                                                                   daso._slow).abs().max()))
+        t_daso = time.perf_counter() - t0
+        check(all(g == 0.0 for g in gaps[0::2]) and all(g > 0.0 for g in gaps[1::2]),
+              f"[dist] DASO replicas must meet at the syncs (even batches) and diverge between them: {gaps}")
+        losses = [1.0, 0.9, 0.8, 0.79, 0.789, 0.7885, 0.788, 0.6, 0.59, 0.5899, 0.58985, 0.5898]
+        sched = ht.optim.DASO(torch.optim.SGD(net.parameters(), lr=MNIST_LR), total_epochs=len(losses),
+                              warmup_epochs=2, cooldown_epochs=2, max_global_skips=8)
+        sched.init(net, mesh)
+        fields = []
+        for loss in losses:
+            sched.epoch_loss_logic(loss)
+            fields.append((sched.global_skip, sched.batches_to_wait, sched.epoch))
+        replay = daso_schedule_replay(losses, len(losses), 2, 2, 8)
+        check(fields == replay, f"[dist] DASO schedule {fields} against the host replay {replay}")
+        out["daso"] = {"gaps": gaps, "t": t_daso, "fields": fields}
+        say(f"DASO on a (2 x {world // 2}) mesh, {DASO_DIST_BATCHES} batches, a sync every 2: replica gaps "
+            f"{[f'{g:.3e}' for g in gaps]} (0 at the syncs) in {t_daso:.4f} s; schedule fields equal the host replay "
+            f"over {len(losses)} epochs: {fields}")
+        del net, daso, sched, loader
+        torch.cuda.empty_cache()
+
+    # ---- GaussianNB at 2^24 x 32 rows a card
+    ht.random.seed(seed)
+    x, member = gnb_blobs(ht, N_MAIN * world, gnb_centres(ht))
+    ht.kernels.reset_kernel_stats()
+    nb, t_nb, ev_nb = timed(lambda: ht.naive_bayes.GaussianNB().fit(x, member))
+    coll = timed.collectives
+    check({k: v["calls"] for k, v in coll.items()} == ({"allgather": 2, "allreduce": 3} if world > 1 else {}),
+          f"[dist] GaussianNB fit collectives {coll}")
+    check(dict(ht.LAUNCHES).get("moments_onepass") == 1, f"[dist] GaussianNB launches {dict(ht.LAUNCHES)}")
+    for name in ("theta_", "sigma_", "class_count_"):
+        same_everywhere(getattr(nb, name).larray, f"GaussianNB {name}")
+    out["gnb"] = {"theta": nb.theta_.larray.cpu(), "sigma": nb.sigma_.larray.cpu(), "eps": nb.epsilon_,
+                  "count": nb.class_count_.larray.cpu()}
+    steps_t["GaussianNB fit"] = {"host_s": t_nb, "event_ms": ev_nb, "collectives": coll}
+    say(f"GaussianNB fit of {N_MAIN * world} x {F_MAIN} (split 0): {t_nb:.4f} s host, {ev_nb:.4f} ms events, "
+        f"COLLECTIVES {coll}")
+    del x, member, nb
+    torch.cuda.empty_cache()
+
+    # ---- Lasso at 10^7 rows a card
+    X, y, _ = _lasso_chunk(seed, rank, N_LASSO, dev)
+    xd = ht.DNDarray(X, gshape=(N_LASSO * world, F_LASSO + 1), split=0)
+    yd = ht.DNDarray(y, gshape=(N_LASSO * world,), split=0)
+    las, t_las, ev_las = timed(lambda: ht.regression.Lasso(lam=LASSO_LAM, max_iter=LASSO_DIST_ITERS, tol=0.0)
+                               .fit(xd, yd))
+    coll = timed.collectives
+    want = {"allreduce": 1 + (F_LASSO + 1) * LASSO_DIST_ITERS} if world > 1 else {}
+    check({k: v["calls"] for k, v in coll.items()} == want and las.n_iter == LASSO_DIST_ITERS,
+          f"[dist] Lasso collectives {coll}, sweeps {las.n_iter}")
+    same_everywhere(las.theta.larray, "Lasso theta")
+    out["lasso"] = {"theta": las.theta.larray.cpu()}
+    steps_t["Lasso fit"] = {"host_s": t_las, "event_ms": ev_las, "collectives": coll}
+    say(f"Lasso fit of {N_LASSO * world} x {F_LASSO + 1}, {LASSO_DIST_ITERS} sweeps: {t_las:.4f} s host "
+        f"({LASSO_DIST_ITERS / t_las:.2f} sweeps/s), {ev_las:.4f} ms events; one scalar allreduce per coordinate: "
+        f"COLLECTIVES {coll}")
+    del X, y, xd, yd, las
+    torch.cuda.empty_cache()
+
+    # ---- ring and Ulysses gradients against float64, the sequence split over the cards
+    n = N_ATT_CARD * world
+    off, lsh, _ = comm.chunk((n,), 0)
+    q_np, k_np, v_np = attention_qkv(seed, n)
+    g_np = attention_qkv(seed + 50, n)[0]
+    full = [torch.from_numpy(a).to(dev).transpose(0, 1).contiguous() for a in (q_np, k_np, v_np, g_np)]  # (H, N, D)
+    att = {}
+    for causal in (False, True):
+        ref = attention_grad64(*full, causal)
+        for name in ("ring", "ulysses"):
+            if name == "ring":
+                ts = [t[:, off : off + lsh[0]].clone().requires_grad_(True) for t in full[:3]]
+                args = [ht.DNDarray(t, gshape=(H_ATT, n, D_ATT), split=1) for t in ts]
+                fn, gl = ht.parallel.ring_attention, full[3][:, off : off + lsh[0]]
+            else:
+                ts = [t[:, off : off + lsh[0]].transpose(0, 1).contiguous().requires_grad_(True) for t in full[:3]]
+                args = [ht.DNDarray(t, gshape=(n, H_ATT, D_ATT), split=0) for t in ts]
+                fn, gl = ht.parallel.ulysses_attention, full[3][:, off : off + lsh[0]].transpose(0, 1)
+            ht.kernels.reset_kernel_stats()
+            o, _, ev_att = timed(lambda: fn(*args, causal=causal))
+            _, t_bw, ev_bw = timed(lambda: (o.larray * gl).sum().backward())
+            bw_coll = timed.collectives
+            grads = [t.grad if name == "ring" else t.grad.transpose(0, 1) for t in ts]
+            outs = [o.larray.detach() if name == "ring" else o.larray.detach().transpose(0, 1)] + grads
+            errs = [normwise(g, r[:, off : off + lsh[0]]) for g, r in zip(outs, ref)]
+            check(max(errs) <= ATT_GRAD_RTOL, f"[dist] {name} ({'causal' if causal else 'full'}) gradients against "
+                  f"float64: {errs}")
+            want = {"ring_shift": {"calls": 2 * (world - 1)}} if name == "ring" else {"alltoall": {"calls": 2}}
+            if world > 1:
+                check({k: {"calls": v["calls"]} for k, v in bw_coll.items()} == want,
+                      f"[dist] {name} backward collectives {bw_coll}")
+            att[f"{name} {'causal' if causal else 'full'}"] = {"fwd_ms": ev_att, "bwd_ms": ev_bw, "errs": errs,
+                                                               "bwd_collectives": bw_coll}
+            steps_t[f"{name} {'causal' if causal else 'full'} backward"] = {"host_s": t_bw, "event_ms": ev_bw,
+                                                                           "collectives": bw_coll}
+            del o, grads, outs, ts, args
+        del ref
+        torch.cuda.empty_cache()
+    out["attention"] = att
+    say("attention gradients (8, " + str(n) + ", 128), " + str(lsh[0]) + " of the sequence a card: " + "; ".join(
+        f"{k} forward {v['fwd_ms']:.4f} ms, backward {v['bwd_ms']:.4f} ms, against float64 normwise "
+        + ", ".join(f"{e:.3e}" for e in v["errs"]) + f", backward COLLECTIVES {v['bwd_collectives']}"
+        for k, v in att.items()))
+    del full
+    torch.cuda.empty_cache()
+
+    # ---- the entry module's dry-run body
+    res, t_dry, _ = timed(lambda: dryrun_body(ht))
+    out["dryrun"] = {"t": t_dry, "qr_residual": res["qr_residual"], "daso_gaps": res.get("daso_gaps")}
+    steps_t["dryrun body"] = {"host_s": t_dry, "event_ms": float("nan"), "collectives": timed.collectives}
+    say(f"entry.dryrun_body: every check passed in {t_dry:.4f} s (TSQR residual {res['qr_residual']:.3e}"
+        + (f", DASO gaps {[f'{g:.3e}' for g in res['daso_gaps']]}" if "daso_gaps" in res else "") + ")")
+    out["steps"] = steps_t
+    return out
+
+
+def _train_reference(ht, world, ranks, tmp, seed):
+    """[dist]'s training steps in this process on the same global data: DataParallel's 20 steps on the global
+    batches against rank 0's, GaussianNB against the ranks' fit, Lasso against the ranks' theta."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    dev = ht.get_device().torch_device
+    seed = seed + TRAIN_SEED_OFFSET
+    tr = [r["train"] for r in ranks]
+    # DataParallel: the first 20 global batches in one process
+    ht.random.seed(seed)
+    _, loader = mnist_loader(ht, os.path.join(tmp, "mnist"))
+    torch.manual_seed(seed)
+    model = mnist_cnn().to(dev)
+    dp = ht.nn.DataParallel(model, optimizer=torch.optim.SGD(model.parameters(), lr=MNIST_LR, momentum=MNIST_MOMENTUM))
+    ce = ht.nn.CrossEntropyLoss()
+    for step, (xb, yb) in enumerate(loader):
+        if step == DP_CHECK_STEPS:
+            break
+        dp.train_step(ce, xb, yb)
+    worst = 0.0
+    for k, v in model.state_dict().items():
+        e = (tr[0]["dp_snapshot"][k].to(dev).double() - v.double()).abs().max().item()
+        worst = max(worst, e / max(v.abs().max().item(), 1e-30))
+    check(worst <= DP_RTOL, f"[dist] DataParallel after {DP_CHECK_STEPS} steps vs one card on the global batches: "
+          f"{worst}")
+    del dp, model, loader
+    # GaussianNB: one process on the same global data, both against float64
+    ht.random.seed(seed)
+    x, member = gnb_blobs(ht, N_MAIN * world, gnb_centres(ht))
+    nb = ht.naive_bayes.GaussianNB().fit(x, member)
+    cnt, mean64, var64, sabs, s2 = class_stats64([x.larray], [member.larray], K_MAIN)
+    b_mean = accumulation_bound(N_MAIN * world, 1.0) * sabs / cnt[:, None] + 8 * F32_UNIT_ROUNDOFF * mean64.abs()
+    b_var = (accumulation_bound(N_MAIN * world, 1.0) * s2 / cnt[:, None] + 2 * (mean64.abs() + b_mean) * b_mean
+             + 8 * F32_UNIT_ROUNDOFF * (s2 / cnt[:, None]))
+    g = tr[0]["gnb"]
+    w_mean = max(((t.to(dev).double() - mean64).abs() / b_mean).max().item() for t in (g["theta"], nb.theta_.larray))
+    w_var = max(((t.to(dev).double() - e - var64).abs() / b_var).max().item()
+                for t, e in ((g["sigma"], g["eps"]), (nb.sigma_.larray, nb.epsilon_)))
+    check(torch.equal(g["count"].to(dev), nb.class_count_.larray) and w_mean <= 1.0 and w_var <= 1.0,
+          f"[dist] GaussianNB: the ranks' and one process's means {w_mean:.3f}, variances {w_var:.3f} of their float64 "
+          f"bounds")
+    del x, member, nb
+    torch.cuda.empty_cache()
+    # Lasso: one process on the ranks' rows
+    parts = [_lasso_chunk(seed, r, N_LASSO, dev) for r in range(world)]
+    X = torch.cat([p[0] for p in parts])
+    y = torch.cat([p[1] for p in parts])
+    del parts
+    torch.cuda.empty_cache()
+    las = ht.regression.Lasso(lam=LASSO_LAM, max_iter=LASSO_DIST_ITERS, tol=0.0).fit(ht.array(X, split=0, copy=False),
+                                                                                    ht.array(y, split=0, copy=False))
+    theta1 = las.theta.larray.reshape(-1).double()
+    thetaP = tr[0]["lasso"]["theta"].to(dev).reshape(-1).double()
+    absr = torch.zeros(F_LASSO + 1, dtype=torch.float64, device=dev)
+    col_sq = torch.zeros_like(absr)
+    r = y.double() - X.double() @ theta1 if X.numel() * 8 < (16 << 30) else None
+    for r0 in range(0, X.shape[0], 1 << 22):
+        xc = X[r0 : r0 + (1 << 22)].double()
+        rc = (y[r0 : r0 + (1 << 22)].double() - xc @ theta1) if r is None else r[r0 : r0 + (1 << 22)]
+        absr += xc.abs().T @ rc.abs()
+        col_sq += (xc * xc).sum(0)
+    bound = 4 * LASSO_DIST_ITERS * accumulation_bound(X.shape[0], 1.0) * (absr + theta1.abs() * col_sq) / col_sq
+    w_las = ((thetaP - theta1).abs() / bound).max().item()
+    check(w_las <= 1.0, f"[dist] Lasso theta vs one process: {w_las:.3f} of the bound")
+    print(f"[dist] train vs one process on the same global data: DataParallel after {DP_CHECK_STEPS} steps max rel "
+          f"{worst:.3e} (<= {DP_RTOL}); GaussianNB means {w_mean:.3f}, variances {w_var:.3f} of their float64 bounds "
+          f"(ranks' and one process's), counts equal; Lasso theta max abs {(thetaP - theta1).abs().max().item():.3e} "
+          f"({w_las:.3f} of the bound)", flush=True)
+    return {"dp_worst": worst, "gnb": (w_mean, w_var), "lasso": w_las}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive heat_tpu_torch's main path on the cards and check every kernel.")
-    ap.add_argument("--phases", choices=("all", "dist", "spectral", "linalg", "robust", "dtypes", "stream", "layout"),
-                    default="all", help="all (default): every phase; dist, spectral, linalg, robust, dtypes, stream or "
-                                        "layout: environment, build and that phase only")
-    ap.add_argument("--seed", type=int, default=0, help="seed of [dtypes]', [stream]'s and the layout steps' numpy data "
-                                                        "(default 0)")
+    ap.add_argument("--phases", choices=("all", "dist", "spectral", "linalg", "robust", "dtypes", "stream", "layout",
+                                         "train"),
+                    default="all", help="all (default): every phase; dist, spectral, linalg, robust, dtypes, stream, "
+                                        "layout or train: environment, build and that phase only")
+    ap.add_argument("--seed", type=int, default=0, help="seed of [dtypes]', [stream]'s, the layout steps' and the "
+                                                        "training steps' data (default 0)")
     args = ap.parse_args(argv)
     import torch
 
@@ -3858,6 +4644,11 @@ def main(argv=None) -> int:
                 row["launches_stream"] = stream_launches.get(row["name"], 0)
     if args.phases in ("all", "layout"):
         phase("layout", lambda: layout_phase(dev, args.seed, smi))
+    if args.phases in ("all", "train"):
+        train_launches = phase("train", lambda: train_phase(dev, args.seed, smi))
+        if kernels is not None:
+            for row in kernels:
+                row["launches_train"] = train_launches.get(row["name"], 0)
     if args.phases in ("all", "dist"):
         layout_launches = phase("dist", lambda: dist_phase(torch.cuda.device_count(), args.seed))
         if kernels is not None:

@@ -61,12 +61,19 @@ The port goes slice by slice:
    ``MOVE_STATS``); ``SplitTiles`` and the tile views; and the rest of
    ``parallel``: ``flatmove``, ``halo_exchange``, ``ring_map``/
    ``ring_reduce``, ``make_mesh``/``make_hierarchical_mesh``, and
-   ``ring_attention``/``ulysses_attention`` (forward).
+   ``ring_attention``/``ulysses_attention`` (forward);
+10. the ML long tail and the training path: ``datasets``,
+    ``naive_bayes.GaussianNB``, ``regression.Lasso``, the entry module
+    (``entry.py``), ``nn`` (torch's layers under ``heat_tpu``'s names,
+    ``DataParallel``), ``optim`` (``DataParallelOptimizer``, ``DASO``),
+    ``utils`` (profiling, checkpoints, data tooling), and the gradients of
+    ``ring_attention``/``ulysses_attention``.
 """
 from .core import *
 from .core import complex_math, io, kernels, linalg, printing, random, signal, version
 from .core.version import __version__
-from . import classification, cluster, convert, graph, parallel, spatial, stream
+from . import (classification, cluster, convert, datasets, graph, naive_bayes, nn, optim, parallel, regression,
+               spatial, stream, utils)
 from .core.dndarray import LAYOUT_STATS
 from .core.kernels import KERNEL_STATS, LAUNCHES
 from .parallel.flatmove import MOVE_STATS

@@ -3,12 +3,26 @@
 ``heat_tpu``'s estimators export their state as plain host values
 (``state_dict()``: numpy arrays and python scalars). These functions build
 the port's objects from such values; they import nothing of ``heat_tpu``.
+
+Flax parameter trees (as numpy) become a torch module's ``state_dict``:
+the k-th flax layer of a kind (``Dense_k``, ``Conv_k``, ``BatchNorm_k``,
+``LayerNorm_k``, ``Embed_k``, by index within its parent, parents in
+order) fills the k-th torch layer of that kind in ``module.modules()``
+order: a ``Dense`` kernel (in, out) is ``Linear.weight`` (out, in), a
+``Conv`` kernel (spatial..., in, out) is (out, in, spatial...), BatchNorm's
+scale/bias/mean/var are ``weight``/``bias``/``running_mean``/
+``running_var``, LayerNorm's scale/bias ``weight``/``bias``, and an
+``Embed``'s embedding ``Embedding.weight``. A ``Dense`` after a flatten of
+NHWC activations would need its input rows permuted to torch's NCHW
+flatten; the converter does not do that.
 """
 from __future__ import annotations
 
-from typing import Optional
+import re
+from typing import Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
 from .classification.kneighborsclassifier import KNeighborsClassifier
 from .cluster.kmeans import KMeans
@@ -17,8 +31,13 @@ from .cluster.kmedoids import KMedoids
 from .cluster.spectral import Spectral
 from .core import factories
 from .core.dndarray import DNDarray
+from .naive_bayes.gaussianNB import GaussianNB
+from .regression.lasso import Lasso
 
-__all__ = ["array_from_numpy", "from_heat_tpu_state", "knn_from_heat_tpu", "spectral_from_heat_tpu"]
+__all__ = [
+    "array_from_numpy", "dp_state_from_heat_tpu", "flax_to_state_dict", "from_heat_tpu_state",
+    "gaussian_nb_from_heat_tpu", "knn_from_heat_tpu", "lasso_from_heat_tpu", "spectral_from_heat_tpu",
+]
 
 
 def array_from_numpy(a, split: Optional[int] = None, device=None, comm=None) -> DNDarray:
@@ -73,3 +92,192 @@ def spectral_from_heat_tpu(params: dict, kmeans_state: dict, device=None, comm=N
         sp.n_clusters = sp._cluster.n_clusters
     sp._labels = sp._cluster.labels_
     return sp
+
+
+# ------------------------------------------------------------------ Lasso, GaussianNB
+def lasso_from_heat_tpu(d: dict, device=None, comm=None) -> Lasso:
+    """A port :class:`Lasso` from ``heat_tpu``'s ``Lasso.state_dict()``."""
+    return Lasso().load_state_dict(d, comm=comm, device=device)
+
+
+_GNB_ATTRS = ("classes_", "theta_", "sigma_", "class_prior_", "class_count_")
+
+
+def gaussian_nb_from_heat_tpu(attrs: dict, device=None, comm=None) -> GaussianNB:
+    """A fitted port :class:`GaussianNB` from a fitted ``heat_tpu`` one's
+    attributes as numpy (``classes_``, ``theta_``, ``sigma_``,
+    ``class_prior_``, ``class_count_``; ``epsilon_`` a float; ``priors`` and
+    ``var_smoothing`` optional)."""
+    missing = set(_GNB_ATTRS + ("epsilon_",)) - set(attrs)
+    if missing:
+        raise KeyError(f"not fitted GaussianNB attributes: missing {sorted(missing)}")
+    nb = GaussianNB(priors=attrs.get("priors"), var_smoothing=attrs.get("var_smoothing", 1e-9))
+    for name in _GNB_ATTRS:
+        setattr(nb, name, array_from_numpy(attrs[name], device=device, comm=comm))
+    nb.epsilon_ = float(attrs["epsilon_"])
+    return nb
+
+
+# ------------------------------------------------------------------ flax trees
+_LAYER = re.compile(r"^(.*)_(\d+)$")
+_KINDS = {
+    "Dense": (torch.nn.Linear,),
+    "Conv": (torch.nn.Conv1d, torch.nn.Conv2d, torch.nn.Conv3d),
+    "BatchNorm": (torch.nn.modules.batchnorm._BatchNorm,),
+    "LayerNorm": (torch.nn.LayerNorm,),
+    "Embed": (torch.nn.Embedding,),
+}
+
+
+def _ordered(tree: dict):
+    """``tree``'s children, numbered ones (``Name_k``) by their number."""
+    def key(name):
+        m = _LAYER.match(name)
+        return (m.group(1), int(m.group(2))) if m else (name, -1)
+
+    return sorted(tree.items(), key=lambda kv: key(kv[0]))
+
+
+def _flax_layers(tree: dict, path=()):
+    """(kind, path) of every flax layer in ``tree``, depth first."""
+    for name, sub in _ordered(tree):
+        m = _LAYER.match(name)
+        if m and m.group(1) in _KINDS:
+            yield m.group(1), path + (name,)
+        elif isinstance(sub, dict):
+            yield from _flax_layers(sub, path + (name,))
+
+
+def _conv_kernel(w: np.ndarray) -> np.ndarray:
+    """flax (spatial..., in, out) -> torch (out, in, spatial...)."""
+    nd = w.ndim
+    return np.transpose(w, (nd - 1, nd - 2) + tuple(range(nd - 2)))
+
+
+def _sources(variables: dict, module: torch.nn.Module) -> Dict[str, Tuple[str, tuple, object]]:
+    """For each torch state name: (flax collection, path in it, transform)."""
+    params = variables.get("params", variables)
+    layers = {kind: [] for kind in _KINDS}
+    for kind, path in _flax_layers(params):
+        layers[kind].append(path)
+    if not any(layers.values()):  # the tree of one bare layer: its kind is the module's
+        kinds = [k for _, m in module.named_modules() for k, types_ in _KINDS.items() if isinstance(m, types_)]
+        if len(kinds) == 1:
+            layers[kinds[0]].append(())
+    out = {}
+    used = {kind: 0 for kind in _KINDS}
+    for mname, mod in module.named_modules():
+        kind = next((k for k, types_ in _KINDS.items() if isinstance(mod, types_)), None)
+        if kind is None:
+            continue
+        if used[kind] >= len(layers[kind]):
+            raise ValueError(f"the module has more {kind} layers than the flax tree ({len(layers[kind])})")
+        path = layers[kind][used[kind]]
+        used[kind] += 1
+        pre = f"{mname}." if mname else ""
+        same = lambda a: a  # noqa: E731
+        if kind == "Dense":
+            out[pre + "weight"] = ("params", path + ("kernel",), np.transpose)
+            if mod.bias is not None:
+                out[pre + "bias"] = ("params", path + ("bias",), same)
+        elif kind == "Conv":
+            out[pre + "weight"] = ("params", path + ("kernel",), _conv_kernel)
+            if mod.bias is not None:
+                out[pre + "bias"] = ("params", path + ("bias",), same)
+        elif kind == "Embed":
+            out[pre + "weight"] = ("params", path + ("embedding",), same)
+        else:  # BatchNorm, LayerNorm
+            if getattr(mod, "weight", None) is not None:
+                out[pre + "weight"] = ("params", path + ("scale",), same)
+            if getattr(mod, "bias", None) is not None:
+                out[pre + "bias"] = ("params", path + ("bias",), same)
+            if kind == "BatchNorm" and mod.track_running_stats:
+                out[pre + "running_mean"] = ("batch_stats", path + ("mean",), same)
+                out[pre + "running_var"] = ("batch_stats", path + ("var",), same)
+    extra = {k: len(v) - used[k] for k, v in layers.items() if len(v) > used[k]}
+    if extra:
+        raise ValueError(f"the flax tree has layers the module lacks: {extra}")
+    return out
+
+
+def _lookup(tree: dict, path: tuple):
+    for p in path:
+        tree = tree[p]
+    return np.asarray(tree)
+
+
+def flax_to_state_dict(variables: dict, module: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """A ``state_dict`` for ``module`` (its entries that flax holds) from a
+    flax variable tree as numpy: ``{"params": ..., "batch_stats": ...}``,
+    or the ``params`` tree alone."""
+    live = module.state_dict()
+    trees = variables if "params" in variables else {"params": variables}
+    out = {}
+    for name, (coll, path, fn) in _sources(variables, module).items():
+        t = live[name]
+        out[name] = torch.as_tensor(np.ascontiguousarray(fn(_lookup(trees[coll], path)))).to(dtype=t.dtype,
+                                                                                           device=t.device)
+    return out
+
+
+_KEY = re.compile(r"\['([^']*)'\]|\[(\d+)\]|\.([A-Za-z_][A-Za-z_0-9]*)")
+
+
+def _parse_keystr(key: str):
+    """``"params['params']['Dense_0']['kernel']"`` -> ("params", ("params", "Dense_0", "kernel"))."""
+    head = re.match(r"^[A-Za-z_][A-Za-z_0-9]*", key).group(0)
+    parts = tuple(a or (int(b) if b else c) for a, b, c in _KEY.findall(key[len(head):]))
+    return head, parts
+
+
+def _nest(items) -> dict:
+    out: dict = {}
+    for path, value in items:
+        d = out
+        for p in path[:-1]:
+            d = d.setdefault(p, {})
+        d[path[-1]] = value
+    return out
+
+
+# optax state fields and the torch optimizer state they are
+_OPT_FIELDS = {"trace": "momentum_buffer", "mu": "exp_avg", "nu": "exp_avg_sq"}
+
+
+def dp_state_from_heat_tpu(d: dict, model) -> dict:
+    """``heat_tpu``'s ``DataParallel.state_dict()`` (keys are pytree key
+    paths) as the port's (``params.<name>``, ``opt.<i>.<field>``, ``seed``)
+    for ``model`` (a port DataParallel or its module). The optimizer state
+    carried: optax ``sgd``'s momentum trace (torch SGD's
+    ``momentum_buffer``) and ``adam``'s mu/nu/count (torch Adam's
+    ``exp_avg``/``exp_avg_sq``/``step``); i numbers the module's parameters
+    in ``parameters()`` order, as an optimizer built on them does."""
+    module = getattr(model, "module", model)
+    params, opt = [], {}
+    for key, v in d.items():
+        if key == "seed":
+            continue
+        head, path = _parse_keystr(key)
+        if head == "params":
+            params.append((path, np.asarray(v)))
+        elif head == "opt" and len(path) >= 2:
+            opt.setdefault(path[1], []).append((path[2:], np.asarray(v)))
+    variables = _nest(params)
+    out = {f"params.{k}": v.cpu().numpy() for k, v in flax_to_state_dict(variables, module).items()}
+    sources = _sources(variables, module)
+    index = {name: i for i, (name, _) in enumerate(module.named_parameters())}
+    for field, items in opt.items():
+        if field == "count":
+            for i in index.values():
+                out[f"opt.{i}.step"] = np.asarray(items[0][1], dtype=np.float32)
+            continue
+        if field not in _OPT_FIELDS:
+            continue
+        tree = _nest(items)
+        trees = tree if "params" in tree else {"params": tree}
+        for name, i in index.items():
+            coll, path, fn = sources[name]
+            out[f"opt.{i}.{_OPT_FIELDS[field]}"] = np.ascontiguousarray(fn(_lookup(trees[coll], path)))
+    if "seed" in d:
+        out["seed"] = d["seed"]
+    return out

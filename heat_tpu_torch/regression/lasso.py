@@ -1,0 +1,200 @@
+"""Lasso regression (counterpart of ``heat_tpu/regression/lasso.py``).
+
+``fit`` is coordinate descent in residual form, ``heat_tpu``'s
+``_cd_sweep``: the residual r = y − Xθ is kept, coordinate j's ρ is
+``X[:, j] · (r + X[:, j] θ_j)``, its soft threshold is ``lam * n``
+(coordinate 0, the intercept column, is not regularized), and r is updated
+with the change of θ_j. Sweeps stop once ``max|Δθ| < tol`` or after
+``max_iter``; ``n_iter`` records how many ran.
+
+The fit reads X through one contiguous column-major copy (a (f, n)
+tensor), so that each column is a contiguous read rather than a strided
+one that touches every row's cache line. Everything of a sweep stays on
+the device: θ is a tensor, each coordinate's update a few tensor
+operations, and the stop test one host read per sweep. Across ranks (x
+split along 0) the residual is row-local, so each coordinate costs one
+``allreduce`` of its scalar ρ: a sweep costs f + 1 one-value allreduces
+(one per coordinate) and one host read, and the fit one more allreduce of
+the f + 1 column norms.
+
+``partial_fit`` is one proximal-SGD step, ``heat_tpu``'s: θ − lr ∇, then
+the soft threshold ``lr * lam`` on every coordinate but the intercept.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..core.base import BaseEstimator, RegressionMixin
+from ..core.dndarray import DNDarray
+
+__all__ = ["Lasso"]
+
+
+def _soft(v: torch.Tensor, t) -> torch.Tensor:
+    return torch.sign(v) * torch.clamp(torch.abs(v) - t, min=0.0)
+
+
+def _rows(x: DNDarray) -> DNDarray:
+    return x if x.split in (None, 0) else x.resplit(0)
+
+
+def _targets(y: DNDarray, x: DNDarray, dtype) -> torch.Tensor:
+    """This rank's rows of ``y``, flat, for ``x``'s rows."""
+    if y.split == x.split:
+        t = y.larray
+    else:
+        t = y._logical().to(x.larray.device)
+        if x.split == 0 and x.comm.is_distributed():
+            off, lsh, _ = x.comm.chunk(x.gshape, 0)
+            t = t[off : off + lsh[0]]
+    return t.reshape(t.shape[0], -1)[:, 0].to(dtype) if t.ndim > 1 else t.to(dtype)
+
+
+class Lasso(BaseEstimator, RegressionMixin):
+    """L1-regularized linear regression by coordinate descent.
+
+    Parameters: ``lam`` (L1 weight), ``max_iter``, ``tol``. An intercept
+    column of ones is expected in x.
+    """
+
+    def __init__(self, lam: float = 0.1, max_iter: int = 100, tol: float = 1e-6):
+        self.lam = lam
+        self.max_iter = max_iter
+        self.tol = tol
+        self.__theta = None
+        self.n_iter = None
+
+    @property
+    def coef_(self) -> Optional[DNDarray]:
+        return None if self.__theta is None else self.__theta[1:]
+
+    @property
+    def intercept_(self) -> Optional[DNDarray]:
+        return None if self.__theta is None else self.__theta[0]
+
+    @property
+    def theta(self) -> Optional[DNDarray]:
+        return self.__theta
+
+    def soft_threshold(self, rho):
+        """sign(ρ) max(|ρ| − lam, 0) of a DNDarray or a tensor."""
+        if isinstance(rho, DNDarray):
+            out = _soft(rho.larray, self.lam)
+            return DNDarray(out, gshape=rho.gshape, split=rho.split, device=rho.device, comm=rho.comm)
+        return _soft(torch.as_tensor(rho), self.lam)
+
+    def rmse(self, gt: DNDarray, yest: DNDarray) -> float:
+        """Root mean squared error of ``yest`` against ``gt``."""
+        diff = gt._logical().reshape(-1) - yest._logical().reshape(-1)
+        return float(torch.sqrt(torch.mean(diff * diff)))
+
+    def state_dict(self) -> dict:
+        """Fitted and hyper state as plain host values (``heat_tpu``'s keys)."""
+        d = {"lam": self.lam, "max_iter": self.max_iter, "tol": self.tol, "n_iter": self.n_iter}
+        if self.__theta is not None:
+            d["theta"] = self.__theta.numpy()
+        return d
+
+    def load_state_dict(self, d: dict, comm=None, device=None) -> "Lasso":
+        """Restore :meth:`state_dict` output (of this class or of ``heat_tpu``'s)."""
+        self.lam = float(d["lam"])
+        self.max_iter = int(d["max_iter"])
+        self.tol = d["tol"]
+        self.n_iter = d.get("n_iter")
+        th = d.get("theta")
+        self.__theta = None if th is None else DNDarray(np.asarray(th).reshape(-1, 1), split=None, device=device,
+                                                        comm=comm)
+        return self
+
+    def fit(self, x: DNDarray, y: DNDarray, supervisor=None, block_iters: int = 16) -> "Lasso":
+        """Coordinate descent from θ = 0 until ``max|Δθ| < tol`` or
+        ``max_iter`` sweeps. ``supervisor`` (a self-healing supervised fit)
+        waits for the port of ``resilience``."""
+        if not isinstance(x, DNDarray) or not isinstance(y, DNDarray):
+            raise TypeError(f"input needs to be DNDarrays, but were {type(x)}, {type(y)}")
+        if x.ndim != 2:
+            raise ValueError(f"x needs to be 2D, but was {x.ndim}D")
+        if supervisor is not None:
+            raise NotImplementedError("Lasso.fit(supervisor=...) waits for the port of resilience "
+                                      "(ROADMAP.md, Queue A item 10)")
+        x = _rows(x)
+        xl = x.larray
+        dtype = torch.float64 if xl.dtype == torch.float64 else torch.float32
+        Xc = xl.to(dtype).T.contiguous()  # (m, n_local): column j is Xc[j], contiguous
+        r = _targets(y, x, dtype).clone()  # y - X @ 0
+        theta, n_iter = self._cd_fit(Xc, r, x.gshape[0], x.comm if x.split == 0 else None)
+        self.n_iter = n_iter
+        self.__theta = DNDarray(theta.reshape(-1, 1), split=None, device=x.device, comm=x.comm)
+        return self
+
+    def _cd_fit(self, Xc: torch.Tensor, r: torch.Tensor, n: int, comm):
+        """Sweeps of coordinate descent over the columns ``Xc`` with the
+        residual ``r`` (updated in place). Returns (θ, sweeps run)."""
+        m = Xc.shape[0]
+        dist = comm is not None and comm.is_distributed()
+        col_sq = torch.sum(Xc * Xc, dim=1)
+        if dist:
+            col_sq = comm.allreduce(col_sq)
+        theta = torch.zeros(m, dtype=Xc.dtype, device=Xc.device)
+        thr = torch.tensor(float(self.lam), dtype=Xc.dtype, device=Xc.device) * n
+        n_iter = 0
+        tol = float(self.tol)
+        while n_iter < self.max_iter:
+            old = theta.clone()
+            for j in range(m):
+                xj, tj = Xc[j], theta[j]
+                rho = torch.dot(xj, torch.addcmul(r, xj, tj))
+                if dist:
+                    rho = comm.allreduce(rho)
+                numer = rho if j == 0 else _soft(rho, thr)
+                new_tj = torch.where(col_sq[j] > 0, numer / torch.clamp(col_sq[j], min=1e-30), torch.zeros_like(rho))
+                r.addcmul_(xj, tj - new_tj)
+                theta[j] = new_tj
+            n_iter += 1
+            if float(torch.max(torch.abs(theta - old))) < tol:  # the sweep's one host read
+                break
+        return theta, n_iter
+
+    def partial_fit(self, x: DNDarray, y: DNDarray, lr: float = 0.01) -> "Lasso":
+        """One proximal-SGD step on a chunk of rows (streaming fit): θ moves
+        by −lr times the gradient of (1/2n)||Xθ − y||², then every
+        coordinate but the intercept is soft-thresholded by ``lr * lam``.
+        θ persists across calls and across a prior :meth:`fit`."""
+        if not isinstance(x, DNDarray) or not isinstance(y, DNDarray):
+            raise TypeError(f"input needs to be DNDarrays, but were {type(x)}, {type(y)}")
+        if x.ndim != 2:
+            raise ValueError(f"x needs to be 2D, but was {x.ndim}D")
+        x = _rows(x)
+        xl = x.larray
+        dtype = torch.float64 if xl.dtype == torch.float64 else torch.float32
+        X = xl.to(dtype)
+        m = X.shape[1]
+        yv = _targets(y, x, dtype)
+        if y.gshape[0] != x.gshape[0]:
+            raise ValueError(f"y has {y.gshape[0]} rows, x has {x.gshape[0]}")
+        if self.__theta is None:
+            theta = torch.zeros(m, dtype=dtype, device=X.device)
+        else:
+            theta = self.__theta.larray.to(device=X.device, dtype=dtype).reshape(-1)
+            if theta.shape[0] != m:
+                raise ValueError(f"x has {m} features, fitted theta has {theta.shape[0]}")
+        grad = X.T @ (X @ theta - yv)
+        if x.split == 0 and x.comm.is_distributed():
+            grad = x.comm.allreduce(grad)
+        th = theta - (grad / max(x.gshape[0], 1)) * lr
+        soft = _soft(th, lr * self.lam)
+        th = torch.where(torch.arange(m, device=X.device) == 0, th, soft)
+        self.n_iter = (self.n_iter or 0) + 1
+        self.__theta = DNDarray(th.reshape(-1, 1), split=None, device=x.device, comm=x.comm)
+        return self
+
+    def predict(self, x: DNDarray) -> DNDarray:
+        """X θ, (n, 1), split as ``x``'s rows."""
+        if self.__theta is None:
+            raise RuntimeError("fit needs to be called before predict")
+        x = _rows(x)
+        out = x.larray @ self.__theta.larray.to(device=x.larray.device, dtype=x.larray.dtype)
+        return DNDarray(out, gshape=(x.gshape[0], 1), split=x.split, device=x.device, comm=x.comm)

@@ -63,6 +63,8 @@ WORLD = 4
 RTOL, ATOL = 1e-5, 1e-6
 QR_RTOL, QR_ATOL = 1e-4, 1e-5
 ATTN_ATOL = 2e-5
+GRAD_RTOL, GRAD_ATOL = 2e-4, 2e-4
+GNB_ATOL = 1e-4
 GROUP_TIMEOUT = 420  # seconds for the whole group, start to exit
 _RUN_ID = os.environ.get("PYTEST_XDIST_TESTRUNUID") or uuid.uuid4().hex
 
@@ -144,8 +146,116 @@ def heat_tpu_results(name: str, world: int = WORLD) -> dict:
     import heat_tpu as htj
     from heat_tpu.core.communication import MeshCommunication, comm_context
 
+    case = REFERENCES.get(name, W.CASES[name])
     with comm_context(MeshCommunication(devices=jax.devices()[:world])):
-        return {k: W.pack(v, port=False) for k, v in W.CASES[name](htj).items()}
+        return {k: W.pack(v, port=False) for k, v in case(htj).items()}
+
+
+# heat_tpu's side of the training cases, which needs jax, flax and optax (the worker imports none of them)
+def _flax_mlp():
+    import flax.linen as fnn
+
+    class MLP(fnn.Module):
+        @fnn.compact
+        def __call__(self, x):
+            x = fnn.Dense(16)(x)
+            x = fnn.tanh(x)
+            return fnn.Dense(1)(x)
+
+    return MLP()
+
+
+def _torch_layout(variables, prefix, out):
+    """flax MLP parameters under the port's names and layouts."""
+    p = {k: {f: np.asarray(v) for f, v in d.items()} for k, d in variables["params"].items()}
+    for i, name in ((0, "0"), (1, "2")):
+        out[f"{prefix}:{name}.weight"] = p[f"Dense_{i}"]["kernel"].T
+        out[f"{prefix}:{name}.bias"] = p[f"Dense_{i}"]["bias"]
+
+
+def _ref_data_parallel(ht):
+    import jax.numpy as jnp
+    import optax
+
+    dp = ht.nn.DataParallel(_flax_mlp(), optimizer=optax.sgd(W.DP_LR, momentum=0.9))
+    dp.init(jnp.zeros((1, 8)))
+    dp.load_state_dict({f"params['params']['{layer}']['{f}']": v for layer, d in W.DP_TREE["params"].items()
+                        for f, v in d.items()})
+    out = {}
+    for t in range(len(W.DP_X)):
+        loss = dp.train_step(lambda pred, y: jnp.mean((pred - y) ** 2), ht.array(W.DP_X[t], split=0),
+                             ht.array(W.DP_Y[t], split=0))
+        out[f"loss{t}"] = float(loss)
+        _torch_layout(dp.params, f"step{t}", out)
+    return out
+
+
+def _ref_daso(ht):
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    from heat_tpu.parallel.mesh import make_hierarchical_mesh
+
+    model = _flax_mlp()
+    mesh = make_hierarchical_mesh(n_slow=2, devices=ht.get_comm().mesh.devices.ravel().tolist())
+    daso = ht.optim.DASO(optax.sgd(W.DASO_LR), total_epochs=W.DASO_EPOCHS, warmup_epochs=1, cooldown_epochs=1,
+                         downcast_type=jnp.float32)
+    params = daso.init(jax.tree_util.tree_map(jnp.asarray, W.DP_TREE), mesh)
+
+    def fn(p, xb, yb):
+        return jax.value_and_grad(lambda q: jnp.mean((model.apply(q, xb) - yb) ** 2))(p)
+
+    out = {}
+    for epoch in range(W.DASO_EPOCHS):
+        for b in range(W.DASO_BATCHES):
+            i = epoch * W.DASO_BATCHES + b
+            params, loss = daso.step(fn, params, jnp.asarray(W.DASO_X[i]), jnp.asarray(W.DASO_Y[i]))
+            out[f"e{epoch}b{b}:loss"] = float(loss)
+            out[f"e{epoch}b{b}:schedule"] = (daso.global_skip, daso.batches_to_wait, daso.epoch)
+            _torch_layout(daso.consolidated_params(params), f"e{epoch}b{b}", out)
+        daso.epoch_loss_logic(1.0 / (epoch + 1.0))
+    return out
+
+
+def _ref_attention_grad(ht):
+    """heat_tpu's dense attention and its gradients (jax.grad) on the global arrays: ring and Ulysses attention are
+    exact attention, so are their gradients (tests/test_torch_attention_grad.py holds the port's against heat_tpu's
+    own ring and Ulysses gradients at world size 1)."""
+    import jax
+    import jax.numpy as jnp
+
+    from heat_tpu.parallel.ring_attention import attention
+
+    def heads_first(a):
+        return jnp.moveaxis(a, 1, 0)
+
+    out = {}
+    for kind, inputs in (("ring", W.ATTG2), ("ulysses", W.ATTG3)):
+        for n, qkv in inputs.items():
+            for causal in (False, True):
+                if kind == "ring":
+                    f = lambda *a: attention(*a, causal=causal)  # noqa: E731
+                else:  # (N, H, D): heads first for the dense oracle, and back
+                    f = lambda *a: heads_first(attention(*(heads_first(t) for t in a), causal=causal))  # noqa: E731
+                o, grads = jax.jit(lambda *a, f=f: (f(*a), jax.grad(lambda *b: (f(*b) ** 2).sum(), argnums=(0, 1, 2))(
+                    *a)))(*(jnp.asarray(a) for a in qkv))
+                for name, r in zip(("out", "dq", "dk", "dv"), (o,) + tuple(grads)):
+                    out[f"{kind}:{n}:{causal}:{name}"] = ht.array(np.asarray(r), split=0)
+    return out
+
+
+def _ref_dryrun(ht):
+    """__graft_entry__.dryrun_multichip's halo_exchange on the same data."""
+    from heat_tpu.parallel import halo_exchange
+
+    comm = ht.get_comm()
+    x = ht.array(np.random.default_rng(0).normal(size=(16 * comm.size, 8)).astype(np.float32), split=0)
+    return {"halo": ht.array(np.asarray(halo_exchange(x.larray, 2, comm)), split=0)}
+
+
+REFERENCES = {"data_parallel": _ref_data_parallel, "daso": _ref_daso, "attention_grad": _ref_attention_grad,
+              "dryrun": _ref_dryrun}
 
 
 def port_world1_results(name: str) -> dict:
@@ -225,6 +335,10 @@ def _ceil_div_map(gshape, split, world):
 def _tolerance(case):
     if case == "parallel":
         return RTOL, ATTN_ATOL
+    if case == "attention_grad":  # heat_tpu's own tests of these gradients: rtol/atol 2e-4
+        return GRAD_RTOL, GRAD_ATOL
+    if case == "gaussian_nb":  # E[x²] - mean² of |x| <= ~8 in float32, summed in another order
+        return RTOL, GNB_ATOL
     return (QR_RTOL, QR_ATOL) if case in ("qr", "solver", "svd", "spectral") else (RTOL, ATOL)
 
 
@@ -603,3 +717,56 @@ def test_meshes_are_device_meshes_of_the_ranks(group):
         assert res["port:mesh:flat"]["value"] == repr(("DeviceMesh", (WORLD,), ("split",), list(range(WORLD)))), rank
         assert res["port:mesh:hierarchical"]["value"] == repr(
             ("DeviceMesh", (2, WORLD // 2), ("nodes", "split"), [[0, 1], [2, 3]])), rank
+
+
+# ----------------------------------------------- the ML long tail and training
+def test_gaussian_nb_merges_class_statistics_in_one_allreduce(group):
+    """fit: the distinct labels (one allgather of the counts and one of the
+    labels), one allreduce of k (2f + 1) values, and the two of the
+    variance smoothing's moments."""
+    for rank, res in enumerate(_case(group, "gaussian_nb")):
+        assert res["port:fit_collectives"]["value"] == {"allgather": 2, "allreduce": 3}, rank
+
+
+def test_lasso_costs_one_scalar_allreduce_per_coordinate(group):
+    """A sweep: one allreduce of rho per coordinate (7 with the intercept);
+    the fit: one more of the column norms."""
+    for rank, res in enumerate(_case(group, "lasso")):
+        n_iter = res["n_iter"]["value"]
+        assert res["port:fit_collectives"]["value"] == {"allreduce": 1 + 7 * n_iter}, (rank, n_iter)
+
+
+def test_data_parallel_uneven_shards_one_bucket_per_step(group):
+    """30 rows: 8, 8, 8, 6; every step one allreduce (the gradients and the
+    loss in one bucket); parameters bit-identical on every rank (the
+    replicated-results test); BatchNorm over the ranks equals one process on
+    the global batches."""
+    per_rank = _case(group, "data_parallel")
+    assert [r["port:rank:lshape"]["value"] for r in per_rank] == [8, 8, 8, 6]
+    for rank, res in enumerate(per_rank):
+        assert res["port:collectives"]["value"] == {"allreduce": len(W.DP_X)}, rank
+        assert res["port:bn_close"]["value"] is True, rank
+
+
+def test_daso_replicas_diverge_between_syncs_and_meet_at_them(group):
+    """Warmup syncs every batch at once (gap 0 after each step of epoch 1);
+    otherwise the replicas train apart between the syncs."""
+    for rank, res in enumerate(_case(group, "daso")):
+        gaps = [g["value"] for g in res["port:gaps"]["items"]]
+        assert gaps[W.DASO_BATCHES : 2 * W.DASO_BATCHES] == [0.0] * W.DASO_BATCHES, (rank, gaps)
+        assert min(gaps[: W.DASO_BATCHES]) > 1e-3 and max(gaps[2 * W.DASO_BATCHES :]) > 1e-3, (rank, gaps)
+
+
+def test_attention_backward_collectives(group):
+    """Ring: 2 (P - 1) ring_shifts (K and V as one message, and each block's
+    dK/dV straight home); Ulysses: the 2 transposed alltoalls."""
+    for rank, res in enumerate(_case(group, "attention_grad")):
+        assert res["port:ring_backward_collectives"]["value"] == {"ring_shift": 2 * (WORLD - 1)}, rank
+        assert res["port:ulysses_backward_collectives"]["value"] == {"alltoall": 2}, rank
+
+
+def test_dryrun_body_checks_pass_on_every_rank(group):
+    for rank, res in enumerate(_case(group, "dryrun")):
+        assert res["port:qr_residual"]["value"] < 1e-3, rank
+        gaps = [g["value"] for g in res["port:daso_gaps"]["items"]]
+        assert gaps[0] < 1e-6 and gaps[2] < 1e-6 and gaps[1] > 1e-5 and gaps[3] > 1e-5, (rank, gaps)

@@ -683,7 +683,8 @@ def case_environment(ht):
     before = {k: dict(v) for k, v in ht.kernels.COLLECTIVES.items()}
     decision = ht.replicated_decision(comm.rank == comm.size - 1)
     return {
-        "leaked": ",".join(sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "heat_tpu"))),
+        "leaked": ",".join(sorted(m for m in sys.modules
+                                  if m.split(".")[0] in ("jax", "jaxlib", "heat_tpu", "flax", "optax"))),
         "size": comm.size, "rank": comm.rank, "backend": comm.backend, "device": str(x.larray.device),
         "decision": decision, "collectives_before": before,
     }
@@ -1499,6 +1500,222 @@ def case_parallel(ht):
     if port:  # where a group runs, a DeviceMesh of the ranks (every rank builds it)
         for name, m in (("flat", par.make_mesh()), ("hierarchical", par.make_hierarchical_mesh(2))):
             out[f"port:mesh:{name}"] = repr((type(m).__name__, tuple(m.shape), tuple(m.mesh_dim_names), m.mesh.tolist()))
+    return out
+
+
+# ---------------------------------------------- the ML long tail and training
+# GaussianNB and Lasso run the same code on both packages; the training cases (data_parallel, daso,
+# attention_grad, dryrun) need jax, flax and optax on heat_tpu's side, which this module never imports:
+# their references are tests/test_torch_dist.py's REFERENCES.
+GNB_X, GNB_Y = _blobs(40, 240, 5, 3, scale=2.0)
+LASSO_X = np.concatenate([np.ones((256, 1), np.float32), TALL[:, :6]], axis=1)
+LASSO_Y = (LASSO_X @ np.array([0.5, 2.0, 0.0, -1.0, 0.0, 0.0, 3.0], np.float32)
+           + 0.01 * _rng(43).normal(size=256)).astype(np.float32)
+# the MLP of tests/test_dp_equivalence.py (8 -> 16 -> tanh -> 1) as a flax variable tree of numpy arrays
+_W = _rng(44)
+DP_TREE = {"params": {
+    "Dense_0": {"kernel": (_W.normal(size=(8, 16)) * 0.3).astype(np.float32), "bias": np.zeros(16, np.float32)},
+    "Dense_1": {"kernel": (_W.normal(size=(16, 1)) * 0.3).astype(np.float32), "bias": np.zeros(1, np.float32)},
+}}
+DP_X = _rng(45).normal(size=(6, 30, 8)).astype(np.float32)  # 30 rows: 8, 8, 8 and 6 on four ranks
+DP_Y = _rng(46).normal(size=(6, 30, 1)).astype(np.float32)
+DASO_X = _rng(47).normal(size=(12, 16, 8)).astype(np.float32)  # group g's rows: [8 g, 8 g + 8)
+DASO_Y = _rng(48).normal(size=(12, 16, 1)).astype(np.float32)
+DASO_EPOCHS, DASO_BATCHES, DASO_LR, DP_LR = 4, 3, 0.05, 0.05
+# lengths and head counts the four ranks do not divide
+ATTG2 = {23: [_rng(50 + i).normal(size=(23, 8)).astype(np.float32) for i in range(3)]}
+ATTG3 = {23: [_rng(60 + i).normal(size=(23, 3, 8)).astype(np.float32) for i in range(3)]}
+
+
+def _reference_elsewhere(ht):
+    if not is_port(ht):
+        raise NotImplementedError("heat_tpu's side of this case is tests/test_torch_dist.py's REFERENCES")
+
+
+def case_gaussian_nb(ht):
+    """GaussianNB fit at split 0 (one allreduce of k (2f + 1) values merges
+    the ranks' class statistics) and its predictions (partial_fit and the
+    posteriors are held at world size 1 in tests/test_torch_ml.py)."""
+    n0 = 203
+    x, y = ht.array(GNB_X[:n0], split=0), ht.array(GNB_Y[:n0], split=0)
+    nb, coll = _collectives(ht, lambda: ht.naive_bayes.GaussianNB().fit(x, y))
+    out = {a: getattr(nb, a) for a in ("classes_", "theta_", "sigma_", "class_prior_", "class_count_")}
+    out["epsilon"] = float(nb.epsilon_)
+    out["predict"] = nb.predict(ht.array(GNB_X[n0:], split=0))
+    if is_port(ht):
+        out["port:fit_collectives"] = coll["calls"]
+    return out
+
+
+def case_lasso(ht):
+    """Lasso at split 0: coordinate descent (one scalar allreduce per
+    coordinate), proximal-SGD steps, predict."""
+    x, y = ht.array(LASSO_X, split=0), ht.array(LASSO_Y, split=0)
+    las, coll = _collectives(ht, lambda: ht.regression.Lasso(lam=0.01, max_iter=50).fit(x, y))
+    out = {"theta": las.theta, "n_iter": las.n_iter, "predict": las.predict(x)}
+    sgd = ht.regression.Lasso(lam=0.01)
+    for _ in range(3):
+        sgd.partial_fit(x, y, lr=0.1)
+    out["sgd_theta"] = sgd.theta
+    if is_port(ht):
+        out["port:fit_collectives"] = coll["calls"]
+    return out
+
+
+def _mlp(ht):
+    import torch
+
+    model = torch.nn.Sequential(torch.nn.Linear(8, 16), torch.nn.Tanh(), torch.nn.Linear(16, 1))
+    model.load_state_dict(ht.convert.flax_to_state_dict(DP_TREE, model))
+    return model.to(ht.get_device().torch_device)
+
+
+def _params(model, prefix, out):
+    for name, p in model.named_parameters():
+        out[f"{prefix}:{name}"] = p.detach().cpu().numpy().copy()
+
+
+def _mse(pred, target):
+    return ((pred - target) ** 2).mean()
+
+
+def case_data_parallel(ht):
+    """DataParallel with uneven shards (30 rows: 8, 8, 8, 6), SGD with
+    momentum: the parameters after every step, identical on every rank; and
+    a BatchNorm model against one process on the global batches."""
+    _reference_elsewhere(ht)
+    import torch
+
+    model = _mlp(ht)
+    dp = ht.nn.DataParallel(model, optimizer=torch.optim.SGD(model.parameters(), lr=DP_LR, momentum=0.9))
+    out = {}
+    ht.kernels.reset_kernel_stats()
+    for t in range(len(DP_X)):
+        loss = dp.train_step(_mse, ht.array(DP_X[t], split=0), ht.array(DP_Y[t], split=0))
+        out[f"loss{t}"] = float(loss)
+        _params(model, f"step{t}", out)
+    out["port:collectives"] = {k: v["calls"] for k, v in ht.kernels.COLLECTIVES.items()}
+    out["port:rank:lshape"] = ht.array(DP_X[0], split=0).lshape[0]
+    out["port:bn_close"] = _global_batchnorm_matches_one_process(ht)
+    return out
+
+
+def _global_batchnorm_matches_one_process(ht) -> bool:
+    """A BatchNorm model trained over the ranks' uneven shards equals the
+    same model trained in this process on the global batches."""
+    import torch
+
+    dev = ht.get_device().torch_device
+    torch.manual_seed(0)
+    make = lambda: torch.nn.Sequential(torch.nn.Linear(8, 4), torch.nn.BatchNorm1d(4), torch.nn.Linear(4, 1))  # noqa: E731
+    a, b = make().to(dev), make().to(dev)
+    b.load_state_dict(a.state_dict())
+    dp = ht.nn.DataParallel(a, optimizer=torch.optim.SGD(a.parameters(), lr=0.1))
+    opt = torch.optim.SGD(b.parameters(), lr=0.1)
+    for t in range(3):
+        dp.train_step(_mse, ht.array(DP_X[t], split=0), ht.array(DP_Y[t], split=0))
+        opt.zero_grad()
+        _mse(b(torch.as_tensor(DP_X[t], device=dev)), torch.as_tensor(DP_Y[t], device=dev)).backward()
+        opt.step()
+    sa, sb = dp.module.state_dict(), b.state_dict()
+    return all(torch.allclose(sa[k].double(), sb[k].double(), rtol=1e-4, atol=1e-5) for k in sb)
+
+
+def case_daso(ht):
+    """DASO on a (2 x 2) mesh, float32 on the wire, every group on its own
+    rows: the replicas' average after every step, the losses and the
+    schedule fields; and this rank's gap to the other group's replica."""
+    _reference_elsewhere(ht)
+    import torch
+
+    dev = ht.get_device().torch_device
+    model = _mlp(ht)
+    mesh = ht.parallel.make_hierarchical_mesh(n_slow=2)
+    daso = ht.optim.DASO(torch.optim.SGD(model.parameters(), lr=DASO_LR), total_epochs=DASO_EPOCHS, warmup_epochs=1,
+                         cooldown_epochs=1, downcast_type=torch.float32)
+    model = daso.init(model, mesh)
+
+    def loss_fn(m, xb, yb):
+        return _mse(m(xb), yb)
+
+    out, gaps = {}, []
+    for epoch in range(DASO_EPOCHS):
+        for b in range(DASO_BATCHES):
+            i = epoch * DASO_BATCHES + b
+            model, loss = daso.step(loss_fn, model, torch.as_tensor(DASO_X[i], device=dev),
+                                    torch.as_tensor(DASO_Y[i], device=dev))
+            out[f"e{epoch}b{b}:loss"] = float(loss)
+            out[f"e{epoch}b{b}:schedule"] = (daso.global_skip, daso.batches_to_wait, daso.epoch)
+            for name, p in daso.consolidated_params(model).items():
+                out[f"e{epoch}b{b}:{name}"] = p.cpu().numpy()
+            w = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+            other = ht.nn.data_parallel.group_allreduce(w * (1.0 if daso._group == 0 else -1.0), daso._slow)
+            gaps.append(float(other.abs().max()))
+        daso.epoch_loss_logic(1.0 / (epoch + 1.0))
+    out["port:gaps"] = gaps
+    return out
+
+
+def _grads_of(ht, fn, arrays, comm):
+    """(out, dq, dk, dv) of ``(fn(q, k, v).larray ** 2).sum()`` summed over
+    the ranks, each rank holding its rows (split 0) of the global arrays."""
+    import torch
+
+    dev = ht.get_device().torch_device
+    ts = []
+    for a in arrays:
+        off, lsh, _ = comm.chunk(a.shape, 0)
+        ts.append(torch.as_tensor(a[off : off + lsh[0]], device=dev).requires_grad_(True))
+    ds = [ht.DNDarray(t, gshape=a.shape, split=0, comm=comm) for t, a in zip(ts, arrays)]
+    out = fn(*ds)
+    (out.larray ** 2).sum().backward()
+    return (out,) + tuple(ht.DNDarray(t.grad, gshape=a.shape, split=0, comm=comm) for t, a in zip(ts, arrays))
+
+
+def case_attention_grad(ht):
+    """The gradients of ring and Ulysses attention with the sequence split
+    over the ranks (a length and a head count the ranks do not divide, full
+    and causal), and the collectives of one backward pass."""
+    _reference_elsewhere(ht)
+    comm = ht.get_comm()
+    par = ht.parallel
+    out = {}
+    for n, qkv in ATTG2.items():
+        for causal in (False, True):
+            res = _grads_of(ht, lambda q, k, v: par.ring_attention(q, k, v, comm, causal=causal), qkv, comm)
+            for name, r in zip(("out", "dq", "dk", "dv"), res):
+                out[f"ring:{n}:{causal}:{name}"] = r
+    for n, qkv in ATTG3.items():
+        for causal in (False, True):
+            res = _grads_of(ht, lambda q, k, v: par.ulysses_attention(q, k, v, comm, causal=causal), qkv, comm)
+            for name, r in zip(("out", "dq", "dk", "dv"), res):
+                out[f"ulysses:{n}:{causal}:{name}"] = r
+    for name, fn, qkv in (("ring", par.ring_attention, ATTG2[23]), ("ulysses", par.ulysses_attention, ATTG3[23])):
+        import torch
+
+        ts = [ht.DNDarray(torch.as_tensor(a[comm.chunk(a.shape, 0)[2]]).requires_grad_(True), gshape=a.shape,
+                          split=0, comm=comm) for a in qkv]
+        o = fn(*ts, comm, causal=True)
+        ht.kernels.reset_kernel_stats()
+        (o.larray ** 2).sum().backward()
+        out[f"port:{name}_backward_collectives"] = {k: v["calls"] for k, v in ht.kernels.COLLECTIVES.items()}
+    return out
+
+
+def case_dryrun(ht):
+    """The entry module's per-rank dry-run body: KMeans (2 iterations of a
+    random init), the TSQR residual, ring_map, halo_exchange, ring and
+    Ulysses attention on lengths the ranks do not divide, DASO's diverge and
+    meet on a (2 x 2) mesh. halo_exchange's values are held against
+    heat_tpu here; KMeans' random init, ring_map and the attentions are the
+    ``kmeans`` and ``parallel`` cases'."""
+    _reference_elsewhere(ht)
+    from heat_tpu_torch.entry import dryrun_body
+
+    res = dryrun_body(ht)
+    out = {"halo": res["halo"]}
+    out.update({"port:centers": res["centers"], "port:ring_map": res["ring_map"], "port:qr_residual": res["qr_residual"],
+                "port:daso_gaps": res["daso_gaps"], "port:daso_final": res["daso_final"]})
     return out
 
 

@@ -12,7 +12,7 @@ import torch
 import heat_tpu_torch as htt
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "heat_tpu")
+FORBIDDEN = ("jax", "jaxlib", "heat_tpu", "flax", "optax")
 
 
 def _imported_roots(path):
@@ -62,7 +62,7 @@ def test_cpu_slice_runs_without_jax_in_a_fresh_process():
         "assert float(ht.linalg.norm(q @ r - z)) < 1e-4 and ht.KERNEL_STATS.get('qr.cholqr2') == 1",
         "m = ht.abs(z) > 1",
         "assert int(ht.sum(ht.where(m, 1, 0))) == int(ht.sum(m)) and ht.argmax(z, axis=0).shape == (3,)",
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'heat_tpu'))",
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'heat_tpu', 'flax', 'optax'))",
         "print('LEAKED', bad) if bad else print('CLEAN')",
     ])
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)

@@ -711,11 +711,17 @@ STILL_MISSING = {
     "heat_tpu.parallel": [],
     # grouping by key waits for frame (ROADMAP.md, Queue A item 9)
     "heat_tpu.stream": ["StreamingGroupBy"],
+    # the ML long tail and the training path have every name (ROADMAP.md, Queue A items 7 and 8)
+    "heat_tpu.naive_bayes": [],
+    "heat_tpu.nn": [],
+    "heat_tpu.optim": [],
+    "heat_tpu.regression": [],
+    "heat_tpu.utils": [],
 }
 # submodules heat_tpu imports when it is imported, and the port has no counterpart of yet
-STILL_MISSING_MODULES = [
-    "analysis", "frame", "naive_bayes", "nn", "optim", "regression", "resilience", "serve", "utils",
-]
+STILL_MISSING_MODULES = ["analysis", "frame", "resilience", "serve"]
+# submodules the port has, ported by later slices than the array surface
+PORTED_MODULES = ["naive_bayes", "nn", "optim", "regression", "utils", "datasets"]
 
 
 @pytest.mark.parametrize("module", sorted(STILL_MISSING))
@@ -734,5 +740,5 @@ def test_modules_the_port_still_lacks():
         ref, port = (htj.linalg, htt.linalg) if parent else (htj, htt)
         assert isinstance(getattr(ref, leaf), types.ModuleType), name
         assert not hasattr(port, leaf), name
-    for name in MODULES + ["arithmetics", "statistics", "linalg", "manipulations", "parallel"]:
+    for name in MODULES + ["arithmetics", "statistics", "linalg", "manipulations", "parallel"] + PORTED_MODULES:
         assert isinstance(getattr(htt, name), types.ModuleType), name
