@@ -9,6 +9,7 @@ NVIDIA Hopper card and the CUDA toolkit:
     python3 chip_smoke.py --phases stream  # the build and [stream] only
     python3 chip_smoke.py --phases layout  # the build and [layout] only
     python3 chip_smoke.py --phases train   # the build and [train] only
+    python3 chip_smoke.py --phases frame   # the build and [frame] only (or --phases resilience)
 
 Phases (any failure raises and exits non-zero; nothing is caught):
 
@@ -146,11 +147,24 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    card against one process, the attention gradients against float64, and
    ``entry.dryrun_body``.
 
+10. ``[frame]`` (after ``[train]``, before ``[resilience]``): TPC-H's lineitem
+   and orders at SF 10 made with numpy from the seed: the Q6-shaped filter,
+   groupby(l_orderkey) over 1.5e7 groups in range and in hash mode,
+   value_counts, the inner and left joins, the cluster profile (the kernels'
+   rows carry ``launches_frame``) and StreamingGroupBy; see
+   :func:`frame_phase`. ``[resilience]`` (before ``[dist]``): checkpoints of
+   2 GiB with crc32 and sha256, torn writes and corruption, fingerprint,
+   health_check and a straggler under ``deadlines``; see
+   :func:`resilience_phase`. ``[dist]`` ends with the same frame steps on
+   each rank's rows (:func:`_dist_frame`) and checkpoints across world sizes
+   and a divergence entered on the last rank (:func:`_dist_resilience`).
+
 The line before last is one JSON object ``{"kernels": [...]}`` (not
 printed with ``--phases dist``); the last line is
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
 """
 import argparse
+import functools
 import json
 import math
 import os
@@ -2237,6 +2251,11 @@ def _dist_rank(rank, world, store, out_dir, seed=0):
     t_train = time.perf_counter()
     result["train"] = _dist_train(ht, world, rank, timed, same_everywhere, say, out_dir, seed)
     result["train"]["wall"] = time.perf_counter() - t_train
+    torch.cuda.empty_cache()
+    t_frame = time.perf_counter()
+    result["frame"] = _dist_frame(ht, world, rank, timed, same_everywhere, say, seed)
+    _dist_resilience(ht, world, rank, say, out_dir, seed)
+    result["frame"]["wall"] = time.perf_counter() - t_frame
     times = torch.tensor([t_stats, t_fit, t_warm, t_knn, t_knn_w, t_stats_w, t_qr, t_qr_w, t_mm, t_mm_w, t_rs, path_s],
                          dtype=torch.float64, device=dev)
     result["times_max"] = comm.allreduce(times, "max").cpu().tolist()
@@ -3568,6 +3587,12 @@ def dist_phase(world: int, seed: int = 0) -> dict:
               f"{LASSO_DIST_ITERS} sweeps {max(t['steps']['Lasso fit']['host_s'] for t in tr):.4f} s"
               + (f"; DASO {DASO_DIST_BATCHES} batches {max(t['daso']['t'] for t in tr):.4f} s" if "daso" in tr[0] else "")
               + f"); the one-process references {t_ref:.1f} s; {tref}", flush=True)
+        fr = [r["frame"] for r in ranks]
+        print(f"[dist] frame at {world} card(s) on TPC-H SF 10 split by rank (strong scaling against [frame]'s one card "
+              f"times), slowest rank (first calls): " + ", ".join(
+                  f"{k} {max(f['steps'][k]['host_s'] for f in fr):.4f} s" for k in fr[0]["steps"])
+              + f"; range-mode groups per rank {fr[0]['range_lcounts']} (<= 2 G / P + 32); frame and resilience wall "
+              f"{max(f['wall'] for f in fr):.1f} s", flush=True)
         path = {}
         for per_map in lay[0]["launches"].values():
             for k, v in per_map.items():
@@ -4562,14 +4587,583 @@ def _train_reference(ht, world, ranks, tmp, seed):
     return {"dp_worst": worst, "gnb": (w_mean, w_var), "lasso": w_las}
 
 
+# ---- [frame] and [resilience]: the relational layer on TPC-H data, checkpoints and guards
+FRAME_SEED_OFFSET = 400        # [frame]'s, [resilience]'s and [dist]'s frame steps draw from --seed + this
+TPCH_ORDERS = 15_000_000       # TPC-H v3.0.1 §4.2.3 at scale factor 10: 1.5e6 orders per SF
+TPCH_PARTS = 2_000_000         # 200000 parts per SF: P_PARTKEY's range, whose P_RETAILPRICE prices a line
+TPCH_DROP = 100                # the left join's orders lack every 100th order
+FRAME_SPEC = ["sum", "mean", "min", "max", "std", "count"]
+FRAME_VALUES = ("l_quantity", "l_extendedprice", "l_discount")  # the groupby's value columns (float32)
+STREAM_GB_CHUNKS, STREAM_GB_CAPACITY = 8, 1 << 24
+QUANTILE_K, QUANTILE_LEVELS = 256, 8  # FrameGroupBy.quantile's defaults
+# a sum of m float32 terms in the order the runs hold them: |err| <= m u sum|x| (gamma_m, m u < 1); the orderkey
+# groups hold at most 7 rows, the rest is SUM_LAMBDA's bound (accumulation_bound)
+TPCH_MAX_LINES = 7
+# the groupby's std is sqrt(max(0, (S2/n - mean^2) n/(n-1))) in float32: the difference of S2/n and mean^2 (each
+# within (m + 3) u of its value, m <= 7 terms) loses up to STD_ROUNDINGS u (S2/n + mean^2) n/(n-1) of the variance,
+# and |sqrt(a) - sqrt(b)| <= sqrt(|a - b|): the std is held within sqrt of that
+STD_ROUNDINGS = 2 * (TPCH_MAX_LINES + 3) + 2
+CKPT_SMALL = 1 << 20           # rows of the 2^24 x 32 blobs in the torn-write and corruption checks
+STRAGGLER_DEADLINE, STRAGGLER_DELAY = 0.5, 2.0  # the watchdog's deadline and the injected straggler's sleep (s)
+N_DIST_CKPT = 1 << 20          # [dist]'s checkpoint: rows of 32 float32 per card
+
+
+@functools.lru_cache(maxsize=1)  # [resilience] checkpoints the lineitem [frame] made in the same process
+def tpch_sf10(seed):
+    """TPC-H's ``orders`` and ``lineitem`` at SF 10 with numpy from ``seed``, to v3.0.1 §4.2.3's distributions
+    (no dbgen): O_ORDERKEY sparse as dbgen makes it (the first 8 keys of every 32), 1 to 7 lines an order (uniform),
+    L_QUANTITY uniform in 1..50, L_EXTENDEDPRICE = quantity x P_RETAILPRICE of a uniform part
+    ((90000 + (partkey/10) mod 20001 + 100 (partkey mod 1000)) / 100, in [901, 2100]), L_DISCOUNT uniform in
+    {0.00, ..., 0.10}, L_TAX in {0.00, ..., 0.08}, O_TOTALPRICE the sum of its lines' extendedprice (1 + tax)
+    (1 - discount). Returns (lines per order, lineitem columns, orders columns); lineitem is in orderkey order, the
+    numeric columns float32 plus an int32 copy of the quantity."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    i = np.arange(TPCH_ORDERS, dtype=np.int32)
+    o_orderkey = (i // 8) * 32 + i % 8 + 1
+    lines = rng.integers(1, TPCH_MAX_LINES + 1, size=TPCH_ORDERS, dtype=np.int32)
+    n = int(lines.sum())
+    qty = rng.integers(1, 51, size=n, dtype=np.int32)
+    part = rng.integers(1, TPCH_PARTS + 1, size=n, dtype=np.int32)
+    cents = 90000 + (part // 10) % 20001 + 100 * (part % 1000)  # P_RETAILPRICE in cents
+    del part
+    price = ((qty * cents) / 100.0).astype(np.float32)
+    del cents
+    pct = np.float32(100.0)
+    disc = rng.integers(0, 11, size=n, dtype=np.int32).astype(np.float32) / pct
+    tax = rng.integers(0, 9, size=n, dtype=np.int32).astype(np.float32) / pct
+    starts = np.concatenate([[0], np.cumsum(lines)[:-1]])
+    total = np.add.reduceat(price.astype(np.float64) * (1.0 + tax) * (1.0 - disc), starts).astype(np.float32)
+    lineitem = {"l_orderkey": np.repeat(o_orderkey, lines), "l_quantity": qty.astype(np.float32),
+                "l_extendedprice": price, "l_discount": disc, "l_tax": tax, "l_quantity_i": qty}
+    return lines, lineitem, {"l_orderkey": o_orderkey, "o_totalprice": total}
+
+
+def tpch_reference(lines, li):
+    """numpy float64 per-order statistics of FRAME_VALUES: {column: (sum, min, max, std ddof 1, sum of |x|,
+    sum of x^2)} and the line counts."""
+    import numpy as np
+
+    starts = np.concatenate([[0], np.cumsum(lines)[:-1]])
+    out = {}
+    for c in FRAME_VALUES:
+        x = li[c].astype(np.float64)
+        s = np.add.reduceat(x, starts)
+        s2 = np.add.reduceat(x * x, starts)
+        mean = s / lines
+        with np.errstate(invalid="ignore", divide="ignore"):
+            std = np.sqrt(np.maximum((s2 - lines * mean * mean) / (lines - 1), 0.0))
+        out[c] = (s, np.minimum.reduceat(li[c], starts), np.maximum.reduceat(li[c], starts), std,
+                  np.add.reduceat(np.abs(x), starts), s2)
+    return out
+
+
+def frame_checks(tag, g, lines, keys, ref, name=lambda c, a: f"{c}_{a}"):
+    """A groupby's global numpy columns ``g`` (the keys under "key", the counts under "count", column c's
+    aggregation a under ``name(c, a)``) against the float64 reference: keys, counts, min and max exact; sums, means
+    and stds within their float32 bounds. Returns each column's worst shares of the sum and std bounds."""
+    import numpy as np
+
+    u = F32_UNIT_ROUNDOFF
+    check(np.array_equal(g["key"], keys), f"{tag} keys")
+    check(np.array_equal(g["count"], lines), f"{tag} counts")
+    worst = {}
+    for c, (s, mn, mx, std, sabs, s2) in ref.items():
+        check(np.array_equal(g[name(c, "min")], mn) and np.array_equal(g[name(c, "max")], mx), f"{tag} {c} min/max")
+        b_sum = TPCH_MAX_LINES * u * sabs
+        e_sum = np.abs(g[name(c, "sum")] - s)
+        check(bool((e_sum <= b_sum).all()), f"{tag} {c} sums: worst {np.max(e_sum / np.maximum(b_sum, 1e-30))} of "
+              f"the bound")
+        mean = s / lines
+        check(bool((np.abs(g[name(c, "mean")] - mean) <= b_sum / lines + u * np.abs(mean)).all()), f"{tag} {c} means")
+        one = lines == 1
+        with np.errstate(invalid="ignore", divide="ignore"):
+            b_std = np.sqrt(STD_ROUNDINGS * u * (s2 / lines + mean * mean) * lines / (lines - 1)) + u * std
+        got_std = g[name(c, "std")]
+        e_std = np.abs(got_std - std)
+        check(bool(np.isnan(got_std[one]).all() and (e_std[~one] <= b_std[~one]).all()), f"{tag} {c} stds")
+        worst[c] = (round(float(np.max(e_sum / np.maximum(b_sum, 1e-30))), 4),
+                    round(float(np.max(e_std[~one] / np.maximum(b_std[~one], 1e-30), initial=0.0)), 4))
+    return worst
+
+
+def _timed_step(ht, name, fn, steps, rows):
+    """``fn()`` with its host s and CUDA-event ms (synchronized), rows/s, and the SHUFFLE_STATS/MOVE_STATS deltas,
+    recorded in ``steps[name]``."""
+    import torch
+
+    torch.cuda.synchronize()
+    s0, m0 = dict(ht.SHUFFLE_STATS), dict(ht.MOVE_STATS)
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    host = time.perf_counter() - t0
+    steps[name] = {"host_s": host, "event_ms": a.elapsed_time(b), "rows_per_s": rows / host,
+                   "shuffle": {k: ht.SHUFFLE_STATS[k] - s0[k] for k in s0 if ht.SHUFFLE_STATS[k] != s0[k]},
+                   "moves": {k: ht.MOVE_STATS[k] - m0[k] for k in m0 if ht.MOVE_STATS[k] != m0[k]}}
+    return out
+
+
+def _frame_steps_line(steps):
+    return "; ".join(f"{k} {v['host_s']:.4f} s host, {v['event_ms']:.4f} ms events, {v['rows_per_s']:.4e} rows/s, "
+                     f"SHUFFLE_STATS {v['shuffle']}, MOVE_STATS {v['moves']}" for k, v in steps.items())
+
+
+def _host_cols(frame):
+    return {name: frame[name].numpy() for name in frame.columns}
+
+
+# The frame steps [frame] and [dist] share. ``step(name, fn)`` runs and times ``fn`` in the phase's own way and
+# ``moves(name)`` is that step's MOVE_STATS delta; every gather is collective, and the comparisons with numpy are
+# made where ``here`` (rank 0).
+def frame_q6(ht, L):
+    """The Q6-shaped filter of lineitem (discount in [0.05, 0.07], quantity < 24) and its revenue, the sum of
+    price x discount: (the filtered frame, the revenue)."""
+    mask = (L["l_discount"] >= 0.05) & (L["l_discount"] <= 0.07) & (L["l_quantity"] < 24)
+    sub = L.filter(mask)
+    return sub, ht.sum(sub["l_extendedprice"] * sub["l_discount"]).item()
+
+
+def frame_q6_checks(tag, sub, revenue, moved, li, here):
+    """Q6 moved nothing, its rows are numpy's exactly, and its revenue is within float32's accumulation bound of
+    numpy's float64 sum. Returns (the rows kept, the float64 revenue, the bound); the last two None elsewhere."""
+    import numpy as np
+
+    u = F32_UNIT_ROUNDOFF
+    keep = (li["l_discount"] >= np.float32(0.05)) & (li["l_discount"] <= np.float32(0.07)) & (
+        li["l_quantity"] < np.float32(24))
+    m = int(keep.sum())
+    check(not any(moved.values()) and sub.n_rows == m, f"{tag} Q6 filter: {sub.n_rows} rows (numpy {m}), moves {moved}")
+    keys, prices = sub["l_orderkey"].numpy(), sub["l_extendedprice"].numpy()
+    if not here:
+        return m, None, None
+    prod = li["l_extendedprice"][keep].astype(np.float64) * li["l_discount"][keep].astype(np.float64)
+    rev64 = float(prod.sum())
+    bound = (u + SUM_LAMBDA * math.sqrt(m) * u) * float(np.abs(prod).sum())
+    check(np.array_equal(keys, li["l_orderkey"][keep]) and np.array_equal(prices, li["l_extendedprice"][keep]),
+          f"{tag} Q6 filter rows")
+    check(abs(revenue - rev64) <= bound, f"{tag} Q6 revenue {revenue} vs float64 {rev64} (bound {bound})")
+    return m, rev64, bound
+
+
+def frame_groupbys(ht, G, step, moves, world, lines, od, ref, tag, here):
+    """groupby("l_orderkey").agg(FRAME_SPEC) of FRAME_VALUES in range and in hash mode: one bucket move per operand
+    (the keys and 13 raw statistics), range-mode groups per rank <= 2 G / P + 32 (C6), and each mode's gathered
+    groups (hash mode's put in key order) against numpy's float64 reference. Returns (the range mode's gathered
+    columns, its groups per rank, each mode's worst shares of the sum and std bounds where ``here``)."""
+    import numpy as np
+
+    n_stats = 4 * len(FRAME_VALUES) + 1  # per column sum (= the float sum), min, max, sum of squares; one count
+    shares = {}
+    for mode in ("range", "hash"):
+        g = step(f"groupby {mode}", lambda: G.groupby("l_orderkey", mode=mode).agg(FRAME_SPEC))
+        check(moves(f"groupby {mode}").get("bucket_moves") == n_stats + 1,
+              f"{tag} groupby {mode}: one bucket move per operand ({n_stats + 1}): {moves(f'groupby {mode}')}")
+        lc = g["l_orderkey"].lcounts or tuple(g["l_orderkey"].lshape_map[:, 0].tolist())
+        h = _host_cols(g)
+        h["key"] = h.pop("l_orderkey")
+        if mode == "range":
+            range_cols, range_lc = h, lc
+            check(max(lc) <= 2 * TPCH_ORDERS // world + 32, f"{tag} range-mode groups per rank {lc} (C6)")
+        else:  # each rank's groups in key order
+            order = np.argsort(h["key"], kind="stable")
+            h = {k: v[order] for k, v in h.items()}
+        if here:
+            shares[mode] = frame_checks(f"{tag} groupby {mode}", h, lines, od["l_orderkey"], ref)
+        del g, h
+    return range_cols, range_lc, shares
+
+
+def frame_joins(ht, L, step, moves, lines, li, od, tag, here):
+    """lineitem's keys and prices joined with orders in range mode, inner, and left against orders without every
+    100th order: 4 bucket moves each, every lineitem row kept in key order (each order's lines in theirs), its
+    o_totalprice the order's, NaN exactly where the order was dropped."""
+    import numpy as np
+    import torch
+
+    keep_o = np.arange(TPCH_ORDERS) % TPCH_DROP != 0
+    J = ht.Frame({"l_orderkey": L["l_orderkey"], "l_extendedprice": L["l_extendedprice"]})
+    want = np.repeat(od["o_totalprice"], lines) if here else None
+    for how, right in (("inner", od), ("left", {k: v[keep_o] for k, v in od.items()})):
+        O = ht.Frame({k: ht.array(v, split=0) for k, v in right.items()})
+        j = step(f"join {how}", lambda: J.join(O, on="l_orderkey", how=how))
+        check(moves(f"join {how}").get("bucket_moves") == 4 and j.n_rows == li["l_orderkey"].size,
+              f"{tag} join {how}: {j.n_rows} rows, moves {moves(f'join {how}')}")
+        keys, price, total = (j[c].numpy() for c in ("l_orderkey", "l_extendedprice", "o_totalprice"))
+        if here:
+            if how == "left":
+                want = np.where(np.repeat(keep_o, lines), want, np.float32(np.nan))
+            check(np.array_equal(keys, li["l_orderkey"]) and np.array_equal(price, li["l_extendedprice"])
+                  and np.array_equal(total, want, equal_nan=True), f"{tag} {how} join's rows and o_totalprice")
+        del j, O, keys, price, total
+    del J, want
+    torch.cuda.empty_cache()
+
+
+def frame_streamed(ht, L):
+    """StreamingGroupBy(FRAME_SPEC) of l_extendedprice by l_orderkey over lineitem in STREAM_GB_CHUNKS chunks."""
+    n = L.n_rows
+    sg = ht.stream.StreamingGroupBy(tuple(FRAME_SPEC), capacity=STREAM_GB_CAPACITY)
+    step_ = -(-n // STREAM_GB_CHUNKS)
+    for lo in range(0, n, step_):
+        sg.update(L["l_orderkey"][lo : lo + step_], L["l_extendedprice"][lo : lo + step_])
+    return sg.result()
+
+
+def frame_streamed_checks(tag, res, lines, od, ref, range_cols):
+    """StreamingGroupBy's (replicated) result against numpy's float64 reference and the range-mode groupby."""
+    import numpy as np
+
+    h = {k: v.numpy() for k, v in res.items()}
+    frame_checks(tag, h, lines, od["l_orderkey"], {"l_extendedprice": ref["l_extendedprice"]}, name=lambda c, a: a)
+    check(np.array_equal(h["min"], range_cols["l_extendedprice_min"])
+          and np.array_equal(h["count"], range_cols["count"]), f"{tag} against the groupby")
+
+
+def frame_phase(dev, seed, smi):
+    """[frame] on one card: TPC-H's lineitem (6.0e7 rows) and orders (1.5e7 rows) at SF 10 made with numpy from the
+    seed (:func:`tpch_sf10`), no cut: the Q6-shaped filter and its revenue, groupby("l_orderkey") with sum, mean,
+    min, max, std and count of three columns over 1.5e7 groups in range and in hash mode, value_counts of the
+    quantity (50 groups, the combiner path), lineitem joined with orders (inner, and left against orders without
+    every 100th order), the cluster profile ([main]'s 2^24 x 32 blobs standardized (moments_onepass) and fitted by
+    KMeans(8) (lloyd_fused), then a Frame of the labels and two features: groupby("label").agg(mean, std, count)
+    and quantile(0.5)), and StreamingGroupBy over lineitem in 8 chunks against the groupby. Every result against
+    numpy in float64; each step's host s, CUDA-event ms, rows/s and SHUFFLE_STATS/MOVE_STATS deltas. Returns the
+    phase's kernel launches (the cluster profile's)."""
+    import numpy as np
+    import torch
+
+    import heat_tpu_torch as ht
+
+    ht.use_device("gpu")
+    seed = seed + FRAME_SEED_OFFSET
+    t_phase = time.perf_counter()
+    u = F32_UNIT_ROUNDOFF
+    t0 = time.perf_counter()
+    lines, li, od = tpch_sf10(seed)
+    n = li["l_orderkey"].size
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    L = ht.Frame({k: ht.array(v, split=0) for k, v in li.items()})
+    torch.cuda.synchronize()
+    t_up = time.perf_counter() - t0
+    print(f"[frame] TPC-H SF 10 from seed {seed}: lineitem {n} rows x {len(li)} columns "
+          f"({sum(v.nbytes for v in li.values()) / 2**30:.3f} GiB on the card), orders {TPCH_ORDERS} rows; numpy "
+          f"{t_gen:.2f} s, to the card {t_up:.2f} s", flush=True)
+    steps = {}
+
+    def step(name, fn):
+        return _timed_step(ht, name, fn, steps, n)
+
+    def moves(name):
+        return steps[name]["moves"]
+
+    # ---- 1. the Q6-shaped filter and its revenue
+    sub, revenue = step("Q6 filter + revenue", lambda: frame_q6(ht, L))
+    m, rev64, b_rev = frame_q6_checks("[frame]", sub, revenue, moves("Q6 filter + revenue"), li, True)
+    print(f"[frame] Q6 filter: {m} rows kept ({sub['l_orderkey'].lcounts or 'balanced'}), revenue {revenue:.6e} vs "
+          f"float64 {rev64:.6e} (|err| {abs(revenue - rev64):.3e} <= {b_rev:.3e})", flush=True)
+    del sub
+
+    # ---- 2. groupby(l_orderkey) in range and hash mode
+    ref = tpch_reference(lines, li)
+    G = ht.Frame({"l_orderkey": L["l_orderkey"], **{c: L[c] for c in FRAME_VALUES}})
+    range_cols, _, results = frame_groupbys(ht, G, step, moves, 1, lines, od, ref, "[frame]", True)
+    print(f"[frame] groupby(l_orderkey).agg({FRAME_SPEC}) of {list(FRAME_VALUES)}: {TPCH_ORDERS} groups; keys, "
+          f"counts, min and max exact in both modes; worst share of the bound (sum, std) per column {results}",
+          flush=True)
+
+    # ---- 3. value_counts of the int32 quantity: 50 groups
+    vc = step("value_counts", lambda: L.value_counts("l_quantity_i"))
+    check(np.array_equal(vc["l_quantity_i"].numpy(), np.arange(1, 51)) and np.array_equal(
+        vc["count"].numpy(), np.bincount(li["l_quantity_i"], minlength=51)[1:]), "[frame] value_counts")
+
+    # ---- 4. lineitem joined with orders: inner, and left without every 100th order
+    frame_joins(ht, L, step, moves, lines, li, od, "[frame]", True)
+
+    # ---- 5. the cluster profile: standardize, KMeans(8), then a frame of the labels and two features
+    before = dict(ht.LAUNCHES)
+    ht.random.seed(seed)
+    x, member = gnb_blobs(ht, N_MAIN, gnb_centres(ht))
+
+    def profile():
+        mu, sd = ht.mean(x, axis=0), ht.std(x, axis=0)
+        z = (x - mu) / sd
+        km = ht.cluster.KMeans(n_clusters=K_MAIN, init=z[:K_MAIN], max_iter=ITERS, tol=None).fit(z)
+        P = ht.Frame({"label": km.labels_, "f0": z[:, 0], "f1": z[:, 1]})
+        return z, km, P, P.groupby("label").agg(["mean", "std", "count"]), P.groupby("label").quantile(0.5)
+
+    z, km, P, st, qt = _timed_step(ht, "cluster profile", profile, steps, N_MAIN)
+    launches = {k: v - before.get(k, 0) for k, v in ht.LAUNCHES.items() if v != before.get(k, 0)}
+    check(launches.get("moments_onepass", 0) >= 1 and launches.get("lloyd_fused", 0) == ITERS + 1,
+          f"[frame] cluster profile launches {launches}")
+    lab = km.labels_.larray
+    counts = torch.bincount(lab, minlength=K_MAIN)
+    check(np.array_equal(st["count"].numpy(), counts.cpu().numpy()) and np.array_equal(st["label"].numpy(),
+                                                                                       np.arange(K_MAIN)),
+          "[frame] cluster profile counts")
+    order = torch.sort(lab, stable=True).indices
+    bounds = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev), torch.cumsum(counts, 0)]).tolist()
+    q_worst, eps = 0.0, 3 / (2 * QUANTILE_K)  # one fold and no merge: (3 + ceil(log2 1)) / (2k)
+    for j_, col in enumerate(("f0", "f1")):
+        v = z.larray[:, j_][order].double()
+        got_mean, got_std, got_q = st[f"{col}_mean"].numpy(), st[f"{col}_std"].numpy(), qt[col].numpy()
+        for c in range(K_MAIN):
+            seg = v[bounds[c] : bounds[c + 1]]
+            mc, sc = seg.mean().item(), seg.std().item()
+            s2 = (seg * seg).mean().item()
+            m_ = seg.numel()
+            b_m = SUM_LAMBDA * math.sqrt(m_) * u * seg.abs().mean().item() + u * abs(mc)
+            b_s = math.sqrt(2 * SUM_LAMBDA * math.sqrt(m_) * u * (s2 + mc * mc) * m_ / (m_ - 1)) + u * sc
+            check(abs(got_mean[c] - mc) <= b_m and abs(got_std[c] - sc) <= b_s,
+                  f"[frame] profile {col} group {c}: mean {got_mean[c]} vs {mc}, std {got_std[c]} vs {sc}")
+            srt = torch.sort(seg.float()).values
+            lo = int(torch.searchsorted(srt, torch.tensor([got_q[c]], device=dev), right=False))
+            hi = int(torch.searchsorted(srt, torch.tensor([got_q[c]], device=dev), right=True))
+            t_ = 0.5 * (m_ - 1)
+            q_worst = max(q_worst, max(0.0, lo - t_, t_ - hi) / m_)
+    check(q_worst <= eps, f"[frame] quantile rank error {q_worst} > {eps}")
+    print(f"[frame] cluster profile on {N_MAIN} x {F_MAIN} blobs: launches {launches}; groupby(label) counts exact, "
+          f"mean/std within the accumulation bounds; quantile(0.5) rank error {q_worst:.3e} (<= {eps:.3e})",
+          flush=True)
+    del x, member, z, km, P, st, qt, lab, order
+    torch.cuda.empty_cache()
+
+    # ---- 6. StreamingGroupBy over lineitem in 8 chunks, against the groupby
+    res = step("StreamingGroupBy", lambda: frame_streamed(ht, L))
+    frame_streamed_checks("[frame] StreamingGroupBy", res, lines, od, ref, range_cols)
+    del res, range_cols, L, G
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    print(f"[frame] steps: {_frame_steps_line(steps)}", flush=True)
+    print(f"[frame] phase {wall:.1f} s host ({smi}); launches {launches}", flush=True)
+    return launches
+
+
+def resilience_phase(dev, seed, smi):
+    """[resilience] on one card: save_checkpoint/load_checkpoint of the 2^24 x 32 float32 blobs (2 GiB) with crc32
+    and with sha256 and of lineitem's six columns, bit for bit, in GB/s; a torn write under chaos(torn_write=1.0,
+    max_faults=2) recovered by DEFAULT_CHECKPOINT_POLICY; a corrupted shard raising CheckpointCorruptionError
+    naming the file; fingerprint of the blobs (host copy + crc32) and health_check(check_values=True), in ms; a
+    straggler under deadlines(...) raising CollectiveTimeout."""
+    import numpy as np
+    import torch
+
+    import heat_tpu_torch as ht
+
+    ht.use_device("gpu")
+    rz = ht.resilience
+    seed = seed + FRAME_SEED_OFFSET
+    t_phase = time.perf_counter()
+    ht.random.seed(seed)
+    x, _ = gnb_blobs(ht, N_MAIN, gnb_centres(ht))
+    nbytes = x.larray.numel() * 4
+    tmp = stream_space("[resilience]", "chip_smoke_resilience_")
+    lines_out = []
+    try:
+        d = os.path.join(tmp, "blobs")
+        for algo in ("crc32", "sha256"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rz.save_checkpoint(x, d, checksum=algo)
+            t_save = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            y = rz.load_checkpoint(d)
+            torch.cuda.synchronize()
+            t_load = time.perf_counter() - t0
+            check(y.split == 0 and torch.equal(y.larray, x.larray), f"[resilience] {algo} checkpoint round trip")
+            lines_out.append(f"{algo}: save {t_save:.3f} s ({nbytes / t_save / 1e9:.3f} GB/s), load {t_load:.3f} s "
+                             f"({nbytes / t_load / 1e9:.3f} GB/s)")
+            del y
+            shutil.rmtree(d)
+        print(f"[resilience] checkpoint of {tuple(x.gshape)} float32 ({nbytes / 2**30:.2f} GiB), bit for bit: "
+              + "; ".join(lines_out), flush=True)
+        _, li, _ = tpch_sf10(seed)
+        cols = {k: ht.array(v, split=0) for k, v in li.items()}
+        del li
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for k, c in cols.items():
+            rz.save_checkpoint(c, os.path.join(tmp, k))
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for k, c in cols.items():
+            check(torch.equal(rz.load_checkpoint(os.path.join(tmp, k)).larray, c.larray), f"[resilience] {k}")
+        t_load = time.perf_counter() - t0
+        lb = sum(c.larray.numel() * c.larray.element_size() for c in cols.values())
+        print(f"[resilience] lineitem's {len(cols)} columns ({lb / 2**30:.3f} GiB, crc32), bit for bit: save "
+              f"{t_save:.3f} s ({lb / t_save / 1e9:.3f} GB/s), load {t_load:.3f} s ({lb / t_load / 1e9:.3f} GB/s)",
+              flush=True)
+        for k in cols:
+            shutil.rmtree(os.path.join(tmp, k))
+        del cols
+        small = x[:CKPT_SMALL]
+        ds = os.path.join(tmp, "torn")
+        with rz.chaos(seed=seed, torn_write=1.0, max_faults=2) as c:
+            rz.save_checkpoint(small, ds)
+        check([i.kind for i in c.injected] == ["torn_write", "torn_write"]
+              and torch.equal(rz.load_checkpoint(ds).larray, small.larray)
+              and not [f for f in os.listdir(ds) if ".tmp-" in f], f"[resilience] torn writes: {c.report()}")
+        shard = os.path.join(ds, "shard_000000000000.npy")
+        with open(shard, "r+b") as f:
+            f.seek(4096)
+            b = f.read(1)
+            f.seek(4096)
+            f.write(bytes([b[0] ^ 0xFF]))
+        try:
+            rz.load_checkpoint(ds)
+            check(False, "[resilience] a corrupted shard loaded")
+        except rz.CheckpointCorruptionError as e:
+            check("shard_000000000000.npy" in str(e), f"[resilience] the corruption error names the file: {e}")
+        print(f"[resilience] {c.report()!r}: recovered by DEFAULT_CHECKPOINT_POLICY, loaded bit for bit; a flipped "
+              f"byte raised CheckpointCorruptionError naming the shard", flush=True)
+        shutil.rmtree(ds)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    def host_ms(fn):  # a warm call, then one timed (both end on the host)
+        fn()
+        t_ = time.perf_counter()
+        out_ = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t_) * 1e3, out_
+
+    ms_fp, fp = host_ms(lambda: rz.fingerprint(x))
+    check(len(fp.groups) == 1 and fp.groups[0][1][0][0] == 0, f"[resilience] fingerprint {fp}")
+    ms_hc, _ = host_ms(lambda: x.health_check(check_values=True))
+    f = ht.Frame({"k": ht.array(np.arange(1 << 16, dtype=np.int32) % 97, split=0),
+                  "v": ht.array(np.ones(1 << 16, np.float32), split=0)})
+    t0 = time.perf_counter()
+    try:
+        with rz.deadlines(STRAGGLER_DEADLINE):
+            with rz.chaos(seed=seed, straggler=1.0, straggler_delay=STRAGGLER_DELAY, targets=("collective",),
+                          max_faults=1):
+                f.groupby("k").sum()
+        check(False, "[resilience] the straggler was not caught")
+    except rz.CollectiveTimeout as e:
+        waited = time.perf_counter() - t0
+        check(e.label == "flatmove.bucket" and waited < STRAGGLER_DELAY, f"[resilience] {e} after {waited} s")
+    time.sleep(STRAGGLER_DELAY)  # the abandoned worker finishes its move before the card is used again
+    print(f"[resilience] fingerprint of {nbytes / 2**30:.2f} GiB (host copy + crc32) {ms_fp:.4f} ms "
+          f"({nbytes / ms_fp / 1e6:.3f} GB/s); health_check(check_values=True) {ms_hc:.4f} ms; a {STRAGGLER_DELAY} s "
+          f"straggler under deadlines({STRAGGLER_DEADLINE}) raised CollectiveTimeout('flatmove.bucket') after "
+          f"{waited:.3f} s", flush=True)
+    del x
+    torch.cuda.empty_cache()
+    print(f"[resilience] phase {time.perf_counter() - t_phase:.1f} s host ({smi})", flush=True)
+
+
+def _dist_frame(ht, world, rank, timed, same_everywhere, say, seed):
+    """[dist]'s frame steps: every rank makes the SF-10 data from the seed and keeps its rows (split 0); [frame]'s
+    Q6 filter, groupby in both modes, joins and StreamingGroupBy (log2 P tree_merge rounds, bit-identical on every
+    rank) and value_counts; rank 0 holds the gathered results against numpy as [frame] does. Returns the steps'
+    times."""
+    import numpy as np
+    import torch
+
+    seed = seed + FRAME_SEED_OFFSET
+    lines, li, od = tpch_sf10(seed)
+    L = ht.Frame({k: ht.array(v, split=0) for k, v in li.items()})
+    out = {"steps": {}}
+    here = rank == 0
+
+    def step(name, fn):
+        s0, m0 = dict(ht.SHUFFLE_STATS), dict(ht.MOVE_STATS)
+        res, host, ev = timed(fn)
+        out["steps"][name] = {"host_s": host, "event_ms": ev, "collectives": timed.collectives,
+                              "shuffle": {k: ht.SHUFFLE_STATS[k] - s0[k] for k in s0},
+                              "moves": {k: ht.MOVE_STATS[k] - m0[k] for k in m0}}
+        return res
+
+    def moves(name):
+        return out["steps"][name]["moves"]
+
+    sub, revenue = step("Q6 filter + revenue", lambda: frame_q6(ht, L))
+    frame_q6_checks("[dist]", sub, revenue, moves("Q6 filter + revenue"), li, here)
+    del sub
+    ref = tpch_reference(lines, li) if here else None
+    G = ht.Frame({"l_orderkey": L["l_orderkey"], **{c: L[c] for c in FRAME_VALUES}})
+    range_cols, out["range_lcounts"], _ = frame_groupbys(ht, G, step, moves, world, lines, od, ref, "[dist]", here)
+    vc = step("value_counts", lambda: L.value_counts("l_quantity_i"))
+    check(np.array_equal(vc["count"].numpy(), np.bincount(li["l_quantity_i"], minlength=51)[1:]),
+          "[dist] value_counts")
+    frame_joins(ht, L, step, moves, lines, li, od, "[dist]", here)
+    res = step("StreamingGroupBy", lambda: frame_streamed(ht, L))
+    mv = moves("StreamingGroupBy")
+    check(mv["tree_merges"] == (1 if world > 1 else 0) and mv["tree_merge_rounds"] == ht.tree_merge_rounds(world),
+          f"[dist] StreamingGroupBy merge: {mv}")
+    for k, v in res.items():  # bit for bit: float32 as its bit patterns, so that the NaN stds compare equal
+        t = v.larray
+        same_everywhere(t.view(torch.int32) if t.dtype == torch.float32 else t, f"StreamingGroupBy {k}")
+    if here:
+        frame_streamed_checks("[dist] StreamingGroupBy", res, lines, od, ref, range_cols)
+    say("frame: " + "; ".join(f"{k} {v['host_s']:.4f} s host, {v['event_ms']:.4f} ms events, moves "
+                              f"{ {m: c for m, c in v['moves'].items() if c} }" for k, v in out["steps"].items())
+        + f"; range-mode groups per rank {out['range_lcounts']}")
+    del res, L, G, range_cols
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dist_resilience(ht, world, rank, say, out_dir, seed):
+    """[dist]'s resilience steps: a checkpoint saved by every rank loads in one process bit for bit and a
+    one-process checkpoint loads split over the ranks; a divergence fault entered on the last rank alone raises
+    the same DivergenceError naming it on every rank."""
+    import torch
+
+    rz = ht.resilience
+    comm = ht.get_comm()
+    gen = torch.Generator(device=ht.get_device().torch_device)
+    gen.manual_seed(seed + FRAME_SEED_OFFSET)
+    full = torch.randn(N_DIST_CKPT * world, F_MAIN, device=ht.get_device().torch_device, generator=gen)
+    x = ht.array(full, split=0)
+    d_all, d_one = os.path.join(out_dir, "ckpt_all"), os.path.join(out_dir, "ckpt_one")
+    t0 = time.perf_counter()
+    rz.save_checkpoint(x, d_all)
+    t_save = time.perf_counter() - t0
+    if rank == 0:
+        one = rz.load_checkpoint(d_all, comm=ht.SELF)
+        check(torch.equal(one.larray, full), "[dist] the ranks' checkpoint loaded by one process")
+        rz.save_checkpoint(ht.array(full, split=0, comm=ht.SELF), d_one)
+        del one
+    comm.barrier()
+    y = rz.load_checkpoint(d_one)
+    check(torch.equal(y.larray, x.larray) and y.split == 0, "[dist] a one-process checkpoint loaded split")
+    rep = ht.array(full[:4096])
+    culprit = min(2, world - 1)
+    # at one rank the culprit is the primary replica, where a divergence stays pending
+    with rz.FaultSchedule([("guard.shard", 1, "divergence")] if rank == culprit else []) as fs:
+        try:
+            rz.check_divergence(rep)
+            raised = None
+        except rz.DivergenceError as e:
+            raised = e
+    if culprit > 0:
+        check(raised is not None and list(raised.devices) == [culprit], f"[dist] divergence on rank {culprit}: {raised}")
+    else:
+        check(raised is None and fs.pending(), "[dist] one rank holds no second replica to diverge")
+    comm.barrier()
+    if rank == 0:
+        shutil.rmtree(d_all, ignore_errors=True)
+        shutil.rmtree(d_one, ignore_errors=True)
+    say(f"resilience: checkpoint of {tuple(x.gshape)} saved by {world} rank(s) in {t_save:.3f} s loads in one "
+        f"process bit for bit, a one-process checkpoint loads split; divergence on rank {culprit}: "
+        f"{'DivergenceError naming it on every rank' if culprit else 'no replica to diverge at one rank'}")
+    del x, y, full
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive heat_tpu_torch's main path on the cards and check every kernel.")
     ap.add_argument("--phases", choices=("all", "dist", "spectral", "linalg", "robust", "dtypes", "stream", "layout",
-                                         "train"),
+                                         "train", "frame", "resilience"),
                     default="all", help="all (default): every phase; dist, spectral, linalg, robust, dtypes, stream, "
-                                        "layout or train: environment, build and that phase only")
-    ap.add_argument("--seed", type=int, default=0, help="seed of [dtypes]', [stream]'s, the layout steps' and the "
-                                                        "training steps' data (default 0)")
+                                        "layout, train, frame or resilience: environment, build and that phase only")
+    ap.add_argument("--seed", type=int, default=0, help="seed of [dtypes]', [stream]'s, the layout steps', the "
+                                                        "training steps' and the frame steps' data (default 0)")
     args = ap.parse_args(argv)
     import torch
 
@@ -4649,6 +5243,13 @@ def main(argv=None) -> int:
         if kernels is not None:
             for row in kernels:
                 row["launches_train"] = train_launches.get(row["name"], 0)
+    if args.phases in ("all", "frame"):
+        frame_launches = phase("frame", lambda: frame_phase(dev, args.seed, smi))
+        if kernels is not None:
+            for row in kernels:
+                row["launches_frame"] = frame_launches.get(row["name"], 0)
+    if args.phases in ("all", "resilience"):
+        phase("resilience", lambda: resilience_phase(dev, args.seed, smi))
     if args.phases in ("all", "dist"):
         layout_launches = phase("dist", lambda: dist_phase(torch.cuda.device_count(), args.seed))
         if kernels is not None:

@@ -67,14 +67,21 @@ The port goes slice by slice:
     (``entry.py``), ``nn`` (torch's layers under ``heat_tpu``'s names,
     ``DataParallel``), ``optim`` (``DataParallelOptimizer``, ``DASO``),
     ``utils`` (profiling, checkpoints, data tooling), and the gradients of
-    ``ring_attention``/``ulysses_attention``.
+    ``ring_attention``/``ulysses_attention``;
+11. ``frame`` (``Frame``: groupby/agg, ``value_counts``, join, filter and
+    the grouped quantile over the sort-based shuffle, ``SHUFFLE_STATS``),
+    ``stream.StreamingGroupBy``, and ``resilience``'s storage and guards:
+    sharded checkpoints in ``heat_tpu``'s format, ``validate``/
+    ``DNDarray.health_check``, ``guard``, the watchdog, ``chaos``, retries
+    and the error classes.
 """
 from .core import *
 from .core import complex_math, io, kernels, linalg, printing, random, signal, version
 from .core.version import __version__
-from . import (classification, cluster, convert, datasets, graph, naive_bayes, nn, optim, parallel, regression,
-               spatial, stream, utils)
+from . import (classification, cluster, convert, datasets, frame, graph, naive_bayes, nn, optim, parallel,
+               regression, resilience, spatial, stream, utils)
 from .core.dndarray import LAYOUT_STATS
 from .core.kernels import KERNEL_STATS, LAUNCHES
+from .frame import Frame, SHUFFLE_STATS
 from .parallel.flatmove import MOVE_STATS
 from .stream import STREAM_STATS

@@ -29,14 +29,18 @@ from .cluster.kmeans import KMeans
 from .cluster.kmedians import KMedians
 from .cluster.kmedoids import KMedoids
 from .cluster.spectral import Spectral
-from .core import factories
+from .core import factories, types
+from .core.communication import sanitize_comm
 from .core.dndarray import DNDarray
+from .frame import Frame
 from .naive_bayes.gaussianNB import GaussianNB
 from .regression.lasso import Lasso
+from .stream.groupby import StreamingGroupBy
 
 __all__ = [
-    "array_from_numpy", "dp_state_from_heat_tpu", "flax_to_state_dict", "from_heat_tpu_state",
+    "array_from_numpy", "dp_state_from_heat_tpu", "flax_to_state_dict", "frame_from_heat_tpu", "from_heat_tpu_state",
     "gaussian_nb_from_heat_tpu", "knn_from_heat_tpu", "lasso_from_heat_tpu", "spectral_from_heat_tpu",
+    "streaming_groupby_from_heat_tpu",
 ]
 
 
@@ -280,4 +284,56 @@ def dp_state_from_heat_tpu(d: dict, model) -> dict:
             out[f"opt.{i}.{_OPT_FIELDS[field]}"] = np.ascontiguousarray(fn(_lookup(trees[coll], path)))
     if "seed" in d:
         out["seed"] = d["seed"]
+    return out
+
+
+def frame_from_heat_tpu(columns: dict, lcounts=None, device=None, comm=None) -> Frame:
+    """A port :class:`~heat_tpu_torch.frame.Frame` from a ``heat_tpu``
+    Frame's columns as numpy (its ``to_dict()``) and its layout: ``lcounts``
+    (the columns' ``lcounts``, one count per rank) puts rank r's rows where
+    ``heat_tpu``'s shard r has them; None gives the ceil-div layout."""
+    comm = sanitize_comm(comm)
+    if lcounts is None:
+        return Frame({name: factories.array(np.asarray(col), split=0, device=device, comm=comm)
+                      for name, col in columns.items()})
+    lcounts = tuple(int(c) for c in lcounts)
+    if len(lcounts) != comm.size:
+        raise ValueError(f"lcounts {lcounts} name {len(lcounts)} shards, the world has {comm.size} ranks")
+    lo = sum(lcounts[: comm.rank])
+    cols = {}
+    for name, col in columns.items():
+        col = np.asarray(col)
+        mine = factories.array(col[lo : lo + lcounts[comm.rank]], device=device, comm=comm)
+        cols[name] = DNDarray._from_ragged(mine._raw, (col.shape[0],), mine.dtype, 0, lcounts, device=mine.device,
+                                           comm=comm)
+    return Frame(cols)
+
+
+def streaming_groupby_from_heat_tpu(d: dict, device=None, comm=None) -> StreamingGroupBy:
+    """A port :class:`~heat_tpu_torch.stream.StreamingGroupBy` holding a
+    ``heat_tpu`` one's state, so that a fold begun in one package goes on in
+    the other. ``d`` holds ``aggs``, ``capacity``, ``n`` (rows folded),
+    ``keys`` (its table's key slots), ``g`` (the groups in use), ``overflow``
+    and ``stats`` (the statistic slots, in the object's ``_kinds`` order:
+    count first, then each aggregation's in order, as both packages carry
+    them); and ``value_dtype``, the values' numpy type name (else a min's,
+    max's or sum's type stands for it, else float32). Above one rank the table goes to rank 0 (the ranks' tables
+    are merged at ``result()``)."""
+    comm = sanitize_comm(comm)
+    out = StreamingGroupBy(d["aggs"], capacity=int(d["capacity"]))
+    if len(d["stats"]) != len(out._kinds):
+        raise ValueError(f"{len(d['stats'])} statistics for kinds {out._kinds}")
+    g = int(d["g"]) if comm.rank == 0 else 0
+    keys = factories.array(np.asarray(d["keys"])[:g], device=device, comm=comm)
+    stats = [factories.array(np.asarray(s)[:g], device=device, comm=comm) for s in d["stats"]]
+    slot = dict(zip(out._kinds, stats))
+    if "value_dtype" in d:
+        vdt = types.canonical_heat_type(str(d["value_dtype"])).torch_type()
+    else:
+        vdt = next((slot[k].larray.dtype for k in ("min", "max", "sum") if k in slot), torch.float32)
+    out._start(keys.larray.dtype, vdt, keys.device, comm)
+    out._keys = keys.larray
+    out._stats = tuple(s.larray.to(t.dtype) for s, t in zip(stats, out._stats))
+    out._ov = bool(d["overflow"]) if comm.rank == 0 else False
+    out._n = int(d["n"])
     return out

@@ -70,6 +70,6 @@ def atomic_write_bytes(path: Union[str, os.PathLike], payload: bytes, suffix: Op
         ctx = _hooks.fault_point("io.write", path=path, payload=buf)
         buf = ctx.get("payload", buf)
         with open(tmp, "wb") as f:
-            f.write(bytes(buf))
+            f.write(buf)
             f.flush()
             os.fsync(f.fileno())

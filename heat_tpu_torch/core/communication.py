@@ -423,6 +423,41 @@ def init_distributed(
     return WORLD
 
 
+def ragged_process_allgather(arr: np.ndarray, axis: int = 0, comm: Optional[TorchCommunication] = None) -> list:
+    """Every rank's host array, in rank order, where their extents along
+    ``axis`` may differ (every other dimension and the dtype agree): the
+    extents are gathered first (one ``allgather`` of one integer), then the
+    payloads padded to the largest (one ``allgather``), each trimmed on
+    receipt. Without a group, ``[arr]``.
+
+    It runs as the guarded call ``"collective.allgather"`` of
+    :mod:`._hooks`, so that a watchdog (``resilience.deadlines``) bounds the
+    wait for a straggling or dead peer, and passes the fault point of the
+    same name, which carries only what every rank shares (trailing shape,
+    axis, dtype)."""
+    from . import _hooks
+
+    return _hooks.guarded_call("collective.allgather", _ragged_process_allgather_impl, arr, axis, comm)
+
+
+def _ragged_process_allgather_impl(arr: np.ndarray, axis: int = 0, comm: Optional[TorchCommunication] = None) -> list:
+    from . import _hooks
+
+    comm = sanitize_comm(comm)
+    moved = np.moveaxis(np.asarray(arr), axis, 0)
+    _hooks.fault_point("collective.allgather", shape=tuple(moved.shape[1:]), axis=int(axis), dtype=str(moved.dtype))
+    if not comm._started() or comm.size == 1:
+        return [np.moveaxis(moved, 0, axis)]
+    dev = comm.device()
+    ext = torch.tensor([[moved.shape[0]]], dtype=torch.int64, device=dev)
+    counts = [int(c) for c in comm.allgather(ext, 0, [1] * comm.size).reshape(-1).tolist()]
+    if max(counts) == 0:
+        return [np.moveaxis(moved, 0, axis) for _ in counts]
+    got = comm.allgather(torch.from_numpy(np.ascontiguousarray(moved)).to(dev), 0, counts).cpu().numpy()
+    bounds = np.concatenate([[0], np.cumsum(counts)])
+    return [np.moveaxis(got[bounds[r] : bounds[r + 1]], 0, axis) for r in range(comm.size)]
+
+
 def replicated_decision(flag, comm: Optional[TorchCommunication] = None) -> bool:
     """``flag`` made the same on every rank: the OR of all ranks' flags
     (one ``allreduce`` of MAX), so a branch guarded by it is taken
@@ -508,7 +543,9 @@ def tree_merge(state, combine, *, label: str = "collective.tree_merge", active: 
     ``allgather``) and folds them in rank order. ``active=False`` or a
     world of one rank returns ``state``. Each merge counts one in
     ``MOVE_STATS["tree_merges"]`` and its rounds in
-    ``MOVE_STATS["tree_merge_rounds"]`` (0 for the gather)."""
+    ``MOVE_STATS["tree_merge_rounds"]`` (0 for the gather). Each exchange
+    runs as the guarded call ``"tree_merge"`` of :mod:`._hooks`, which a
+    watchdog bounds."""
     from . import _hooks
 
     comm = sanitize_comm(comm)
@@ -524,7 +561,7 @@ def tree_merge(state, combine, *, label: str = "collective.tree_merge", active: 
     MOVE_STATS["tree_merge_rounds"] += tree_merge_rounds(nproc)
     buf = _pack(leaves)
     if nproc & (nproc - 1):  # no butterfly off powers of two
-        allb = comm.allgather(buf.unsqueeze(0), 0, [1] * nproc)
+        allb = _hooks.guarded_call("tree_merge", comm.allgather, buf.unsqueeze(0), 0, [1] * nproc)
         acc = build(_unpack(allb[0], leaves))
         for r in range(1, nproc):
             acc = combine(acc, build(_unpack(allb[r], leaves)))
@@ -533,7 +570,8 @@ def tree_merge(state, combine, *, label: str = "collective.tree_merge", active: 
     d = 1
     while d < nproc:
         partner = comm.rank ^ d
-        got = comm.exchange("tree_merge", {partner: buf}, {partner: tuple(buf.shape)}, buf)[partner]
+        got = _hooks.guarded_call("tree_merge", comm.exchange, "tree_merge", {partner: buf},
+                                  {partner: tuple(buf.shape)}, buf)[partner]
         other = build(_unpack(got, leaves))
         acc = combine(acc, other) if comm.rank & d == 0 else combine(other, acc)
         leaves, _ = _flatten(acc)

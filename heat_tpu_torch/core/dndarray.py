@@ -154,15 +154,15 @@ class DNDarray:
                      comm=None) -> "DNDarray":
         """An array whose rank r holds exactly ``lcounts[r]`` rows along
         ``split`` (``tensor`` is this rank's), ``heat_tpu``'s ``_from_ragged``.
-        ``lcounts`` must partition the split extent; where it is the
-        ceil-div map the array is simply balanced."""
+        ``lcounts`` must partition the split extent. The array stays ragged
+        until rebalanced, even where ``lcounts`` is the ceil-div map, as
+        ``heat_tpu``'s ``_from_ragged`` leaves every result of the shuffle,
+        and computations on a ragged array keep its layout."""
         comm = sanitize_comm(comm)
         gshape = tuple(int(s) for s in gshape)
         lcounts = tuple(int(c) for c in lcounts)
         if len(lcounts) != comm.size or sum(lcounts) != gshape[split] or min(lcounts, default=0) < 0:
             raise ValueError(f"lcounts {lcounts} do not partition extent {gshape[split]} over {comm.size} shards")
-        if lcounts == comm.counts_displs_shape(gshape, split)[0]:
-            return cls(tensor, gshape=gshape, dtype=dtype, split=split, device=device, comm=comm)
         want = list(gshape)
         want[split] = lcounts[comm.rank]
         if tuple(tensor.shape) != tuple(want):
@@ -272,6 +272,17 @@ class DNDarray:
             LAYOUT_STATS["rebalances"] += 1
             self._ragged_redistribute(self.__comm.counts_displs_shape(self.__gshape, self.__split)[0])
         return self
+
+    def health_check(self, check_values: bool = False) -> "DNDarray":
+        """Check this array's distributed invariants (this rank's tensor has
+        its row of ``lshape_map`` as shape, ``lshape_map`` partitions the
+        split extent, the tensor's type is the annotation's);
+        ``check_values=True`` also scans the values for NaN/Inf. Raises
+        :class:`heat_tpu_torch.resilience.ValidationError` naming every
+        violation; returns ``self`` when healthy."""
+        from ..resilience.validate import validate
+
+        return validate(self, check_values=check_values)
 
     @property
     def balanced(self) -> bool:

@@ -93,7 +93,7 @@ def clip(x, min=None, max=None, out=None, *, a_min=None, a_max=None) -> DNDarray
             return None
         if isinstance(b, DNDarray):
             return _local_operand(b, x.gshape, x.split).to(tt)
-        return torch.as_tensor(b, device=x.larray.device).to(tt)
+        return torch.as_tensor(b, device=x._raw.device).to(tt)  # _raw: larray would rebalance a ragged x
 
     return _local_op(lambda t: torch.clamp(t.to(tt), bound(lo), bound(hi)), x, out=out, no_cast=True)
 

@@ -365,10 +365,10 @@ class DataParallel:
     def fit(self, loss_fn: Callable, batch, labels, n_steps: int, supervisor=None,
             steps_per_block: int = 8) -> "DataParallel":
         """``n_steps`` of :meth:`train_step` on one batch. A ``supervisor``
-        (a self-healing supervised loop) waits for the port of ``resilience``."""
+        (a self-healing supervised loop) waits for the port of ``resilience``'s supervisor."""
         if supervisor is not None:
-            raise NotImplementedError("DataParallel.fit(supervisor=...) waits for the port of resilience "
-                                      "(ROADMAP.md, Queue A item 10)")
+            raise NotImplementedError("DataParallel.fit(supervisor=...) waits for the port of resilience's supervisor "
+                                      "(ROADMAP.md, Queue A item 10b)")
         for _ in range(n_steps):
             self.train_step(loss_fn, batch, labels)
         return self

@@ -118,8 +118,8 @@ class Lasso(BaseEstimator, RegressionMixin):
         if x.ndim != 2:
             raise ValueError(f"x needs to be 2D, but was {x.ndim}D")
         if supervisor is not None:
-            raise NotImplementedError("Lasso.fit(supervisor=...) waits for the port of resilience "
-                                      "(ROADMAP.md, Queue A item 10)")
+            raise NotImplementedError("Lasso.fit(supervisor=...) waits for the port of resilience's supervisor "
+                                      "(ROADMAP.md, Queue A item 10b)")
         x = _rows(x)
         xl = x.larray
         dtype = torch.float64 if xl.dtype == torch.float64 else torch.float32

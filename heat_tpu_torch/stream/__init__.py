@@ -17,15 +17,17 @@ card's memory (counterpart of ``heat_tpu.stream``).
   overlap counters.
 
 ``heat_tpu_torch.cluster.StreamingKMeans`` fits over the same chunks (the
-``lloyd_fused`` kernel per chunk). ``StreamingGroupBy`` is not ported yet.
+``lloyd_fused`` kernel per chunk). :class:`~.groupby.StreamingGroupBy`
+aggregates per key over chunks with the frame groupby's statistics.
 
 Memory: at most ``depth`` raw windows are read ahead on the host, and
 one staged chunk is on the card, whatever the size of the data.
 """
-from . import chunked, estimators, prefetch, sketch
+from . import chunked, estimators, groupby, prefetch, sketch
 from ._stats import STREAM_STATS, reset_stream_stats
 from .chunked import ChunkIterator
 from .estimators import StreamingCov, StreamingHistogram, StreamingMoments
+from .groupby import StreamingGroupBy
 from .prefetch import Prefetcher
 from .sketch import CountMinTopK, HyperLogLog, KLLSketch
 
@@ -37,6 +39,7 @@ __all__ = [
     "Prefetcher",
     "STREAM_STATS",
     "StreamingCov",
+    "StreamingGroupBy",
     "StreamingHistogram",
     "StreamingMoments",
     "reset_stream_stats",

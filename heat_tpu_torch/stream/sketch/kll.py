@@ -21,7 +21,8 @@ cascade, so every rank folds the same run; that second summary is the
 ``extra`` term (1 once such a fold has happened, else 0).
 
 :func:`merge_states` is the associative combine behind :meth:`merge` and
-:meth:`merge_processes`.
+:meth:`merge_processes`; :func:`grouped_merge_states` is the same over a
+leading axis of one sketch per key (``Frame.groupby(...).quantile``).
 """
 from __future__ import annotations
 
@@ -136,6 +137,108 @@ def _quantile(vals, wts, qs):
     lo, hi = cmid[i - 1], cmid[i]
     g = torch.clamp((t - lo) / torch.clamp(hi - lo, min=torch.finfo(v.dtype).tiny), 0.0, 1.0)
     return torch.where(t <= cmid[0], v[0], v[i - 1] + g * (v[i] - v[i - 1]))
+
+
+# ------------------------------------------------ grouped sketches (one per key)
+# ``Frame.groupby(...).quantile`` keeps one sketch per distinct key: the same
+# state on a leading group axis, (G, levels, k). Each group takes its own
+# branch of every compaction, so the cascade computes both outcomes for all
+# groups and selects per group with a mask, as ``heat_tpu``'s vmapped fold.
+def _g_merge_runs(v1, w1, v2, w2):
+    """:func:`_merge_runs` of (G, ...) runs, group by group."""
+    v = torch.cat([v1, v2], dim=-1)
+    w = torch.cat([w1, w2], dim=-1)
+    order = torch.sort(v, dim=-1, stable=True).indices
+    return torch.gather(v, -1, order), torch.gather(w, -1, order)
+
+
+def _g_compress(v, w, k: int):
+    """:func:`_compress` of (G, L) runs to (G, k)."""
+    W = w.sum(dim=-1)
+    cum = torch.cumsum(w, dim=-1)
+    t = (torch.arange(k, dtype=v.dtype, device=v.device) + 0.5) * (W / k)[:, None]
+    idx = torch.clamp(torch.searchsorted(cum, t.contiguous(), right=False), 0, v.shape[-1] - 1)
+    empty = (W <= 0)[:, None]
+    return (torch.where(empty, torch.full_like(t, float("inf")), torch.gather(v, -1, idx)),
+            torch.where(empty, torch.zeros_like(t), (W / k)[:, None].expand(-1, k)))
+
+
+def _g_level(mv, mw, k: int):
+    """One level after a merge, per group: (kept values, kept weights,
+    carried values, carried weights); a group whose merged run holds more
+    than ``k`` items empties the level and carries its compressed run."""
+    over = ((mw > 0).sum(dim=-1) > k)[:, None]
+    cv, cw = _g_compress(mv, mw, k)
+    inf, zero = torch.full_like(cv, float("inf")), torch.zeros_like(cw)
+    return (torch.where(over, inf, mv[:, :k]), torch.where(over, zero, mw[:, :k]),
+            torch.where(over, cv, inf), torch.where(over, cw, zero))
+
+
+def _g_top(out_v, out_w, cv, cw, k: int):
+    """The stacks (G, levels, k) with the carry past the top level
+    force-compacted into it."""
+    mv, mw = _g_merge_runs(out_v[-1], out_w[-1], cv, cw)
+    over = ((mw > 0).sum(dim=-1) > k)[:, None]
+    comp_v, comp_w = _g_compress(mv, mw, k)
+    out_v[-1] = torch.where(over, comp_v, mv[:, :k])
+    out_w[-1] = torch.where(over, comp_w, mw[:, :k])
+    return torch.stack(out_v, dim=1), torch.stack(out_w, dim=1)
+
+
+def _grouped_fold(xa, n_valid, vals, wts):
+    """One fold of every group's rows: ``xa`` (G, rows, 1) with group g's
+    first ``n_valid[g]`` rows valid, into the (G, levels, k) stacks."""
+    G, H, k = vals.shape
+    rows = xa.reshape(G, -1)
+    valid = torch.arange(rows.shape[1], device=rows.device)[None, :] < n_valid.to(rows.device)[:, None]
+    xs = torch.sort(torch.where(valid, rows, float("inf")), dim=-1).values
+    ws = valid.to(rows.dtype)  # the valid rows sort first: the weights need no permutation
+    cv, cw = _g_compress(xs, ws, k)
+    out_v, out_w = [], []
+    for level in range(H):
+        lv, lw, cv, cw = _g_level(*_g_merge_runs(vals[:, level], wts[:, level], cv, cw), k)
+        out_v.append(lv)
+        out_w.append(lw)
+    return _g_top(out_v, out_w, cv, cw, k)
+
+
+def grouped_merge_states(a, b):
+    """:func:`merge_states` over a leading group axis: states ``(n (G,),
+    folds (G,), vals (G, levels, k), wts (G, levels, k))``, ``a`` the lower
+    rank's; the combine of ``Frame.groupby(...).quantile``'s
+    ``tree_merge``."""
+    na, fa, va, wa = a
+    nb, fb, vb, wb = b
+    G, H, k = va.shape
+    cv, cw = (t.expand(G, k) for t in _empty(k, va.dtype, va.device))
+    out_v, out_w = [], []
+    for level in range(H):
+        iv, iw = _g_merge_runs(vb[:, level], wb[:, level], cv, cw)
+        lv, lw, cv, cw = _g_level(*_g_merge_runs(va[:, level], wa[:, level], iv, iw), k)
+        out_v.append(lv)
+        out_w.append(lw)
+    return (na + nb, fa + fb) + _g_top(out_v, out_w, cv, cw, k)
+
+
+def _grouped_quantile(vals, wts, qs):
+    """:func:`_quantile` of every group's stacks: (G, len(qs))."""
+    G = vals.shape[0]
+    v = vals.reshape(G, -1)
+    w = wts.reshape(G, -1)
+    order = torch.sort(v, dim=-1, stable=True).indices
+    v, w = torch.gather(v, -1, order), torch.gather(w, -1, order)
+    has = w > 0
+    vmax = torch.where(has, v, float("-inf")).max(dim=-1, keepdim=True).values
+    vmin = torch.where(has, v, float("inf")).min(dim=-1, keepdim=True).values
+    v = torch.minimum(torch.maximum(torch.where(has, v, vmax), vmin), vmax)
+    W = w.sum(dim=-1, keepdim=True)
+    cmid = torch.cumsum(w, dim=-1) - 0.5 * w
+    t = (qs.to(v.dtype)[None, :] * W).contiguous()
+    i = torch.clamp(torch.searchsorted(cmid, t, right=False), 1, v.shape[-1] - 1)
+    lo, hi = torch.gather(cmid, -1, i - 1), torch.gather(cmid, -1, i)
+    g = torch.clamp((t - lo) / torch.clamp(hi - lo, min=torch.finfo(v.dtype).tiny), 0.0, 1.0)
+    vl, vh = torch.gather(v, -1, i - 1), torch.gather(v, -1, i)
+    return torch.where(t <= cmid[:, :1], v[:, :1], vl + g * (vh - vl))
 
 
 class KLLSketch(_StreamingBase):

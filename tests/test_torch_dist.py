@@ -41,6 +41,7 @@ heat_tpu is imported only inside the functions that need it, so the
 """
 import fcntl
 import hashlib
+import json
 import os
 import pickle
 import subprocess
@@ -770,3 +771,77 @@ def test_dryrun_body_checks_pass_on_every_rank(group):
         assert res["port:qr_residual"]["value"] < 1e-3, rank
         gaps = [g["value"] for g in res["port:daso_gaps"]["items"]]
         assert gaps[0] < 1e-6 and gaps[2] < 1e-6 and gaps[1] > 1e-5 and gaps[3] > 1e-5, (rank, gaps)
+
+
+def test_range_groupby_balances_the_ranks_c6(group):
+    """Splitters from evenly spaced samples of each rank's sorted keys: on
+    uniform keys each rank holds at most 2 G / P + 32 groups (heat_tpu's
+    samples are each rank's 32 smallest keys, so its last rank merges almost
+    all groups: ROADMAP.md, Queue C, C6)."""
+    for rank, res in enumerate(_case(group, "frame")):
+        lcounts = [c["value"] for c in res["port:range_lcounts"]["items"]]
+        assert sum(lcounts) == W.FR_G and max(lcounts) <= res["port:range_bound"]["value"], (rank, lcounts)
+
+
+def test_groupby_is_one_bucket_move_per_operand(group):
+    """The hash groupby of six aggregations over a float32 and an int32
+    column carries 10 raw statistics: 11 bucket moves, and two allgathers
+    (the bucket matrix and the group counts)."""
+    for rank, res in enumerate(_case(group, "frame")):
+        assert res["port:groupby_collectives"]["value"] == {"allgather": 2, "flatmove.bucket": 11}, rank
+
+
+def test_streaming_groupby_merges_in_log2_p_rounds_and_overflows_everywhere(group):
+    for rank, res in enumerate(_case(group, "frame")):
+        assert res["port:streaming_merge"]["value"] == {"tree_merges": 1, "tree_merge_rounds": 2}, rank
+        assert res["port:overflow"]["type"] == "RuntimeError", rank
+        assert f"capacity={W.FR_G - 1}" in res["port:overflow"]["message"], rank
+        assert all(v["value"] for v in res["port:quantile_within_bound"]["items"]), rank
+        np.testing.assert_array_equal(res["port:quantile_keys"]["value"], np.arange(4))
+
+
+def test_checkpoints_cross_world_sizes_and_packages(group, tmp_path):
+    """The 4-rank save's shard files are heat_tpu's bytes at 4 devices, and
+    its manifest heat_tpu's but for the mesh; heat_tpu loads it at 4
+    devices and at 1, the port loaded it alone and a one-process save on
+    four ranks."""
+    import jax
+
+    import heat_tpu as htj
+    from heat_tpu.core.communication import SELF, MeshCommunication, comm_context
+
+    per_rank = _case(group, "resilience")
+    res = per_rank[0]
+    files, manifest = res["port:ckpt_files"]["value"], json.loads(res["port:ckpt_manifest"]["value"])
+    port_dir, ref_dir = tmp_path / "port", tmp_path / "ref"
+    port_dir.mkdir()
+    for name, data in files.items():
+        (port_dir / name).write_bytes(data)
+    (port_dir / "manifest.json").write_bytes(res["port:ckpt_manifest"]["value"])
+    with comm_context(MeshCommunication(devices=jax.devices()[:WORLD])):
+        htj.resilience.save_checkpoint(htj.array(W.CK_A, split=0), str(ref_dir), checksum="sha256")
+        y = htj.resilience.load_checkpoint(str(port_dir))
+        assert y.split == 0 and np.array_equal(np.asarray(y.numpy()), W.CK_A)
+    with comm_context(SELF):
+        np.testing.assert_array_equal(np.asarray(htj.resilience.load_checkpoint(str(port_dir)).numpy()), W.CK_A)
+    assert files == {p.name: p.read_bytes() for p in ref_dir.iterdir() if p.name.startswith("shard_")}
+    ref = json.loads((ref_dir / "manifest.json").read_text())
+    assert manifest.pop("mesh") == {"axis_sizes": {"split": WORLD}, "split_size": WORLD, "processes": WORLD}
+    ref.pop("mesh")
+    assert manifest == ref
+    for rank, r in enumerate(per_rank):
+        assert r["port:loaded_alone"]["value"] is True, rank
+        assert r["port:one_to_all"]["items"][0]["value"].tolist() == [[10, 6], [10, 6], [10, 6], [7, 6]], rank
+        assert r["port:one_to_all"]["items"][1]["value"] is True, rank
+
+
+def test_divergence_on_rank_2_alone_raises_naming_rank_2_everywhere(group):
+    per_rank = _case(group, "resilience")
+    messages = set()
+    for rank, res in enumerate(per_rank):
+        kind, message = (v["value"] for v in res["port:divergence"]["items"])
+        assert kind == "DivergenceError" and "device(s) [2]" in message, (rank, message)
+        messages.add(message)
+        want = [("guard.shard", "divergence")] if rank == 2 else []
+        assert [tuple(v["value"] for v in i["items"]) for i in res["port:rank:injected"]["items"]] == want, rank
+    assert len(messages) == 1

@@ -83,7 +83,7 @@ def pack(v, port: bool):
         return {"kind": "ndarray", "value": v}
     if isinstance(v, (bool, int, float, np.generic)):
         return {"kind": "scalar", "value": v.item() if isinstance(v, np.generic) else v}
-    if v is None or isinstance(v, (str, dict)):
+    if v is None or isinstance(v, (str, dict, bytes)):
         return {"kind": "plain", "value": v}
     raise TypeError(f"cannot pack a {type(v)}")
 
@@ -1716,6 +1716,125 @@ def case_dryrun(ht):
     out = {"halo": res["halo"]}
     out.update({"port:centers": res["centers"], "port:ring_map": res["ring_map"], "port:qr_residual": res["qr_residual"],
                 "port:daso_gaps": res["daso_gaps"], "port:daso_final": res["daso_final"]})
+    return out
+
+
+# ------------------------------------------------- frame, StreamingGroupBy, resilience
+FR_N = 2003  # rows: 501, 501, 501, 500 on 4 ranks
+FR_KEY = _rng(50).integers(0, 500, size=FR_N).astype(np.int32)  # uniform keys
+FR_G = int(np.unique(FR_KEY).size)  # the distinct keys
+FR_X = _rng(51).normal(size=FR_N).astype(np.float32)
+FR_I = _rng(52).integers(-50, 50, size=FR_N).astype(np.int32)
+FR_RK = _rng(53).permutation(1000)[:500].astype(np.int32)  # unique right keys, half of them in FR_KEY's range
+FR_RV = _rng(54).normal(size=500).astype(np.float64)
+CK_A = _rng(55).normal(size=(37, 6)).astype(np.float32)
+
+
+def _balanced(frame):
+    """Every column of a frame in the ceil-div layout (range mode's shares
+    differ from heat_tpu's, C6; its values and order do not)."""
+    return {name: frame[name].balance_() for name in frame.columns}
+
+
+def case_frame(ht):
+    """Frame verbs across the ranks: hash-mode groupby (heat_tpu's layout),
+    range-mode groupby (values and order; for the port also each rank's
+    groups), value_counts, inner and left joins in both modes, filter, the
+    grouped quantile (for the port: within the KLL bound of numpy's) and a
+    StreamingGroupBy over split chunks, with SHUFFLE_STATS/MOVE_STATS deltas;
+    for the port also the collectives of a groupby."""
+    f = ht.Frame({"k": FR_KEY, "x": FR_X, "i": FR_I})
+    shuffles = lambda: dict(ht.SHUFFLE_STATS)  # noqa: E731
+    out = {}
+    s0, m0 = shuffles(), dict(ht.MOVE_STATS)
+    spec = ["sum", "mean", "min", "max", "count", "std"]
+    h, coll = _collectives(ht, lambda: f.groupby("k", mode="hash").agg(spec))
+    out.update({f"hash:{n}": h[n] for n in h.columns})
+    r = f.groupby("k").agg(spec)
+    if is_port(ht):
+        comm = ht.get_comm()
+        out["port:groupby_collectives"] = coll["calls"]
+        out["port:range_lcounts"] = r["k"].lcounts
+        out["port:range_bound"] = 2 * FR_G // comm.size + 32
+    out.update({f"range:{n}": c for n, c in _balanced(r).items()})
+    out.update({f"counts:{n}": c for n, c in _balanced(f.value_counts("i")).items()})
+    out["counts_hash"] = f.value_counts("i", mode="hash")["count"]
+    right = ht.Frame({"k": FR_RK, "v": FR_RV})
+    for how in ("inner", "left"):
+        jh = f.join(right, on="k", how=how, mode="hash")
+        out.update({f"join:{how}:hash:{n}": jh[n] for n in jh.columns})
+        out.update({f"join:{how}:range:{n}": c for n, c in _balanced(f.join(right, on="k", how=how)).items()})
+    sub = f.filter(f["x"] > 0.5)
+    out.update({f"filter:{n}": sub[n] for n in sub.columns})
+    out["filter_groupby"] = sub.groupby("k", mode="hash").sum()["x"]
+    out["shuffle_stats"] = {k: ht.SHUFFLE_STATS[k] - s0[k] for k in s0}
+    out["move_stats"] = {k: ht.MOVE_STATS[k] - m0[k] for k in ("ragged_moves", "bucket_moves")}
+    sg = ht.stream.StreamingGroupBy(("sum", "mean", "std", "count", "min", "max"), capacity=1024)
+    for lo in range(0, FR_N, 300):
+        sg.update(ht.array(FR_KEY[lo : lo + 300], split=0), ht.array(FR_X[lo : lo + 300], split=0))
+    m1 = dict(ht.MOVE_STATS)
+    res = sg.result()
+    out.update({f"streaming:{n}": v for n, v in res.items()})
+    out["streaming_n"] = sg.n
+    if is_port(ht):
+        out["port:streaming_merge"] = {k: ht.MOVE_STATS[k] - m1[k] for k in ("tree_merges", "tree_merge_rounds")}
+        small = ht.stream.StreamingGroupBy(("sum",), capacity=FR_G - 1)
+        small.update(ht.array(FR_KEY, split=0), ht.array(FR_X, split=0))
+        out["port:overflow"] = attempt(small.result)
+        q = ht.Frame({"g": FR_KEY % 4, "x": FR_X}).groupby("g").quantile(0.5, k=64, levels=6)
+        got = q["x"].numpy()
+        ok = []
+        for g in range(4):
+            sx = np.sort(FR_X[FR_KEY % 4 == g])
+            lo, hi = np.searchsorted(sx, got[g], "left"), np.searchsorted(sx, got[g], "right")
+            target = 0.5 * (sx.size - 1)
+            ok.append(max(0.0, lo - target, target - hi) / sx.size <= (3 + 2) / (2 * 64))
+        out["port:quantile_within_bound"] = ok
+        out["port:quantile_keys"] = q["g"].numpy()
+    return out
+
+
+def case_resilience(ht):
+    """Checkpoints across world sizes (saved by all ranks, loaded by one
+    process and the reverse; for the port also the shard files' bytes),
+    fingerprints of split and replicated arrays, validate and health_check
+    of a ragged array, and (the port) a divergence fault entered on rank 2
+    alone, raised as the same DivergenceError on every rank."""
+    rz = ht.resilience
+    comm = ht.get_comm()
+    d = os.path.join(_case_dir(), "ckpt4")
+    out = {}
+    for split in (0, 1, None):
+        x = ht.array(CK_A, split=split)
+        rz.save_checkpoint(x, d)
+        out[f"load:{split}"] = rz.load_checkpoint(d)
+        out[f"fp:{split}"] = rz.fingerprint(x).groups
+    rag = ht.array(CK_A, split=0)
+    rag.redistribute_(target_map=_tmap([20, 0, 10, 7][: comm.size] if comm.size == 4 else [37], CK_A.shape, 0))
+    out["ragged_health"] = rag.health_check(check_values=True) is rag
+    if is_port(ht):
+        out["port:ragged_kept"] = rag.lcounts  # heat_tpu's value scan rebalances the array; the port's reads it as it lies
+    out["ragged_fp"] = rz.fingerprint(rag).groups
+    if is_port(ht):
+        x = ht.array(CK_A, split=0)
+        rz.save_checkpoint(x, d, checksum="sha256")
+        names = sorted(n for n in os.listdir(d) if n.startswith("shard_"))
+        out["port:ckpt_files"] = {n: open(os.path.join(d, n), "rb").read() for n in names}
+        out["port:ckpt_manifest"] = open(os.path.join(d, "manifest.json"), "rb").read()
+        one = rz.load_checkpoint(d, comm=ht.SELF)  # the 4-rank save, loaded by one process
+        out["port:loaded_alone"] = bool(np.array_equal(one.numpy(), CK_A)) and one.comm is ht.SELF
+        d1 = os.path.join(_case_dir(), "ckpt1")
+        if comm.rank == 0:
+            rz.save_checkpoint(ht.array(CK_A, split=0, comm=ht.SELF), d1)  # a one-process save
+        comm.barrier()
+        back = rz.load_checkpoint(d1)
+        out["port:one_to_all"] = (np.asarray(back.lshape_map), bool(np.array_equal(back.numpy(), CK_A)))
+        rep = ht.array(CK_A[:5])
+        sched = [("guard.shard", 1, "divergence")] if comm.rank == 2 else []
+        with rz.FaultSchedule(sched) as fs:
+            err = attempt(lambda: rz.check_divergence(rep))
+        out["port:divergence"] = (err.type, err.message) if isinstance(err, Raised) else None
+        out["port:rank:injected"] = [(i.site, i.kind) for i in fs.injected]
     return out
 
 

@@ -234,7 +234,7 @@ def test_lasso_state_soft_threshold_and_supervisor():
     # the port's is held to the formula
     want = np.sign(rho) * np.maximum(np.abs(rho) - t.lam, 0.0)
     np.testing.assert_allclose(t.soft_threshold(torch.tensor(rho)).numpy(), want, rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="Queue A item 10"):
+    with pytest.raises(NotImplementedError, match="Queue A item 10b"):
         htt.regression.Lasso().fit(xt, yt, supervisor=object())
     with pytest.raises(RuntimeError, match="fit needs to be called"):
         htt.regression.Lasso().predict(xt)

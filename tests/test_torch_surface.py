@@ -699,18 +699,26 @@ def test_every_name_of_the_slice_is_exported_and_covered():
 # imported before). Later slices shrink these lists; a name the port gains
 # must leave them.
 STILL_MISSING = {
-    # lazy, frame, resilience and serve (ROADMAP.md, Queue A items 7-12)
+    # lazy, resilience's supervision and health (item 10b) and serve (ROADMAP.md, Queue A items 10b-12)
     "heat_tpu": [
-        "COMPILE_STATS", "FUSE_STATS", "Frame", "HEALTH_STATS", "LOCKSTEP_STATS", "LazyDNDarray", "RECOVERY_STATS",
-        "SERVE_STATS", "SHUFFLE_STATS", "fuse", "lazy", "replicated_frame", "replicated_ids", "reset_fuse_stats",
+        "COMPILE_STATS", "FUSE_STATS", "HEALTH_STATS", "LOCKSTEP_STATS", "LazyDNDarray", "RECOVERY_STATS",
+        "SERVE_STATS", "fuse", "lazy", "replicated_frame", "replicated_ids", "reset_fuse_stats",
     ],
     "heat_tpu.linalg": [],
-    # DNDarray's members: health_check waits for resilience.validate (ROADMAP.md, Queue A item 10)
-    "DNDarray": ["health_check"],
+    # DNDarray's members: every one (health_check came with resilience.validate, Queue A item 10a)
+    "DNDarray": [],
     # the port's parallel package has every name (ROADMAP.md, Queue A item 6)
     "heat_tpu.parallel": [],
-    # grouping by key waits for frame (ROADMAP.md, Queue A item 9)
-    "heat_tpu.stream": ["StreamingGroupBy"],
+    # StreamingGroupBy came with frame (ROADMAP.md, Queue A item 9)
+    "heat_tpu.stream": [],
+    "heat_tpu.frame": [],
+    # degrade, supervisor and monitor (ROADMAP.md, Queue A item 10b)
+    "heat_tpu.resilience": [
+        "CheckpointSchedule", "DeviceHealth", "HEALTH_STATS", "HealthMonitor", "RECOVERY_STATS", "Supervisor",
+        "SupervisorError", "SupervisorResult", "TickReport", "clear_unhealthy", "grow_to_healthy", "healthy_devices",
+        "mark_unhealthy", "probe", "reset_health_stats", "reset_recovery_stats", "shrink_to_healthy", "supervise",
+        "unhealthy_devices",
+    ],
     # the ML long tail and the training path have every name (ROADMAP.md, Queue A items 7 and 8)
     "heat_tpu.naive_bayes": [],
     "heat_tpu.nn": [],
@@ -719,9 +727,9 @@ STILL_MISSING = {
     "heat_tpu.utils": [],
 }
 # submodules heat_tpu imports when it is imported, and the port has no counterpart of yet
-STILL_MISSING_MODULES = ["analysis", "frame", "resilience", "serve"]
+STILL_MISSING_MODULES = ["analysis", "serve"]
 # submodules the port has, ported by later slices than the array surface
-PORTED_MODULES = ["naive_bayes", "nn", "optim", "regression", "utils", "datasets"]
+PORTED_MODULES = ["naive_bayes", "nn", "optim", "regression", "utils", "datasets", "frame", "resilience"]
 
 
 @pytest.mark.parametrize("module", sorted(STILL_MISSING))
