@@ -10,6 +10,7 @@ NVIDIA Hopper card and the CUDA toolkit:
     python3 chip_smoke.py --phases layout  # the build and [layout] only
     python3 chip_smoke.py --phases train   # the build and [train] only
     python3 chip_smoke.py --phases frame   # the build and [frame] only (or --phases resilience)
+    python3 chip_smoke.py --phases serve   # the build and [serve] only
 
 Phases (any failure raises and exits non-zero; nothing is caught):
 
@@ -159,6 +160,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    each rank's rows (:func:`_dist_frame`) and checkpoints across world sizes
    and a divergence entered on the last rank (:func:`_dist_resilience`).
 
+11. ``[serve]`` (after ``[resilience]``, before ``[dist]``): the KMeans fit
+   supervised on the main path's 2^24 x 32 blobs (clean, and restored from
+   a checkpoint after three faults at step 3), then a ``ServeService`` of
+   the KMeans and a kNN classifier on 2^22 rows playing a 4096-request
+   open-loop trace batched and unbatched (every row against the models'
+   own ``predict``), ``topk_distance`` at each serve bucket, the fault
+   drills and clean monitor ticks; see :func:`serve_phase`. The kernels'
+   rows carry ``launches_serve``. ``[dist]`` ends with :func:`_dist_serve`:
+   a supervised fit that loses a rank, and the service across the cards
+   through a lost rank and a flapping card.
+
 The line before last is one JSON object ``{"kernels": [...]}`` (not
 printed with ``--phases dist``); the last line is
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -173,6 +185,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -2256,6 +2269,10 @@ def _dist_rank(rank, world, store, out_dir, seed=0):
     result["frame"] = _dist_frame(ht, world, rank, timed, same_everywhere, say, seed)
     _dist_resilience(ht, world, rank, say, out_dir, seed)
     result["frame"]["wall"] = time.perf_counter() - t_frame
+    torch.cuda.empty_cache()
+    t_serve = time.perf_counter()
+    result["serve"] = _dist_serve(ht, world, rank, timed, same_everywhere, say, out_dir, seed)
+    result["serve"]["wall"] = time.perf_counter() - t_serve
     times = torch.tensor([t_stats, t_fit, t_warm, t_knn, t_knn_w, t_stats_w, t_qr, t_qr_w, t_mm, t_mm_w, t_rs, path_s],
                          dtype=torch.float64, device=dev)
     result["times_max"] = comm.allreduce(times, "max").cpu().tolist()
@@ -3593,6 +3610,20 @@ def dist_phase(world: int, seed: int = 0) -> dict:
                   f"{k} {max(f['steps'][k]['host_s'] for f in fr):.4f} s" for k in fr[0]["steps"])
               + f"; range-mode groups per rank {fr[0]['range_lcounts']} (<= 2 G / P + 32); frame and resilience wall "
               f"{max(f['wall'] for f in fr):.1f} s", flush=True)
+        sv = [r["serve"] for r in ranks]
+        for r, v in zip(ranks, sv):
+            if v["sup_centers"] is not None:
+                sdiff = (v["sup_centers"].to(dev) - c0).abs().max().item()
+                check(sdiff <= CENTERS_RTOL * c0.abs().max().item(),
+                      f"[dist] rank {r['rank']}'s supervised centres vs one process: {sdiff}")
+        print(f"[dist] serve at {world} card(s): supervised fit with device_loss at step {SUP_FAULT_STEP}: detached "
+              f"{[v['sup_detached'] for v in sv]}, groups {[v['sup']['sizes'] for v in sv]}, survivors' centres within "
+              f"{CENTERS_RTOL} of one process's max |c|, lloyd_fused launches {[v['sup']['launches'] for v in sv]}, "
+              f"slowest {max(v['sup']['host_s'] for v in sv):.4f} s; the service: rows {[v['serve']['rows'] for v in sv]}, "
+              f"DegradeError {[v['serve']['errors'] for v in sv]}, group events {sv[0]['serve']['events']}, process "
+              f"groups held per rank before the trace and after each event {[v['serve']['groups_held'] for v in sv]}, slowest "
+              f"trace {max(v['serve']['secs'] for v in sv):.4f} s, serve wall {max(v['wall'] for v in sv):.1f} s",
+              flush=True)
         path = {}
         for per_map in lay[0]["launches"].values():
             for k, v in per_map.items():
@@ -5156,12 +5187,548 @@ def _dist_resilience(ht, world, rank, say, out_dir, seed):
     torch.cuda.empty_cache()
 
 
+# ---- [serve]: supervised fits and the resident service over the fitted models
+SERVE_SEED_OFFSET = 500        # [serve]'s and [dist]'s serve steps draw their numpy streams from --seed + this
+N_SERVE_REQ, SERVE_MAX_ROWS = 4096, 64  # the open-loop trace: requests of 1-64 rows x 32, uniform
+N_SERVE_UNBATCHED = 512        # the unbatched leg plays the trace's first requests
+SERVE_GAP_S = 0.25e-3          # the trace's fixed gap between submissions
+SERVE_MAX_BATCH, SERVE_LATENCY_MS = 256, 2.0
+SERVE_TIMEOUT = 300.0          # seconds any one result() may wait
+SUP_BLOCK, SUP_EVERY = 4, 2    # the supervised fit: 4 Lloyd iterations a step, a checkpoint every 2 steps
+SUP_FAULT_STEP = 3             # the step the scripted faults hit
+MON_TICKS = 20                 # [serve]'s clean monitor ticks
+SERVE_QUEUE_DEPTH = 8          # the overload drill's high-water mark
+N_DIST_SERVE_REQ = 512         # [dist]'s trace
+DIST_MON_S, DIST_HEAL_AFTER = 0.02, 3  # [dist]'s health monitor: probe cadence (s) and clean ticks to heal
+DIST_SERVE_WAIT = 60.0         # seconds [dist] waits for the flap's shrink and grow
+
+
+def serve_trace(seed, n):
+    """The open-loop trace: n requests of 1..SERVE_MAX_ROWS rows x F_MAIN (uniform), every 4th to km.predict and
+    the others to knn.predict."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(1, SERVE_MAX_ROWS + 1, size=n)
+    return [("km.predict" if i % 4 == 0 else "knn.predict", rng.normal(size=(int(r), F_MAIN)).astype(np.float32))
+            for i, r in enumerate(rows)]
+
+
+def serve_fits(ht, z, init, directory, faults, say, tag):
+    """A supervised KMeans(K_MAIN, init, ITERS, tol=None) fit (SUP_BLOCK iterations a step, a checkpoint every
+    SUP_EVERY steps) under the FaultSchedule ``faults``; returns (estimator, lloyd_fused launches, RECOVERY_STATS
+    deltas, host s, the schedule's record)."""
+    import torch
+
+    rz = ht.resilience
+    before = dict(rz.RECOVERY_STATS)
+    l0 = ht.LAUNCHES.get("lloyd_fused", 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sup = rz.Supervisor(directory, rz.CheckpointSchedule(every_steps=SUP_EVERY),
+                        retry=rz.RetryPolicy(max_attempts=3, base_delay=0.001, jitter=0.0, seed=0))
+    with rz.FaultSchedule(faults) as fs:
+        km = ht.cluster.KMeans(n_clusters=K_MAIN, init=init, max_iter=ITERS, tol=None).fit(
+            z, supervisor=sup, block_iters=SUP_BLOCK)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counters = {k: rz.RECOVERY_STATS[k] - before[k] for k in before if k != "recovery_seconds_total"}
+    launches = ht.LAUNCHES.get("lloyd_fused", 0) - l0
+    say(f"{tag}: {launches} lloyd_fused launches, {secs:.4f} s host, RECOVERY_STATS {counters}; {fs.report()!r}")
+    return km, launches, counters, secs, fs
+
+
+def serve_service(ht, km, clf, max_batch=SERVE_MAX_BATCH, **kw):
+    """A ServeService of the two models (endpoints km.predict and knn.predict)."""
+    svc = ht.serve.ServeService(ht.serve.BucketPolicy(max_batch=max_batch, max_latency_ms=SERVE_LATENCY_MS), **kw)
+    svc.register_model("km", km)
+    svc.register_model("knn", clf)
+    return svc
+
+
+def serve_warm(ht, svc, max_rows):
+    """Dispatch one request of every bucket up to ``max_rows`` rows to both endpoints, each alone."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    b = 1
+    while b <= max_rows:
+        for ep in ("km.predict", "knn.predict"):
+            r = svc.submit(ep, rng.normal(size=(b, F_MAIN)).astype(np.float32))
+            svc.flush()
+            r.result(SERVE_TIMEOUT)
+        b *= 2
+
+
+def serve_play(ht, svc, trace, gap_s=SERVE_GAP_S):
+    """Play ``trace`` open-loop (request i submitted at i * gap_s), flush, and wait for every answer; returns
+    (answers: rows or the exception, the requests, SERVE_STATS of the leg with ``knn_fused``: the kNN batch
+    dispatches of 2 rows or more, which take the fused route, LAUNCHES deltas, seconds)."""
+    from heat_tpu_torch.core import _hooks
+
+    ht.serve.reset_serve_stats()
+    l0 = dict(ht.LAUNCHES)
+    fused = [0]
+
+    def on_dispatch(name, ctx):  # the serve.dispatch fault point: one per batch attempt, with its bucket
+        if name == "serve.dispatch" and ctx.get("endpoint") == "knn.predict" and ctx.get("bucket", 0) >= 2:
+            fused[0] += 1
+
+    _hooks.add_observer(on_dispatch)
+    try:
+        out = _serve_play(ht, svc, trace, gap_s, l0)
+    finally:
+        _hooks.remove_observer(on_dispatch)
+    out[2]["knn_fused"] = fused[0]
+    return out
+
+
+def _serve_play(ht, svc, trace, gap_s, l0):
+    t0 = time.perf_counter()
+    reqs = []
+    for i, (ep, p) in enumerate(trace):
+        delay = t0 + i * gap_s - time.perf_counter()
+        if delay > 0:
+            time.sleep(delay)
+        reqs.append(svc.submit(ep, p))
+    svc.flush()
+    answers = []
+    for r in reqs:
+        try:
+            answers.append(r.result(SERVE_TIMEOUT))
+        except Exception as e:  # noqa: BLE001 - the caller holds which requests may carry which error
+            answers.append(e)
+    secs = time.perf_counter() - t0
+    stats = svc.stats()
+    launches = {k: v - l0.get(k, 0) for k, v in ht.LAUNCHES.items() if v != l0.get(k, 0)}
+    return answers, reqs, stats, launches, secs
+
+
+def serve_leg_line(tag, trace, stats, launches, secs):
+    occ = stats["batched_rows"] / max(1, stats["batched_rows"] + stats["padded_rows"])
+    return (f"{tag}: {len(trace)} requests in {secs:.4f} s = {len(trace) / secs:.2f} requests/s; p50 "
+            f"{stats['p50_latency_ms']:.4f} ms, p99 {stats['p99_latency_ms']:.4f} ms; {stats['batches']} batches, "
+            f"{stats['batched_rows'] / max(1, stats['batches']):.2f} rows a batch, bucket occupancy {occ:.4f}; "
+            f"SERVE_STATS {dict((k, v) for k, v in stats.items() if v and not k.endswith('_ms'))}; LAUNCHES {launches}")
+
+
+def serve_references(ht, km, clf, trace):
+    """The models' own predict on the trace's rows: (KMeans labels, kNN labels), each over the concatenation of
+    its endpoint's requests, as numpy. The kNN labels come from topk_distance's plain version (knn_tiles, under
+    forced_mode), so that the served rows, which went through the kernel, are held against it."""
+    import numpy as np
+
+    from heat_tpu_torch.core.kernels import TOPK_KERNEL, forced_mode
+
+    out = {}
+    for ep, model in (("km.predict", km), ("knn.predict", clf)):
+        rows = [p for e, p in trace if e == ep]
+        q = ht.array(np.concatenate(rows), split=0)
+        with forced_mode(TOPK_KERNEL, "torch"):
+            out[ep] = model.predict(q).numpy()
+    return out
+
+
+def serve_verify(ht, tag, km, clf, train, trace, answers, refs, allow=()):
+    """Every answer of ``trace`` against the models' own predict of the same rows: KMeans labels equal but where
+    the two smallest d2 are within TIE_RTOL; kNN labels equal but where the k-th and (k + 1)-th nearest training
+    rows (found by topk_distance's plain version) lie within the float32 rounding bound of the distances
+    (knn_check's). An exception is allowed only of a type in ``allow``. Returns (rows answered, errors, KMeans tie
+    rows, kNN tie rows)."""
+    import numpy as np
+    import torch
+
+    from heat_tpu_torch.core.kernels import knn_tiles
+    from heat_tpu_torch.spatial.distance import _quadratic_expand
+
+    dev = ht.get_device().torch_device
+    at = {"km.predict": 0, "knn.predict": 0}
+    bad = {"km.predict": [], "knn.predict": []}
+    answered = errors = 0
+    for (ep, p), a in zip(trace, answers):
+        n = p.shape[0]
+        want = refs[ep][at[ep]:at[ep] + n]
+        at[ep] += n
+        if isinstance(a, BaseException):
+            check(isinstance(a, allow), f"{tag}: a request to {ep} answered {type(a).__name__}: {a}")
+            errors += 1
+            continue
+        answered += 1
+        got = np.asarray(a)
+        check(got.shape == want.shape, f"{tag}: {ep} answered {got.shape} rows for {want.shape}")
+        for i in np.nonzero(got != want)[0]:
+            bad[ep].append(p[i])
+    ties = {}
+    for ep, rows in bad.items():
+        if not rows:
+            ties[ep] = 0
+            continue
+        q = torch.from_numpy(np.stack(rows)).to(dev)
+        if ep == "km.predict":
+            d2 = _quadratic_expand(q.double(), km.cluster_centers_.larray.double())
+            two = torch.topk(d2, 2, dim=1, largest=False).values
+            check(bool(((two[:, 1] - two[:, 0]) <= TIE_RTOL * two[:, 1]).all()),
+                  f"{tag}: KMeans labels differ from predict outside near-ties")
+        else:
+            y = train.larray if train.split is None or not train.comm.is_distributed() else train._logical()
+            _, idx = knn_tiles(q, y, KNN_K + 1)
+            nb = y[idx.long()].double()  # (R, k + 1, f)
+            xr = q.double().unsqueeze(1)
+            dist = ((xr - nb) ** 2).sum(-1)
+            nr = (F_MAIN + 2) * F32_UNIT_ROUNDOFF
+            e = nr / (1 - nr) * (xr.norm(dim=2) + nb.norm(dim=2)) ** 2
+            gap = (dist[:, KNN_K] - dist[:, KNN_K - 1]).abs()
+            check(bool((gap <= 4 * e.amax(1)).all()), f"{tag}: kNN labels differ from predict outside near-ties")
+        ties[ep] = len(rows)
+    return answered, errors, ties["km.predict"], ties["knn.predict"]
+
+
+def serve_phase(dev, seed, smi):
+    """[serve] on one card: 8 blobs of 2^24 x 32 (``ht.random``), standardized; the KMeans fit plain and
+    supervised (clean, and with three transient faults at step 3 that exhaust the step's retries and end in a
+    checkpoint restore); a kNN classifier on the first 2^22 standardized rows and the KMeans in one
+    ``ServeService`` (BucketPolicy(max_batch=256, max_latency_ms=2), a snapshot directory, an Autoscaler over a
+    HealthMonitor(interval_s=3600)); the open-loop trace batched and unbatched, every served row against the
+    models' own predict; the fault drills; clean monitor ticks. Returns the path's kernel launches."""
+    import numpy as np
+    import torch
+
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.core.kernels import _build
+
+    ht.use_device("gpu")
+    rz = ht.resilience
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+
+    def say(msg):
+        print(f"[serve] {msg}", flush=True)
+
+    try:
+        ht.kernels.reset_kernel_stats()
+        # ---- the path, counts zeroed just before: data, standardize, the fits, the service's legs
+        _, member, x, _, _ = _dist_data(ht, 1)
+        z = (x - ht.mean(x, axis=0)) / ht.std(x, axis=0)
+        del x
+        init = z[:K_MAIN]
+        l0 = ht.LAUNCHES.get("lloyd_fused", 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        clean = ht.cluster.KMeans(n_clusters=K_MAIN, init=init, max_iter=ITERS, tol=None).fit(z)
+        torch.cuda.synchronize()
+        t_clean, n_clean = time.perf_counter() - t0, ht.LAUNCHES.get("lloyd_fused", 0) - l0
+        c0 = clean.cluster_centers_.larray
+        km, n_sup, rc, t_sup, _ = serve_fits(ht, z, init, os.path.join(tmp, "fit"), [], say,
+                                             "supervised fit (clean)")
+        check(rc["checkpoints"] >= 2 and rc["detections"] == 0, f"[serve] clean supervised fit: {rc}")
+        restore = [("supervisor.step", SUP_FAULT_STEP + 1 + i, "io_error") for i in range(3)]
+        km_r, n_rest, rr, t_rest, fs = serve_fits(ht, z, init, os.path.join(tmp, "fit_restore"), restore, say,
+                                                  "supervised fit, 3 I/O errors at step 3")
+        check(not fs.pending() and rr["retries"] == 2 and rr["restores"] == 1 and km_r.n_iter_ == ITERS,
+              f"[serve] restore fit: {rr}, pending {fs.pending()}")
+        for name, k in (("clean supervised", km), ("restored supervised", km_r)):
+            cd = (k.cluster_centers_.larray - c0).abs().max().item()
+            check(cd <= CENTERS_RTOL * c0.abs().max().item(), f"[serve] {name} centres vs the plain fit: {cd}")
+        say(f"lloyd_fused launches: plain fit {n_clean} ({t_clean:.4f} s host), supervised {n_sup} ({t_sup:.4f} s), "
+            f"supervised with the restore {n_rest} ({t_rest:.4f} s); centres of both within {CENTERS_RTOL} of the "
+            f"plain fit's max |c|")
+        served = ht.cluster.KMeans(n_clusters=K_MAIN).load_state_dict(
+            {k: v for k, v in km.state_dict().items() if k not in ("labels", "labels_split")})
+        train, train_labels = z[:N_TRAIN], km.labels_[:N_TRAIN]
+        clf = ht.classification.KNeighborsClassifier(n_neighbors=KNN_K).fit(train, train_labels)
+        snap = os.path.join(tmp, "snapshot")
+        svc = serve_service(ht, served, clf, snapshot_dir=snap,
+                            autoscaler=ht.serve.Autoscaler(ht.resilience.HealthMonitor(interval_s=3600.0)))
+        unb = serve_service(ht, served, clf, max_batch=1)
+        trace = serve_trace(seed + SERVE_SEED_OFFSET, N_SERVE_REQ)
+        try:
+            serve_warm(ht, svc, SERVE_MAX_BATCH)
+            serve_warm(ht, unb, SERVE_MAX_ROWS)
+            libs = dict(_build._libs)
+            leg_b = serve_play(ht, svc, trace)
+            leg_u = serve_play(ht, unb, trace[:N_SERVE_UNBATCHED])
+            check(_build._libs == libs, "[serve] a warm leg loaded or built a kernel library")
+        finally:
+            unb.close(SERVE_TIMEOUT)
+        path_launches = dict(ht.LAUNCHES)
+        for tag, leg, tr in (("batched", leg_b, trace), ("unbatched (max_batch=1)", leg_u, trace[:N_SERVE_UNBATCHED])):
+            answers, reqs, stats, launches, secs = leg
+            say(serve_leg_line(tag, tr, stats, launches, secs))
+            check(all(r.answers == 1 for r in reqs), f"[serve] {tag}: a request answered more than once")
+            check(stats["bucket_misses"] == 0 and stats["errors"] == 0 and stats["scale_events"] == 0,
+                  f"[serve] {tag}: a cold bucket, an error or a scale event on the warm leg: {stats}")
+            # a kNN batch of one row (n * m = 2^22 pairs) takes heat_tpu's materializing route, as predict does
+            check(launches.get("topk_distance", 0) == stats["knn_fused"],
+                  f"[serve] {tag}: topk_distance launches {launches.get('topk_distance', 0)} != the kNN batches of 2 "
+                  f"rows or more ({stats['knn_fused']})")
+        refs = serve_references(ht, served, clf, trace)
+        for tag, leg, tr in (("batched", leg_b, trace), ("unbatched", leg_u, trace[:N_SERVE_UNBATCHED])):
+            n_ok, _, km_ties, knn_ties = serve_verify(ht, f"[serve] {tag}", served, clf, train, tr, leg[0], refs)
+            say(f"{tag}: all {n_ok} requests' rows equal the models' own predict (KMeans near-tie rows {km_ties}, "
+                f"kNN near-tie rows {knn_ties})")
+        say(f"batched / unbatched requests/s: {len(trace) / leg_b[4] / (N_SERVE_UNBATCHED / leg_u[4]):.3f}")
+
+        # ---- topk_distance at the serve buckets (not on the counted path): each bucket's kernel call on the
+        # trace's first kNN rows against the plain version, and its time
+        tk = ht.core.kernels
+        q_all = torch.from_numpy(np.concatenate([p for e, p in trace if e == "knn.predict"])[:SERVE_MAX_BATCH]).to(dev)
+        sms, per_sm = tk.topk_distance._occupancy(0, F_MAIN, KNN_K)
+        lines = []
+        for b in (1, 2, 4, 8, 16, 32, 64, 128, 256):
+            q = q_all[:b]
+            d, i = tk.nearest_neighbors_local(q, train.larray, KNN_K)
+            d0, i0 = tk.knn_tiles(q, train.larray, KNN_K)
+            e_d, ndiff, worst = knn_check(q, train.larray, d, i, d0, i0)
+            ms = time_ms(lambda: tk.nearest_neighbors_local(q, train.larray, KNN_K), reps=10)
+            nseg, seg_len = tk.topk_distance.knn_plan(b, N_TRAIN, KNN_K, sms, per_sm)
+            blocks = -(-b // tk.topk_distance._ROWS) * nseg
+            lines.append(f"n={b}: {ms:.4f} ms, {blocks} blocks ({nseg} y-segments of {seg_len} rows), distances max "
+                         f"abs {e_d:.3e} vs knn_tiles, indices differ on {ndiff} entries (largest gap {worst:.3f} "
+                         f"of the rounding bound)")
+            del d, i, d0, i0
+        say(f"topk_distance at the serve buckets against knn_tiles (m={N_TRAIN}, f={F_MAIN}, k={KNN_K}; {per_sm} "
+            f"blocks/SM x {sms} SMs; CUDA events, median of 10): " + "; ".join(lines))
+        for b in (1, 32, 256):
+            nseg, seg_len = ht.core.kernels.topk_distance.knn_plan(b, N_TRAIN, KNN_K, sms, per_sm)
+            print(f"[design] topk_distance at a serve batch of n={b}: {-(-b // ht.core.kernels.topk_distance._ROWS)} "
+                  f"query block(s) x {nseg} y-segments of {seg_len} rows = "
+                  f"{-(-b // ht.core.kernels.topk_distance._ROWS) * nseg} blocks on {sms} SMs", flush=True)
+
+        # ---- drills, on a service sharing the models, snapshotting after every good batch
+        drill = serve_service(ht, served, clf, snapshot_dir=snap, snapshot_every=1,
+                              retry=rz.RetryPolicy(max_attempts=3, base_delay=0.001, jitter=0.0, seed=0))
+        rng = np.random.default_rng(seed + SERVE_SEED_OFFSET + 1)
+        armed = {"timeout": False}
+
+        def guarded(xq):
+            if bool(torch.isnan(xq.larray).any()):
+                raise ValueError("a NaN row")
+            if armed["timeout"]:
+                armed["timeout"] = False
+                raise rz.CollectiveTimeout("serve.drill", 1.0, 0.5, "resident state suspect")
+            return served.predict(xq)
+
+        drill.register_endpoint("km.guarded", guarded)
+        try:
+            p0 = rng.normal(size=(3, F_MAIN)).astype(np.float32)
+            drill.submit("km.predict", p0).result(SERVE_TIMEOUT)  # a good batch: the snapshot exists
+            s0 = dict(ht.serve.SERVE_STATS)
+            good = [rng.normal(size=(int(r), F_MAIN)).astype(np.float32) for r in rng.integers(1, 9, size=7)]
+            poison = np.full((2, F_MAIN), np.nan, np.float32)
+            reqs = [drill.submit("km.guarded", p) for p in good[:3] + [poison] + good[3:]]
+            drill.flush()
+            outs = []
+            for r in reqs:
+                try:
+                    outs.append(r.result(SERVE_TIMEOUT))
+                except rz.PoisonRequestError as e:
+                    outs.append(e)
+            check(isinstance(outs[3], rz.PoisonRequestError)
+                  and all(np.array_equal(o, served.predict(ht.array(p)).numpy())
+                          for o, p in zip(outs[:3] + outs[4:], good)),
+                  "[serve] poison drill: the poison request isolated, its neighbours' rows")
+            with rz.chaos(seed=seed, io_error=1.0, max_faults=2, targets=("serve",)) as ch:
+                r = drill.submit("knn.predict", good[0])
+                drill.flush()
+                got = r.result(SERVE_TIMEOUT)
+            check(np.array_equal(got, clf.predict(ht.array(good[0])).numpy()) and len(ch.injected) == 2,
+                  f"[serve] chaos drill: {ch.report()}")
+            armed["timeout"] = True
+            r = drill.submit("km.guarded", good[1])
+            drill.flush()
+            check(np.array_equal(r.result(SERVE_TIMEOUT), served.predict(ht.array(good[1])).numpy()),
+                  "[serve] restore drill: the replayed batch's rows")
+            d = {k: ht.serve.SERVE_STATS[k] - s0[k] for k in ("bisections", "retries", "restores", "redispatched")}
+            # restores: the poison drill rolls the registry back too (a poison payload may have touched it)
+            check(d["bisections"] == 1 and d["retries"] == 2 and d["restores"] == 2 and d["redispatched"] >= 1,
+                  f"[serve] drills: {d}")
+        finally:
+            drill.close(SERVE_TIMEOUT)
+        gate, running = threading.Event(), threading.Event()
+
+        def block():
+            running.set()
+            gate.wait(SERVE_TIMEOUT)
+
+        adm = serve_service(ht, served, clf, max_queue_depth=SERVE_QUEUE_DEPTH)
+        try:
+            blocker = adm.submit_call(block)
+            check(running.wait(SERVE_TIMEOUT), "[serve] the admission drill's blocking call never ran")
+            try:
+                acc = [adm.submit("km.predict", good[i % 7]) for i in range(SERVE_QUEUE_DEPTH - 1)]
+                doomed = adm.submit("km.predict", good[0], deadline_ms=0.0)
+                try:
+                    adm.submit("km.predict", good[0])
+                    check(False, "[serve] a submit past max_queue_depth was accepted")
+                except rz.ServeOverloadError:
+                    pass
+            finally:
+                gate.set()
+            blocker.result(SERVE_TIMEOUT)
+            adm.drain(SERVE_TIMEOUT)
+            try:
+                doomed.result(SERVE_TIMEOUT)
+                check(False, "[serve] an expired deadline was served")
+            except rz.ServeDeadlineError:
+                pass
+            check(all(r.answers == 1 for r in acc + [doomed]), "[serve] admission drill answers")
+        finally:
+            adm.close(SERVE_TIMEOUT)
+        say(f"drills: a NaN request isolated by bisection (PoisonRequestError) while its 7 neighbours got their rows; "
+            f"{ch.report()!r} absorbed by 2 retries; a CollectiveTimeout restored the registry from its snapshot and "
+            f"replayed the batch; past max_queue_depth={SERVE_QUEUE_DEPTH} ServeOverloadError; an expired deadline "
+            f"shed with ServeDeadlineError; SERVE_STATS deltas {d}")
+        svc.close(SERVE_TIMEOUT)
+
+        # ---- clean monitor ticks, each with its probe ms; device_loss cannot fire on one card
+        mon = rz.HealthMonitor(interval_s=0.0)
+        rz.reset_health_stats()
+        ticks = [mon.tick() for _ in range(MON_TICKS)]
+        check(all(not (t.degraded or t.failed or t.stragglers) for t in ticks)
+              and rz.HEALTH_STATS["probe_failures"] == 0, f"[serve] monitor ticks {rz.HEALTH_STATS}")
+        with rz.FaultSchedule([("supervisor.step", 1, "device_loss")]) as fs:
+            rz.supervise(lambda st, data, step: (st, True), {"n": 0}, n_steps=1)
+        check(fs.pending() == [("supervisor.step", 1, "device_loss")], "[serve] device_loss fired on one card")
+        say(f"{MON_TICKS} clean monitor ticks, probe ms " + ", ".join(f"{t.probe_ms:.4f}" for t in ticks)
+            + f"; HEALTH_STATS {dict(rz.HEALTH_STATS)}; device_loss stays pending on one card")
+        for name in ("moments_onepass", "lloyd_fused", "topk_distance", "threefry_bits"):
+            check(path_launches.get(name, 0) > 0, f"[serve] {name} was not launched on the path: {path_launches}")
+        say(f"path launches {path_launches}")
+        del z, train, clf, km, km_r, clean, served
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[serve] phase {time.perf_counter() - t_phase:.1f} s host ({smi})", flush=True)
+    return path_launches
+
+
+def _dist_serve(ht, world, rank, timed, same_everywhere, say, out_dir, seed):
+    """[dist]'s serve steps: a supervised KMeans fit at N_MAIN x 32 rows a card that loses a rank at step 3
+    (device_loss: every rank marks the same rank, the survivors' group is built member-only, the lost rank
+    detaches); then the ServeService with the replicated tick armed, every rank playing the same trace, with a
+    device_loss at a dispatch (the models moved onto the survivors, the in-flight batch redispatched, the excluded
+    rank answering with DegradeError) healed and grown back by the health monitor, and a device_flap on one rank
+    that degrades, heals and grows back. Returns what the parent compares and prints."""
+    import numpy as np
+    import torch
+
+    from heat_tpu_torch.core import _hooks
+
+    rz = ht.resilience
+    comm = ht.get_comm()
+    out = {"steps": {}}
+    _, _, x, _, _ = _dist_data(ht, world)
+    z = (x - ht.mean(x, axis=0)) / ht.std(x, axis=0)
+    del x
+    init = z[:K_MAIN].resplit(None)
+    lost = 1 if world > 1 else None  # the schedule's first draw, 0.844: healthy[int(0.844 * 997) % world]
+    d = os.path.join(out_dir, "supervised")
+    (km, n_sup, rc, t_sup, fs), host, ev = timed(lambda: serve_fits(
+        ht, z, init, d, [("supervisor.step", SUP_FAULT_STEP + 1, "device_loss")], say, "supervised fit"))
+    res = km.supervisor_result_
+    sizes = (comm.size, res.comm.size if res.comm is not None else None)
+    if world > 1:
+        check([i.kind for i in fs.injected] == ["device_loss"] and res.detached == (rank == lost)
+              and sizes[1] == world - 1, f"[dist] supervised fit: detached {res.detached}, sizes {sizes}")
+    else:
+        check(fs.pending() and not res.detached, "[dist] device_loss fired on one card")
+    out["sup_detached"] = res.detached
+    out["sup_centers"] = None if res.detached else km.cluster_centers_.larray.cpu()
+    out["sup"] = {"launches": n_sup, "recovery": rc, "host_s": host, "sizes": sizes}
+    rz.clear_unhealthy()
+    ht.use_comm(comm)
+    say(f"supervised fit (device_loss at step {SUP_FAULT_STEP}): group {sizes[0]} -> {sizes[1]}, "
+        f"{'detached' if res.detached else 'finished'}, {n_sup} lloyd_fused launches, {host:.4f} s host")
+    del km
+    torch.cuda.empty_cache()
+
+    # ---- the service: the models, the references, the trace
+    clean = ht.cluster.KMeans(n_clusters=K_MAIN, init=init, max_iter=ITERS, tol=None).fit(z)
+    served = ht.cluster.KMeans(n_clusters=K_MAIN).load_state_dict(
+        {k: v for k, v in clean.state_dict().items() if k not in ("labels", "labels_split")})
+    train = z[:N_TRAIN]
+    clf = ht.classification.KNeighborsClassifier(n_neighbors=KNN_K).fit(train, clean.labels_[:N_TRAIN])
+    trace = serve_trace(seed + SERVE_SEED_OFFSET, N_DIST_SERVE_REQ)
+    refs = serve_references(ht, served, clf, trace)
+    tail = serve_trace(seed + SERVE_SEED_OFFSET + 2, 64)
+    tail_refs = serve_references(ht, served, clf, tail)
+    events, held = [], []
+
+    def groups_held():
+        from torch.distributed import distributed_c10d
+
+        return len(distributed_c10d._world.pg_names) if torch.distributed.is_initialized() else 0
+
+    def on_event(event, ctx):
+        if event in ("serve.shrink", "serve.grow"):
+            events.append((event.split(".")[1], ctx.get("old"), ctx.get("new")))
+            free, total = torch.cuda.mem_get_info()
+            held.append((groups_held(), (total - free) / 2**20))  # after each resize: process groups, MiB in use
+
+    held0 = groups_held()
+
+    _hooks.add_observer(on_event)
+    culprit = min(2, world - 1)
+    mon = rz.HealthMonitor(interval_s=DIST_MON_S, heal_after=DIST_HEAL_AFTER)
+    svc = serve_service(ht, served, clf, autoscaler=ht.serve.Autoscaler(mon))
+    ht.kernels.reset_kernel_stats()
+    def wait_for(n_events):  # the dispatcher applies the replicated verdicts; this thread only watches
+        t0 = time.perf_counter()
+        while (len(events) < n_events or ht.get_comm().size != world) and time.perf_counter() - t0 < DIST_SERVE_WAIT:
+            time.sleep(0.01)
+
+    try:
+        serve_warm(ht, svc, SERVE_MAX_BATCH)
+        with rz.FaultSchedule([("serve.dispatch", 8, "device_loss")]) as fs:
+            answers, reqs, stats, launches, secs = serve_play(ht, svc, trace)
+            if world > 1:
+                wait_for(2)  # the loss's shrink, then the grow once the monitor healed the rank
+        pending = fs.pending()
+        if world > 1:
+            with rz.FaultSchedule([("monitor.probe", 2, "device_flap")] if rank == culprit else []) as fs2:
+                wait_for(4)  # the flap's shrink and grow
+            pending += fs2.pending()
+        tail_ans, tail_reqs, tail_stats, _, _ = serve_play(ht, svc, tail)
+    finally:
+        svc.close(SERVE_TIMEOUT)
+        _hooks.remove_observer(on_event)
+        rz.clear_unhealthy()
+        ht.use_comm(comm)
+    check(all(r.answers == 1 for r in reqs + tail_reqs), "[dist] a served request was answered more than once")
+    n_ok, n_err, km_ties, knn_ties = serve_verify(ht, "[dist] serve", served, clf, train, trace, answers, refs,
+                                                  allow=(rz.DegradeError,) if rank == lost else ())
+    tail_ok, _, _, _ = serve_verify(ht, "[dist] serve tail", served, clf, train, tail, tail_ans, tail_refs)
+    if world > 1:
+        check(not pending and events[:2] == [("shrink", world, world - 1), ("grow", world - 1, world)]
+              and events[2:4] == [("shrink", world, world - 1), ("grow", world - 1, world)],
+              f"[dist] serve: group events {events}, pending {pending}")
+        check((n_err > 0) == (rank == lost), f"[dist] serve: {n_err} DegradeErrors on rank {rank}")
+        check(held[0][0] == held0, f"[dist] serve: the loss's shrink to the fit's survivors built a group "
+                                   f"({held0} -> {held[0][0]} held)")
+    else:
+        check(pending == [("serve.dispatch", 8, "device_loss")] and not events, f"[dist] one card: {pending} {events}")
+    out["serve"] = {"rows": n_ok, "errors": n_err, "ties": (km_ties, knn_ties), "events": events,
+                    "secs": secs, "stats": {k: v for k, v in stats.items() if v}, "launches": launches,
+                    "collectives": {k: dict(v) for k, v in ht.kernels.COLLECTIVES.items()}, "tail_rows": tail_ok,
+                    "groups_held": [held0] + [g for g, _ in held]}
+    say(f"serve: {len(trace)} requests in {secs:.4f} s ({len(trace) / secs:.2f} requests/s), rows {n_ok}, "
+        f"DegradeError {n_err}, near-tie rows {km_ties}/{knn_ties}; group events {events}; process groups held "
+        f"before the trace {held0}, after each event {[g for g, _ in held]}, device MiB in use after each event "
+        f"(torch.cuda.mem_get_info) {[round(m, 1) for _, m in held]}; then {tail_ok} of "
+        f"{len(tail)} requests answered with rows on {world} card(s); SERVE_STATS {out['serve']['stats']}; "
+        f"LAUNCHES {launches}; COLLECTIVES {out['serve']['collectives']}")
+    del z, train, clf, clean, served
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive heat_tpu_torch's main path on the cards and check every kernel.")
     ap.add_argument("--phases", choices=("all", "dist", "spectral", "linalg", "robust", "dtypes", "stream", "layout",
-                                         "train", "frame", "resilience"),
+                                         "train", "frame", "resilience", "serve"),
                     default="all", help="all (default): every phase; dist, spectral, linalg, robust, dtypes, stream, "
-                                        "layout, train, frame or resilience: environment, build and that phase only")
+                                        "layout, train, frame, resilience or serve: environment, build and that phase "
+                                        "only")
     ap.add_argument("--seed", type=int, default=0, help="seed of [dtypes]', [stream]'s, the layout steps', the "
                                                         "training steps' and the frame steps' data (default 0)")
     args = ap.parse_args(argv)
@@ -5250,6 +5817,11 @@ def main(argv=None) -> int:
                 row["launches_frame"] = frame_launches.get(row["name"], 0)
     if args.phases in ("all", "resilience"):
         phase("resilience", lambda: resilience_phase(dev, args.seed, smi))
+    if args.phases in ("all", "serve"):
+        serve_launches = phase("serve", lambda: serve_phase(dev, args.seed, smi))
+        if kernels is not None:
+            for row in kernels:
+                row["launches_serve"] = serve_launches.get(row["name"], 0)
     if args.phases in ("all", "dist"):
         layout_launches = phase("dist", lambda: dist_phase(torch.cuda.device_count(), args.seed))
         if kernels is not None:

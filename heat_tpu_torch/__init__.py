@@ -73,15 +73,24 @@ The port goes slice by slice:
     ``stream.StreamingGroupBy``, and ``resilience``'s storage and guards:
     sharded checkpoints in ``heat_tpu``'s format, ``validate``/
     ``DNDarray.health_check``, ``guard``, the watchdog, ``chaos``, retries
-    and the error classes.
+    and the error classes;
+12. ``resilience``'s supervision and health (``degrade``: a lost card means a
+    smaller ``torch.distributed`` group and the live arrays moved onto it;
+    ``HealthMonitor``, ``HEALTH_STATS``; ``Supervisor`` and the supervised
+    fits of the k-clusterers, ``Lasso`` and ``DataParallel``,
+    ``RECOVERY_STATS``), ``replicated_ids``/``replicated_frame``, and
+    ``serve`` (``ServeService`` with its batching, replicated dispatch tick
+    and fault ladder, ``ModelRegistry``, ``Autoscaler``, ``SERVE_STATS``).
 """
 from .core import *
 from .core import complex_math, io, kernels, linalg, printing, random, signal, version
 from .core.version import __version__
 from . import (classification, cluster, convert, datasets, frame, graph, naive_bayes, nn, optim, parallel,
-               regression, resilience, spatial, stream, utils)
+               regression, resilience, serve, spatial, stream, utils)
 from .core.dndarray import LAYOUT_STATS
 from .core.kernels import KERNEL_STATS, LAUNCHES
 from .frame import Frame, SHUFFLE_STATS
 from .parallel.flatmove import MOVE_STATS
+from .resilience import HEALTH_STATS, RECOVERY_STATS
+from .serve import SERVE_STATS
 from .stream import STREAM_STATS

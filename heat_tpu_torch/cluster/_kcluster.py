@@ -111,6 +111,108 @@ class _KCluster(BaseEstimator, ClusteringMixin):
             return centers
         raise ValueError(f"Initialization method {self.init!r} not supported")
 
+    # ---------------------------------------------------------------- fit
+    def _fit_view(self, x: DNDarray):
+        """``(x, xa, comm)`` of a fit: ``x`` split along 0 or replicated, its
+        local rows as a float tensor, and the communicator the statistics
+        are summed over (None: this rank's rows are the whole data)."""
+        if x.split not in (None, 0):
+            x = x.resplit(0)
+        xa = x.larray
+        if xa.dtype not in (torch.float32, torch.float64):
+            xa = xa.to(torch.float32)
+        comm = x.comm if x.split == 0 and x.comm.is_distributed() else None
+        return x, xa, comm
+
+    def _begin_block(self, x: DNDarray, xa: torch.Tensor):
+        """Set-up of a run of iterations (KMeans picks its route)."""
+        return None
+
+    def _iteration(self, xa, centers, comm, x, ctx):
+        """One iteration of the fit: ``(centers, labels, shift)``."""
+        raise NotImplementedError()
+
+    def _finalize(self, x: DNDarray, xa: torch.Tensor, comm) -> None:
+        """Post-fit hook on the final group's data (KMeans computes the inertia)."""
+
+    def _labels_of(self, labels: torch.Tensor, x: DNDarray) -> DNDarray:
+        return DNDarray(labels.to(torch.int64), gshape=x.gshape[:1], dtype=types.int64, split=x.split,
+                        device=x.device, comm=x.comm)
+
+    def _iterate(self, xa, centers, comm, x, budget: int, shift):
+        """Up to ``budget`` iterations from ``centers`` while the shift
+        exceeds ``tol`` (all of them with ``tol=None``, which never waits
+        for the device; with a ``tol`` the shift is read back once per
+        iteration). Returns ``(centers, labels, shift, iterations)``."""
+        ctx = self._begin_block(x, xa)
+        labels, iters = None, 0
+        while iters < budget and (self.tol is None or float(shift) > float(self.tol)):
+            centers, labels, shift = self._iteration(xa, centers, comm, x, ctx)
+            iters += 1
+        return centers, labels, shift, iters
+
+    def _fit(self, x: DNDarray, supervisor, block_iters: int, label: str):
+        """The fit: ``max_iter`` iterations (fewer once the shift is at most
+        ``tol``), the labels of the last one.
+
+        With a ``supervisor`` it is a supervised step loop (``heat_tpu``'s
+        ``_fit_supervised``): each step runs up to ``block_iters``
+        iterations, carrying the centres and the shift, so chained steps
+        run the unsupervised fit's iterations one for one; the step
+        boundary is where the supervisor checkpoints and recovers, and a
+        step reads the shift back to the host once. The data moves with a
+        shrink, so a fit that loses a rank finishes on the survivors; on a
+        rank the shrink excluded the estimator stays unfitted.
+        ``supervisor_result_`` keeps the run's
+        :class:`~heat_tpu_torch.resilience.SupervisorResult` (``detached``
+        on such a rank)."""
+        x0, xa0, comm0 = self._fit_view(x)
+        centers0 = self._initialize_cluster_centers(x0).to(xa0.dtype)
+        if supervisor is None:
+            centers, labels, _, n_iter = self._iterate(xa0, centers0, comm0, x0, self.max_iter, float("inf"))
+            self._set_fit(centers, labels, n_iter, x0)
+            self._finalize(x0, xa0, comm0)
+            return self
+        if block_iters < 1:
+            raise ValueError(f"block_iters must be >= 1, got {block_iters}")
+        state = {
+            "centers": DNDarray(centers0, split=None, device=x0.device, comm=x0.comm),
+            "labels": self._labels_of(torch.zeros(xa0.shape[0], dtype=torch.int64, device=xa0.device), x0),
+            "shift": float("inf"),
+            "n_iter": 0,
+        }
+
+        def step_fn(st, data, step):
+            xd, xa, comm = self._fit_view(data[0])
+            centers = st["centers"].larray.to(device=xa.device, dtype=xa.dtype)
+            budget = min(block_iters, self.max_iter - st["n_iter"])
+            centers, labels, shift, iters = self._iterate(xa, centers, comm, xd, budget, st["shift"])
+            if labels is None:
+                labels = torch.zeros(xa.shape[0], dtype=torch.int64, device=xa.device)
+            shift_val = float(shift)  # the step's host read: the convergence decision
+            n_iter = st["n_iter"] + iters
+            new = dict(st, centers=DNDarray(centers, split=None, device=xd.device, comm=xd.comm),
+                       labels=self._labels_of(labels, xd), shift=shift_val, n_iter=n_iter)
+            converged = self.tol is not None and not shift_val > float(self.tol)
+            return new, converged or n_iter >= self.max_iter
+
+        result = supervisor.run(step_fn, state, data=(x0,), label=label)
+        self.supervisor_result_ = result
+        if result.detached:
+            return self
+        final = result.state
+        xd, xa, comm = self._fit_view(result.data[0])  # the final (possibly shrunken) group's
+        self._cluster_centers = final["centers"]
+        self._labels = final["labels"]
+        self._n_iter = int(final["n_iter"])
+        self._finalize(xd, xa, comm)
+        return self
+
+    def _set_fit(self, centers: torch.Tensor, labels: torch.Tensor, n_iter: int, x: DNDarray) -> None:
+        self._cluster_centers = DNDarray(centers, split=None, device=x.device, comm=x.comm)
+        self._labels = self._labels_of(labels, x)
+        self._n_iter = n_iter
+
     # --------------------------------------------------- state round-trip
     def state_dict(self) -> dict:
         """Fitted + hyper state as plain host values (numpy / scalars), in

@@ -16,7 +16,6 @@ from typing import Optional, Union
 
 import torch
 
-from ..core import types
 from ..core.dndarray import DNDarray
 from ..core.kernels import LLOYD_KERNEL, dispatch_mode, lloyd_sharded, record_dispatch
 from ..spatial.distance import _quadratic_expand
@@ -72,9 +71,33 @@ class KMeans(_KCluster):
             random_state=random_state,
         )
 
-    def fit(self, x: DNDarray) -> "KMeans":
+    def _fit_view(self, x: DNDarray):
+        x, xa, _ = super()._fit_view(x)
+        # the statistics go through the group's allreduce at any group size, one rank's too: one allreduce a
+        # Lloyd step on every group (lloyd_sharded sums nothing when no process group is started)
+        return x, xa, x.comm if x.split == 0 else None
+
+    def _begin_block(self, x: DNDarray, xa: torch.Tensor):
+        mode = dispatch_mode(LLOYD_KERNEL, xa)
+        record_dispatch(LLOYD_KERNEL, mode)  # once per run of iterations: the fit, or a supervised step
+        return mode
+
+    def _iteration(self, xa, centers, comm, x, mode):
+        return _lloyd_body(xa, centers, comm, mode)
+
+    def _finalize(self, x: DNDarray, xa: torch.Tensor, comm) -> None:
+        centers = self._cluster_centers.larray.to(device=xa.device, dtype=xa.dtype)
+        _, _, _, inertia = lloyd_sharded(xa, centers, comm, dispatch_mode(LLOYD_KERNEL, xa))
+        self._inertia = float(inertia)
+
+    def fit(self, x: DNDarray, supervisor=None, block_iters: int = 16) -> "KMeans":
         """Lloyd iterations until the centroid shift drops to ``tol`` or
         ``max_iter`` iterations ran.
+
+        With ``supervisor`` (a :class:`~heat_tpu_torch.resilience.Supervisor`)
+        the fit runs as a self-healing supervised step loop, one step being
+        up to ``block_iters`` iterations (``lloyd_fused`` launches), with one
+        host read of the shift per step (``_KCluster._fit``).
 
         With ``tol=None`` the loop never waits for the device: it enqueues
         ``max_iter`` iterations back to back. With a ``tol`` it reads the
@@ -89,31 +112,4 @@ class KMeans(_KCluster):
             raise ValueError(f"input needs to be 2D, but was {x.ndim}D")
         if self.max_iter < 1:
             raise ValueError(f"max_iter must be >= 1, got {self.max_iter}")
-        xa = x.larray
-        if xa.dtype not in (torch.float32, torch.float64):
-            xa = xa.to(torch.float32)
-        if x.split not in (None, 0):
-            x = x.resplit(0)
-            xa = x.larray.to(xa.dtype)
-        comm = x.comm if x.split == 0 else None  # replicated data: every rank fits the whole
-        centers = self._initialize_cluster_centers(x).to(xa.dtype)
-        mode = dispatch_mode(LLOYD_KERNEL, xa)
-        record_dispatch(LLOYD_KERNEL, mode)  # call boundary: once per fit
-
-        labels = None
-        n_iter = 0
-        while n_iter < self.max_iter:
-            centers, labels, shift = _lloyd_body(xa, centers, comm, mode)
-            n_iter += 1
-            # the one host sync per iteration, only when a tol is set
-            if self.tol is not None and float(shift) <= float(self.tol):
-                break
-
-        _, _, _, inertia = lloyd_sharded(xa, centers, comm, mode)
-        self._cluster_centers = DNDarray(centers, split=None, device=x.device, comm=x.comm)
-        self._labels = DNDarray(
-            labels.to(torch.int64), gshape=x.gshape[:1], dtype=types.int64, split=x.split, device=x.device, comm=x.comm
-        )
-        self._inertia = float(inertia)
-        self._n_iter = n_iter
-        return self
+        return self._fit(x, supervisor, block_iters, "kmeans.fit")

@@ -17,7 +17,6 @@ from typing import Optional, Union
 
 import torch
 
-from ..core import types
 from ..core.dndarray import DNDarray
 from ..parallel.dselect import select_values
 from ._kcluster import _KCluster
@@ -71,33 +70,22 @@ class _MedianCluster(_KCluster):
     ``_whole_fit`` (iterate while ``i < max_iter`` and the squared centre
     shift exceeds ``tol``; the labels of the last iteration)."""
 
-    def _step(self, x, centers, comm):
+    def _step(self, xa, centers, comm, x):
         raise NotImplementedError()
 
-    def fit(self, x: DNDarray):
+    def _iteration(self, xa, centers, comm, x, ctx):
+        return self._step(xa, centers, comm, x)
+
+    def fit(self, x: DNDarray, supervisor=None, block_iters: int = 16):
+        """Iterate until the squared centre shift is ``<= tol`` or
+        ``max_iter`` iterations ran. With ``supervisor`` the fit runs as a
+        self-healing supervised step loop of up to ``block_iters``
+        iterations a step (``_KCluster._fit``)."""
         if not isinstance(x, DNDarray):
             raise TypeError(f"input needs to be a DNDarray, but was {type(x)}")
         if self.max_iter < 1:
             raise ValueError(f"max_iter must be >= 1, got {self.max_iter}")
-        if x.split not in (None, 0):
-            x = x.resplit(0)
-        xa = x.larray
-        if xa.dtype not in (torch.float32, torch.float64):
-            xa = xa.to(torch.float32)
-        comm = x.comm if x.split == 0 and x.comm.is_distributed() else None
-        centers = self._initialize_cluster_centers(x).to(xa.dtype)
-        tol = None if self.tol is None else float(self.tol)
-        labels, n_iter = None, 0
-        while n_iter < self.max_iter:
-            centers, labels, shift = self._step(xa, centers, comm)
-            n_iter += 1
-            if tol is not None and not float(shift) > tol:  # the one host read per iteration, with a tol
-                break
-        self._cluster_centers = DNDarray(centers, split=None, device=x.device, comm=x.comm)
-        self._labels = DNDarray(labels.to(torch.int64), gshape=x.gshape[:1], dtype=types.int64, split=x.split,
-                                device=x.device, comm=x.comm)
-        self._n_iter = n_iter
-        return self
+        return self._fit(x, supervisor, block_iters, f"{type(self).__name__.lower()}.fit")
 
 
 class KMedians(_MedianCluster):
@@ -123,5 +111,5 @@ class KMedians(_MedianCluster):
         super().__init__(metric=_l1_distances, n_clusters=n_clusters, init=init, max_iter=max_iter, tol=tol,
                          random_state=random_state)
 
-    def _step(self, x, centers, comm):
-        return median_step(x, centers, comm)
+    def _step(self, xa, centers, comm, x):
+        return median_step(xa, centers, comm)

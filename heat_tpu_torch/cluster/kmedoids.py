@@ -64,13 +64,6 @@ class KMedoids(_MedianCluster):
         super().__init__(metric=_l1_distances, n_clusters=n_clusters, init=init, max_iter=max_iter, tol=0.0,
                          random_state=random_state)
 
-    def fit(self, x: DNDarray):
-        self._fit_x = x if x.split in (None, 0) else x.resplit(0)
-        try:
-            return super().fit(self._fit_x)
-        finally:
-            del self._fit_x
-
-    def _step(self, x, centers, comm):
-        off = self._fit_x.comm.chunk(self._fit_x.gshape, 0)[0] if comm is not None else 0
-        return medoid_step(x, centers, comm, off, self._fit_x)
+    def _step(self, xa, centers, comm, x):
+        off = x.comm.chunk(x.gshape, 0)[0] if comm is not None else 0
+        return medoid_step(xa, centers, comm, off, x)

@@ -59,6 +59,8 @@ __all__ = [
     "get_comm",
     "init_distributed",
     "replicated_decision",
+    "replicated_frame",
+    "replicated_ids",
     "tree_merge",
     "tree_merge_rounds",
     "use_comm",
@@ -104,23 +106,89 @@ class Communication:
 
 
 class TorchCommunication(Communication):
-    """The communicator of the default ``torch.distributed`` process group:
-    every rank of the program once a group is started, a world of size 1
-    before."""
+    """A communicator over ``torch.distributed``: by default the default
+    process group (every rank of the program once a group is started, a
+    world of size 1 before); with ``ranks``, the group of those global
+    ranks, in that order, over the ``torch.distributed`` group ``group``.
 
-    @staticmethod
-    def _started() -> bool:
+    ``size`` and ``rank`` are read within the group, every collective runs
+    on ``group``, and point-to-point peers are group ranks, mapped to their
+    global ranks. A rank that is not a member of the group (``is_member``
+    False: :func:`~heat_tpu_torch.resilience.degrade.shrink_to_healthy`
+    excluded its card) holds no rows of an array split over the group
+    (``chunk`` gives it none) and raises
+    :class:`~heat_tpu_torch.resilience.DegradeError` naming itself at any
+    collective, where torch would return silently. :func:`group_of` builds
+    such communicators."""
+
+    def __init__(self, ranks: Optional[Sequence[int]] = None, group=None):
+        if group is not None and not isinstance(group, dist.ProcessGroup):
+            raise TypeError(f"group must be a torch.distributed ProcessGroup or None, got {type(group)}")
+        if ranks is None and group is not None:
+            raise TypeError("a group needs its ranks")
+        self._ranks = None if ranks is None else tuple(int(r) for r in ranks)
+        self._group = group
+
+    def _started(self) -> bool:
         return dist.is_available() and dist.is_initialized()
+
+    @property
+    def group(self):
+        """The ``torch.distributed`` group of the collectives (None: the
+        default group, or no group on a rank outside it)."""
+        return self._group
+
+    @property
+    def ranks(self) -> Tuple[int, ...]:
+        """The global ranks of the group, in group order."""
+        if self._ranks is not None:
+            return self._ranks
+        return tuple(range(dist.get_world_size() if self._started() else 1))
+
+    def _global_rank(self) -> int:
+        return dist.get_rank() if self._started() else 0
+
+    @property
+    def is_member(self) -> bool:
+        """Whether this process is a rank of the group."""
+        return self._ranks is None or self._global_rank() in self._ranks
+
+    def global_rank(self, rank: int) -> int:
+        """The global rank of group rank ``rank``."""
+        return self._ranks[rank] if self._ranks is not None else int(rank)
+
+    def _check_member(self) -> None:
+        """Raise :class:`DegradeError` on a rank outside the group."""
+        if not self.is_member:
+            from ..resilience.errors import DegradeError
+
+            raise DegradeError(
+                f"rank {self._global_rank()} is not a member of the group of ranks {list(self._ranks)}: its card "
+                "was excluded (resilience.degrade), so it takes part in no collective of this group"
+            )
+
+    def _alone(self) -> bool:
+        """No collective is needed: no group is started, or the group is
+        this rank alone."""
+        if not self._started():
+            return True
+        self._check_member()
+        return self._ranks is not None and len(self._ranks) == 1
 
     @property
     def size(self) -> int:
         """Number of processes (MPI world-size analogue)."""
+        if self._ranks is not None:
+            return len(self._ranks)
         return dist.get_world_size() if self._started() else 1
 
     @property
     def rank(self) -> int:
-        """This process's rank in the group."""
-        return dist.get_rank() if self._started() else 0
+        """This process's rank in the group (-1 outside it)."""
+        if self._ranks is None:
+            return dist.get_rank() if self._started() else 0
+        g = self._global_rank()
+        return self._ranks.index(g) if g in self._ranks else -1
 
     def is_distributed(self) -> bool:
         return self.size > 1
@@ -149,7 +217,7 @@ class TorchCommunication(Communication):
         rank = self.rank if rank is None else rank
         n = shape[split]
         block = -(-n // self.size) if n else 0
-        start = min(rank * block, n)
+        start = min(rank * block, n) if rank >= 0 else n  # a rank outside the group holds nothing
         end = min(start + block, n)
         lshape = list(shape)
         lshape[split] = end - start
@@ -184,14 +252,14 @@ class TorchCommunication(Communication):
         """The elementwise ``op`` (``"sum"``, ``"prod"``, ``"min"``,
         ``"max"``) of ``t`` over all ranks, as a new tensor; ``t`` itself
         when no group is started."""
-        if not self._started():
+        if self._alone():
             return t
         if t.is_complex() and op != "sum":
             raise TypeError(f"allreduce {op!r} of a complex tensor: complex values have no order a backend reduces by")
         out, back = _to_wire(t.contiguous())
         out = out.clone()
         count_collective("allreduce", out.numel() * out.element_size())
-        dist.all_reduce(out, op=_REDUCE_OPS[op])
+        dist.all_reduce(out, op=_REDUCE_OPS[op], group=self._group)
         return back(out)
 
     def allgather(self, t: torch.Tensor, axis: int = 0, counts: Optional[Sequence[int]] = None) -> torch.Tensor:
@@ -199,13 +267,13 @@ class TorchCommunication(Communication):
         order. The ranks' extents along ``axis`` may differ: ``counts``
         gives them where the caller knows them (else one more gather
         exchanges them); every other dimension must agree."""
-        if not self._started():
+        if self._alone():
             return t
         if counts is None:
             ext = torch.tensor([t.shape[axis]], dtype=torch.int64, device=self.device())
             parts = [torch.empty_like(ext) for _ in range(self.size)]
             count_collective("allgather", ext.numel() * ext.element_size(), ext.numel() * ext.element_size() * self.size)
-            dist.all_gather(parts, ext)
+            dist.all_gather(parts, ext, group=self._group)
             counts = [int(p.item()) for p in parts]
         counts = [int(c) for c in counts]
         cap = max(counts)
@@ -216,14 +284,14 @@ class TorchCommunication(Communication):
         buf[: moved.shape[0]] = moved
         parts = [torch.empty_like(buf) for _ in range(self.size)]
         count_collective("allgather", buf.numel() * buf.element_size(), buf.numel() * buf.element_size() * self.size)
-        dist.all_gather(parts, buf)
+        dist.all_gather(parts, buf, group=self._group)
         return back(torch.cat([p[:c] for p, c in zip(parts, counts)], dim=0).movedim(0, axis))
 
     def alltoall(self, blocks: Sequence[torch.Tensor], recv_shapes: Sequence[Tuple[int, ...]]) -> List[torch.Tensor]:
         """Send ``blocks[q]`` to rank q and receive one block from every
         rank p, of shape ``recv_shapes[p]``, known to the caller. All
         blocks have one dtype and device; any of them may be empty."""
-        if not self._started():
+        if self._alone():
             return [blocks[0].reshape(recv_shapes[0])]
         wired = [_to_wire(b) for b in blocks]
         back = wired[0][1]
@@ -234,18 +302,19 @@ class TorchCommunication(Communication):
         sizes_out = [int(np.prod(tuple(s) + extra, dtype=np.int64)) for s in recv_shapes]
         recv = torch.empty(sum(sizes_out), dtype=ref.dtype, device=ref.device)
         count_collective("alltoall", send.numel() * send.element_size(), recv.numel() * recv.element_size())
-        dist.all_to_all_single(recv, send, output_split_sizes=sizes_out, input_split_sizes=sizes_in)
+        dist.all_to_all_single(recv, send, output_split_sizes=sizes_out, input_split_sizes=sizes_in,
+                               group=self._group)
         return [back(p.reshape(tuple(s) + extra)) for p, s in zip(torch.split(recv, sizes_out), recv_shapes)]
 
     def bcast(self, t: torch.Tensor, root: int) -> torch.Tensor:
         """Rank ``root``'s ``t`` on every rank; the other ranks pass a
         tensor of the same shape and dtype to receive into."""
-        if not self._started():
+        if self._alone():
             return t
         out, back = _to_wire(t.contiguous())
         out = out.contiguous()
         count_collective("bcast", out.numel() * out.element_size())
-        dist.broadcast(out, src=root)
+        dist.broadcast(out, src=self.global_rank(root), group=self._group)
         return back(out)
 
     def ring_shift(self, t: torch.Tensor, shift: int = 1) -> torch.Tensor:
@@ -253,14 +322,14 @@ class TorchCommunication(Communication):
         next rank's): every rank sends its ``t`` to rank ``rank - shift`` and
         receives one tensor of the same shape and dtype, as one batch of
         point-to-point operations. With one rank, ``t`` itself."""
-        if not self._started() or self.size == 1:
+        if self._alone() or self.size == 1:
             return t
         w, back = _to_wire(t.contiguous())
         w = w.contiguous()
         out = torch.empty_like(w)
         count_collective("ring_shift", w.numel() * w.element_size())
-        ops = [dist.P2POp(dist.isend, w, (self.rank - shift) % self.size),
-               dist.P2POp(dist.irecv, out, (self.rank + shift) % self.size)]
+        ops = [dist.P2POp(dist.isend, w, self.global_rank((self.rank - shift) % self.size), self._group),
+               dist.P2POp(dist.irecv, out, self.global_rank((self.rank + shift) % self.size), self._group)]
         for req in dist.batch_isend_irecv(ops):
             req.wait()
         return back(out)
@@ -272,7 +341,7 @@ class TorchCommunication(Communication):
         comes from rank p. Every rank must post the sends matching the
         others' receives. Counted once as ``op``, with the bytes sent and
         received."""
-        if not self._started() or not (sends or recvs):
+        if not (sends or recvs) or self._alone():
             return {}
         wire, back = _to_wire(like[:0])
         wired = {q: _to_wire(t.contiguous())[0].contiguous() for q, t in sends.items()}
@@ -280,26 +349,28 @@ class TorchCommunication(Communication):
         got = {p: torch.empty(tuple(shape) + extra, dtype=wire.dtype, device=like.device) for p, shape in recvs.items()}
         count_collective(op, sum(t.numel() * t.element_size() for t in wired.values()),
                          sum(t.numel() * t.element_size() for t in got.values()))
-        ops = [dist.P2POp(dist.isend, t, q) for q, t in sorted(wired.items())]
-        ops += [dist.P2POp(dist.irecv, t, p) for p, t in sorted(got.items())]
+        ops = [dist.P2POp(dist.isend, t, self.global_rank(q), self._group) for q, t in sorted(wired.items())]
+        ops += [dist.P2POp(dist.irecv, t, self.global_rank(p), self._group) for p, t in sorted(got.items())]
         for req in dist.batch_isend_irecv(ops):
             req.wait()
         return {p: back(t) for p, t in got.items()}
 
     def barrier(self) -> None:
         """Wait until every rank has come here."""
-        if self._started():
+        if not self._alone():
             count_collective("barrier", 0)
             if self.backend == "nccl":
-                dist.barrier(device_ids=[torch.cuda.current_device()])
+                dist.barrier(group=self._group, device_ids=[torch.cuda.current_device()])
             else:
-                dist.barrier()
+                dist.barrier(group=self._group)
 
     def __repr__(self) -> str:
+        if self._ranks is not None:
+            return f"TorchCommunication(ranks={list(self._ranks)}, backend={self.backend})"
         return f"TorchCommunication(size={self.size}, backend={self.backend})"
 
     def __eq__(self, other) -> bool:
-        return type(other) is type(self)
+        return type(other) is type(self) and other.ranks == self.ranks
 
     def __hash__(self):
         return hash(type(self))
@@ -309,9 +380,12 @@ class _SelfCommunication(TorchCommunication):
     """A communicator of this rank alone, inside any group (``MPI_SELF``):
     size 1, rank 0, and every collective returns its input."""
 
-    @staticmethod
-    def _started() -> bool:
+    def _started(self) -> bool:
         return False
+
+    @property
+    def ranks(self) -> Tuple[int, ...]:
+        return (0,)
 
     def __repr__(self) -> str:
         return "TorchCommunication(SELF)"
@@ -458,15 +532,122 @@ def _ragged_process_allgather_impl(arr: np.ndarray, axis: int = 0, comm: Optiona
     return [np.moveaxis(got[bounds[r] : bounds[r + 1]], 0, axis) for r in range(comm.size)]
 
 
-def replicated_decision(flag, comm: Optional[TorchCommunication] = None) -> bool:
+def replicated_decision(flag, comm: Optional[TorchCommunication] = None, *, active: bool = True) -> bool:
     """``flag`` made the same on every rank: the OR of all ranks' flags
     (one ``allreduce`` of MAX), so a branch guarded by it is taken
-    everywhere or nowhere."""
+    everywhere or nowhere. ``active=False``, or a world of one rank,
+    returns ``bool(flag)`` without a collective."""
     comm = sanitize_comm(comm)
-    if not comm._started():
+    if not active or not comm._started() or comm.size == 1:
         return bool(flag)
     t = torch.tensor([1 if flag else 0], dtype=torch.int32, device=comm.device())
     return bool(comm.allreduce(t, "max").item())
+
+
+def replicated_ids(ids, *, cap: int = 64, active: bool = True, comm: Optional[TorchCommunication] = None) -> frozenset:
+    """A small set of integer ids made the same on every rank: the union of
+    every rank's set (``heat_tpu``'s ``replicated_ids``). One fixed-width
+    ``allgather`` of a ``cap``-slot, -1-padded int32 frame, whose shape is
+    the same on every rank. ``comm`` defaults to ``WORLD``, the base group:
+    a rank excluded from a shrunken group still takes part here, which is
+    how every rank agrees on the unhealthy set. ``active=False``, or a
+    world of one rank, returns the local set without a collective. Runs as
+    the guarded call ``"collective.replicated_ids"``, with the fault point
+    of that name."""
+    local = frozenset(int(i) for i in ids)
+    comm = WORLD if comm is None else comm
+    if not active or not comm._started() or comm.size == 1:
+        return local
+    if len(local) > cap:
+        raise ValueError(f"replicated_ids: {len(local)} ids exceed the {cap}-slot frame")
+    from . import _hooks
+
+    def impl() -> frozenset:
+        _hooks.fault_point("collective.replicated_ids", shape=(cap,), dtype="int32")
+        frame = torch.full((1, cap), -1, dtype=torch.int32)
+        frame[0, : len(local)] = torch.tensor(sorted(local), dtype=torch.int32)
+        got = comm.allgather(frame.to(comm.device()), 0, [1] * comm.size).cpu().numpy().ravel()
+        return frozenset(int(i) for i in got if i >= 0)
+
+    return _hooks.guarded_call("collective.replicated_ids", impl)
+
+
+def replicated_frame(frame, *, label: str = "collective.replicated_frame", active: bool = True,
+                     comm: Optional[TorchCommunication] = None) -> np.ndarray:
+    """Every rank's small int64 metadata ``frame`` (of the same shape on
+    every rank), stacked in rank order: a ``(size, *frame.shape)`` array,
+    the same on every rank (``heat_tpu``'s ``replicated_frame``), in one
+    ``allgather``. Any pure function of it computes the same value
+    everywhere. ``comm`` defaults to ``WORLD``, the base group, as for
+    :func:`replicated_ids`. ``label`` names the guarded call and its fault
+    point. ``active=False``, or a world of one rank, returns
+    ``frame[None]`` without a collective."""
+    frame = np.ascontiguousarray(frame, dtype=np.int64)
+    comm = WORLD if comm is None else comm
+    if not active or not comm._started() or comm.size == 1:
+        return frame[None]
+    from . import _hooks
+
+    def impl() -> np.ndarray:
+        _hooks.fault_point(label, shape=frame.shape, dtype="int64")
+        t = torch.from_numpy(frame.reshape(1, -1)).to(comm.device())
+        got = comm.allgather(t, 0, [1] * comm.size).cpu().numpy()
+        return got.reshape((comm.size,) + frame.shape)
+
+    return _hooks.guarded_call(label, impl)
+
+
+# the torch.distributed groups group_of built, by their sorted global ranks
+# (None on a rank outside them), and the default group they were built under
+_GROUPS: Dict[Tuple[int, ...], Optional[dist.ProcessGroup]] = {}
+_GROUPS_BASE: List[object] = [None]
+
+
+def group_of(ranks: Sequence[int], *, member_only: bool) -> TorchCommunication:
+    """A communicator over the global ``ranks`` (sorted). Every rank of the
+    world makes ``WORLD`` when ``ranks`` are all of them. Otherwise the
+    ``torch.distributed`` group of those ranks is built the first time it
+    is asked for: with ``member_only`` the members build it alone
+    (``use_local_synchronization``); without it every rank of the world
+    calls ``new_group``. Either way every live rank of the world must call
+    this function in the same program order. A rank outside ``ranks``
+    gets a communicator it is not a member of.
+
+    A group is built once for each set of ranks and kept for the life of
+    the default group, and a later shrink or grow to the same ranks
+    reuses it: a service whose card flaps comes back to the same group
+    each time, so it holds at most one group for each set of ranks it has
+    visited, not one for each resize. No group is destroyed. torch names a
+    member-only group after its ranks and the number of groups the calling
+    rank holds, so every rank must hold equally many when one is built
+    (each rank outside ``ranks`` builds a group of itself alone to keep
+    the count), and a destroyed group's name would come round again and
+    meet the old group's keys in the store (in 4-rank gloo rehearsals
+    that hung the next group's store barrier); ``group_desc`` does not
+    enter the name. A rank that stops calling (a supervised run's
+    detached rank) must not take part in a new member-only group again."""
+    ranks = tuple(sorted({int(r) for r in ranks}))
+    world = WORLD.size
+    if not ranks or min(ranks) < 0 or max(ranks) >= world:
+        raise ValueError(f"ranks {list(ranks)} are not ranks of a world of {world}")
+    if ranks == tuple(range(world)):
+        return WORLD
+    if _GROUPS_BASE[0] is not dist.group.WORLD:  # a new default group: the old groups went with the old one
+        _GROUPS.clear()
+        _GROUPS_BASE[0] = dist.group.WORLD
+    me = WORLD.rank
+    if ranks not in _GROUPS:
+        group = None
+        if member_only:
+            if me in ranks:
+                group = dist.new_group(list(ranks), use_local_synchronization=True)
+        else:
+            group = dist.new_group(list(ranks))
+        if me not in ranks:
+            dist.new_group([me], use_local_synchronization=True)  # keeps this rank's count of groups the members'
+            group = None
+        _GROUPS[ranks] = group
+    return TorchCommunication(ranks, _GROUPS[ranks])
 
 
 def collective_lockstep(tree):

@@ -80,15 +80,17 @@ def reduce_in_buckets(tensors: List[torch.Tensor], group=None, bucket_bytes: int
 
 
 class _SumOverRanks(torch.autograd.Function):
-    """``allreduce`` (sum) whose backward is the ``allreduce`` of the gradient."""
+    """``allreduce`` (sum) over ``group`` whose backward is the ``allreduce``
+    of the gradient."""
 
     @staticmethod
-    def forward(ctx, t):
-        return group_allreduce(t)
+    def forward(ctx, t, group):
+        ctx.group = group
+        return group_allreduce(t, group)
 
     @staticmethod
     def backward(ctx, grad):
-        return group_allreduce(grad)
+        return group_allreduce(grad, ctx.group), None
 
 
 class GlobalBatchNorm:
@@ -97,9 +99,12 @@ class GlobalBatchNorm:
     set (by :class:`DataParallel` for a split batch), each channel's count,
     sum and sum of squares are summed over the ranks before the batch is
     normalized, and the running statistics take the global mean and
-    unbiased variance. Otherwise the layer's own forward."""
+    unbiased variance. Otherwise the layer's own forward. ``group`` is the
+    ``torch.distributed`` group of the batch's communicator (None: the
+    default group)."""
 
     group_stats = False
+    group = None
 
     def forward(self, x):
         if not (self.training and self.group_stats and dist.is_available() and dist.is_initialized()):
@@ -108,7 +113,7 @@ class GlobalBatchNorm:
         dims = [0] + list(range(2, x.dim()))
         c = x.shape[1]
         local_n = torch.full((1,), float(x.numel() // max(c, 1)), dtype=x.dtype, device=x.device)
-        stats = _SumOverRanks.apply(torch.cat([x.sum(dims), (x * x).sum(dims), local_n]))
+        stats = _SumOverRanks.apply(torch.cat([x.sum(dims), (x * x).sum(dims), local_n]), self.group)
         n = stats[-1]
         mean = stats[:c] / n
         var = stats[c : 2 * c] / n - mean * mean
@@ -245,7 +250,7 @@ class DataParallel:
                 self._optimizer = optimizer
             else:
                 raise TypeError(f"optimizer must be a torch.optim.Optimizer or DataParallelOptimizer, got {type(optimizer)}")
-        broadcast_module(self.module)
+        broadcast_module(self.module, self.comm.global_rank(0), self.comm.group)
 
     # -- initialization -------------------------------------------------------
     def init(self, sample_input=None) -> Dict[str, torch.Tensor]:
@@ -276,21 +281,26 @@ class DataParallel:
             return t, (t.shape[0] / max(a.gshape[0], 1) if split else 1.0), split
         return torch.as_tensor(a, device=self.device.torch_device), 1.0, False
 
+    def _group(self, batch):
+        """The ``torch.distributed`` group a batch's rows are summed over:
+        its communicator's (after a shrink, the survivors')."""
+        return (batch.comm if isinstance(batch, DNDarray) else self.comm).group
+
     @contextlib.contextmanager
-    def _group_stats(self, on: bool):
+    def _group_stats(self, on: bool, group=None):
         bns = [m for m in self.module.modules() if isinstance(m, GlobalBatchNorm)]
         for m in bns:
-            m.group_stats = on
+            m.group_stats, m.group = on, group
         try:
             yield
         finally:
             for m in bns:
-                m.group_stats = False
+                m.group_stats, m.group = False, None
 
     def __call__(self, inputs):
         """The forward pass; a DNDarray gives a DNDarray split as its rows."""
         x, _, split = self._local(inputs)
-        with self._group_stats(split):
+        with self._group_stats(split, self._group(inputs)):
             out = self.module(x)
         if isinstance(inputs, DNDarray):
             rows = 0 if inputs.split is not None else None
@@ -312,7 +322,7 @@ class DataParallel:
         if xb.shape[0] == 0:  # a rank without rows adds nothing
             loss = torch.zeros((), device=xb.device)
         else:
-            with self._group_stats(split):
+            with self._group_stats(split, self._group(batch)):
                 loss = loss_fn(self.module(xb), yb) * w
             loss.backward()
         for p in params:
@@ -321,7 +331,7 @@ class DataParallel:
         loss = loss.detach()
         if split:
             loss = loss.reshape(1)
-            reduce_in_buckets([loss] + [p.grad for p in params])
+            reduce_in_buckets([loss] + [p.grad for p in params], self._group(batch))
             loss = loss[0]
         return loss
 
@@ -364,13 +374,48 @@ class DataParallel:
 
     def fit(self, loss_fn: Callable, batch, labels, n_steps: int, supervisor=None,
             steps_per_block: int = 8) -> "DataParallel":
-        """``n_steps`` of :meth:`train_step` on one batch. A ``supervisor``
-        (a self-healing supervised loop) waits for the port of ``resilience``'s supervisor."""
-        if supervisor is not None:
-            raise NotImplementedError("DataParallel.fit(supervisor=...) waits for the port of resilience's supervisor "
-                                      "(ROADMAP.md, Queue A item 10b)")
-        for _ in range(n_steps):
-            self.train_step(loss_fn, batch, labels)
+        """``n_steps`` of :meth:`train_step` on one batch.
+
+        With ``supervisor`` the loop runs as a self-healing supervised step
+        loop (``heat_tpu``'s): one supervised step is ``steps_per_block``
+        train steps, the block boundary is where the model and optimizer
+        state is checkpointed and restored, and a ``version`` token in the
+        state detects a restore, after which the checkpointed state is
+        loaded back into the model. The batch moves with a shrink, and the
+        gradients are then summed over the survivors' group."""
+        if supervisor is None:
+            for _ in range(n_steps):
+                self.train_step(loss_fn, batch, labels)
+            return self
+        if steps_per_block < 1:
+            raise ValueError(f"steps_per_block must be >= 1, got {steps_per_block}")
+
+        self._fit_version = 0
+        state = dict(self.state_dict())
+        state["step"] = 0
+        state["version"] = 0
+
+        def step_fn(st, data, blk):
+            if st["version"] != self._fit_version:
+                # this state came from a checkpoint, not the live model
+                self.load_state_dict(st)
+                self._fit_version = st["version"]
+            n_do = min(steps_per_block, n_steps - st["step"])
+            for _ in range(n_do):
+                self.train_step(loss_fn, *data)
+            new = dict(self.state_dict())
+            new["step"] = st["step"] + n_do
+            new["version"] = st["version"] + 1
+            self._fit_version = new["version"]
+            return new, new["step"] >= n_steps
+
+        arrays = tuple(a for a in (batch, labels) if isinstance(a, DNDarray))
+        if len(arrays) != 2:
+            raise TypeError("a supervised fit needs the batch and the labels as DNDarrays")
+        result = supervisor.run(step_fn, state, data=arrays, label="nn.fit")
+        self.supervisor_result_ = result
+        if result.state is not None and result.state["version"] != self._fit_version:
+            self.load_state_dict(result.state)
         return self
 
     def eval(self) -> "DataParallel":

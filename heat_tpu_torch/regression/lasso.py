@@ -111,38 +111,90 @@ class Lasso(BaseEstimator, RegressionMixin):
 
     def fit(self, x: DNDarray, y: DNDarray, supervisor=None, block_iters: int = 16) -> "Lasso":
         """Coordinate descent from θ = 0 until ``max|Δθ| < tol`` or
-        ``max_iter`` sweeps. ``supervisor`` (a self-healing supervised fit)
-        waits for the port of ``resilience``."""
+        ``max_iter`` sweeps. With ``supervisor`` (a
+        :class:`~heat_tpu_torch.resilience.Supervisor`) the fit runs as a
+        self-healing supervised step loop: one step is up to
+        ``block_iters`` sweeps, carrying θ and the last ``max|Δθ|``, and
+        the supervisor checkpoints θ at step boundaries."""
         if not isinstance(x, DNDarray) or not isinstance(y, DNDarray):
             raise TypeError(f"input needs to be DNDarrays, but were {type(x)}, {type(y)}")
         if x.ndim != 2:
             raise ValueError(f"x needs to be 2D, but was {x.ndim}D")
         if supervisor is not None:
-            raise NotImplementedError("Lasso.fit(supervisor=...) waits for the port of resilience's supervisor "
-                                      "(ROADMAP.md, Queue A item 10b)")
+            return self._fit_supervised(x, y, supervisor, block_iters)
         x = _rows(x)
-        xl = x.larray
-        dtype = torch.float64 if xl.dtype == torch.float64 else torch.float32
-        Xc = xl.to(dtype).T.contiguous()  # (m, n_local): column j is Xc[j], contiguous
-        r = _targets(y, x, dtype).clone()  # y - X @ 0
-        theta, n_iter = self._cd_fit(Xc, r, x.gshape[0], x.comm if x.split == 0 else None)
+        Xc, r, dtype = self._columns(x, y)
+        theta = torch.zeros(Xc.shape[0], dtype=dtype, device=Xc.device)
+        theta, n_iter, _ = self._cd_block(Xc, r, theta, x.gshape[0], x.comm if x.split == 0 else None,
+                                          self.max_iter, float("inf"))
         self.n_iter = n_iter
         self.__theta = DNDarray(theta.reshape(-1, 1), split=None, device=x.device, comm=x.comm)
         return self
 
-    def _cd_fit(self, Xc: torch.Tensor, r: torch.Tensor, n: int, comm):
-        """Sweeps of coordinate descent over the columns ``Xc`` with the
-        residual ``r`` (updated in place). Returns (θ, sweeps run)."""
+    @staticmethod
+    def _columns(x: DNDarray, y: DNDarray):
+        """``(Xc, y, dtype)``: this rank's rows of ``x`` as a contiguous
+        (f, n_local) column-major copy and of ``y`` as a flat tensor."""
+        xl = x.larray
+        dtype = torch.float64 if xl.dtype == torch.float64 else torch.float32
+        Xc = xl.to(dtype).T.contiguous()  # (m, n_local): column j is Xc[j], contiguous
+        return Xc, _targets(y, x, dtype).clone(), dtype
+
+    def _fit_supervised(self, x: DNDarray, y: DNDarray, supervisor, block_iters: int) -> "Lasso":
+        """``heat_tpu``'s supervised fit: each step is :meth:`_cd_block` of
+        up to ``block_iters`` sweeps from the checkpointed θ; the residual is
+        rebuilt from θ at each step (``y - Xθ``, the step's one product)."""
+        if block_iters < 1:
+            raise ValueError(f"block_iters must be >= 1, got {block_iters}")
+        max_iter = self.max_iter
+        x = _rows(x)
+        dtype = torch.float64 if x.larray.dtype == torch.float64 else torch.float32
+        state = {
+            "theta": DNDarray(torch.zeros((x.gshape[1], 1), dtype=dtype, device=x.larray.device), split=None,
+                              device=x.device, comm=x.comm),
+            "diff": float("inf"),
+            "n_iter": 0,
+        }
+
+        def step_fn(st, data, step):
+            xd, yd = data
+            xd = _rows(xd)
+            Xc, yv, _ = self._columns(xd, yd)
+            theta = st["theta"].larray.to(device=Xc.device, dtype=Xc.dtype).reshape(-1).clone()
+            r = yv - Xc.T @ theta
+            budget = min(block_iters, max_iter - st["n_iter"])
+            theta, sweeps, diff = self._cd_block(Xc, r, theta, xd.gshape[0], xd.comm if xd.split == 0 else None,
+                                                 budget, st["diff"])
+            new = dict(st)
+            new["theta"] = DNDarray(theta.reshape(-1, 1), split=None, device=xd.device, comm=xd.comm)
+            new["diff"] = diff
+            new["n_iter"] = st["n_iter"] + sweeps
+            return new, diff < float(self.tol) or new["n_iter"] >= max_iter
+
+        result = supervisor.run(step_fn, state, data=(x, y), label="lasso.fit")
+        self.supervisor_result_ = result
+        if result.detached:
+            return self
+        self.n_iter = int(result.state["n_iter"])
+        self.__theta = result.state["theta"]
+        return self
+
+    def _cd_block(self, Xc: torch.Tensor, r: torch.Tensor, theta: torch.Tensor, n: int, comm, budget: int,
+                  diff0: float):
+        """Up to ``budget`` sweeps of coordinate descent over the columns
+        ``Xc`` from ``theta`` with the residual ``r`` (both updated in
+        place), while the last ``max|Δθ|`` (``diff0`` before the first) is
+        ``>= tol``. Returns (θ, sweeps run, last max|Δθ|)."""
         m = Xc.shape[0]
         dist = comm is not None and comm.is_distributed()
         col_sq = torch.sum(Xc * Xc, dim=1)
         if dist:
             col_sq = comm.allreduce(col_sq)
-        theta = torch.zeros(m, dtype=Xc.dtype, device=Xc.device)
         thr = torch.tensor(float(self.lam), dtype=Xc.dtype, device=Xc.device) * n
         n_iter = 0
         tol = float(self.tol)
-        while n_iter < self.max_iter:
+        diff = float(diff0)
+        while n_iter < budget and diff >= tol:
             old = theta.clone()
             for j in range(m):
                 xj, tj = Xc[j], theta[j]
@@ -154,9 +206,8 @@ class Lasso(BaseEstimator, RegressionMixin):
                 r.addcmul_(xj, tj - new_tj)
                 theta[j] = new_tj
             n_iter += 1
-            if float(torch.max(torch.abs(theta - old))) < tol:  # the sweep's one host read
-                break
-        return theta, n_iter
+            diff = float(torch.max(torch.abs(theta - old)))  # the sweep's one host read
+        return theta, n_iter, diff
 
     def partial_fit(self, x: DNDarray, y: DNDarray, lr: float = 0.01) -> "Lasso":
         """One proximal-SGD step on a chunk of rows (streaming fit): θ moves

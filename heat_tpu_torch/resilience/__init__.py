@@ -26,10 +26,19 @@ probability (:class:`chaos`) or as a scripted :class:`FaultSchedule`, so
 all of the above is testable on the CPU. Every guard failure derives from
 :class:`ResilienceError` (:mod:`~.errors`).
 
-Not ported yet (``ROADMAP.md``, Queue A, item 10b): ``degrade``
-(``mark_unhealthy``/``probe``/``shrink_to_healthy``/``grow_to_healthy``),
-``supervisor`` (``Supervisor``/``supervise``/``CheckpointSchedule``,
-``RECOVERY_STATS``) and ``monitor`` (``HealthMonitor``, ``HEALTH_STATS``).
+Supervised execution and elastic capacity:
+
+- :mod:`~.degrade`: ``mark_unhealthy``/``probe``/``shrink_to_healthy``/
+  ``grow_to_healthy``: a lost card means a smaller ``torch.distributed``
+  group (built by the survivors alone) and the live arrays moved onto it;
+- :mod:`~.monitor`: :class:`HealthMonitor` probe ticks on a replicated
+  cadence keep a per-card ledger (EWMA stragglers, flap damping); a healed
+  card is re-admitted by ``grow_to_healthy``. Counters in
+  :data:`HEALTH_STATS`;
+- :mod:`~.supervisor`: :class:`Supervisor`/:func:`supervise` drive an
+  iterative workload as a checkpointed step loop that retries transient
+  faults, restores from checkpoints and shrinks onto the surviving ranks.
+  Counters in :data:`RECOVERY_STATS`.
 """
 from . import chaos as _chaos_mod  # noqa: F401
 from .chaos import FaultSchedule, Injection, chaos
@@ -54,9 +63,28 @@ from .errors import (
     ServeError,
     ServeOverloadError,
 )
+from .degrade import (
+    clear_unhealthy,
+    grow_to_healthy,
+    healthy_devices,
+    mark_unhealthy,
+    probe,
+    shrink_to_healthy,
+    unhealthy_devices,
+)
 from .guard import Fingerprint, Guard, fingerprint, guarded
 from .guard import check as check_divergence
+from .monitor import HEALTH_STATS, DeviceHealth, HealthMonitor, TickReport, reset_health_stats
 from .retry import DEFAULT_CHECKPOINT_POLICY, NO_RETRY, RetryError, RetryPolicy
+from .supervisor import (
+    RECOVERY_STATS,
+    CheckpointSchedule,
+    Supervisor,
+    SupervisorError,
+    SupervisorResult,
+    reset_recovery_stats,
+    supervise,
+)
 from .validate import ValidationError, validate
 from .watchdog import deadlines, with_deadline
 
@@ -94,4 +122,23 @@ __all__ = [
     "check_divergence",
     "with_deadline",
     "deadlines",
+    "mark_unhealthy",
+    "clear_unhealthy",
+    "unhealthy_devices",
+    "healthy_devices",
+    "probe",
+    "shrink_to_healthy",
+    "grow_to_healthy",
+    "HealthMonitor",
+    "DeviceHealth",
+    "TickReport",
+    "HEALTH_STATS",
+    "reset_health_stats",
+    "Supervisor",
+    "SupervisorError",
+    "SupervisorResult",
+    "supervise",
+    "CheckpointSchedule",
+    "RECOVERY_STATS",
+    "reset_recovery_stats",
 ]

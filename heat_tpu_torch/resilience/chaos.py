@@ -30,11 +30,24 @@ uniform draw):
   ``replica`` index): the bytes of a NON-primary replica change silently,
   so the replicas' digests disagree (what
   :func:`~heat_tpu_torch.resilience.guard.guarded` must catch);
-- ``device_loss``, ``device_flap``, ``straggler_probe`` and
-  ``lockstep_divergence`` keep ``heat_tpu``'s parameters, but their sites
-  (the supervisor's and the server's steps, the device probes, the lockstep
-  sanitizer) are not ported yet, so they never fire: a scheduled one stays
-  pending.
+- ``device_loss``: supervisor and serve sites only (``supervisor.step``,
+  ``serve.dispatch``): one healthy rank of the default communicator,
+  ``healthy[int(u * 997) % len(healthy)]``, is marked unhealthy
+  (:func:`~heat_tpu_torch.resilience.degrade.mark_unhealthy`) and a
+  ``RuntimeError`` is raised mid-step: the lost card that only probe +
+  ``shrink_to_healthy`` recovers from. Every rank draws the same ``u``
+  from its seeded stream, so every rank marks the same rank; with fewer
+  than two healthy ranks (one card) it never fires, as in ``heat_tpu``;
+- ``device_flap``: device-probe sites only (``monitor.probe``,
+  ``degrade.probe``, which carry ``device``): that probe fails once with a
+  ``RuntimeError``, the transient flap the health monitor's damping
+  absorbs;
+- ``straggler_probe``: device-probe sites only: the probe sleeps
+  ``straggler_delay`` seconds and goes on (the slow card the monitor's
+  EWMA detection catches);
+- ``lockstep_divergence`` keeps ``heat_tpu``'s parameter, but its site (the
+  lockstep sanitizer of ``heat_tpu``'s ``analysis``) is not ported, so it
+  never fires: a scheduled one stays pending.
 
 ``max_faults`` caps the number of injected faults, after which every site
 passes: ``chaos(io_error=1.0, max_faults=2)`` fails the first two attempts
@@ -76,10 +89,17 @@ class Injection:
 
 
 def _lose_device(u: float) -> Optional[int]:
-    """The device a ``device_loss`` fault would take down: none, since the
-    port has no device health registry yet (``degrade``), so the fault
-    cannot fire."""
-    return None
+    """Mark one healthy rank of the default communicator unhealthy; returns
+    it, or None when fewer than two ranks are healthy (losing the last card
+    would make every recovery impossible by construction)."""
+    from . import degrade  # runtime import: chaos sits below degrade's users
+
+    devs = degrade.healthy_devices()
+    if len(devs) <= 1:
+        return None
+    dev = devs[int(u * 997) % len(devs)]
+    degrade.mark_unhealthy(dev)
+    return int(dev)
 
 
 @dataclass

@@ -14,9 +14,10 @@ failures apart:
   (``heat_tpu``'s lockstep sanitizer raises it; the port has no sanitizer
   yet and keeps the class for code that catches it);
 - :class:`DegradeError` / :class:`NoHealthyDevicesError`: shrinking onto
-  the healthy devices cannot proceed (``degrade``, not ported yet);
+  the healthy ranks cannot proceed, or a rank outside a shrunken group was
+  asked to take part in it (:mod:`~heat_tpu_torch.resilience.degrade`);
 - :class:`ServeError` and its kinds: the serving layer's request-survival
-  errors (``serve``, not ported yet).
+  errors (:mod:`heat_tpu_torch.serve`).
 
 ``CheckpointError`` and ``ValidationError`` join the family in their own
 modules; ``RetryError`` lives in ``core`` and stays an ``OSError``.

@@ -69,7 +69,7 @@ GNB_ATOL = 1e-4
 GROUP_TIMEOUT = 420  # seconds for the whole group, start to exit
 _RUN_ID = os.environ.get("PYTEST_XDIST_TESTRUNUID") or uuid.uuid4().hex
 
-HT_CASES = sorted(set(W.CASES) - W.PORT_ONLY)
+HT_CASES = sorted(set(W.CASES) - W.PORT_ONLY - W.SHRINKING)
 
 
 # ------------------------------------------------------------ the group
@@ -562,6 +562,8 @@ EXPLICIT = {
     # file I/O and the stream's communication helpers
     "load", "load_csv", "load_hdf5", "load_netcdf", "save", "save_csv", "save_hdf5", "save_netcdf", "supports_hdf5",
     "supports_netcdf", "tree_merge", "tree_merge_rounds", "collective_lockstep",
+    # the replicated metadata exchanges of the health monitor and the serve tick (case degrade)
+    "replicated_ids", "replicated_frame",
 }
 
 
@@ -845,3 +847,114 @@ def test_divergence_on_rank_2_alone_raises_naming_rank_2_everywhere(group):
         want = [("guard.shard", "divergence")] if rank == 2 else []
         assert [tuple(v["value"] for v in i["items"]) for i in res["port:rank:injected"]["items"]] == want, rank
     assert len(messages) == 1
+
+
+# ----------------------------------------------- shrinking and growing groups
+def _plain(v):
+    """A packed value as plain python/numpy values."""
+    if v["kind"] == "seq":
+        return [_plain(i) for i in v["items"]]
+    if v["kind"] == "array":
+        return v["global"]
+    return v["value"]
+
+
+def test_degrade_moves_arrays_as_heat_tpu_on_the_surviving_devices(group):
+    """Shrink 4 -> 3 (rank 2 out), grow 3 -> 4, shrink 4 -> 2, grow 2 -> 3 (a
+    plain new group) and 3 -> 4, moving a split-0, a split-1, a replicated
+    and a ragged array each time. Every rank holds the layout heat_tpu gives
+    on the surviving devices (dtype, gshape, split, lshape_map); a survivor
+    holds heat_tpu's values (exact: the move copies bytes) and, as its rows,
+    heat_tpu's chunk of the survivor's position in the group; a rank outside
+    the group holds no rows of a split array and the replicated array's
+    values. A second shrink to the first one's ranks reuses its group and
+    builds none on any rank."""
+    per_rank = _case(group, "degrade")
+    ref = heat_tpu_results("degrade")
+    for res in per_rank:  # the unions over the base group, the same on every rank
+        assert _plain(res["port:replicated_ids"]) == [0, 1, 2, 3, 10, 11, 12, 13]
+        np.testing.assert_array_equal(res["port:replicated_frame"]["value"], [[r, -r] for r in range(4)])
+        assert _plain(res["port:group_reused"]) is True and _plain(res["port:groups_added"]) == 0
+    for key in ("sizes:shrink", "sizes:grow", "sizes:leg2"):
+        assert _plain(ref[key]) == _plain(per_rank[0][key]), key
+    members = {"shrink": [0, 1, 3], "grow": [0, 1, 2, 3], "leg2": [0, 1, 3], "leg2_back": [0, 1, 2, 3]}
+    for rank, res in enumerate(per_rank):
+        for tag, survivors in members.items():
+            for i in range(4):
+                dtype, gshape, split, lmap = _plain(res[f"{tag}:{i}"])
+                want = _plain(ref[f"{tag}:{i}"])
+                assert [dtype, list(gshape), split] == [want[0], list(want[1]), want[2]], (rank, tag, i)
+                np.testing.assert_array_equal(lmap, want[3], err_msg=f"{tag}:{i} lshape_map")
+                glob = ref[f"ref:{tag}:{i}"]["value"]
+                member, local, got = _plain(res[f"port:rank:{tag}:{i}"])
+                assert member == (rank in survivors), (rank, tag)
+                if member:
+                    np.testing.assert_array_equal(got, glob, err_msg=f"rank {rank} {tag}:{i}")
+                    np.testing.assert_array_equal(local, _chunk(glob, lmap, split, survivors.index(rank)))
+                else:
+                    assert got is None
+                    if split is None:
+                        np.testing.assert_array_equal(local, glob)
+                    else:
+                        assert local.shape[split] == 0, (rank, tag, i, local.shape)
+
+
+def test_supervised_kmeans_loses_a_rank_and_finishes_as_heat_tpu(group):
+    """A supervised KMeans fit with device_loss at step 2: every rank marks
+    the same rank (1, the schedule's draw, as heat_tpu's), the survivors
+    shrink to three, restore the last checkpoint and finish with heat_tpu's
+    centres (rtol 1e-5 / atol 1e-6: the same iterations, sums in another
+    order), labels (exact), iteration count, group size and RECOVERY_STATS
+    deltas; the lost rank detaches."""
+    per_rank = _case(group, "supervisor")
+    ref = heat_tpu_results("supervisor")
+    centers, n_iter, inertia, size, labels = _plain(ref["ref:fit"])
+    lost = _plain(ref["lost"])
+    assert lost == [1] and _plain(ref["injected"]) == [["supervisor.step", "device_loss"]]
+    for rank, res in enumerate(per_rank):
+        assert _plain(res["lost"]) == lost and _plain(res["injected"]) == _plain(ref["injected"]), rank
+        compare(res["clean"], ref["clean"], rank, "supervisor/clean")
+        if rank in lost:
+            assert _plain(res["port:rank:detached"]) is True and _plain(res["port:rank:fit"]) is None
+            continue
+        assert _plain(res["port:rank:detached"]) is False, rank
+        assert _plain(res["port:rank:counters"]) == _plain(ref["ref:counters"]), rank
+        p_centers, p_iter, p_inertia, p_size, p_labels = _plain(res["port:rank:fit"])
+        np.testing.assert_allclose(p_centers, centers, rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(p_centers, ref["clean"]["global"], rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(p_inertia, inertia, rtol=1e-5)
+        np.testing.assert_array_equal(p_labels, labels)
+        assert (p_iter, p_size) == (n_iter, size) == (12, 3), rank
+
+
+def test_served_requests_survive_a_lost_rank_once_each(group):
+    """The tick-armed service with one device_loss at a dispatch: every
+    request is answered exactly once on every rank; the survivors answer
+    every request with the rows of heat_tpu's models (labels exact), the
+    lost rank with rows or a DegradeError naming it, at least the in-flight
+    batch's. (heat_tpu's own service, run alongside, keeps its kNN training
+    set on the devices of the old mesh and answers the kNN requests after
+    the shrink with PoisonRequestError: the port moves every model's live
+    arrays.)"""
+    per_rank = _case(group, "serve")
+    ref = heat_tpu_results("serve")
+    want = _plain(ref["want"])
+    lost_rank = 1  # the schedule's draw, as in the supervisor case
+    assert _plain(ref["ref:size_after"]) == 3
+    for rank, res in enumerate(per_rank):
+        for got, w in zip(_plain(res["want"]), want):
+            np.testing.assert_array_equal(got, w)
+        assert _plain(res["answered_once"]) == [1] * len(want), rank
+        answers = _plain(res["port:rank:answers"])
+        assert _plain(res["port:rank:member"]) == (rank != lost_rank)
+        assert _plain(res["port:rank:size_after"]) == 3
+        stats = _plain(res["port:rank:stats"])
+        assert stats["requests"] == len(want) and stats["shrinks"] == 1, (rank, stats)
+        errors = 0
+        for (kind, value), w in zip(answers, want):
+            if kind == "rows":
+                np.testing.assert_array_equal(value, w, err_msg=f"rank {rank}")
+            else:
+                assert rank == lost_rank and kind == "DegradeError" and f"rank {rank}" in value, (rank, kind, value)
+                errors += 1
+        assert (errors > 0) == (rank == lost_rank), (rank, errors)

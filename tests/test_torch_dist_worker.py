@@ -1838,11 +1838,168 @@ def case_resilience(ht):
     return out
 
 
+# ------------------------------------------------ supervision and serving
+DG_X = _rng(80).normal(size=(10, 3)).astype(np.float32)
+DG_Z = _rng(81).integers(-50, 50, size=(4, 9)).astype(np.int32)
+SV_X, _ = _blobs(82, 96, 3, 3)
+SV_TRACE = [(int(n), "km.predict" if i % 4 == 0 else "knn.predict")
+            for i, n in enumerate(_rng(83).integers(1, 6, size=24))]
+SV_PAYLOADS = [_rng(84 + i).normal(size=(n, 3)).astype(np.float32) * 5 for i, (n, _) in enumerate(SV_TRACE)]
+
+
+def _degrade_record(ht, out, tag, arrays, comm):
+    """Each moved array's layout (the same on every rank), and for the port
+    this rank's membership, rows and (on members) the gathered values."""
+    for i, a in enumerate(arrays):
+        out[f"{tag}:{i}"] = (a.dtype.__name__, tuple(int(s) for s in a.gshape), a.split, np.asarray(a.lshape_map))
+        if is_port(ht):
+            member = comm.is_member
+            out[f"port:rank:{tag}:{i}"] = (member, a._raw.cpu().numpy(), a.numpy() if member else None)
+        else:
+            out[f"ref:{tag}:{i}"] = np.asarray(a.numpy())
+
+
+def case_degrade(ht):
+    """Rank (device) 2 marked: shrink to three, then grow back to four; then
+    ranks 2 and 3 marked: shrink to two, 3 healed: grow to three (a plain new
+    group on the port), 2 healed: grow to four. A split-0, a split-1, a
+    replicated and a ragged array move along each time. On the port, rank 2
+    marked once more: the shrink reuses the group of the first one."""
+    rz = ht.resilience
+    comm = ht.get_comm()
+    arrays = [ht.array(DG_X, split=0), ht.array(DG_Z, split=1), ht.array(DG_X[:3]),
+              _ragged(ht, DG_X, 0, [1, 5, 0, 4] if comm.size == 4 else [10])]
+    out = {}
+    if is_port(ht):  # the unions every rank agrees on (heat_tpu's are per process: one process there)
+        out["port:replicated_ids"] = sorted(ht.replicated_ids({comm.rank, 10 + comm.rank}))
+        out["port:replicated_frame"] = ht.replicated_frame(np.array([comm.rank, -comm.rank], np.int64))
+    try:
+        rz.mark_unhealthy(2)
+        small, moved = rz.shrink_to_healthy(comm, arrays)
+        out["sizes:shrink"] = small.size
+        _degrade_record(ht, out, "shrink", moved, small)
+        rz.clear_unhealthy(2)
+        big, back = rz.grow_to_healthy(small, moved, base=comm)
+        out["sizes:grow"] = big.size
+        _degrade_record(ht, out, "grow", back, big)
+        rz.mark_unhealthy(2)
+        rz.mark_unhealthy(3)
+        two, moved = rz.shrink_to_healthy(big, back)
+        rz.clear_unhealthy(3)
+        three, moved = rz.grow_to_healthy(two, moved, base=comm)
+        out["sizes:leg2"] = (two.size, three.size)
+        _degrade_record(ht, out, "leg2", moved, three)
+        rz.clear_unhealthy(2)
+        four, moved = rz.grow_to_healthy(three, moved, base=comm)
+        _degrade_record(ht, out, "leg2_back", moved, four)
+        if is_port(ht):  # rank 2 out again: the group built for the first shrink comes back, and no new one
+            from torch.distributed import distributed_c10d
+
+            held = len(distributed_c10d._world.pg_names)
+            rz.mark_unhealthy(2)
+            again, _ = rz.shrink_to_healthy(four, [])
+            out["port:group_reused"] = bool(again.ranks == small.ranks and again._group is small._group)
+            out["port:groups_added"] = len(distributed_c10d._world.pg_names) - held
+    finally:
+        rz.clear_unhealthy()
+    return out
+
+
+def case_supervisor(ht):
+    """A supervised KMeans fit (checkpoint every step, 3 iterations a step)
+    that loses a device at step 2 (the FaultSchedule's draw picks rank 1):
+    it shrinks onto the three survivors, restores the last checkpoint and
+    finishes there; the lost rank detaches (the port)."""
+    rz = ht.resilience
+    comm = ht.get_comm()
+    x = ht.array(SV_X, split=0)
+    clean = ht.cluster.KMeans(3, init=ht.array(SV_X[:3]), max_iter=12, tol=None).fit(x)
+    out = {"clean": clean.cluster_centers_}
+    d = os.path.join(_case_dir(), "supervised")
+    before = dict(rz.RECOVERY_STATS)
+    sup = rz.Supervisor(d, rz.CheckpointSchedule(every_steps=1))
+    try:
+        with rz.FaultSchedule([("supervisor.step", 3, "device_loss")]) as fs:
+            km = ht.cluster.KMeans(3, init=ht.array(SV_X[:3]), max_iter=12, tol=None).fit(x, supervisor=sup,
+                                                                                          block_iters=3)
+        lost = sorted(rz.unhealthy_devices())
+    finally:
+        rz.clear_unhealthy()
+        ht.use_comm(comm)
+    counters = {k: rz.RECOVERY_STATS[k] - before[k] for k in before if k != "recovery_seconds_total"}
+    out["lost"] = lost
+    out["injected"] = [(i.site, i.kind) for i in fs.injected]
+    if is_port(ht):
+        res = km.supervisor_result_
+        out["port:rank:detached"] = res.detached
+        out["port:rank:counters"] = counters
+        out["port:rank:fit"] = None if res.detached else (km.cluster_centers_.numpy(), km.n_iter_, km.inertia_,
+                                                          res.comm.size, km.labels_.numpy())
+    else:
+        out["ref:counters"] = counters
+        out["ref:fit"] = (np.asarray(km.cluster_centers_.numpy()), km.n_iter_, km.inertia_, sup._comm.size,
+                          np.asarray(km.labels_.numpy()))
+    return out
+
+
+def case_serve(ht):
+    """A ServeService of a KMeans and a kNN classifier with the replicated
+    tick armed (every rank submits the same trace), one device loss at the
+    third batch dispatch: every request is answered exactly once, with the
+    models' rows, or (the port, on the lost rank) a DegradeError."""
+    rz = ht.resilience
+    comm = ht.get_comm()
+    x = ht.array(SV_X, split=0)
+    km = ht.cluster.KMeans(3, init=ht.array(SV_X[:3]), max_iter=5, tol=None).fit(x)
+    knn = ht.classification.KNeighborsClassifier(3).fit(x, km.labels_)
+    want = []  # each endpoint's predict of all its requests' rows at once, cut back into requests
+    for ep, model in (("km.predict", km), ("knn.predict", knn)):
+        rows = [p for (_, e), p in zip(SV_TRACE, SV_PAYLOADS) if e == ep]
+        got = np.asarray(model.predict(ht.array(np.concatenate(rows))).numpy())
+        want += list(zip([i for i, (_, e) in enumerate(SV_TRACE) if e == ep], np.split(got, np.cumsum([len(r) for r in rows])[:-1])))
+    want = [w for _, w in sorted(want, key=lambda t: t[0])]
+    before = dict(ht.serve.SERVE_STATS)
+    svc = ht.serve.ServeService(ht.serve.BucketPolicy(max_batch=8, max_latency_ms=1.0), tick_ms=1.0)
+    answers = []
+    try:
+        svc.register_model("km", km)
+        svc.register_model("knn", knn)
+        with rz.FaultSchedule([("serve.dispatch", 3, "device_loss")]) as fs:
+            reqs = [svc.submit(ep, p) for (_, ep), p in zip(SV_TRACE, SV_PAYLOADS)]
+            svc.drain(timeout=120)
+        size_after = ht.get_comm().size
+        member = ht.get_comm().is_member if is_port(ht) else True
+        for r in reqs:
+            try:
+                answers.append(("rows", np.asarray(r.result(timeout=60))))
+            except Exception as e:  # the test holds which error each package answered with
+                answers.append((type(e).__name__, str(e)))
+    finally:
+        svc.close(timeout=60)
+        rz.clear_unhealthy()
+        ht.use_comm(comm)
+    stats = {k: ht.serve.SERVE_STATS[k] - before[k] for k in ("requests", "batches", "shrinks", "redispatched",
+                                                                  "errors")}
+    out = {"want": want, "lost": [(i.site, i.kind) for i in fs.injected], "answered_once": [r.answers for r in reqs]}
+    if is_port(ht):
+        out["port:rank:answers"] = answers
+        out["port:rank:member"] = member
+        out["port:rank:size_after"] = size_after
+        out["port:rank:stats"] = stats
+    else:
+        out["ref:answers"] = answers
+        out["ref:size_after"] = size_after
+    return out
+
+
 CASES = {
     name[len("case_"):]: fn for name, fn in sorted(globals().items()) if name.startswith("case_") and callable(fn)
 }
 # cases whose reference is the port itself at world size 1 (heat_tpu has no counterpart to compare)
 PORT_ONLY = {"environment", "not_implemented"}
+# cases that lose a rank: held against heat_tpu by tests of their own (a rank outside the shrunken group holds no
+# rows, and the survivors' group ranks are not their global ranks)
+SHRINKING = {"degrade", "supervisor", "serve"}
 
 
 

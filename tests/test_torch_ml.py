@@ -234,8 +234,10 @@ def test_lasso_state_soft_threshold_and_supervisor():
     # the port's is held to the formula
     want = np.sign(rho) * np.maximum(np.abs(rho) - t.lam, 0.0)
     np.testing.assert_allclose(t.soft_threshold(torch.tensor(rho)).numpy(), want, rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="Queue A item 10b"):
-        htt.regression.Lasso().fit(xt, yt, supervisor=object())
+    # the supervised fit (blocks of 4 sweeps, the residual rebuilt at each block) ends where heat_tpu's plain fit does
+    s = htt.regression.Lasso(lam=0.01).fit(xt, yt, supervisor=htt.resilience.Supervisor(), block_iters=4)
+    assert s.n_iter == j.n_iter and not s.supervisor_result_.detached
+    np.testing.assert_allclose(s.theta.numpy(), _np(j.theta), atol=LASSO_ATOL)
     with pytest.raises(RuntimeError, match="fit needs to be called"):
         htt.regression.Lasso().predict(xt)
 

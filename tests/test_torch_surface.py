@@ -699,10 +699,10 @@ def test_every_name_of_the_slice_is_exported_and_covered():
 # imported before). Later slices shrink these lists; a name the port gains
 # must leave them.
 STILL_MISSING = {
-    # lazy, resilience's supervision and health (item 10b) and serve (ROADMAP.md, Queue A items 10b-12)
+    # the lazy layer (ROADMAP.md, Queue A item 12); resilience's supervision and health and serve came with
+    # items 10b and 11
     "heat_tpu": [
-        "COMPILE_STATS", "FUSE_STATS", "HEALTH_STATS", "LOCKSTEP_STATS", "LazyDNDarray", "RECOVERY_STATS",
-        "SERVE_STATS", "fuse", "lazy", "replicated_frame", "replicated_ids", "reset_fuse_stats",
+        "COMPILE_STATS", "FUSE_STATS", "LOCKSTEP_STATS", "LazyDNDarray", "fuse", "lazy", "reset_fuse_stats",
     ],
     "heat_tpu.linalg": [],
     # DNDarray's members: every one (health_check came with resilience.validate, Queue A item 10a)
@@ -712,13 +712,10 @@ STILL_MISSING = {
     # StreamingGroupBy came with frame (ROADMAP.md, Queue A item 9)
     "heat_tpu.stream": [],
     "heat_tpu.frame": [],
-    # degrade, supervisor and monitor (ROADMAP.md, Queue A item 10b)
-    "heat_tpu.resilience": [
-        "CheckpointSchedule", "DeviceHealth", "HEALTH_STATS", "HealthMonitor", "RECOVERY_STATS", "Supervisor",
-        "SupervisorError", "SupervisorResult", "TickReport", "clear_unhealthy", "grow_to_healthy", "healthy_devices",
-        "mark_unhealthy", "probe", "reset_health_stats", "reset_recovery_stats", "shrink_to_healthy", "supervise",
-        "unhealthy_devices",
-    ],
+    # degrade, supervisor and monitor came with ROADMAP.md, Queue A item 10b
+    "heat_tpu.resilience": [],
+    # the serving layer (ROADMAP.md, Queue A item 11) has every name
+    "heat_tpu.serve": [],
     # the ML long tail and the training path have every name (ROADMAP.md, Queue A items 7 and 8)
     "heat_tpu.naive_bayes": [],
     "heat_tpu.nn": [],
@@ -727,9 +724,9 @@ STILL_MISSING = {
     "heat_tpu.utils": [],
 }
 # submodules heat_tpu imports when it is imported, and the port has no counterpart of yet
-STILL_MISSING_MODULES = ["analysis", "serve"]
+STILL_MISSING_MODULES = ["analysis"]
 # submodules the port has, ported by later slices than the array surface
-PORTED_MODULES = ["naive_bayes", "nn", "optim", "regression", "utils", "datasets", "frame", "resilience"]
+PORTED_MODULES = ["naive_bayes", "nn", "optim", "regression", "utils", "datasets", "frame", "resilience", "serve"]
 
 
 @pytest.mark.parametrize("module", sorted(STILL_MISSING))
