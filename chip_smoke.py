@@ -11,6 +11,7 @@ NVIDIA Hopper card and the CUDA toolkit:
     python3 chip_smoke.py --phases train   # the build and [train] only
     python3 chip_smoke.py --phases frame   # the build and [frame] only (or --phases resilience)
     python3 chip_smoke.py --phases serve   # the build and [serve] only
+    python3 chip_smoke.py --phases lazy    # the build and [lazy] only
 
 Phases (any failure raises and exits non-zero; nothing is caught):
 
@@ -170,6 +171,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    rows carry ``launches_serve``. ``[dist]`` ends with :func:`_dist_serve`:
    a supervised fit that loses a rank, and the service across the cards
    through a lost rank and a flapping card.
+12. ``[lazy]`` (after ``[serve]``, before ``[dist]``): heat_tpu's captured
+   chains on the main path's 2^24 x 32 float32 blobs, split 0, through
+   ``ht.lazy()`` (their elementwise runs in ``lazy_fused``), the
+   standardized result into KMeans.fit, and a ServeService of an
+   ``@ht.fuse`` endpoint warm across its buckets; each segment against
+   ``lazy_fused_plain``, fused against eager, cold and warm host seconds,
+   the warm call's budget; see :func:`lazy_phase`. It appends the
+   ``lazy_fused`` row to the kernels line, and the other rows carry
+   ``launches_lazy``. ``[dist]`` runs :func:`_dist_lazy` before
+   ``_dist_serve``: a lazy chain with a split-axis reduction inside
+   ``lockstep()``, and a divergence scheduled on rank 1 that raises
+   ``LockstepError`` on every rank.
 
 The line before last is one JSON object ``{"kernels": [...]}`` (not
 printed with ``--phases dist``); the last line is
@@ -2270,6 +2283,7 @@ def _dist_rank(rank, world, store, out_dir, seed=0):
     _dist_resilience(ht, world, rank, say, out_dir, seed)
     result["frame"]["wall"] = time.perf_counter() - t_frame
     torch.cuda.empty_cache()
+    result["lazy"] = _dist_lazy(ht, world, rank, timed, same_everywhere, say, seed)
     t_serve = time.perf_counter()
     result["serve"] = _dist_serve(ht, world, rank, timed, same_everywhere, say, out_dir, seed)
     result["serve"]["wall"] = time.perf_counter() - t_serve
@@ -5722,13 +5736,305 @@ def _dist_serve(ht, world, rank, timed, same_everywhere, say, out_dir, seed):
     return out
 
 
+# ---- [lazy]: heat_tpu's captured chains (tests/test_lazy.py's CHAINS) at [main]'s width on one card
+LAZY_SEED_OFFSET = 600       # [lazy]'s and [dist]'s lazy steps draw their torch streams from --seed + this
+# every chain, the elementwise one's expf included, is held bit for bit: the kernel and torch's exp kernel both
+# call CUDA's expf, and on an H100 they agreed to 0 ulp, kernel vs plain and fused vs eager, in every run of [lazy]
+N_DIST_LAZY = 1 << 22        # [dist]'s lazy chain: rows of 32 float32 per card
+
+
+def lazy_chains(ht):
+    """heat_tpu's chains (tests/test_lazy.py:52-60), each one result; cumsum_inner left out as a variant of cumsum."""
+    return {
+        "standardize": lambda x: (x - ht.mean(x, axis=0)) / (ht.std(x, axis=0) + 1.0),
+        "score": lambda x: ht.sum((x * x - 1.0) * 0.5, axis=0),
+        "elementwise": lambda x: ht.exp(-ht.abs(x)) * 2.0 + 1.0,
+        "mean_all": lambda x: x - ht.mean(x),
+        "var_norm": lambda x: x / (ht.var(x, axis=0) + 1.0),
+        "cumsum": lambda x: ht.cumsum(x * 3.0, axis=0),
+    }
+
+
+def ulp_dist32(a, b):
+    """The largest distance of two float32 tensors in units in the last place (0 where equal)."""
+    import torch
+
+    ia, ib = a.contiguous().view(torch.int32).long(), b.contiguous().view(torch.int32).long()
+    ia = torch.where(ia < 0, -(1 << 31) - ia, ia)
+    ib = torch.where(ib < 0, -(1 << 31) - ib, ib)
+    return int((ia - ib).abs().max()) if a.numel() else 0
+
+
+def lazy_record(lev):
+    """Install a recorder of every ``lazy_fused`` call the plans make: (program, inputs, shape, outputs)."""
+    calls = []
+    orig = lev.lazy_fused
+
+    def rec(prog, inputs, shape):
+        outs = orig(prog, inputs, shape)
+        calls.append((prog, list(inputs), tuple(shape), outs))
+        return outs
+
+    lev.lazy_fused = rec
+    return calls, orig
+
+
+def lazy_phase(dev, seed, smi):
+    """[lazy]: the lazy layer on [main]'s 2^24 x 32 float32 blobs (2 GiB), split 0. heat_tpu's chains run captured
+    (``ht.lazy()``) and eagerly; the standardized result goes into KMeans.fit (``lloyd_fused``); a ServeService
+    serves an ``@ht.fuse`` endpoint argmax(((x - mu) / sd) @ w, axis=1), warm across its buckets. Counts are zeroed
+    just before that path and read just after. Then, off the path: every chain's ``lazy_fused`` segments against
+    ``lazy_fused_plain`` on their own inputs (bit for bit), the fused result
+    against the eager one (bit for bit), cold and warm host seconds of both, the kernel's CUDA-event ms against
+    its bytes bound, the eager chain's ms as context, and the warm call's budget (1 fused dispatch, 1 cache hit, no
+    graph captured, no build or plan in a Region). Returns the lazy_fused row of the kernels line and the path's
+    launches."""
+    import numpy as np
+    import torch
+
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.analysis import Region
+    from heat_tpu_torch.core.kernels import lazy_fused, lazy_fused_plain
+    from heat_tpu_torch.core.kernels.lazy_fused import MAX_SLOTS_F64, segment_bytes
+    from heat_tpu_torch.core.lazy import evaluate as lev
+
+    ht.use_device("gpu")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + LAZY_SEED_OFFSET)
+    centres = torch.randn(K_MAIN, F_MAIN, device=dev, generator=gen) * 4.0
+    member = torch.arange(N_MAIN, device=dev) % K_MAIN
+    xa = centres[member] + torch.randn(N_MAIN, F_MAIN, device=dev, generator=gen)
+    del member
+    x = ht.array(xa, split=0, copy=False)
+    w = ht.array(torch.randn(F_MAIN, K_MAIN, device=dev, generator=gen))
+    chains = lazy_chains(ht)
+    eager_cold = {}
+    for name, chain in chains.items():  # eager first: its cold call pays no lazy planning
+        t0 = time.perf_counter()
+        chain(x)
+        torch.cuda.synchronize()
+        eager_cold[name] = time.perf_counter() - t0
+    mu, sd = ht.mean(x, axis=0), ht.std(x, axis=0)
+
+    @ht.fuse
+    def score(rows):
+        return ht.argmax(((rows - mu) / sd) @ w, axis=1)
+
+    # ---- the path, counts zeroed just before and read just after
+    torch.cuda.synchronize()
+    ht.kernels.reset_kernel_stats()
+    ht.reset_fuse_stats()
+    t_path = time.perf_counter()
+    fused, fused_cold = {}, {}
+    for name, chain in chains.items():
+        t0 = time.perf_counter()
+        with ht.lazy():
+            fused[name] = chain(x)
+        torch.cuda.synchronize()
+        fused_cold[name] = time.perf_counter() - t0
+    z = fused["standardize"]
+    km = ht.cluster.KMeans(n_clusters=K_MAIN, init=z[:K_MAIN], max_iter=ITERS, tol=None).fit(z)
+    svc = ht.serve.ServeService(ht.serve.BucketPolicy(max_batch=SERVE_MAX_BATCH, max_latency_ms=SERVE_LATENCY_MS))
+    svc.register_endpoint("fused.score", score)
+    rng = np.random.default_rng(seed + LAZY_SEED_OFFSET)
+    buckets, answers = [], []
+    b = 1
+    while b <= SERVE_MAX_BATCH:
+        rows = (rng.normal(size=(b, F_MAIN)) * 4.0).astype(np.float32)
+        r = svc.submit("fused.score", rows)
+        svc.flush()
+        answers.append((rows, r.result(SERVE_TIMEOUT)))
+        buckets.append(b)
+        b *= 2
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t_path
+    launches, stats, fuse_path = dict(ht.LAUNCHES), dict(ht.KERNEL_STATS), dict(ht.FUSE_STATS)
+    print(f"[lazy] path {path_s:.3f} s: launches {launches} KERNEL_STATS {stats} FUSE_STATS {fuse_path}", flush=True)
+    check(launches["lazy_fused"] >= len(chains) + len(buckets), f"[lazy] lazy_fused launches {launches}")
+    check(launches["lloyd_fused"] == ITERS + 1, f"[lazy] lloyd_fused launches {launches}")
+    check(stats.get("lazy_fused.cuda") == launches["lazy_fused"] and "lazy_fused.torch" not in stats,
+          f"[lazy] lazy_fused routes {stats}")
+    check(fuse_path["eager_fallbacks"] == 0 and fuse_path["fused_dispatches"] == len(chains) + len(buckets),
+          f"[lazy] FUSE_STATS on the path {fuse_path}")
+    cw = km.cluster_centers_.larray
+    check(tuple(cw.shape) == (K_MAIN, F_MAIN) and bool(torch.isfinite(cw).all()), "[lazy] KMeans centres")
+
+    # ---- the served answers against the eager function, then the warm buckets' budget
+    for rows, got in answers:
+        t = ht.array(torch.from_numpy(rows).to(dev))
+        want = ht.argmax(((t - mu) / sd) @ w, axis=1).numpy()
+        check(np.array_equal(np.asarray(got).reshape(-1), want), f"[lazy] served rows {rows.shape[0]}")
+    ht.reset_fuse_stats()
+    r_serve = Region("warm buckets")
+    for b in buckets:
+        svc.submit("fused.score", rng.normal(size=(b, F_MAIN)).astype(np.float32))
+        svc.flush()
+    svc.close(SERVE_TIMEOUT)
+    check(ht.FUSE_STATS["fused_dispatches"] == len(buckets) == ht.FUSE_STATS["cache_hits"]
+          and ht.FUSE_STATS["graphs_captured"] == 0 and r_serve.compiles == 0 and r_serve.traces == 0,
+          f"[lazy] warm buckets: FUSE_STATS {ht.FUSE_STATS}, region {r_serve.stats()}")
+    print(f"[lazy] served {len(buckets)} buckets {buckets}: answers equal to eager; warm pass {dict(ht.FUSE_STATS)}, "
+          f"region {r_serve.stats()}", flush=True)
+    del km, z, svc
+
+    # ---- every chain: fused vs eager, kernel vs plain, times, the warm budget
+    err_max, elem = 0.0, None
+    for name, chain in chains.items():
+        eager = chain(x)
+        ea, fa = eager.larray, fused[name].larray
+        d = ulp_dist32(fa, ea)
+        check(fa.shape == ea.shape and d == 0, f"[lazy] {name}: fused vs eager {d} ulp")
+        calls, orig = lazy_record(lev)
+        try:
+            ht.reset_fuse_stats()
+            region = Region(f"warm {name}")
+            l0 = ht.LAUNCHES["lazy_fused"]
+            t0 = time.perf_counter()
+            with ht.lazy():
+                warm = chain(x)
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            per_chain = ht.LAUNCHES["lazy_fused"] - l0
+        finally:
+            lev.lazy_fused = orig
+        check(ht.FUSE_STATS["fused_dispatches"] == 1 and ht.FUSE_STATS["cache_hits"] == 1
+              and ht.FUSE_STATS["graphs_captured"] == 0 and region.compiles == 0 and region.traces == 0,
+              f"[lazy] {name} warm call: FUSE_STATS {ht.FUSE_STATS}, region {region.stats()}")
+        check(torch.equal(warm.larray, fa), f"[lazy] {name}: the warm call differs from the cold one")
+        check(per_chain == len(calls) >= 1, f"[lazy] {name}: {per_chain} launches, {len(calls)} segments")
+        t0 = time.perf_counter()
+        chain(x)
+        torch.cuda.synchronize()
+        eager_warm = time.perf_counter() - t0
+        seg_ms = seg_plain = seg_bound = 0.0
+        for prog, inputs, shape, outs in calls:
+            plain = lazy_fused_plain(prog, inputs, shape)
+            for o, p in zip(outs, plain):
+                if o.dtype == torch.float32:
+                    du = ulp_dist32(o, p)
+                    check(du == 0, f"[lazy] {name}: lazy_fused vs lazy_fused_plain {du} ulp")
+                    err_max = max(err_max, (o - p).abs().max().item())
+                else:
+                    check(torch.equal(o, p), f"[lazy] {name}: lazy_fused vs plain ({o.dtype})")
+            seg_ms += time_ms(lambda: lazy_fused(prog, inputs, shape), reps=10, warm=2)
+            seg_plain += time_ms(lambda: lazy_fused_plain(prog, inputs, shape), reps=5, warm=1)
+            seg_bound += segment_bytes(prog, inputs, shape) / HBM_BYTES_PER_S * 1e3
+        # context only: one call where the eager chain takes seconds (torch's cumsum along a 2^24-row axis)
+        eager_ms = time_ms(lambda: chain(x), reps=1, warm=0) if eager_warm > 1.0 else time_ms(lambda: chain(x), reps=5,
+                                                                                               warm=1)
+        print(f"[lazy] {name}: cold host s fused {fused_cold[name]:.4f} eager {eager_cold[name]:.4f}; warm host s fused "
+              f"{warm_s:.4f} eager {eager_warm:.4f}; lazy_fused {seg_ms:.4f} ms over {len(calls)} segment(s) "
+              f"({[len(p.instrs) for p, *_ in calls]} instructions) vs bytes bound {seg_bound:.4f} ms (share "
+              f"{seg_bound / seg_ms:.3f}), plain {seg_plain:.4f} ms; eager chain {eager_ms:.4f} ms (context); "
+              f"launches per chain {per_chain}; fused vs eager {d} ulp", flush=True)
+        if name == "elementwise":
+            (prog, inputs, shape, _), = calls
+            elem = {"ms": seg_ms, "plain_ms": seg_plain, "bytes": segment_bytes(prog, inputs, shape),
+                    "ops": len(prog.instrs) * N_MAIN * F_MAIN, "eager_ms": eager_ms}
+        del eager, warm, calls
+        torch.cuda.empty_cache()
+    # ---- float64 chains of 30 and 60 ops on 2^20 rows: the plan cuts them where the kernel's register file ends
+    # (28 double slots), every segment fits and launches, and the result equals eager bit for bit
+    x64 = ht.array(xa[: 1 << 20].double(), split=0)
+    for steps in (20, 40):
+        def long_chain(a, steps=steps):
+            for i in range(steps):
+                a = a * 1.0078125 + 0.5 if i % 2 else a - 0.25
+            return a
+
+        calls, orig = lazy_record(lev)
+        try:
+            with ht.lazy():
+                got = long_chain(x64)
+            got = got.larray
+        finally:
+            lev.lazy_fused = orig
+        slots = [p.n_in + len(p.instrs) for p, *_ in calls]
+        check(calls and max(slots) <= MAX_SLOTS_F64 and torch.equal(got, long_chain(x64).larray),
+              f"[lazy] float64 chain of {steps * 3 // 2} ops: segments of {slots} slots, or differs from eager")
+        print(f"[lazy] float64 chain of {steps * 3 // 2} ops: {len(calls)} segment(s) of {slots} slots (at most "
+              f"{MAX_SLOTS_F64}), equal to eager bit for bit", flush=True)
+        del got, calls
+    del x64
+    t_bytes = elem["bytes"] / HBM_BYTES_PER_S * 1e3
+    t_ops = elem["ops"] / FP32_FLOP_PER_S * 1e3
+    row = {
+        "name": "lazy_fused", "route": "cuda", "source": "heat_tpu_torch/core/kernels/csrc/lazy_fused.cu",
+        "replaces": "none: heat_tpu/core/lazy/evaluate.py:190 _build_program (XLA's fusion of a captured chain)",
+        "launches": launches["lazy_fused"], "max_abs_err": err_max, "ms": elem["ms"], "plain_ms": elem["plain_ms"],
+        "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,  # no single PyTorch call computes the chain; the eager chain's ms is context
+    }
+    print(f"[time] lazy_fused (the elementwise chain's segment, 2^24 x 32 float32 in and out): kernel_ms "
+          f"{row['ms']:.4f} bound_ms {row['bound_ms']:.4f} ({row['bound_by']}; {elem['bytes']} B) plain_ms "
+          f"{row['plain_ms']:.4f} eager chain {elem['eager_ms']:.4f} ms (context; library_ms None) launches per "
+          f"[lazy] path {row['launches']} ({smi})", flush=True)
+    del x, xa, fused
+    torch.cuda.empty_cache()
+    return row, launches
+
+
+def _dist_lazy(ht, world, rank, timed, same_everywhere, say, seed):
+    """[dist]'s lazy steps: this rank's 2^22 x 32 rows (split 0) through a captured chain with a split-axis
+    reduction and the standardize chain inside ``lockstep()``, whose check passes with no divergence; FUSE_STATS
+    the same on every rank; both results equal to eager. Then a lockstep_divergence scheduled on rank 1 alone:
+    the next check raises LockstepError on every rank (at world size 1 no rank 1 exists and nothing raises)."""
+    import numpy as np
+    import torch
+
+    from heat_tpu_torch.resilience import LockstepError
+
+    dev = ht.get_device().torch_device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + LAZY_SEED_OFFSET + 1 + rank)
+    x = ht.array(torch.randn(N_DIST_LAZY, F_MAIN, device=dev, generator=gen) * 2.0 + 1.0, is_split=0)
+    div0 = ht.LOCKSTEP_STATS["divergences"]
+
+    def chain():
+        with ht.lazy():
+            s = ht.sum((x - 1.25) * 2.75, axis=0)
+            z = (x - ht.mean(x, axis=0)) / (ht.std(x, axis=0) + 1.0)
+        return s, z
+
+    with ht.analysis.lockstep(check_at_exit=False, deadline=120.0) as ls:
+        ht.reset_fuse_stats()
+        l0 = ht.LAUNCHES["lazy_fused"]
+        (s, z), host, ev = timed(chain)
+        fs = dict(ht.FUSE_STATS)
+        ls.check("lazy chain")
+        events = ls.events
+    check(ht.LOCKSTEP_STATS["divergences"] == div0, "[dist] lazy chain: lockstep divergence")
+    same_everywhere(torch.tensor(list(fs.values()), device=dev), "FUSE_STATS")
+    check(fs["fused_dispatches"] == 1 and fs["eager_fallbacks"] == 0, f"[dist] lazy FUSE_STATS {fs}")
+    check(ht.LAUNCHES["lazy_fused"] - l0 >= 1, "[dist] lazy chain launched no lazy_fused")
+    s_e = ht.sum((x - 1.25) * 2.75, axis=0)
+    z_e = (x - ht.mean(x, axis=0)) / (ht.std(x, axis=0) + 1.0)
+    check(torch.equal(s.larray, s_e.larray) and torch.equal(z.larray, z_e.larray), "[dist] lazy vs eager")
+    same_everywhere(s.larray, "lazy split-axis sum")
+    schedule = [("collective.allgather", 1, "lockstep_divergence")] if rank == 1 else []
+    with ht.analysis.lockstep(check_at_exit=False, deadline=120.0) as ls:
+        with ht.resilience.FaultSchedule(schedule):
+            ht.core.communication.ragged_process_allgather(np.arange(3), 0)
+        try:
+            ls.check("scheduled divergence")
+            raised = None
+        except LockstepError as e:
+            raised = type(e).__name__
+    check(raised == ("LockstepError" if world > 1 else None), f"[dist] scheduled divergence raised {raised}")
+    say(f"lazy: chain {host:.4f} s host, {ev:.4f} ms events, {events} collective events in lockstep, FUSE_STATS {fs}; "
+        f"divergence scheduled on rank 1 -> {raised}")
+    del x, s, z, s_e, z_e
+    torch.cuda.empty_cache()
+    return {"host_s": host, "event_ms": ev, "fuse": fs, "raised": raised}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive heat_tpu_torch's main path on the cards and check every kernel.")
     ap.add_argument("--phases", choices=("all", "dist", "spectral", "linalg", "robust", "dtypes", "stream", "layout",
-                                         "train", "frame", "resilience", "serve"),
+                                         "train", "frame", "resilience", "serve", "lazy"),
                     default="all", help="all (default): every phase; dist, spectral, linalg, robust, dtypes, stream, "
-                                        "layout, train, frame, resilience or serve: environment, build and that phase "
-                                        "only")
+                                        "layout, train, frame, resilience, serve or lazy: environment, build and that "
+                                        "phase only")
     ap.add_argument("--seed", type=int, default=0, help="seed of [dtypes]', [stream]'s, the layout steps', the "
                                                         "training steps' and the frame steps' data (default 0)")
     args = ap.parse_args(argv)
@@ -5767,7 +6073,8 @@ def main(argv=None) -> int:
         for line in info.ptxas:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"[build]   {line}")
-    check(set(built) >= {"moments", "lloyd", "topk_distance", "panel_update", "threefry"}, f"built {sorted(built)}")
+    check(set(built) >= {"moments", "lloyd", "topk_distance", "panel_update", "threefry", "lazy_fused"},
+          f"built {sorted(built)}")
     from heat_tpu_torch import native
 
     t0 = time.perf_counter()
@@ -5822,6 +6129,14 @@ def main(argv=None) -> int:
         if kernels is not None:
             for row in kernels:
                 row["launches_serve"] = serve_launches.get(row["name"], 0)
+    if args.phases in ("all", "lazy"):
+        lazy_row, lazy_launches = phase("lazy", lambda: lazy_phase(dev, args.seed, smi))
+        if kernels is not None:
+            for row in kernels:
+                row["launches_lazy"] = lazy_launches.get(row["name"], 0)
+            kernels.append(lazy_row)
+        else:
+            print(f"[lazy] kernel row {json.dumps(lazy_row)}", flush=True)
     if args.phases in ("all", "dist"):
         layout_launches = phase("dist", lambda: dist_phase(torch.cuda.device_count(), args.seed))
         if kernels is not None:

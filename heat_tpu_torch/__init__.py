@@ -80,13 +80,20 @@ The port goes slice by slice:
     fits of the k-clusterers, ``Lasso`` and ``DataParallel``,
     ``RECOVERY_STATS``), ``replicated_ids``/``replicated_frame``, and
     ``serve`` (``ServeService`` with its batching, replicated dispatch tick
-    and fault ladder, ``ModelRegistry``, ``Autoscaler``, ``SERVE_STATS``).
+    and fault ladder, ``ModelRegistry``, ``Autoscaler``, ``SERVE_STATS``);
+13. the lazy layer (``lazy``/``fuse``, ``LazyDNDarray``, ``FUSE_STATS``): op
+    chains recorded and run as one plan whose elementwise runs go through
+    the port's own ``lazy_fused`` kernel; ``analysis`` (the runtime
+    sanitizer and lockstep check, ``COMPILE_STATS``, ``LOCKSTEP_STATS``, and
+    the static analyzers graftlint/graftflow recast for the port); and
+    ``testing``, the fault-tolerant multi-process suite runner.
 """
 from .core import *
 from .core import complex_math, io, kernels, linalg, printing, random, signal, version
 from .core.version import __version__
-from . import (classification, cluster, convert, datasets, frame, graph, naive_bayes, nn, optim, parallel,
-               regression, resilience, serve, spatial, stream, utils)
+from . import (analysis, classification, cluster, convert, datasets, frame, graph, naive_bayes, nn, optim, parallel,
+               regression, resilience, serve, spatial, stream, testing, utils)
+from .analysis import COMPILE_STATS, LOCKSTEP_STATS
 from .core.dndarray import LAYOUT_STATS
 from .core.kernels import KERNEL_STATS, LAUNCHES
 from .frame import Frame, SHUFFLE_STATS

@@ -280,11 +280,13 @@ def _take_rows(x: DNDarray, idx: torch.Tensor) -> torch.Tensor:
     block = -(-x.gshape[0] // comm.size)
     offset = comm.chunk(x.gshape, 0)[0]
     rows = idx.tolist()
-    out = torch.empty((len(rows),) + tuple(x.gshape[1:]), dtype=x.larray.dtype, device=x.larray.device)
+    local = x.larray
+    out = torch.empty((len(rows),) + tuple(x.gshape[1:]), dtype=local.dtype, device=local.device)
     for owner in sorted({r // block for r in rows}):
         pos = [j for j, r in enumerate(rows) if r // block == owner]
+        # graftflow: F001 - both arms are local (an index, an empty buffer); the bcast follows on every rank
         if comm.rank == owner:
-            buf = x.larray[torch.tensor([rows[j] - offset for j in pos], device=x.larray.device)]
+            buf = local[torch.tensor([rows[j] - offset for j in pos], device=local.device)]
         else:
             buf = torch.empty((len(pos),) + tuple(x.gshape[1:]), dtype=out.dtype, device=out.device)
         out[pos] = comm.bcast(buf, owner)

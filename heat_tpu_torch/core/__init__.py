@@ -23,6 +23,8 @@ from . import (
     trigonometrics,
 )
 from . import linalg
+from . import lazy as _lazy_pkg  # installs the dispatchers' capture hook
+from .lazy import FUSE_STATS, LazyDNDarray, fuse, lazy, reset_fuse_stats
 from .linalg.basics import *
 from . import kernels
 from . import random

@@ -15,6 +15,8 @@ interconnect: :func:`guarded_call` runs such a call (``"flatmove.ragged"``,
 when none is.
 
 Observers only record: :func:`observe` reports an event (the
+``"host.*"`` family of device-to-host fetches, ``"collective.*"`` for
+every collective the communicator starts, ``"cache.insert"``, and
 ``"stream.*"`` family of the chunked pipeline: ``stream.chunk`` with
 ``rows`` and ``nbytes``, ``stream.prefetch_hit``, ``stream.stall``,
 ``stream.overlap`` with ``seconds``) to every observer, which is how
@@ -22,15 +24,23 @@ Observers only record: :func:`observe` reports an event (the
 reported to the observers too, before any injected fault fires. Both
 slots cost one falsy check when empty.
 
+Trace-safe mode (:func:`enter_trace_safe`) is a per-thread depth the lazy
+layer holds while it infers a captured op's layout on ``meta`` tensors:
+:func:`trace_barrier` sites (``balance_``, ``ragged_move``), which would
+move rows between ranks, raise :class:`TraceBarrierError` there, and the
+capture declines the op.
+
 This module imports nothing of the package, so any layer may call it.
 """
 from __future__ import annotations
 
+import threading
 from typing import Callable, Dict, Optional
 
 __all__ = [
-    "add_observer", "fault_point", "get_deadline_runner", "get_injector", "guarded_call", "observe",
-    "remove_observer", "set_deadline_runner", "set_injector",
+    "TraceBarrierError", "add_observer", "enter_trace_safe", "exit_trace_safe", "fault_point",
+    "get_deadline_runner", "get_injector", "guarded_call", "in_trace_safe", "observe", "remove_observer",
+    "set_deadline_runner", "set_injector", "trace_barrier",
 ]
 
 # the active injector: fn(name, ctx) -> None; it may raise to simulate a fault at
@@ -108,3 +118,34 @@ def observe(event: str, **ctx) -> None:
     if _OBSERVERS:
         for fn in tuple(_OBSERVERS):
             fn(event, ctx)
+
+
+# the per-thread depth of trace-safe mode: a serving thread inferring a layout
+# must not turn another thread's eager calls into declines
+_TRACE_SAFE = threading.local()
+
+
+class TraceBarrierError(RuntimeError):
+    """Raised by a row-moving site entered in trace-safe mode: the op cannot
+    be captured and runs eagerly instead."""
+
+
+def enter_trace_safe() -> None:
+    _TRACE_SAFE.depth = getattr(_TRACE_SAFE, "depth", 0) + 1
+
+
+def exit_trace_safe() -> None:
+    _TRACE_SAFE.depth = getattr(_TRACE_SAFE, "depth", 0) - 1
+
+
+def in_trace_safe() -> bool:
+    """True while the calling thread infers a layout on meta tensors."""
+    return getattr(_TRACE_SAFE, "depth", 0) > 0
+
+
+def trace_barrier(label: str) -> None:
+    """A site that moves rows between ranks (``"balance_"``,
+    ``"ragged_move"``): nothing in eager execution, a
+    :class:`TraceBarrierError` in trace-safe mode."""
+    if getattr(_TRACE_SAFE, "depth", 0) > 0:
+        raise TraceBarrierError(f"{label} moves rows between ranks and cannot run on meta tensors")

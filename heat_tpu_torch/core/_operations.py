@@ -27,6 +27,10 @@ operand in another layout (ragged or ceil-div) is aligned into it with one
 ``ragged_move``, a replicated one is sliced to this rank's rows. Ops that
 change the shape of their input, and the ``out=``/``where=`` forms,
 rebalance first (they read ``larray``).
+
+Inside an open ``ht.lazy()`` scope each dispatcher first offers its call to
+the lazy layer (``_capture``, installed by :mod:`.lazy`), which records it
+or declines; a declined call runs here as always.
 """
 from __future__ import annotations
 
@@ -34,11 +38,14 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from . import types
+from . import _hooks, types
 from .dndarray import DNDarray
 from .stride_tricks import broadcast_shape, sanitize_axis
 
 __all__ = ["_binary_op", "_cum_op", "_local_op", "_local_operand", "_real_only", "_reduce_op"]
+
+# the lazy layer's capture module (heat_tpu_torch.core.lazy.capture), set when it is imported
+_capture = None
 
 
 def _as_dndarray(x, device=None, comm=None) -> DNDarray:
@@ -46,6 +53,8 @@ def _as_dndarray(x, device=None, comm=None) -> DNDarray:
 
     if isinstance(x, DNDarray):
         return x
+    if _hooks.in_trace_safe():
+        device = "cpu"  # a layout probe: a CPU scalar meets meta tensors, a card's would not
     return factories.array(x, device=device, comm=comm)
 
 
@@ -137,6 +146,10 @@ def _binary_op(
     fn_kwargs: Optional[dict] = None,
 ) -> DNDarray:
     """Apply a binary torch op with heat promotion/broadcast/split rules."""
+    if _capture is not None and _capture.active():
+        res = _capture.binary(operation, t1, t2, out, where, fn_kwargs)
+        if res is not NotImplemented:
+            return res
     fn_kwargs = fn_kwargs or {}
     if not isinstance(t1, DNDarray) and not isinstance(t2, DNDarray):
         raise TypeError(
@@ -163,6 +176,7 @@ def _binary_op(
     if out is None and where is True and out_split is not None and (a.lcounts is not None or b.lcounts is not None):
         res = _ragged_binary(operation, a, b, out_shape, out_split, tt, device, comm, fn_kwargs)
         if res is not None:
+            # graftflow: F004 - _ragged_binary declines on replicated layout metadata only
             return res
     la, lb = (_local_operand(v, out_shape, out_split).to(tt) for v in (a, b))
     result = operation(la, lb, **fn_kwargs)
@@ -195,6 +209,10 @@ def _local_op(
     Float-promoting math functions (``no_cast=False``) compute integer
     input in float (float32, or float64 for int64); float and complex input
     keeps its type."""
+    if _capture is not None and _capture.active():
+        res = _capture.local(operation, x, out, no_cast, out_dtype, kwargs)
+        if res is not NotImplemented:
+            return res
     if not isinstance(x, DNDarray):
         raise TypeError(f"expected x to be a DNDarray, but was {type(x)}")
     arr = x._raw
@@ -229,6 +247,10 @@ def _reduce_op(
     **kwargs)`` receives the sanitized axis (None, int or tuple). A ragged
     array reduces the rows each rank holds; where the split axis survives,
     the result keeps the layout."""
+    if _capture is not None and _capture.active():
+        res = _capture.reduce(operation, x, axis, out, keepdims, out_dtype, kwargs)
+        if res is not NotImplemented:
+            return res
     if not isinstance(x, DNDarray):
         raise TypeError(f"expected x to be a DNDarray, but was {type(x)}")
     axis = sanitize_axis(x.shape, axis)
@@ -282,6 +304,10 @@ def _cum_op(
     ``combine`` (``torch.add`` for a sum, ``torch.mul`` for a product) with
     the exclusive prefix of the ranks' totals (by the ragged counts of a
     ragged array, which keeps its layout)."""
+    if _capture is not None and _capture.active():
+        res = _capture.cum(operation, x, axis, out, dtype, combine)
+        if res is not NotImplemented:
+            return res
     if not isinstance(x, DNDarray):
         raise TypeError(f"expected x to be a DNDarray, but was {type(x)}")
     axis = sanitize_axis(x.shape, axis)

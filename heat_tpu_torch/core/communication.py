@@ -25,6 +25,12 @@ uint8. Only ``allreduce`` computes on the values; for complex it takes
 ``"sum"`` alone (a complex max or min is lexicographic, which no backend
 reduces: gather the candidates instead).
 
+A ``meta`` tensor (the lazy layer infers layouts on them) goes through
+every collective without communicating: the result is a ``meta`` tensor of
+the shape the collective would give, and an ``allgather`` whose extents
+are not given raises, as no rank can tell the others' extents without
+asking.
+
 ``SELF`` is a communicator of one rank inside any group: its collectives
 return their input. ``MPI_WORLD``/``MPI_SELF``/``MPICommunication``/
 ``MeshCommunication`` are ``heat_tpu``'s names for the same objects; there
@@ -41,6 +47,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from . import _hooks
 from .kernels._dispatch import count_collective
 
 __all__ = [
@@ -254,6 +261,8 @@ class TorchCommunication(Communication):
         when no group is started."""
         if self._alone():
             return t
+        if t.is_meta:
+            return torch.empty_like(t)
         if t.is_complex() and op != "sum":
             raise TypeError(f"allreduce {op!r} of a complex tensor: complex values have no order a backend reduces by")
         out, back = _to_wire(t.contiguous())
@@ -269,6 +278,12 @@ class TorchCommunication(Communication):
         exchanges them); every other dimension must agree."""
         if self._alone():
             return t
+        if t.is_meta:
+            if counts is None:
+                raise _hooks.TraceBarrierError("allgather of unknown extents cannot run on meta tensors")
+            shape = list(t.shape)
+            shape[axis % t.ndim] = sum(int(c) for c in counts)
+            return t.new_empty(shape)
         if counts is None:
             ext = torch.tensor([t.shape[axis]], dtype=torch.int64, device=self.device())
             parts = [torch.empty_like(ext) for _ in range(self.size)]
@@ -293,6 +308,8 @@ class TorchCommunication(Communication):
         blocks have one dtype and device; any of them may be empty."""
         if self._alone():
             return [blocks[0].reshape(recv_shapes[0])]
+        if blocks[0].is_meta:
+            return [blocks[0].new_empty(tuple(s)) for s in recv_shapes]
         wired = [_to_wire(b) for b in blocks]
         back = wired[0][1]
         extra = (2,) if blocks[0].is_complex() else ()
@@ -309,7 +326,7 @@ class TorchCommunication(Communication):
     def bcast(self, t: torch.Tensor, root: int) -> torch.Tensor:
         """Rank ``root``'s ``t`` on every rank; the other ranks pass a
         tensor of the same shape and dtype to receive into."""
-        if self._alone():
+        if self._alone() or t.is_meta:
             return t
         out, back = _to_wire(t.contiguous())
         out = out.contiguous()
@@ -324,6 +341,8 @@ class TorchCommunication(Communication):
         point-to-point operations. With one rank, ``t`` itself."""
         if self._alone() or self.size == 1:
             return t
+        if t.is_meta:
+            return torch.empty_like(t)
         w, back = _to_wire(t.contiguous())
         w = w.contiguous()
         out = torch.empty_like(w)
@@ -343,12 +362,14 @@ class TorchCommunication(Communication):
         received."""
         if not (sends or recvs) or self._alone():
             return {}
+        if like.is_meta:
+            return {p: like.new_empty(tuple(shape)) for p, shape in recvs.items()}
         wire, back = _to_wire(like[:0])
         wired = {q: _to_wire(t.contiguous())[0].contiguous() for q, t in sends.items()}
         extra = (2,) if like.is_complex() else ()
         got = {p: torch.empty(tuple(shape) + extra, dtype=wire.dtype, device=like.device) for p, shape in recvs.items()}
         count_collective(op, sum(t.numel() * t.element_size() for t in wired.values()),
-                         sum(t.numel() * t.element_size() for t in got.values()))
+                         sum(t.numel() * t.element_size() for t in got.values()), p2p=True)
         ops = [dist.P2POp(dist.isend, t, self.global_rank(q), self._group) for q, t in sorted(wired.items())]
         ops += [dist.P2POp(dist.irecv, t, self.global_rank(p), self._group) for p, t in sorted(got.items())]
         for req in dist.batch_isend_irecv(ops):
@@ -706,6 +727,7 @@ def _unpack(buf: torch.Tensor, like) -> list:
     return out
 
 
+# graftflow: DRIFT - its collectives are comm.allgather/comm.exchange, passed by attribute
 def tree_merge(state, combine, *, label: str = "collective.tree_merge", active: bool = True,
                comm: Optional[TorchCommunication] = None):
     """One state per rank merged into the same global state on every rank

@@ -26,7 +26,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from . import devices, types
+from . import _hooks, devices, types
 from .communication import TorchCommunication, sanitize_comm
 from .devices import Device
 from .stride_tricks import sanitize_axis
@@ -58,6 +58,8 @@ def _to_tensor(array, dtype, device: Device) -> torch.Tensor:
             types.canonical_heat_type(a.dtype)  # raises for a type heat does not have
         t = _host_tensor(a)
     tt = None if dtype is None else dtype.torch_type()
+    if t.is_meta:  # a layout probe of the lazy layer: meta tensors stay meta
+        return t.to(dtype=tt)
     return t.to(device=tdev, dtype=tt)
 
 
@@ -174,7 +176,8 @@ class DNDarray:
         out.__dtype = types.canonical_heat_type(dtype if dtype is not None else tensor.dtype)
         out.__split = split
         out.__gshape = gshape
-        out.__array = tensor.to(device=out.__device.torch_device, dtype=out.__dtype.torch_type())
+        tdev = None if tensor.is_meta else out.__device.torch_device
+        out.__array = tensor.to(device=tdev, dtype=out.__dtype.torch_type())
         out.__lcounts = lcounts
         return out
 
@@ -269,6 +272,7 @@ class DNDarray:
         in ``LAYOUT_STATS["rebalances"]``. A balanced array is left as it is
         and nothing is counted."""
         if self.__lcounts is not None:
+            _hooks.trace_barrier("balance_")
             LAYOUT_STATS["rebalances"] += 1
             self._ragged_redistribute(self.__comm.counts_displs_shape(self.__gshape, self.__split)[0])
         return self
@@ -540,12 +544,15 @@ class DNDarray:
         """The global array as a numpy array on the host, on every rank. numpy
         has no bfloat16, so a bfloat16 array comes back as float32, which
         holds every bfloat16 value exactly. A ragged array is gathered as it
-        lies and keeps its layout (``heat_tpu`` rebalances it first)."""
+        lies and keeps its layout (``heat_tpu`` rebalances it first).
+        Reported to the observers as ``"host.gather"``."""
+        _hooks.observe("host.gather", shape=self.__gshape)
         t = self._logical().detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
     def item(self):
-        """The single element as a python scalar."""
+        """The single element as a python scalar (``"host.item"``)."""
+        _hooks.observe("host.item")
         if self.size != 1:
             raise ValueError("only one-element DNDarrays can be converted to Python scalars")
         return self._logical().item()
@@ -560,6 +567,7 @@ class DNDarray:
 
     def __cast(self, cast_function):
         if self.size == 1:
+            _hooks.observe("host.scalar")
             return cast_function(self._logical().reshape(()).item())
         raise TypeError("only size-1 arrays can be converted to Python scalars")
 
@@ -924,9 +932,10 @@ class DNDarray:
             vals, lkey = torch.broadcast_to(self.__value_tensor(value), tuple(sel_shape)), gkey
         elif isinstance(gkey[split], int):
             off, lshape, _ = comm.chunk(self.__gshape, split)
+            whole = self.__value_tensor(value)  # a split DNDarray value is gathered by every rank
             if not off <= gkey[split] < off + lshape[split]:
                 return  # another rank owns the row
-            vals = torch.broadcast_to(self.__value_tensor(value), tuple(sel_shape))
+            vals = torch.broadcast_to(whole, tuple(sel_shape))
             lkey = list(gkey)
             lkey[split] -= off
         else:

@@ -21,7 +21,12 @@ on a card and runs the plain version for tensors on the CPU:
 - :func:`threefry_bits` — threefry-2x32 random bits at a chunk's global
   indices, and their conversion to uniform floats (``threefry_bits``,
   ``csrc/threefry.cu``; the port's own kernel, not a TPU kernel's port),
-  behind ``random``.
+  behind ``random``;
+- :func:`lazy_fused` — every fused elementwise segment of the lazy layer
+  (``ht.lazy``/``ht.fuse``) in one pass, by interpreting the segment's
+  program (``lazy_fused``, ``csrc/lazy_fused.cu``; the port's own kernel,
+  standing in for XLA's fusion), with its plain version
+  :func:`lazy_fused_plain`.
 
 Sources build with ``nvcc`` at first use (:mod:`._build`).
 """
@@ -50,6 +55,7 @@ from .lloyd import (
     lloyd_sharded,
     resident_smem,
 )
+from .lazy_fused import LAZY_KERNEL, SegmentProgram, lazy_fused, lazy_fused_plain
 from .moments import MOMENTS_KERNEL, chunk_moments, merge_moments, moments_local, moments_sharded
 from .panel_update import CHOL_KERNEL, MAX_FUSED_N, chol_block_size, chol_grid, chol_panels, cholesky_local
 from .threefry import THREEFRY_KERNEL, threefry_bits, threefry_plain
@@ -61,11 +67,13 @@ __all__ = [
     "KERNELS",
     "KERNEL_STATS",
     "LAUNCHES",
+    "LAZY_KERNEL",
     "LLOYD_KERNEL",
     "MAX_FUSED_N",
     "MAX_K",
     "MOMENTS_KERNEL",
     "RECEIVED",
+    "SegmentProgram",
     "THREEFRY_KERNEL",
     "TOPK_KERNEL",
     "assign_stats",
@@ -80,6 +88,8 @@ __all__ = [
     "forced_mode",
     "knn_plan",
     "knn_tiles",
+    "lazy_fused",
+    "lazy_fused_plain",
     "lloyd_general_plan",
     "lloyd_local",
     "lloyd_resident_plan",

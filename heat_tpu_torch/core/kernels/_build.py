@@ -24,6 +24,8 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict, List
 
+from .. import _hooks
+
 __all__ = ["BuildInfo", "build_all", "load"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -89,6 +91,7 @@ def build_all() -> Dict[str, BuildInfo]:
             tmp = out_dir / f".lib{name}.{os.getpid()}.so"
             cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
             proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            _hooks.observe("build.compile", source=src.name)
             pending[name] = (proc, tmp, lib, logf, time.perf_counter())
         failures = []
         for name, (proc, tmp, lib, logf, t0) in pending.items():

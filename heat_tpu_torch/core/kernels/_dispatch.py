@@ -20,7 +20,10 @@ starts the kernel. :data:`COLLECTIVES` counts the collectives the
 communicator ran (``{op: {"calls": n, "bytes": b}}``, the bytes this rank
 contributed), so a check can show which collectives a path ran beside
 which kernels it launched; :data:`RECEIVED` the bytes each collective
-brought to this rank (``{op: bytes}``).
+brought to this rank (``{op: bytes}``). Each counted collective is also
+reported to the observers of :mod:`.._hooks` as ``"collective.<op>"``, or
+as ``"collective.exchange"`` (with ``op``) for a batch of point-to-point
+messages, whose partners differ from rank to rank.
 """
 from __future__ import annotations
 
@@ -28,6 +31,8 @@ import contextlib
 from typing import Dict, Iterator
 
 import torch
+
+from .. import _hooks
 
 __all__ = [
     "COLLECTIVES",
@@ -118,10 +123,12 @@ def count_launch(kernel: str) -> None:
     LAUNCHES[kernel] += 1
 
 
-def count_collective(op: str, nbytes: int, received: int = None) -> None:
+def count_collective(op: str, nbytes: int, received: int = None, p2p: bool = False) -> None:
     """Add one call of the collective ``op`` that sent ``nbytes`` from this
     rank and brought it ``received`` bytes (``nbytes`` where omitted);
-    called by the communicator where it starts the collective."""
+    called by the communicator where it starts the collective. ``p2p``
+    marks a batch of point-to-point messages."""
+    _hooks.observe("collective.exchange" if p2p else f"collective.{op}", op=op)
     entry = COLLECTIVES.setdefault(op, {"calls": 0, "bytes": 0})
     entry["calls"] += 1
     entry["bytes"] += int(nbytes)

@@ -45,6 +45,7 @@ _THREADS = 256  # threads per block of the kernel
 _SOLVE_ROWS = 128  # panel rows per solver block
 _TILE = 64  # trailing-update tile edge
 _lib = None
+# graftlint: G002 - keyed by device index: bounded by the number of cards
 _occupancy_cache = {}  # device index -> (SM count, blocks per SM)
 
 

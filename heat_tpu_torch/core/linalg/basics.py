@@ -21,7 +21,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from .. import arithmetics, types
+from .. import _operations, arithmetics, types
 from .._operations import _local_operand, _reduced_shape, _reduced_split, _write_out
 from ..dndarray import DNDarray
 from ..stride_tricks import sanitize_axis
@@ -121,6 +121,11 @@ def _matmul_2d(a: DNDarray, b: DNDarray, tt) -> torch.Tensor:
 def matmul(a: DNDarray, b: DNDarray, allow_resplit: bool = False) -> DNDarray:
     """Matrix product of two DNDarrays, with numpy's shape rules.
     ``allow_resplit`` is accepted for ``heat_tpu``'s signature."""
+    # offered for lazy capture before any tensor is read
+    if _operations._capture is not None and _operations._capture.active():
+        res = _operations._capture.matmul(a, b, allow_resplit)
+        if res is not NotImplemented:
+            return res
     if not isinstance(a, DNDarray) or not isinstance(b, DNDarray):
         raise TypeError("both operands must be DNDarrays")
     if a.ndim == 0 or b.ndim == 0:

@@ -356,6 +356,7 @@ def _lu_split0(m: DNDarray, mode: str, rhs=None):
         lu, piv = _lu_factor(panel)  # the panel's one host read: its exchanges
         del panel
         perm = list(range(n - off))
+        # graftflow: F006 - the panel is the same on every rank, so is its pivot read
         for j, p in enumerate(piv.tolist()):
             if p != j:
                 perm[j], perm[p] = perm[p], perm[j]
@@ -392,6 +393,7 @@ def _lu_split0(m: DNDarray, mode: str, rhs=None):
         off = offs[kb]
         end = min(off + bs, n)
         owner = off // mi
+        # graftflow: F001 - torch.linalg.solve_triangular is local; the bcast follows on every rank
         if comm.rank == owner:
             xk = torch.linalg.solve_triangular(diag_blocks[kb], X[off - s : end - s], upper=True)
         else:

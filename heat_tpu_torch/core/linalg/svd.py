@@ -147,7 +147,9 @@ def lstsq(a: DNDarray, b: DNDarray, rcond: Optional[float] = None) -> DNDarray:
             Q, R = qr(a)
             diag = torch.abs(torch.diagonal(R._logical()))
             lo, hi = torch.stack([diag.min(), diag.max()]).tolist()
+            # graftflow: F001 - lo, hi come from R._logical(), the whole R on every rank
             if lo > eps_cut * hi:
+                # graftflow: F004 - lo, hi come from R._logical(), the whole R on every rank
                 return solve_triangular(R, matmul(Q.T, b), lower=False)
         return matmul(pinv(a, rcond=rcond), b)
 

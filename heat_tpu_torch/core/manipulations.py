@@ -711,6 +711,7 @@ def unfold(a: DNDarray, axis: int, size: int, step: int = 1) -> DNDarray:
         if not got:
             shape_o = list(t.shape)
             shape_o[axis] = 0
+            # graftflow: F004 - t.unfold below is the tensor's method, no collective
             return _local(t.new_empty(shape_o + [size]), a, gshape, a.split)
         t = got[0]
     return _local(t.unfold(axis, size, step), a, gshape, a.split)

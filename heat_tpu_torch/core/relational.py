@@ -52,6 +52,7 @@ def _ordered(strict, op):
             return op(a, b)
         return strict(a.real, b.real) | (a.real == b.real) & op(a.imag, b.imag)
 
+    run._cache_stable = True  # built once per comparison at import: the lazy layer may key plans by it
     return run
 
 

@@ -122,6 +122,7 @@ def convolve(a: DNDarray, v: DNDarray, mode: str = "full") -> DNDarray:
 
     me = comm.rank
     t = x.larray
+    # graftflow: F001 - both arms compute locally; _redistribute follows on every rank
     if counts[me] > 0:
         left = t.new_zeros(m - 1) if me == 0 else x.halo_prev[halo - before:] if before else t.new_zeros(0)
         right = t.new_zeros(m - 1) if me == last else x.halo_next[:after] if after else t.new_zeros(0)

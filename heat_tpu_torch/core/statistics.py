@@ -63,7 +63,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from . import factories, types
+from . import _hooks, _operations, factories, types
 from ._operations import (
     _binary_op, _like_layout, _local_operand, _over_axes, _reduce_op, _reduced_shape, _reduced_split, _write_out,
 )
@@ -162,7 +162,12 @@ def _panel_entries(arr: torch.Tensor, axis_s, req_mode: str):
 
 def _moments_panel(x: DNDarray, axis_s):
     """(count, mean, M2) of ``x`` along ``axis_s`` from the memoized panel,
-    or None when the panel declines (int dtypes, >2-D, tuple axes, empty)."""
+    or None when the panel declines (int dtypes, >2-D, tuple axes, empty, an
+    open lazy scope, a layout probe)."""
+    if _operations._capture is not None and _operations._capture.active():
+        return None  # a lazy scope: the moment's capture point must see the call
+    if _hooks.in_trace_safe():
+        return None
     if x.ndim not in (1, 2) or 0 in tuple(x.gshape):
         return None
     if axis_s is not None and not isinstance(axis_s, int):
@@ -238,9 +243,10 @@ def _moments(x: DNDarray, axis, where):
     across = x.split is not None and x.split in axes and x.comm.is_distributed()
     if where is not None:
         x.balance_()  # the mask meets the ceil-div chunks
-    if x._raw.is_complex():
+    if x.dtype in (types.complex64, types.complex128):
         # |z - m|^2 = (re - m_re)^2 + (im - m_im)^2: the parts' moments, on the direct route
         parts = []
+        # graftflow: F003 - two parts on every rank
         for part in (x._raw.real, x._raw.imag):
             p = _like_layout(x, part, x.gshape, types.canonical_heat_type(part.dtype), x.split)
             stats = _direct_moments(p, axis_s, where)
@@ -248,6 +254,7 @@ def _moments(x: DNDarray, axis, where):
         (c, m_re, m2_re), (_, m_im, m2_im) = parts
         return axis_s, (c, torch.complex(m_re, m_im), m2_re + m2_im)
     stats = None if where is not None else _moments_panel(x, axis_s)
+    # graftflow: F001 - the panel declines on replicated metadata only (ndim, gshape, axis, dtype, an open scope)
     if stats is None:
         # where= masks cannot key the memo: they decline to a direct reduction
         stats = _direct_moments(x, axis_s, where)
@@ -264,18 +271,30 @@ def _moment_type(x: DNDarray, result: torch.Tensor) -> torch.Tensor:
 def mean(x: DNDarray, axis=None, where=None) -> DNDarray:
     """Arithmetic mean along ``axis``. A following ``std``/``var`` on the
     same tensor reuses the memoized moments and reads no data."""
+    if _operations._capture is not None and _operations._capture.active():
+        res = _operations._capture.moment(mean, x, axis, None, where)
+        if res is not NotImplemented:
+            return res
     axis_s, (_, m, _) = _moments(x, axis, where)
     return _wrap_moment(x, axis_s, _moment_type(x, m))
 
 
 def var(x: DNDarray, axis=None, ddof: int = 0, where=None) -> DNDarray:
     """Variance along ``axis`` with ``ddof`` delta degrees of freedom."""
+    if _operations._capture is not None and _operations._capture.active():
+        res = _operations._capture.moment(var, x, axis, ddof, where)
+        if res is not NotImplemented:
+            return res
     axis_s, (c, _, m2) = _moments(x, axis, where)
     return _wrap_moment(x, axis_s, _moment_type(x, (m2 / (c - ddof)).to(m2.dtype)))
 
 
 def std(x: DNDarray, axis=None, ddof: int = 0, where=None) -> DNDarray:
     """Standard deviation along ``axis`` with ``ddof`` delta degrees of freedom."""
+    if _operations._capture is not None and _operations._capture.active():
+        res = _operations._capture.moment(std, x, axis, ddof, where)
+        if res is not NotImplemented:
+            return res
     axis_s, (c, _, m2) = _moments(x, axis, where)
     return _wrap_moment(x, axis_s, _moment_type(x, torch.sqrt(m2 / (c - ddof)).to(m2.dtype)))
 
@@ -366,6 +385,11 @@ def minimum(x1, x2, out=None) -> DNDarray:
 
 
 def _arg_reduce(op, x: DNDarray, axis, out) -> DNDarray:
+    # offered for lazy capture before the tensor read below forces a pending operand
+    if _operations._capture is not None and _operations._capture.active():
+        res = _operations._capture.argreduce(op, x, axis, out)
+        if res is not NotImplemented:
+            return res
     if not isinstance(x, DNDarray):
         raise TypeError(f"expected x to be a DNDarray, but was {type(x)}")
     axis = sanitize_axis(x.shape, axis)
@@ -577,6 +601,7 @@ def percentile(x: DNDarray, q, axis=None, out=None, interpolation: str = "linear
     statistics come from the selection of :mod:`heat_tpu_torch.parallel.dselect`,
     never from a gathered array."""
     kd = bool(keepdim or keepdims)
+    # graftlint: G004 - the percentiles themselves are read once, to size the selection
     q_host = np.asarray(q.numpy() if isinstance(q, DNDarray) else q)
     if q_host.size and not np.all((q_host >= 0) & (q_host <= 100)):
         raise ValueError("percentiles must be in the range [0, 100]")
@@ -752,6 +777,7 @@ def average(x: DNDarray, axis=None, weights=None, returned: bool = False):
         else:
             zero = bool(np.any(wnp == 0))
     else:
+        # graftlint: G004 - a zero weight sum raises ZeroDivisionError, as in heat_tpu: one read a call
         zero = bool((wsum == 0).any())
     if zero:
         raise ZeroDivisionError("Weights sum to zero, can't be normalized")

@@ -216,6 +216,7 @@ class FrameGroupBy:
         # ---- every group's quantile, the same on every rank
         qs = torch.tensor([q], dtype=torch.float32, device=dev)
         out = {key: union}
+        # graftflow: F003 - the value columns are the frame's, the same on every rank
         for c, (_, _, vals, wts) in zip(value_cols, merged):
             out[c] = kll._grouped_quantile(vals, wts, qs)[:, 0].cpu().numpy()
         from .frame import Frame

@@ -115,6 +115,7 @@ class GaussianNB(BaseEstimator, ClassificationMixin):
         else:
             raise ValueError("classes must be passed on the first call to partial_fit.")
         unseen = ~torch.isin(seen, class_vals)
+        # graftflow: F001 - seen is the labels' union over ranks, so every rank raises or none
         if bool(unseen.any()):
             bad = seen[unseen].cpu().numpy()
             raise ValueError(

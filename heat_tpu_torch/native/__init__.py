@@ -30,6 +30,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from ..core import _hooks
+
 __all__ = ["FileStream", "build", "csv_dims", "csv_parse", "csv_parse_range"]
 
 SRC = Path(__file__).resolve().parent / "src"
@@ -57,6 +59,7 @@ def build() -> Path:
     out_dir.mkdir(parents=True, exist_ok=True)
     tmp = out_dir / f".libheat_native.{os.getpid()}.so"  # renamed when whole: another process never loads half
     cmd = ["g++", *CXX_FLAGS, *map(str, sorted(SRC.glob("*.cpp"))), "-o", str(tmp)]
+    _hooks.observe("build.compile", source="native")
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
     except OSError as e:

@@ -8,12 +8,18 @@ and ``nonzero`` (counterpart of ``heat_tpu/parallel/dscan.py``).
   ``allgather`` of P counts and an exclusive scan of them give every
   coordinate its slot in the result, and one ``alltoall`` sends each
   coordinate to the rank whose ceil-div chunk holds that slot.
+
+Across ranks both read the candidates' counts back to the host and report
+it as ``"host.fetch_found"`` (a unique of complex values excepted), where
+``heat_tpu``'s scans fetch their found elements.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
+
+from ..core import _hooks
 
 __all__ = ["local_unique", "nonzero_scan", "unique_merge"]
 
@@ -33,6 +39,8 @@ def unique_merge(local: torch.Tensor, comm) -> torch.Tensor:
     ``local``: local candidates, one ``allgather`` of them, a final dedup."""
     cands = local_unique(local)
     if comm.is_distributed():
+        if not local.is_complex():
+            _hooks.observe("host.fetch_found")
         cands = local_unique(comm.allgather(cands, 0))
     return cands
 
@@ -49,6 +57,8 @@ def nonzero_scan(local: torch.Tensor, gshape, split: int, comm, ragged=None) -> 
     coords[:, split] += off
     if not comm.is_distributed():
         return coords, coords.shape[0]
+    _hooks.observe("host.fetch_found")
+    # graftlint: G004 - the ranks' counts size the result and the alltoall
     counts = comm.allgather(torch.tensor([coords.shape[0]], dtype=torch.int64, device=coords.device), 0,
                             [1] * comm.size).tolist()
     total = sum(counts)
@@ -83,7 +93,9 @@ def _interleaved(coords: torch.Tensor, gshape, split: int, total: int, comm) -> 
     out_counts, out_starts = comm.counts_displs_shape((total,), 0)[:2]
     bounds = torch.tensor(list(out_starts[1:]) + [total], device=dev)
     owner = torch.searchsorted(bounds, slot, right=True)
+    # graftlint: G004 - the send counts size the alltoall
     send = torch.bincount(owner, minlength=comm.size).tolist()
+    # graftlint: G004 - the receive counts size the alltoall
     recv = torch.cat(comm.alltoall([torch.tensor([c], device=dev) for c in send], [(1,)] * comm.size)).tolist()
     nd = coords.shape[1]
     order = torch.argsort(owner, stable=True)

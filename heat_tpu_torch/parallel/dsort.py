@@ -59,7 +59,8 @@ def sample_sort(local: torch.Tensor, n: int, comm, descending: bool = False) -> 
     on this rank is ``local``."""
     from ..core.dndarray import _redistribute
 
-    p, me = comm.size, comm.rank
+    p = comm.size
+    me = comm.rank
     dev = local.device
     off = comm.chunk((n,), 0)[0]
     key = order_keys(local, descending)
@@ -89,6 +90,7 @@ def sample_sort(local: torch.Tensor, n: int, comm, descending: bool = False) -> 
     # 3. bucket sizes, then the pairs
     send = torch.bincount(bucket, minlength=p)
     recv = torch.cat(comm.alltoall([send[q : q + 1] for q in range(p)], [(1,)] * p))
+    # graftlint: G004 - bucket sizes size the alltoall
     send_l, recv_l = send.tolist(), recv.tolist()
     vparts = comm.alltoall(list(torch.split(vals, send_l)), [(c,) for c in recv_l])
     iparts = comm.alltoall(list(torch.split(gidx, send_l)), [(c,) for c in recv_l])
@@ -97,6 +99,7 @@ def sample_sort(local: torch.Tensor, n: int, comm, descending: bool = False) -> 
     order = torch.sort(order_keys(mv, descending), stable=True)[1]
     mv, mi = mv[order], mi[order]
     # 5. into the ceil-div layout
+    # graftlint: G004 - the ranks' counts give the ceil-div layout
     counts = comm.allgather(torch.tensor([mv.numel()], dtype=torch.int64, device=dev), 0, [1] * p).tolist()
     starts = [sum(counts[:q]) for q in range(p)]
     return (_redistribute(mv, 0, starts, counts, (n,), comm), _redistribute(mi, 0, starts, counts, (n,), comm))

@@ -194,6 +194,7 @@ def ragged_move(local: torch.Tensor, split: int, in_counts: Sequence[int], out_c
                              local.shape)
 
 
+# graftflow: DRIFT - its exchange runs inside a lambda handed to _bounded_exchange
 def bucket_move(local: torch.Tensor, split: int, matrix: Sequence[Sequence[int]], comm) -> torch.Tensor:
     """One bucketed exchange: this rank's outgoing rows lie along ``split``
     destination-major from offset 0 (``matrix[rank][d]`` rows for rank d,

@@ -50,6 +50,7 @@ class LocalMesh:
         return get_comm().rank
 
     def __repr__(self) -> str:
+        # graftlint: G004 - the mesh is a CPU tensor of ranks, read in __repr__
         return f"LocalMesh({self.device_type!r}, {self.mesh.tolist()}, mesh_dim_names={self.mesh_dim_names})"
 
 

@@ -53,7 +53,8 @@ def ring_map(tile_fn: Callable, x, y, comm: Optional[TorchCommunication] = None,
     array of the tiles, split along axis 0."""
     comm = sanitize_comm(comm if comm is not None else getattr(x, "comm", None))
     xb, yb = _blocks(x, y, comm, "ring_map")
-    p, me, n_local = comm.size, comm.rank, yb.shape[0]
+    p = comm.size
+    me, n_local = comm.rank, yb.shape[0]
     out, yblk = None, yb
     for i in range(p):
         tile = tile_fn(xb, yblk)

@@ -124,7 +124,8 @@ def _ring_forward(qb, kb, vb, comm, n: int, causal: bool, masked: bool, scale: f
     """(output, log-sum-exp) of this rank's query block against every
     rank's K/V block as they rotate (``comm`` None: the local blocks are
     the whole sequence)."""
-    p, me = (comm.size, comm.rank) if comm is not None else (1, 0)
+    p = comm.size if comm is not None else 1
+    me = comm.rank if comm is not None else 0
     block = qb.shape[-2]
     q_pos = me * block + torch.arange(block, device=qb.device)
     state = _init_state(qb, vb.shape[-1])
@@ -167,7 +168,8 @@ class _RingAttention(torch.autograd.Function):
     def backward(ctx, dout):
         qb, kb, vb, out, lse = ctx.saved_tensors
         comm, n, causal, masked, scale = ctx.args
-        p, me = (comm.size, comm.rank) if comm is not None else (1, 0)
+        p = comm.size if comm is not None else 1
+        me = comm.rank if comm is not None else 0
         block = qb.shape[-2]
         dout = dout.contiguous()
         q_pos = me * block + torch.arange(block, device=qb.device)

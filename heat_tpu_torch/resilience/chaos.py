@@ -45,9 +45,11 @@ uniform draw):
 - ``straggler_probe``: device-probe sites only: the probe sleeps
   ``straggler_delay`` seconds and goes on (the slow card the monitor's
   EWMA detection catches);
-- ``lockstep_divergence`` keeps ``heat_tpu``'s parameter, but its site (the
-  lockstep sanitizer of ``heat_tpu``'s ``analysis``) is not ported, so it
-  never fires: a scheduled one stays pending.
+- ``lockstep_divergence``: ``collective.*`` fault points only: the newest
+  event an active lockstep sanitizer (:mod:`heat_tpu_torch.analysis.lockstep`)
+  recorded on this process is dropped, as if the rank had skipped that
+  collective; silent, since detection is the sanitizer's job. With no
+  sanitizer recording it does not fire (a scheduled one stays pending).
 
 ``max_faults`` caps the number of injected faults, after which every site
 passes: ``chaos(io_error=1.0, max_faults=2)`` fails the first two attempts
@@ -271,10 +273,12 @@ class chaos:
 
 
 def _drop_lockstep_event() -> bool:
-    """Whether a ``lockstep_divergence`` fault dropped a recorded event:
-    never, since the port has no lockstep sanitizer (``heat_tpu``'s
-    ``analysis.lockstep``)."""
-    return False
+    """Drop the newest event an active lockstep sanitizer recorded on this
+    process; False where none is recording (imported here, as the analysis
+    package sits above resilience)."""
+    from ..analysis.lockstep import _drop_last_event
+
+    return _drop_last_event()
 
 
 _SCHEDULED_KINDS = (

@@ -188,6 +188,7 @@ def save_checkpoint(x: DNDarray, directory: str, *, checksum: str = "crc32", ret
     err: Optional[BaseException] = None
     try:
         os.makedirs(directory, exist_ok=True)
+        # graftflow: F003 - the body writes this rank's shard file and starts no collective
         for offset, t in _local_shards(x):
             payload = _npy_bytes(t)
             digest = _digest(payload, checksum)  # before the write path

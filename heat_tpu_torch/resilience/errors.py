@@ -11,8 +11,7 @@ failures apart:
 - :class:`CollectiveTimeout`: a deadline-bound collective or movement
   outlasted its budget (:mod:`~heat_tpu_torch.resilience.watchdog`);
 - :class:`LockstepError`: processes ran different collective sequences
-  (``heat_tpu``'s lockstep sanitizer raises it; the port has no sanitizer
-  yet and keeps the class for code that catches it);
+  (:mod:`heat_tpu_torch.analysis.lockstep`);
 - :class:`DegradeError` / :class:`NoHealthyDevicesError`: shrinking onto
   the healthy ranks cannot proceed, or a rank outside a shrunken group was
   asked to take part in it (:mod:`~heat_tpu_torch.resilience.degrade`);
@@ -103,7 +102,7 @@ class CollectiveTimeout(ResilienceError, TimeoutError):
 class LockstepError(ResilienceError):
     """Processes dispatched divergent collective sequences.
 
-    Raised by the lockstep sanitizer (``heat_tpu``'s ``analysis.lockstep``)
+    Raised by the lockstep sanitizer (:mod:`heat_tpu_torch.analysis.lockstep`)
     when the per-process order digests of the recorded ``collective.*``
     events disagree — the SPMD bug that would otherwise surface as a
     silent mesh-wide hang or a corrupted reduction.

@@ -264,6 +264,7 @@ class HealthMonitor:
                 self.tick()
             # the background monitor outlives a bad tick: the failure is
             # reported (health.error); verdicts come from completed ticks only
+            # graftlint: G006 - reported as health.error; verdicts come from completed ticks
             except Exception:  # noqa: BLE001
                 _hooks.observe("health.error")
 
@@ -275,6 +276,7 @@ class HealthMonitor:
         return False
 
     # ---------------------------------------------------------------- tick
+    # graftflow: DRIFT - a rank-uniform TickReport from gathered frames, by contract
     def tick(self) -> TickReport:
         """One probe of this rank's card (when it is a base rank), then
         replicated verdicts and ledger transitions (module docs)."""
@@ -334,6 +336,7 @@ class HealthMonitor:
         export = {d: self.ledger[d].ewma_ms for d in local_ms}
         return local_fail, export, probes
 
+    # graftflow: DRIFT - a rank-uniform TickReport from gathered frames, by contract
     def apply_gathered(self, failed, ewmas, *, probes: int = 0,
                        failures: int = 0) -> TickReport:
         """The replicated half of a tick: adopt the gathered verdict

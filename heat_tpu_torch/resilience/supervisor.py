@@ -662,6 +662,7 @@ class Supervisor:
                 # atomically (core._atomic), so every host parses the SAME
                 # manifest and issues the same load_checkpoint sequence —
                 # sorted() pins the order (G005).
+                # graftflow: F003 - the manifest is committed atomically: every rank parses the same
                 for name, kind in sorted(meta.get("arrays", {}).items()):
                     arr = load_checkpoint(
                         os.path.join(path, "arrays", name),
@@ -669,6 +670,7 @@ class Supervisor:
                         retry=self.checkpoint_retry,
                     )
                     # per-entry gather is symmetric with the load sequence
+                    # graftflow: F006 - per-entry gather, symmetric with the load sequence
                     state[name] = arr.numpy() if kind == "ndarray" else arr
                 return state, int(meta.get("step", ckpt_step))
             except ResilienceError:

@@ -675,6 +675,7 @@ class ServeService:
                         self.autoscaler.pre_vote(view["depth"]),
                     )
             # absorbed; the reactive fault ladder owns hard faults
+            # graftlint: G006 - reported as serve.error; the reactive ladder owns hard faults
             except Exception:  # noqa: BLE001
                 _hooks.observe("serve.error", endpoint="<autoscale>")
             if self._mon_stash is not None:
@@ -793,6 +794,7 @@ class ServeService:
                 if action is not None:
                     self._scale(action)
             # take down the dispatcher; the ladder owns hard faults
+            # graftlint: G006 - reported as serve.error; the reactive ladder owns hard faults
             except Exception:  # noqa: BLE001
                 _hooks.observe("serve.error", endpoint="<autoscale>")
         with self._cond:
@@ -1110,6 +1112,7 @@ class ServeService:
             if action is not None:
                 self._scale(action)
         # take down the dispatcher; the reactive ladder owns hard faults
+        # graftlint: G006 - reported as serve.error; the reactive ladder owns hard faults
         except Exception:  # noqa: BLE001
             _hooks.observe("serve.error", endpoint="<autoscale>")
 
@@ -1159,6 +1162,7 @@ class ServeService:
         # failure (ResilienceError included) symmetric, so every rank
         # absorbs it together and the NEXT cadence hit retries (the
         # previous good snapshot, if any, still stands)
+        # graftlint: G006 - reported as serve.error; symmetric on every rank, retried next cadence
         except Exception:  # noqa: BLE001
             _hooks.observe("serve.error", endpoint="<snapshot>")
 
@@ -1171,6 +1175,7 @@ class ServeService:
         try:
             self.registry.restore(self.snapshot_dir)
         # False return escalates the ladder, nothing is lost silently
+        # graftlint: G006 - reported as serve.error; the False return escalates the ladder
         except Exception:  # noqa: BLE001
             _hooks.observe("serve.error", endpoint="<restore>")
             return False
@@ -1187,6 +1192,7 @@ class ServeService:
             self.registry.restore(self.snapshot_dir)
             _hooks.observe("serve.restore", cause=type(exc).__name__)
         # failing requests already carry their typed error
+        # graftlint: G006 - reported as serve.error; failing requests carry their typed error
         except Exception:  # noqa: BLE001
             _hooks.observe("serve.error", endpoint="<restore>")
 

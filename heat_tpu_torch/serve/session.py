@@ -130,12 +130,14 @@ class ModelRegistry:
         _replicated_raise("registry restore", err, comm)
         wanted = set(names) if names is not None else None
         restored: List[str] = []
+        # graftflow: F003 - the manifest is committed atomically: every rank reads the same
         for name, entry in manifest.items():
             if wanted is not None and name not in wanted:
                 continue
             if "skipped" in entry or name not in self:
                 continue
             state = dict(entry["scalars"])
+            # graftflow: F003 - the manifest is committed atomically: every rank reads the same
             for key in entry["arrays"]:
                 state[key] = load_checkpoint(os.path.join(directory, name, key)).numpy()
             self.get(name).load_state_dict(state)

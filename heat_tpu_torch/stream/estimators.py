@@ -229,12 +229,14 @@ class StreamingCov(_StreamingBase):
             self._c = torch.zeros((f, f), dtype=xa.dtype, device=xa.device)
         sums = torch.cat([xa.sum(dim=0), torch.tensor([float(xa.shape[0])], dtype=xa.dtype, device=xa.device)])
         if across:
+            # graftflow: F008 - runs on the consumer's thread; the prefetch thread moves host chunks only
             sums = comm.allreduce(sums)
         nb = sums[-1]
         mean_b = sums[:-1] / torch.clamp(nb, min=1.0)
         d = xa - mean_b
         c_b = d.T @ d  # the chunk's co-moment
         if across:
+            # graftflow: F008 - runs on the consumer's thread; the prefetch thread moves host chunks only
             c_b = comm.allreduce(c_b)
         count = torch.tensor(float(self._n), dtype=xa.dtype, device=xa.device)
         n = torch.clamp(count + nb, min=1.0)
@@ -313,6 +315,7 @@ class StreamingHistogram(_StreamingBase):
         keep = (idx >= 0) & (idx < self.bins)  # NaN sorts past the last edge: dropped
         counts = torch.bincount(idx[keep], minlength=self.bins)
         if across:
+            # graftflow: F008 - runs on the consumer's thread; the prefetch thread moves host chunks only
             counts = comm.allreduce(counts)
         self._counts = self._counts + counts
         self._n += int(chunk.gshape[0])

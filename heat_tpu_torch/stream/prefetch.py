@@ -181,5 +181,6 @@ class Prefetcher:
     def __del__(self):
         try:
             self.close()
+        # graftlint: G006 - interpreter teardown: modules may already be gone
         except BaseException:  # noqa: BLE001 - interpreter teardown: modules may already be gone
             pass

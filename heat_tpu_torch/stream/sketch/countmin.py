@@ -118,10 +118,12 @@ class CountMinTopK(_StreamingBase):
         for j in range(self.depth):
             add[j] = torch.bincount(_row_index(v, j, self.width), minlength=self.width)
         if across:
+            # graftflow: F008 - runs on the consumer's thread; the prefetch thread moves host chunks only
             add = comm.allreduce(add)
         self._table = self._table + add
         cands = _reselect(self._table, torch.cat([self._cands, v]), self.k)
         if across:
+            # graftflow: F008 - runs on the consumer's thread; the prefetch thread moves host chunks only
             cands = _reselect(self._table, comm.allgather(cands, 0, [self.k] * comm.size), self.k)
         self._cands = cands
         self._n += int(chunk.gshape[0])

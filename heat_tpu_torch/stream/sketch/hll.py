@@ -88,6 +88,7 @@ class HyperLogLog(_StreamingBase):
         rho = torch.clamp(_clz32(w) + 1, max=32 - self.p + 1).to(torch.int32)
         regs = self._regs.scatter_reduce(0, idx, rho, reduce="amax")
         if across:
+            # graftflow: F008 - runs on the consumer's thread; the prefetch thread moves host chunks only
             regs = comm.allreduce(regs, "max")
         self._regs = regs
         self._n += int(chunk.gshape[0])

@@ -282,6 +282,7 @@ class KLLSketch(_StreamingBase):
         x = xa.reshape(-1)
         if across:
             sv, sw = _summary(x, self.k) if x.numel() else _empty(self.k, xa.dtype, xa.device)
+            # graftflow: F008 - runs on the consumer's thread; the prefetch thread moves host chunks only
             gathered = comm.allgather(torch.stack([sv, sw]).unsqueeze(0), 0, [1] * comm.size)
             order = torch.sort(gathered[:, 0].reshape(-1), stable=True).indices
             sv, sw = _compress(gathered[:, 0].reshape(-1)[order], gathered[:, 1].reshape(-1)[order], self.k)

@@ -564,6 +564,8 @@ EXPLICIT = {
     "supports_netcdf", "tree_merge", "tree_merge_rounds", "collective_lockstep",
     # the replicated metadata exchanges of the health monitor and the serve tick (case degrade)
     "replicated_ids", "replicated_frame",
+    # the lazy layer (case lazy_lockstep)
+    "lazy", "fuse", "reset_fuse_stats",
 }
 
 

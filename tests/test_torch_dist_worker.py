@@ -876,6 +876,9 @@ def case_setitem(ht):
         ("slice_replicated_value", fresh, slice(3, 6), lambda: ht.array(A95[:3])),
         ("cols_split1", lambda: fresh(1), (slice(None), slice(1, 4)), lambda: ht.array(A95[:, :3] * 2, split=1)),
         ("int_row", fresh, 4, lambda: 9.0),
+        # a split value for a row one rank owns: every rank gathers the value (the others once returned first, and
+        # the owner's gather hung)
+        ("int_row_split_value", fresh, 4, lambda: ht.array(A95[0] * 3, split=0)),
         ("mask_scalar", fresh, lambda: ht.array(A95 > 0.5, split=0), lambda: 0.0),
         ("mask_split_values", fresh, lambda: ht.array(m, split=0),
          lambda: ht.array(np.arange(m.sum(), dtype=np.float32), split=0)),
@@ -1989,6 +1992,64 @@ def case_serve(ht):
     else:
         out["ref:answers"] = answers
         out["ref:size_after"] = size_after
+    return out
+
+
+def case_lazy_lockstep(ht):
+    """Lazy chains over split None/0/1 (a split-axis reduction, a cumsum, the
+    standardize chain, the decorator) inside the lockstep sanitizer, whose
+    check passes; FUSE_STATS as heat_tpu counts them. For the port also: a
+    lockstep_divergence scheduled on rank 1 alone makes the next check
+    raise LockstepError on every rank."""
+    out = {}
+    chains = {
+        "shift_sum": lambda a: ht.sum((a - 1.25) * 2.75, axis=0),
+        "standardize": lambda a: (a - ht.mean(a, axis=0)) / (ht.std(a, axis=0) + 1.0),
+        "cumsum": lambda a: ht.cumsum(a * 3.5, axis=0) - 0.5,
+        "elementwise": lambda a: ht.exp(-ht.abs(a)) * 2.375 + 1.625,
+        "cmp": lambda a: (a > 0.25) * a + ht.sqrt(ht.abs(a)) / 3.0,
+    }
+    with ht.analysis.lockstep(check_at_exit=False) as ls:
+        for split in (None, 0, 1):
+            x = ht.array(A95, split=split)
+            for name, chain in chains.items():
+                ht.reset_fuse_stats()
+                with ht.lazy():
+                    got = chain(x)
+                out[f"{name}_{split}"] = got
+                out[f"{name}_{split}_stats"] = dict(ht.FUSE_STATS)
+            ht.reset_fuse_stats()
+            out[f"fused_{split}"] = ht.fuse(chains["elementwise"])(x)
+            out[f"fused_{split}_stats"] = dict(ht.FUSE_STATS)
+        ls.check("lazy chains")
+    if is_port(ht):
+        out["port:lockstep_divergences"] = ht.LOCKSTEP_STATS["divergences"]
+        schedule = [("collective.allgather", 1, "lockstep_divergence")] if ht.get_comm().rank == 1 else []
+        with ht.analysis.lockstep(check_at_exit=False) as ls:
+            with ht.resilience.FaultSchedule(schedule):
+                ht.core.communication.ragged_process_allgather(np.arange(3), 0)
+            err = attempt(lambda: ls.check("after the dropped event"))
+        out["port:lockstep_error"] = getattr(err, "type", None)
+    return out
+
+
+def case_host_events(ht):
+    """Host fetches the sanitizer counts (``host_syncs``) per call, as
+    heat_tpu counts them: gathers, scalars, and the scans' fetches."""
+    x = ht.array(A95, split=0)
+    calls = {
+        "numpy": lambda: x.numpy(),
+        "item": lambda: ht.sum(x).item(),
+        "bool": lambda: bool(ht.sum(x) > 0),
+        "float": lambda: float(ht.max(x)),
+        "nonzero": lambda: ht.nonzero(x > 0.5),
+        "unique": lambda: ht.unique(ht.array(np.round(A95[:, 0]), split=0)),
+    }
+    out = {}
+    for name, fn in calls.items():
+        r = ht.analysis.Region(name)
+        fn()
+        out[f"host_syncs_{name}"] = r.host_syncs
     return out
 
 

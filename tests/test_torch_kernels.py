@@ -251,11 +251,14 @@ def test_chol_plain_nan_from_failing_pivot(n, jf):
 
 # ---------------------------------------------------------------- dispatch
 def test_registry_and_dispatch_modes():
-    assert set(KERNELS) == {"moments_onepass", "lloyd_fused", "topk_distance", "chol_panel_fused", "threefry_bits"}
+    assert set(KERNELS) == {"moments_onepass", "lloyd_fused", "topk_distance", "chol_panel_fused", "threefry_bits",
+                            "lazy_fused"}
     for name, spec in KERNELS.items():
         assert spec["comparator"] and spec["roofline"]
-        # the port's own random-bits kernel ports no Pallas kernel; every other one names the one it replaces
-        assert spec["replaces"].startswith("none: " if name == "threefry_bits" else "heat_tpu/core/kernels/")
+        # the port's own kernels (random bits, the lazy layer's fused segments) port no Pallas kernel; every
+        # other one names the one it replaces
+        own = name in ("threefry_bits", "lazy_fused")
+        assert spec["replaces"].startswith("none: " if own else "heat_tpu/core/kernels/")
     t = torch.zeros(3)
     assert dispatch_mode("lloyd_fused", t) == "torch"
     with forced_mode("lloyd_fused", "torch"):
@@ -280,7 +283,7 @@ def test_kernel_stats_and_launch_counters():
     # the plain versions are no launch
     threefry_plain((1, 2), (0, 0, 1, 8), "uniform32")
     assert LAUNCHES == {"moments_onepass": 0, "lloyd_fused": 0, "topk_distance": 0, "chol_panel_fused": 0,
-                        "threefry_bits": 0}
+                        "threefry_bits": 0, "lazy_fused": 0}
     reset_kernel_stats()
     assert KERNEL_STATS == {"dispatches": 0}
 
@@ -299,7 +302,8 @@ def test_build_key_covers_sources_and_flags(monkeypatch):
     assert key == _build._digest() and len(key) == 16
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ["-lineinfo"])
     assert _build._digest() != key
-    assert {p.stem for p in _build.CSRC.glob("*.cu")} == {"moments", "lloyd", "topk_distance", "panel_update", "threefry"}
+    assert {p.stem for p in _build.CSRC.glob("*.cu")} == {"moments", "lloyd", "topk_distance", "panel_update", "threefry",
+                                                          "lazy_fused"}
 
 
 def test_build_report_keeps_register_and_spill_lines():
@@ -517,3 +521,98 @@ def test_threefry_16_bit_kinds_match_plain_bit_for_bit(cuda, kind, lo, shape, sp
     want = threefry_plain(key, layout, kind, cuda, lo, scale)
     torch.cuda.synchronize()
     assert got.dtype == want.dtype and torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", range(4))
+def test_lazy_fused_kernel_equals_plain_on_random_programs(cuda, seed):
+    """On a card: random programs over float32/float64/bool inputs with
+    broadcast and strided operands, run by the kernel and by its plain
+    version, equal bit for bit where no exp/log/pow is involved and within
+    2 float32 ulp (1e-15 relative in float64) where one is."""
+    from heat_tpu_torch.core.kernels import lazy_fused, lazy_fused_plain
+    from heat_tpu_torch.core.kernels.lazy_fused import OPS, UNARY, SegmentProgram
+
+    rng = np.random.default_rng(seed)
+    dev = cuda
+    shape = (37, 12, 8)
+    x = torch.from_numpy(np.abs(rng.normal(size=shape)) + 0.5).to(dev, torch.float32)
+    row = torch.from_numpy(rng.normal(size=(8,))).to(dev, torch.float64)
+    col = torch.from_numpy(np.abs(rng.normal(size=(12, 1))) + 0.1).to(dev, torch.float32)
+    mask = torch.from_numpy(rng.random(shape[1:]) > 0.5).to(dev)
+    t = x.transpose(0, 1).contiguous().transpose(0, 1)  # strided, not broadcast
+    inputs = [x, row, col, mask, t]
+    arith = [o for o in OPS if o not in ("gt", "ge", "lt", "le", "eq", "ne")]
+    instrs, slot = [], len(inputs)
+    for k in range(6):
+        op = str(rng.choice(arith if k < 5 else OPS))
+        a = int(rng.integers(0, slot))
+        b = -1 if op in UNARY or rng.random() < 0.3 else int(rng.integers(0, slot))
+        instrs.append((op, slot, a, b, float(rng.uniform(0.5, 2.0)), bool(rng.random() < 0.3)))
+        slot += 1
+    out_dt = torch.bool if instrs[-1][0] in ("gt", "ge", "lt", "le", "eq", "ne") else torch.float32
+    prog = SegmentProgram(len(inputs), tuple(instrs), ((slot - 2, torch.float32), (slot - 1, out_dt)))
+    before = LAUNCHES["lazy_fused"]
+    got = lazy_fused(prog, inputs, shape)
+    assert LAUNCHES["lazy_fused"] == before + 1
+    want = lazy_fused_plain(prog, inputs, shape)
+    for g, w in zip(got, want):
+        if g.dtype == torch.bool:
+            assert torch.equal(g, w)
+        else:
+            torch.testing.assert_close(g, w, rtol=2 * 2.0 ** -23, atol=0, equal_nan=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,n_in,n_instr", [(torch.float64, 1, 27), (torch.float32, 8, 32)], ids=["f64", "f32"])
+def test_lazy_fused_kernel_takes_its_largest_register_file(cuda, dtype, n_in, n_instr):
+    """The most slots a segment may hold (28 on double registers, 8 inputs
+    and 32 instructions on float ones) launch and equal the plain version
+    bit for bit; one slot more is refused before any launch."""
+    from heat_tpu_torch.core.kernels import lazy_fused, lazy_fused_plain
+    from heat_tpu_torch.core.kernels.lazy_fused import SegmentProgram, max_slots
+
+    rng = np.random.default_rng(5)
+    inputs = [torch.from_numpy(rng.normal(size=(301, 7))).to(cuda, dtype) for _ in range(n_in)]
+    f64 = dtype == torch.float64
+    instrs = [("mul" if k % 2 else "add", n_in + k, n_in + k - 1 if k else 0, k % n_in if k % 3 == 0 else -1,
+               1.0078125 if k % 2 else 0.5, f64) for k in range(n_instr)]
+    prog = SegmentProgram(n_in, tuple(instrs), ((n_in + n_instr - 1, dtype), (n_in + n_instr // 2, dtype)))
+    assert n_in + n_instr == max_slots(prog, [t.dtype for t in inputs])
+    before = LAUNCHES["lazy_fused"]
+    got = lazy_fused(prog, inputs, (301, 7))
+    assert LAUNCHES["lazy_fused"] == before + 1
+    for g, w in zip(got, lazy_fused_plain(prog, inputs, (301, 7))):
+        assert torch.equal(g, w)
+    if f64:
+        longer = SegmentProgram(n_in, prog.instrs + (("sub", n_in + n_instr, n_in + n_instr - 1, -1, 0.25, True),),
+                                ((n_in + n_instr, dtype),))
+        with pytest.raises(ValueError, match="28 slots"):
+            lazy_fused(longer, inputs, (301, 7))
+        assert LAUNCHES["lazy_fused"] == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("steps", [20, 40], ids=["30ops", "60ops"])
+def test_lazy_long_chain_on_a_card_equals_eager(cuda, steps, dtype):
+    """Chains of 30 and 60 elementwise ops under ht.lazy() on a card: the
+    plan cuts them where the kernel's register file ends (28 slots in
+    float64), every segment launches the kernel, and the result equals the
+    eager chain bit for bit."""
+    import heat_tpu_torch as ht
+
+    def chain(a):
+        for i in range(steps):
+            a = a * 1.0078125 + 0.5 if i % 2 else a - 0.25
+        return a
+
+    xt = torch.from_numpy(np.random.default_rng(17).normal(size=(4099, 33))).to(cuda, dtype)
+    eager = chain(ht.array(xt, split=0, device="gpu")).larray
+    reset_kernel_stats()
+    with ht.lazy():
+        got = chain(ht.array(xt, split=0, device="gpu"))
+    got = got.larray
+    assert LAUNCHES["lazy_fused"] >= 1 and KERNEL_STATS["lazy_fused.cuda"] == LAUNCHES["lazy_fused"]
+    assert "lazy_fused.torch" not in KERNEL_STATS
+    assert torch.equal(got, eager)
