@@ -44,9 +44,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    - the array surface on the KMeans path's standardized z (2^24 x 32):
      ``abs``, ``>``, ``any``, ``sum``, ``clip``, ``where``, ``min``/``max``/
      ``argmin``/``argmax`` along axis 0, ``exp``, ``log1p``, ``sqrt``,
-     ``sin``, ``//``, ``%`` and ``cumsum``, held against numpy (exact, or
-     within SURFACE_ULPS of the float64 value, or cumsum's rounding bound)
-     on 2^16 rows, with no kernel launched;
+     ``sin``, ``//``, ``%`` and ``cumsum`` (on 2^20 rows), held against
+     numpy (exact, or within SURFACE_ULPS of the float64 value on 2^16 rows,
+     or cumsum's rounding bound), with one kernel launch, the cumsum's
+     ``scan_axis``;
    - the public ``linalg.cholesky`` of a matrix that is not positive
      definite, through the kernel: jnp's NaN pattern;
    - and a wide fit beside the paths: ``KMeans(16, max_iter=10,
@@ -83,6 +84,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    library yardstick where one exists, and the bound of each kernel at its
    main-path shape (bytes over 3.35 TB/s or float32 flops over 67
    TFLOP/s). ``[design]`` lines name each redesigned kernel's launch plan.
+   ``scan_axis`` (the port's own kernel behind cumsum/cumprod, see
+   :func:`scan_phase`) at (2^24, 32) along axes 0 and 1, float32, int32
+   and int64, against its plain version and a float64 scan, beside
+   ``torch.cumsum``. The surface's calls (its cumsum through
+   ``scan_axis``) are counted on their own: the rows carry
+   ``launches_surface``.
 
 6. ``[dist]``: the main path across every visible card, one process per
    card (spawned after the build, NCCL, no gloo fallback), 2^24 x 32 rows
@@ -177,7 +184,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    standardized result into KMeans.fit, and a ServeService of an
    ``@ht.fuse`` endpoint warm across its buckets; each segment against
    ``lazy_fused_plain``, fused against eager, cold and warm host seconds,
-   the warm call's budget; see :func:`lazy_phase`. It appends the
+   the warm call's budget, launches per chain (``score``'s sum fused into
+   its segment: two launches, the segment and its partials' fold;
+   ``cumsum``'s scan through ``scan_axis``, a launch a pass); see
+   :func:`lazy_phase`. It appends the
    ``lazy_fused`` row to the kernels line, and the other rows carry
    ``launches_lazy``. ``[dist]`` runs :func:`_dist_lazy` before
    ``_dist_serve``: a lazy chain with a split-axis reduction inside
@@ -267,7 +277,7 @@ QR_CHUNK = 1 << 22           # rows per float64 check chunk
 # CholeskyQR2 as qr.py writes it reads or writes an (m, n) array 7 times: per pass the Gram (read), the
 # triangular solve (read, write); then the guard's Gram of Q (read)
 QR_CHOLQR2_PASSES = 7
-N_SLICE, N_CUMSUM = 1 << 16, 4096  # the surface: rows compared with numpy, rows of the cumsum
+N_SLICE, N_CUMSUM = 1 << 16, 1 << 20  # the surface: rows compared with numpy, rows of the cumsum
 THREEFRY_KEY = (0x2545F491, 0x6C078965)  # the phase-3 checks' key
 # float32 operations per element of the normal draw: the uniform's subtract, multiply and add, u * u, log1p
 # (counted as 10), a sqrt, a subtract, 9 multiply-adds of Horner's rule and two products; the ~70 32-bit
@@ -5766,17 +5776,58 @@ def ulp_dist32(a, b):
 
 
 def lazy_record(lev):
-    """Install a recorder of every ``lazy_fused`` call the plans make: (program, inputs, shape, outputs)."""
+    """Install a recorder of every ``lazy_fused`` call the plans make: (program, inputs, shape, reduce (False: no
+    terminal sum), outputs)."""
     calls = []
     orig = lev.lazy_fused
 
-    def rec(prog, inputs, shape):
-        outs = orig(prog, inputs, shape)
-        calls.append((prog, list(inputs), tuple(shape), outs))
+    def rec(prog, inputs, shape, reduce=False):
+        outs = orig(prog, inputs, shape, reduce)
+        calls.append((prog, list(inputs), tuple(shape), reduce, outs))
         return outs
 
     lev.lazy_fused = rec
     return calls, orig
+
+
+def lazy_sum_bound(prog, inputs, shape, reduce, plain):
+    """How far a terminal sum of the kernel (double sums of the values rounded to their type, then one rounding)
+    may lie from the plain version's torch.sum of the stored values: twice Higham and Mary's probabilistic bound
+    SUM_LAMBDA sqrt(n) u sum |v| over the summed axis (n its terms; the worst case gamma_n sum |v| is void at
+    n u >= 1, as at 2^24 float32 rows), plus two roundings of the sum."""
+    import torch
+
+    from heat_tpu_torch.core.kernels import lazy_fused_plain
+
+    (vals,) = lazy_fused_plain(prog, inputs, shape)
+    a = vals.abs().double()
+    scale = a.sum() if reduce is None else a.sum(dim=reduce, keepdim=True)
+    n = vals.numel() if reduce is None else vals.shape[reduce]
+    u = F32_UNIT_ROUNDOFF if vals.dtype == torch.float32 else 2.0 ** -53
+    return 2 * SUM_LAMBDA * math.sqrt(n) * u * scale.reshape(plain.shape) + 2 * u * plain.abs().double()
+
+
+def lazy_sum_ratio(got, prog, inputs, shape, reduce):
+    """How far the kernel's terminal sum ``got`` lies from the plain version's stored values summed in float64,
+    as a share of its bound. The kernel adds the same rounded values in double and rounds once, so the two
+    double sums of the n terms are each within gamma_n(2^-53) sum |v| of the exact one, and the one rounding
+    to the output's type is within half an ulp: the bound is one ulp of the output's type (2 u |ref|) plus
+    2 gamma_n(2^-53) sum |v|. A dropped partial or chunk shows at once, as the share of the sum it held."""
+    import torch
+
+    from heat_tpu_torch.core.kernels import lazy_fused_plain
+
+    (vals,) = lazy_fused_plain(prog, inputs, shape)
+    v = vals.double()
+    del vals
+    ref = v.sum() if reduce is None else v.sum(dim=reduce, keepdim=True)
+    scale = v.abs_().sum() if reduce is None else v.abs_().sum(dim=reduce, keepdim=True)
+    del v
+    n = math.prod(shape) if reduce is None else shape[reduce]
+    g64 = n * 2.0 ** -53 / (1 - n * 2.0 ** -53)
+    u = F32_UNIT_ROUNDOFF if got.dtype == torch.float32 else 2.0 ** -53
+    bound = (2 * u * ref.abs() + 2 * g64 * scale).clamp_(min=1e-300).reshape(got.shape)
+    return ((got.double() - ref.reshape(got.shape)).abs() / bound).max().item()
 
 
 def lazy_phase(dev, seed, smi):
@@ -5784,11 +5835,13 @@ def lazy_phase(dev, seed, smi):
     (``ht.lazy()``) and eagerly; the standardized result goes into KMeans.fit (``lloyd_fused``); a ServeService
     serves an ``@ht.fuse`` endpoint argmax(((x - mu) / sd) @ w, axis=1), warm across its buckets. Counts are zeroed
     just before that path and read just after. Then, off the path: every chain's ``lazy_fused`` segments against
-    ``lazy_fused_plain`` on their own inputs (bit for bit), the fused result
-    against the eager one (bit for bit), cold and warm host seconds of both, the kernel's CUDA-event ms against
-    its bytes bound, the eager chain's ms as context, and the warm call's budget (1 fused dispatch, 1 cache hit, no
-    graph captured, no build or plan in a Region). Returns the lazy_fused row of the kernels line and the path's
-    launches."""
+    ``lazy_fused_plain`` on their own inputs (bit for bit; a segment with a terminal sum, ``score``'s, against
+    the plain version's stored values summed in float64, see :func:`lazy_sum_ratio`), the fused result against
+    the eager one (bit for bit; a fused sum within :func:`lazy_sum_bound`),
+    cold and warm host seconds of both, the kernel's CUDA-event ms against its bytes bound, the eager chain's ms as
+    context (its cumsum through ``scan_axis``), launches per chain, and the warm call's budget (1 fused dispatch, 1
+    cache hit, no graph captured, no build or plan in a Region). Returns the lazy_fused row of the kernels line and
+    the path's launches."""
     import numpy as np
     import torch
 
@@ -5852,8 +5905,9 @@ def lazy_phase(dev, seed, smi):
     print(f"[lazy] path {path_s:.3f} s: launches {launches} KERNEL_STATS {stats} FUSE_STATS {fuse_path}", flush=True)
     check(launches["lazy_fused"] >= len(chains) + len(buckets), f"[lazy] lazy_fused launches {launches}")
     check(launches["lloyd_fused"] == ITERS + 1, f"[lazy] lloyd_fused launches {launches}")
-    check(stats.get("lazy_fused.cuda") == launches["lazy_fused"] and "lazy_fused.torch" not in stats,
-          f"[lazy] lazy_fused routes {stats}")
+    # every call launched the kernel (a summed segment twice: checked exactly after the chains' replays below)
+    check(launches["lazy_fused"] >= stats.get("lazy_fused.cuda", 0) >= len(chains) + len(buckets)
+          and "lazy_fused.torch" not in stats, f"[lazy] lazy_fused routes {stats}")
     check(fuse_path["eager_fallbacks"] == 0 and fuse_path["fused_dispatches"] == len(chains) + len(buckets),
           f"[lazy] FUSE_STATS on the path {fuse_path}")
     cw = km.cluster_centers_.larray
@@ -5878,61 +5932,84 @@ def lazy_phase(dev, seed, smi):
     del km, z, svc
 
     # ---- every chain: fused vs eager, kernel vs plain, times, the warm budget
-    err_max, elem = 0.0, None
+    err_max, elem, summed_row, path_sums = 0.0, None, None, 0
     for name, chain in chains.items():
         eager = chain(x)
         ea, fa = eager.larray, fused[name].larray
         d = ulp_dist32(fa, ea)
-        check(fa.shape == ea.shape and d == 0, f"[lazy] {name}: fused vs eager {d} ulp")
         calls, orig = lazy_record(lev)
         try:
             ht.reset_fuse_stats()
             region = Region(f"warm {name}")
-            l0 = ht.LAUNCHES["lazy_fused"]
+            l0, s0 = ht.LAUNCHES["lazy_fused"], ht.LAUNCHES["scan_axis"]
             t0 = time.perf_counter()
             with ht.lazy():
                 warm = chain(x)
             torch.cuda.synchronize()
             warm_s = time.perf_counter() - t0
-            per_chain = ht.LAUNCHES["lazy_fused"] - l0
+            per_chain, scans = ht.LAUNCHES["lazy_fused"] - l0, ht.LAUNCHES["scan_axis"] - s0
         finally:
             lev.lazy_fused = orig
+        summed = [c for c in calls if c[3] is not False]
+        path_sums += len(summed)  # the plan is the path's: its cold call ran the same segments
+        if summed:  # a terminal sum: the kernel's double sum of the rounded values, torch.sum's in float32
+            (prog, inputs, shape, reduce, _), = summed
+            r_fe = ((fa.double() - ea.double()).abs() / lazy_sum_bound(prog, inputs, shape, reduce, ea)).max().item()
+            check(fa.shape == ea.shape and r_fe <= 1.0, f"[lazy] {name}: fused vs eager {r_fe} of the sum's bound")
+            fe_line = f"fused vs eager {r_fe:.4f} of the sum's bound ({d} ulp)"
+        else:
+            check(fa.shape == ea.shape and d == 0, f"[lazy] {name}: fused vs eager {d} ulp")
+            fe_line = f"fused vs eager {d} ulp"
         check(ht.FUSE_STATS["fused_dispatches"] == 1 and ht.FUSE_STATS["cache_hits"] == 1
               and ht.FUSE_STATS["graphs_captured"] == 0 and region.compiles == 0 and region.traces == 0,
               f"[lazy] {name} warm call: FUSE_STATS {ht.FUSE_STATS}, region {region.stats()}")
         check(torch.equal(warm.larray, fa), f"[lazy] {name}: the warm call differs from the cold one")
-        check(per_chain == len(calls) >= 1, f"[lazy] {name}: {per_chain} launches, {len(calls)} segments")
+        check(per_chain == len(calls) + len(summed) and calls, f"[lazy] {name}: {per_chain} launches, {len(calls)} "
+                                                               f"segments, {len(summed)} summed (two launches)")
         t0 = time.perf_counter()
         chain(x)
         torch.cuda.synchronize()
         eager_warm = time.perf_counter() - t0
         seg_ms = seg_plain = seg_bound = 0.0
-        for prog, inputs, shape, outs in calls:
-            plain = lazy_fused_plain(prog, inputs, shape)
+        for prog, inputs, shape, reduce, outs in calls:
+            plain = lazy_fused_plain(prog, inputs, shape, reduce)
             for o, p in zip(outs, plain):
-                if o.dtype == torch.float32:
+                if reduce is not False:
+                    r_kp = lazy_sum_ratio(o, prog, inputs, shape, reduce)
+                    check(r_kp <= 1.0, f"[lazy] {name}: summed lazy_fused vs the plain values' float64 sum "
+                                       f"{r_kp} of one ulp plus the double sums' bound")
+                    fe_line += (f"; summed segment vs the plain values' float64 sum {r_kp:.4f} of one ulp plus "
+                                f"2 gamma_n(2^-53) sum|v|")
+                elif o.dtype == torch.float32:
                     du = ulp_dist32(o, p)
                     check(du == 0, f"[lazy] {name}: lazy_fused vs lazy_fused_plain {du} ulp")
                     err_max = max(err_max, (o - p).abs().max().item())
                 else:
                     check(torch.equal(o, p), f"[lazy] {name}: lazy_fused vs plain ({o.dtype})")
-            seg_ms += time_ms(lambda: lazy_fused(prog, inputs, shape), reps=10, warm=2)
-            seg_plain += time_ms(lambda: lazy_fused_plain(prog, inputs, shape), reps=5, warm=1)
-            seg_bound += segment_bytes(prog, inputs, shape) / HBM_BYTES_PER_S * 1e3
-        # context only: one call where the eager chain takes seconds (torch's cumsum along a 2^24-row axis)
+            seg_ms += time_ms(lambda: lazy_fused(prog, inputs, shape, reduce), reps=10, warm=2)
+            seg_plain += time_ms(lambda: lazy_fused_plain(prog, inputs, shape, reduce), reps=5, warm=1)
+            # a summed segment writes its sums only
+            moved = segment_bytes(prog, inputs, shape) if reduce is False else (
+                sum(t.numel() * t.element_size() for t in inputs) + sum(o.numel() * o.element_size() for o in outs))
+            seg_bound += moved / HBM_BYTES_PER_S * 1e3
+        # context only: one call where the eager chain takes seconds
         eager_ms = time_ms(lambda: chain(x), reps=1, warm=0) if eager_warm > 1.0 else time_ms(lambda: chain(x), reps=5,
                                                                                                warm=1)
         print(f"[lazy] {name}: cold host s fused {fused_cold[name]:.4f} eager {eager_cold[name]:.4f}; warm host s fused "
               f"{warm_s:.4f} eager {eager_warm:.4f}; lazy_fused {seg_ms:.4f} ms over {len(calls)} segment(s) "
-              f"({[len(p.instrs) for p, *_ in calls]} instructions) vs bytes bound {seg_bound:.4f} ms (share "
-              f"{seg_bound / seg_ms:.3f}), plain {seg_plain:.4f} ms; eager chain {eager_ms:.4f} ms (context); "
-              f"launches per chain {per_chain}; fused vs eager {d} ulp", flush=True)
+              f"({[len(p.instrs) for p, *_ in calls]} instructions{', the last with its terminal sum' if summed else ''}"
+              f") vs bytes bound {seg_bound:.4f} ms (share {seg_bound / seg_ms:.3f}), plain {seg_plain:.4f} ms; eager "
+              f"chain {eager_ms:.4f} ms (context); launches per chain: lazy_fused {per_chain}, scan_axis {scans}; "
+              f"{fe_line} ({smi})", flush=True)
         if name == "elementwise":
-            (prog, inputs, shape, _), = calls
+            (prog, inputs, shape, _, _), = calls
             elem = {"ms": seg_ms, "plain_ms": seg_plain, "bytes": segment_bytes(prog, inputs, shape),
                     "ops": len(prog.instrs) * N_MAIN * F_MAIN, "eager_ms": eager_ms}
         del eager, warm, calls
         torch.cuda.empty_cache()
+    check(launches["lazy_fused"] == stats["lazy_fused.cuda"] + path_sums,
+          f"[lazy] the path's lazy_fused launches {launches['lazy_fused']}: {stats['lazy_fused.cuda']} calls and "
+          f"{path_sums} summed segments (a second launch each)")
     # ---- float64 chains of 30 and 60 ops on 2^20 rows: the plan cuts them where the kernel's register file ends
     # (28 double slots), every segment fits and launches, and the result equals eager bit for bit
     x64 = ht.array(xa[: 1 << 20].double(), split=0)
@@ -6009,7 +6086,14 @@ def _dist_lazy(ht, world, rank, timed, same_everywhere, say, seed):
     check(ht.LAUNCHES["lazy_fused"] - l0 >= 1, "[dist] lazy chain launched no lazy_fused")
     s_e = ht.sum((x - 1.25) * 2.75, axis=0)
     z_e = (x - ht.mean(x, axis=0)) / (ht.std(x, axis=0) + 1.0)
-    check(torch.equal(s.larray, s_e.larray) and torch.equal(z.larray, z_e.larray), "[dist] lazy vs eager")
+    # the sum is a terminal sum (the kernel's double sums of each rank's rows, then the ranks' partials in rank
+    # order): within twice accumulation_bound's sum bound of eager's float32 sums over the N global rows (as
+    # lazy_sum_bound); z bit for bit
+    v = ((x - 1.25) * 2.75).larray.abs().double().sum(dim=0)
+    s_bound = 2 * accumulation_bound(N_DIST_LAZY * world, ht.get_comm().allreduce(v)) \
+        + 2 * F32_UNIT_ROUNDOFF * s_e.larray.abs().double()
+    check(bool(((s.larray.double() - s_e.larray.double()).abs() <= s_bound).all()) and torch.equal(z.larray, z_e.larray),
+          "[dist] lazy vs eager")
     same_everywhere(s.larray, "lazy split-axis sum")
     schedule = [("collective.allgather", 1, "lockstep_divergence")] if rank == 1 else []
     with ht.analysis.lockstep(check_at_exit=False, deadline=120.0) as ls:
@@ -6073,7 +6157,7 @@ def main(argv=None) -> int:
         for line in info.ptxas:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"[build]   {line}")
-    check(set(built) >= {"moments", "lloyd", "topk_distance", "panel_update", "threefry", "lazy_fused"},
+    check(set(built) >= {"moments", "lloyd", "topk_distance", "panel_update", "threefry", "lazy_fused", "scan"},
           f"built {sorted(built)}")
     from heat_tpu_torch import native
 
@@ -6149,6 +6233,83 @@ def main(argv=None) -> int:
     return 0
 
 
+def scan_phase(dev, za, errors) -> dict:
+    """Phase 5's scan_axis (the port's own kernel, behind cumsum/cumprod) at the main path's (2^24, 32), along
+    axis 0 (reduce-then-scan over tiles of rows) and axis 1 (a thread a row), on the standardized z (float32),
+    on int32 values (float32's geometry: 16-byte packs of 4 columns) and on int64 values, whose sums wrap:
+    integers bit for bit against the plain version; float32 within gamma_m sum_{j<=i} |x_j| of the float64
+    scan, m = min(k, d): k = i + 1 terms pass at most k - 1 roundings, and at most d, the kernel's fold depth
+    (ScanPlan.fold_depth: its tile's rows, the tiles and the folds across a block; Higham, 2nd ed., 4.2, for
+    any order of the roundings), plus the float64 scan's own gamma_m; and within twice gamma_m of the plain
+    version at the kernel's tiles (whose depth is at most the same), the largest
+    ratio printed; the same bits on a second run. CUDA-event ms beside the bytes bound (one read, one write),
+    the plain version (tiles of the kernel's rows) and torch.cumsum (library_ms; along axis 0 one call, it
+    takes seconds). Returns the JSON row's numbers (float32, axis 0: the split axis the cumsum of the surface
+    and of the layout path scan)."""
+    import torch
+
+    from heat_tpu_torch.core.kernels import scan_axis, scan_axis_plain
+    from heat_tpu_torch.core.kernels.scan import scan_plan
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    ints = {
+        "int32": torch.randint(-(1 << 30), 1 << 30, (N_MAIN, F_MAIN), device=dev, generator=gen, dtype=torch.int32),
+        "int64": torch.randint(-(1 << 40), 1 << 40, (N_MAIN, F_MAIN), device=dev, generator=gen, dtype=torch.int64),
+    }
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {}
+    for axis in (0, 1):
+        dims = (1, N_MAIN, F_MAIN) if axis == 0 else (N_MAIN, F_MAIN, 1)
+        for name, t in (("float32", za), *ints.items()):
+            plan = scan_plan(*dims, t.dtype, sms)
+            got = scan_axis(t, axis)
+            check(torch.equal(scan_axis(t, axis), got), f"scan_axis {name} axis {axis}: not bit-identical on a rerun")
+            plain = scan_axis_plain(t, axis, rows_per_tile=plan.rows)
+            if name != "float32":
+                check(torch.equal(got, plain), f"scan_axis {name} axis {axis} differs from its plain version")
+                err, line = 0.0, "bit for bit with the plain version (sums wrap)"
+            else:
+                ref = scan_axis_plain(t.double(), axis, rows_per_tile=plan.rows)
+                # k terms pass at most k - 1 roundings (a fold with the identity is exact), and at most d
+                d = plan.fold_depth()
+                kd = torch.arange(1, t.shape[axis] + 1, dtype=torch.float64, device=dev).clamp_(max=d)
+                kd = kd.reshape((-1, 1) if axis == 0 else (1, -1))
+                g32 = kd * F32_UNIT_ROUNDOFF / (1 - kd * F32_UNIT_ROUNDOFF)
+                g64 = kd * 2.0 ** -53 / (1 - kd * 2.0 ** -53)
+                scale = scan_axis_plain(t.abs().double(), axis, rows_per_tile=plan.rows).clamp_(min=1e-300)
+                r_ref = ((got.double() - ref).abs() / ((g32 + g64) * scale)).max().item()
+                del ref
+                r_plain = ((got.double() - plain.double()).abs() / (2 * g32 * scale)).max().item()
+                del scale, g32, g64, kd
+                check(r_ref <= 1.0 and r_plain <= 1.0, f"scan_axis float32 axis {axis}: {r_ref} of gamma_d sum|x| "
+                                                       f"from float64, {r_plain} of twice it from the plain version "
+                                                       f"(d = {d})")
+                err = (got - plain).abs().max().item()
+                line = (f"within {r_ref:.4f} of gamma_min(k,d) sum|x| (d = {d}, gamma_d = "
+                        f"{d * F32_UNIT_ROUNDOFF / (1 - d * F32_UNIT_ROUNDOFF):.3e}) of the float64 scan "
+                        f"and {r_plain:.4f} of twice it of the plain version (max abs {err:.3e})")
+            del got, plain
+            ms = time_ms(lambda: scan_axis(t, axis), reps=10, warm=2)
+            plain_ms = time_ms(lambda: scan_axis_plain(t, axis, rows_per_tile=plan.rows), reps=3, warm=1)
+            lib = time_ms(lambda: torch.cumsum(t, axis), reps=1, warm=1) if name == "float32" or axis == 1 else None
+            nbytes = 2 * t.numel() * t.element_size()
+            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            print(f"[time] scan_axis {name} ({N_MAIN}, {F_MAIN}) axis {axis}: {plan.route} route, {plan.tiles} tile(s) "
+                  f"of {plan.rows} rows, {plan.vec} column(s) a load, {plan.blocks} blocks; {line}; bit-identical "
+                  f"rerun; kernel_ms {ms:.4f} bound_ms {bound_ms:.4f} (bytes: one read and one write; share "
+                  f"{bound_ms / ms:.3f}) plain_ms {plain_ms:.4f} torch.cumsum_ms "
+                  f"{'not timed' if lib is None else f'{lib:.4f}'}", flush=True)
+            if axis == 0 and name == "float32":
+                errors["scan_axis"] = err
+                out = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib, "bytes": nbytes, "ops": t.numel(),
+                       "source": "heat_tpu_torch/core/kernels/csrc/scan.cu",
+                       "replaces": "none: XLA's scan of jnp.cumsum/cumprod, heat_tpu/core/_operations.py:644"}
+    del ints
+    torch.cuda.empty_cache()
+    return out
+
+
 def single_card_phases(dev) -> list:
     """Phases 3 to 5 on one card; returns the kernels' rows of the JSON line."""
     import numpy as np
@@ -6162,6 +6323,7 @@ def single_card_phases(dev) -> list:
     from heat_tpu_torch.core import random as ht_random
     from heat_tpu_torch.core.kernels import lloyd, panel_update, threefry_bits, threefry_plain, topk_distance
     from heat_tpu_torch.core.kernels.threefry import chunk_layout
+    from heat_tpu_torch.core.kernels.scan import scan_plan
     from heat_tpu_torch.spatial.distance import _quadratic_expand
 
     gen = torch.Generator(device=dev)
@@ -6499,7 +6661,8 @@ def single_card_phases(dev) -> list:
           f"{e_L:.3e}; L bit-identical on rerun", flush=True)
 
     # the surface: elementwise, relational and extrema functions on the KMeans path's standardized z, as a
-    # user writes them; none of them launches a kernel of the port
+    # user writes them; only the cumsum launches a kernel of the port (scan_axis: a launch a pass of its plan),
+    # counted on their own (launches_surface), not as the main path's
     z_host = z.larray.cpu().numpy()
     s0 = N_MAIN // 2
     zs32 = z_host[s0 : s0 + N_SLICE]
@@ -6517,7 +6680,13 @@ def single_card_phases(dev) -> list:
     }
     torch.cuda.synchronize()
     surface_s = time.perf_counter() - t0
-    check(not any(ht.LAUNCHES.values()), f"the surface launched a kernel of the port: {dict(ht.LAUNCHES)}")
+    surface_launches = dict(ht.LAUNCHES)
+    c_plan = scan_plan(1, N_CUMSUM, F_MAIN, torch.float32, torch.cuda.get_device_properties(dev).multi_processor_count)
+    c_passes = 1 if c_plan.route == "rows" or c_plan.tiles == 1 else 3  # the tiles' totals, their scan, the tiles'
+    check({k: v for k, v in surface_launches.items() if v} == {"scan_axis": c_passes}
+          and ht.KERNEL_STATS.get("scan_axis.cuda") == 1,
+          f"the surface should launch scan_axis's {c_passes} passes once (its cumsum) and no other kernel: "
+          f"{surface_launches}")
     for name, r in surface.items():
         check(r.larray.is_cuda and r.device.device_type == "gpu", f"surface {name} is not on the card")
     host = {k: v.larray[s0 : s0 + N_SLICE].cpu().numpy() for k, v in surface.items()
@@ -6543,18 +6712,24 @@ def single_card_phases(dev) -> list:
     for name, ref in refs.items():
         max_ulps[name] = float(ulps(host[name], ref).max())
         check(max_ulps[name] <= SURFACE_ULPS, f"surface {name} is {max_ulps[name]} ulp from the float64 value")
-    # a prefix of k float32 terms summed in any order is within gamma_k sum|z_i| of the exact prefix (Higham 4.2)
+    # a prefix of k terms summed with at most m roundings on any term's path is within gamma_m sum|z_i| of the
+    # exact prefix (Higham 4.2), m = min(k, d), d the kernel's fold depth at this plan (a fold with the identity
+    # is exact, so k terms pass at most k - 1); numpy's float64 cumsum within its own gamma_k
     zc = z_host[:N_CUMSUM].astype(np.float64)
-    k = np.arange(1, N_CUMSUM + 1, dtype=np.float64)[:, None] * F32_UNIT_ROUNDOFF
+    c_depth = c_plan.fold_depth()
+    k = np.arange(1, N_CUMSUM + 1, dtype=np.float64)[:, None]
+    m = np.minimum(k, c_depth)
+    c_gamma = m * F32_UNIT_ROUNDOFF / (1 - m * F32_UNIT_ROUNDOFF) + k * 2.0 ** -53 / (1 - k * 2.0 ** -53)
     c_gap = np.abs(surface["cumsum"].numpy() - np.cumsum(zc, axis=0))
-    c_bound = k / (1 - k) * np.cumsum(np.abs(zc), axis=0)
-    check(bool((c_gap <= c_bound).all()), "surface cumsum beyond gamma_k sum|z|")
+    c_bound = np.maximum(c_gamma * np.cumsum(np.abs(zc), axis=0), np.finfo(np.float64).tiny)
+    check(bool((c_gap <= c_bound).all()), f"surface cumsum beyond gamma_min(k,d) sum|z| (d = {c_depth})")
     print(f"[surface] {len(surface) + 1} calls on z ({N_MAIN} x {F_MAIN}) in {surface_s:.4f} s (host clock, first calls); "
           f"all results on {surface['exp'].larray.device}; kernel launches {dict(ht.LAUNCHES)}; |z| > 3 in "
           f"{int(exact['sum'][1])} entries; mask/any/sum/clip/where/min/max/argmin/argmax "
           f"equal to numpy; max ulp vs float64 on rows {s0}..{s0 + N_SLICE - 1}: "
           + ", ".join(f"{k_} {v:.2f}" for k_, v in max_ulps.items())
-          + f"; cumsum of {N_CUMSUM} rows at most {(c_gap / c_bound).max():.4f} of its rounding bound", flush=True)
+          + f"; cumsum of {N_CUMSUM} rows ({c_plan.tiles} tiles of {c_plan.rows} rows) at most "
+          f"{(c_gap / c_bound).max():.4f} of its rounding bound gamma_min(k,d) sum|z| (d = {c_depth})", flush=True)
     del surface, host, mask, z_host, exact
 
     # C1 on the card: the public Cholesky of a matrix that is not positive definite gives jnp's NaN pattern
@@ -6694,8 +6869,9 @@ def single_card_phases(dev) -> list:
     warm_fit_s = time.perf_counter() - t0
     print(f"[time] warm fit {warm_fit_s:.4f} s ({ITERS / warm_fit_s:.1f} iterations/s, {ITERS + 1} lloyd launches)", flush=True)
 
+    rows["scan_axis"] = scan_phase(dev, za, errors)
     kernels = []
-    for name in ("moments_onepass", "lloyd_fused", "topk_distance", "chol_panel_fused", "threefry_bits"):
+    for name in ("moments_onepass", "lloyd_fused", "topk_distance", "chol_panel_fused", "threefry_bits", "scan_axis"):
         r = rows[name]
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = r["ops"] / FP32_FLOP_PER_S * 1e3
@@ -6704,12 +6880,12 @@ def single_card_phases(dev) -> list:
             "name": name, "route": "cuda", "source": r["source"], "replaces": r["replaces"],
             "launches": launches[name], "max_abs_err": errors[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": bound, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": r["library_ms"],
+            "library_ms": r["library_ms"], "launches_surface": surface_launches[name],
         })
         print(f"[time] {name}: kernel_ms {r['ms']:.4f} bound_ms {bound:.4f} ({kernels[-1]['bound_by']}; "
               f"{r['bytes']} B, {r['ops']} flop) share {bound / r['ms']:.3f} plain_ms {r['plain_ms']:.4f} "
               f"library_ms {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} "
-              f"launches per main path {launches[name]}", flush=True)
+              f"launches per main path {launches[name]}, on the surface {surface_launches[name]}", flush=True)
 
     # threefry_bits against its integer operations (the JSON row keeps the bytes / float32 bound of the table)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count

@@ -263,9 +263,7 @@ def _reduce_op(
             # an empty chunk: a stand-in of one row gives the partial's shape and type; it is skipped below
             local = local.new_zeros(tuple(1 if d == split else s for d, s in enumerate(local.shape)))
         partial = operation(local, axis, True, **kwargs)
-        parts = comm.allgather(partial.unsqueeze(0), 0, [1] * comm.size)
-        keep = [r for r, n in enumerate(x.lshape_map[:, split]) if n > 0]
-        result = operation(parts[keep], 0, False, **kwargs) if keep else operation(raw, axis, True, **kwargs)
+        result = _gather_partials(operation, x, partial, lambda: operation(raw, axis, True, **kwargs), **kwargs)
         if not keepdims:
             result = result.reshape(_reduced_shape(x.gshape, axis, False))
     else:
@@ -276,6 +274,18 @@ def _reduce_op(
     if out is not None:
         return _write_out(out, res)
     return res
+
+
+def _gather_partials(operation: Callable, x: DNDarray, partial: torch.Tensor, empty: Callable, **kwargs):
+    """The reduction across ranks of ``partial``, this rank's chunk of ``x``
+    reduced over the split axis (among others) with the reduced axes kept:
+    one ``allgather``, then ``operation`` over the partials of the ranks
+    whose chunk has rows, in rank order (every rank holds the same bits);
+    ``empty()`` where no rank has any."""
+    comm = x.comm
+    parts = comm.allgather(partial.unsqueeze(0), 0, [1] * comm.size)
+    keep = [r for r, n in enumerate(x.lshape_map[:, x.split]) if n > 0]
+    return operation(parts[keep], 0, False, **kwargs) if keep else empty()
 
 
 def _like_layout(x: DNDarray, t: torch.Tensor, gshape, dtype, split: Optional[int]) -> DNDarray:
@@ -296,16 +306,16 @@ def _over_axes(fn: Callable, t: torch.Tensor, axis, keepdims: bool) -> torch.Ten
     return fn(t, dim=axis, keepdim=keepdims)
 
 
-def _cum_op(
-    operation: Callable, x: DNDarray, axis, out: Optional[DNDarray] = None, dtype=None, combine: Callable = torch.add
-) -> DNDarray:
-    """Cumulative op along one axis (``operation(tensor, axis)``); split
-    and shape are inherited. Along the split axis each rank then applies
-    ``combine`` (``torch.add`` for a sum, ``torch.mul`` for a product) with
-    the exclusive prefix of the ranks' totals (by the ragged counts of a
-    ragged array, which keeps its layout)."""
+def _cum_op(operation: Callable, x: DNDarray, axis, out: Optional[DNDarray] = None, dtype=None) -> DNDarray:
+    """Cumulative op along one axis (``operation(tensor, axis)``, whose
+    ``scan_op`` names its scan, ``"add"`` or ``"mul"``); split and shape are
+    inherited. Along the split axis each rank runs the scan in two steps:
+    its chunk's total, gathered from every rank, then the scan with the
+    exclusive prefix of the earlier ranks' totals (folded by the same op in
+    rank order, by the ragged counts of a ragged array, which keeps its
+    layout) as its carry."""
     if _capture is not None and _capture.active():
-        res = _capture.cum(operation, x, axis, out, dtype, combine)
+        res = _capture.cum(operation, x, axis, out, dtype)
         if res is not NotImplemented:
             return res
     if not isinstance(x, DNDarray):
@@ -316,18 +326,21 @@ def _cum_op(
     arr = x._raw
     if dtype is not None:
         arr = arr.to(types.canonical_heat_type(dtype).torch_type())
-    result = operation(arr, axis)
     comm = x.comm
     if axis == x.split and comm.is_distributed():
-        n = result.shape[axis]
-        last = result.narrow(axis, n - 1, 1) if n else result.new_zeros(
-            tuple(1 if d == axis else s for d, s in enumerate(result.shape)))
-        totals = comm.allgather(last, axis, [1] * comm.size)
-        full = [r for r, m in enumerate(x.lshape_map[:, axis]) if m > 0]
-        before = [r for r in full if r < comm.rank]
-        if n and before:
-            prefix = operation(totals.index_select(axis, torch.tensor(before, device=totals.device)), axis)
-            result = combine(result, prefix.narrow(axis, len(before) - 1, 1))
+        from .kernels.scan import scan_begin, scan_finish
+
+        state = scan_begin(arr, axis, operation.scan_op)
+        totals = comm.allgather(state.total, axis, [1] * comm.size)
+        fold = torch.add if operation.scan_op == "add" else torch.mul
+        carry = None
+        for r, m in enumerate(x.lshape_map[:, axis]):
+            if r < comm.rank and m > 0:
+                t = totals.narrow(axis, r, 1)
+                carry = t if carry is None else fold(carry, t)
+        result = scan_finish(state, carry)
+    else:
+        result = operation(arr, axis)
     res = _like_layout(x, result, x.gshape, types.canonical_heat_type(result.dtype), x.split)
     if out is not None:
         return _write_out(out, res)

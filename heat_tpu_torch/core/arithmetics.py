@@ -3,7 +3,8 @@
 Binary ops ride :func:`._operations._binary_op` (promotion, broadcast and
 split propagation); ``sum``/``prod``/``nansum``/``nanprod`` ride
 :func:`._operations._reduce_op`, ``cumsum``/``cumprod``
-:func:`._operations._cum_op`. Result types follow ``heat_tpu``, which takes
+:func:`._operations._cum_op`, whose scans are the ``scan_axis`` kernel's
+(:mod:`.kernels.scan`). Result types follow ``heat_tpu``, which takes
 them from ``jnp``: ``hypot``/``copysign`` compute integers in float, and
 ``cumsum``/``cumprod`` keep integer types (bool accumulates in int64).
 """
@@ -17,6 +18,7 @@ import torch
 from . import types
 from ._operations import _binary_op, _cum_op, _local_op, _over_axes, _real_only, _reduce_op
 from .dndarray import DNDarray
+from .kernels.scan import scan_axis
 from .stride_tricks import sanitize_axis
 
 __all__ = [
@@ -234,16 +236,17 @@ def right_shift(t1, t2) -> DNDarray:
     return _binary_op(_right_shift, t1, t2)
 
 
-def _cum_dtype(t: torch.Tensor) -> torch.dtype:
-    return torch.int64 if t.dtype == torch.bool else t.dtype
-
-
 def _cumsum(t: torch.Tensor, axis: int) -> torch.Tensor:
-    return torch.cumsum(t, axis, dtype=_cum_dtype(t))
+    return scan_axis(t, axis, "add")
 
 
 def _cumprod(t: torch.Tensor, axis: int) -> torch.Tensor:
-    return torch.cumprod(t, axis, dtype=_cum_dtype(t))
+    return scan_axis(t, axis, "mul")
+
+
+# the scan each op runs: _cum_op's split-axis route calls the kernel's two steps with it
+_cumsum.scan_op = "add"
+_cumprod.scan_op = "mul"
 
 
 def cumsum(a: DNDarray, axis: int, dtype=None, out=None) -> DNDarray:
@@ -253,7 +256,7 @@ def cumsum(a: DNDarray, axis: int, dtype=None, out=None) -> DNDarray:
 
 def cumprod(a: DNDarray, axis: int, dtype=None, out=None) -> DNDarray:
     """Cumulative product along ``axis``."""
-    return _cum_op(_cumprod, a, axis, out=out, dtype=dtype, combine=torch.mul)
+    return _cum_op(_cumprod, a, axis, out=out, dtype=dtype)
 
 
 cumproduct = cumprod

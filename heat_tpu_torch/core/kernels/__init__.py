@@ -26,7 +26,12 @@ on a card and runs the plain version for tensors on the CPU:
   (``ht.lazy``/``ht.fuse``) in one pass, by interpreting the segment's
   program (``lazy_fused``, ``csrc/lazy_fused.cu``; the port's own kernel,
   standing in for XLA's fusion), with its plain version
-  :func:`lazy_fused_plain`.
+  :func:`lazy_fused_plain`;
+- :func:`scan_axis` — the inclusive add or mul scan along one axis
+  (``scan_axis``, ``csrc/scan.cu``; the port's own kernel, standing in for
+  XLA's scan), behind ``cumsum``/``cumprod``, with its two steps
+  :func:`scan_begin`/:func:`scan_finish` (the totals step exposed for a
+  split axis) and its plain version :func:`scan_axis_plain`.
 
 Sources build with ``nvcc`` at first use (:mod:`._build`).
 """
@@ -57,6 +62,7 @@ from .lloyd import (
 )
 from .lazy_fused import LAZY_KERNEL, SegmentProgram, lazy_fused, lazy_fused_plain
 from .moments import MOMENTS_KERNEL, chunk_moments, merge_moments, moments_local, moments_sharded
+from .scan import SCAN_KERNEL, scan_axis, scan_axis_plain, scan_begin, scan_finish
 from .panel_update import CHOL_KERNEL, MAX_FUSED_N, chol_block_size, chol_grid, chol_panels, cholesky_local
 from .threefry import THREEFRY_KERNEL, threefry_bits, threefry_plain
 from .topk_distance import MAX_K, TOPK_KERNEL, knn_plan, knn_tiles, nearest_neighbors_local
@@ -73,6 +79,7 @@ __all__ = [
     "MAX_K",
     "MOMENTS_KERNEL",
     "RECEIVED",
+    "SCAN_KERNEL",
     "SegmentProgram",
     "THREEFRY_KERNEL",
     "TOPK_KERNEL",
@@ -104,6 +111,10 @@ __all__ = [
     "register_kernel",
     "reset_kernel_stats",
     "resident_smem",
+    "scan_axis",
+    "scan_axis_plain",
+    "scan_begin",
+    "scan_finish",
     "threefry_bits",
     "threefry_plain",
 ]

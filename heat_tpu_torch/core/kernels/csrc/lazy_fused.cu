@@ -35,7 +35,18 @@
 // double; a float32 op then rounds its operands to float first, as
 // torch's .to(float32) does.
 //
-// Bound on an H100: bytes (each input read once, each output written once).
+// A terminal sum (lazy_fused_reduce): where a segment's one stored output
+// is read only by a sum or a mean (over every axis or one), the segment
+// sums it in the same pass, as XLA's input fusion does in heat_tpu, and
+// never writes it: each block evaluates the program on the elements of its
+// lanes (positions of the kept axes) and a chunk of the summed axis, adds
+// each value, rounded to the output's type, into a double, folds its
+// threads in a fixed order and writes one partial; a second kernel folds
+// the partials in chunk order and rounds once. No float atomics, so a
+// segment gives the same bits on every run.
+//
+// Bound on an H100: bytes (each input read once, each output written once;
+// a summed output writes only its partials).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -56,6 +67,9 @@
 #define LF_MAX_SLOTS64 28
 static_assert(LF_MAX_SLOTS64 * LF_V * LF_THREADS * sizeof(double) <= LF_MAX_SMEM, "double register file");
 static_assert((LF_MAX_IN + LF_MAX_INSTR) * LF_V * LF_THREADS * sizeof(float) <= LF_MAX_SMEM, "float register file");
+// the terminal sum adds a double a thread of static shared memory
+static_assert(LF_MAX_SLOTS64 * LF_V * LF_THREADS * sizeof(double) + LF_THREADS * sizeof(double) <= LF_MAX_SMEM,
+              "double register file and the sum's buffer");
 
 enum LfDtype { LF_F32 = 0, LF_F64 = 1, LF_BOOL = 2 };
 
@@ -172,6 +186,128 @@ __device__ __forceinline__ void lf_apply64(int op, const double* a, const double
 // LF_V elements a step: LF_THREADS apart (coalesced for each of them), or with VEC 4 consecutive ones moved as
 // one float4. Their loads are in flight together, and every instruction is decoded once for all LF_V. Slot s
 // of element v of thread t lies at ((s * LF_V + v) * LF_THREADS + t) in shared memory.
+//
+// lf_step loads the inputs of the step's elements idx[] (live[]: inside the segment) into the register file
+// and runs the plan's instructions; the results stay in their slots.
+template <typename R, typename I, bool VEC>
+__device__ __forceinline__ void lf_step(const LfPlan& p, R* const r, const I (&idx)[LF_V], const bool (&live)[LF_V]) {
+    constexpr int V = LF_V;
+    I coord[LF_MAX_DIMS][V];
+    if (p.pad) {  // some input is strided: this step's coordinates, once for every input (VEC: of the quad)
+#pragma unroll
+        for (int v = 0; v < (VEC ? 1 : V); ++v) {
+            I rem = idx[v];
+#pragma unroll
+            for (int d = LF_MAX_DIMS - 1; d >= 0; --d) {
+                const I ext = static_cast<I>(p.shape[d]);
+                if (ext == 1) {
+                    coord[d][v] = 0;
+                } else {
+                    coord[d][v] = rem % ext;
+                    rem /= ext;
+                }
+            }
+        }
+    }
+    for (int k = 0; k < p.n_in; ++k) {
+        const LfInput in = p.in[k];
+        R* const slot = r + k * V * LF_THREADS;
+        if (in.flat == 2) {
+            const R val = lf_load<R>(in, 0);
+#pragma unroll
+            for (int v = 0; v < V; ++v) slot[v * LF_THREADS] = val;
+        } else if (VEC) {
+            // flat: the quad's float4; strided: the quad lies in one innermost row, its offset from the
+            // quad's coordinates: a float4 where the row is contiguous, one element where it broadcasts
+            float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
+            if (live[0]) {
+                if (in.flat) {
+                    q = __ldg(static_cast<const float4*>(in.ptr) + (idx[0] >> 2));
+                } else {
+                    I off = 0;
+#pragma unroll
+                    for (int d = 0; d < LF_MAX_DIMS; ++d) off += coord[d][0] * static_cast<I>(in.stride[d]);
+                    if (in.stride[LF_MAX_DIMS - 1]) {
+                        q = __ldg(reinterpret_cast<const float4*>(static_cast<const float*>(in.ptr) + off));
+                    } else {
+                        const float e = __ldg(static_cast<const float*>(in.ptr) + off);
+                        q = make_float4(e, e, e, e);
+                    }
+                }
+            }
+            slot[0] = q.x;
+            slot[LF_THREADS] = q.y;
+            slot[2 * LF_THREADS] = q.z;
+            slot[3 * LF_THREADS] = q.w;
+        } else {
+            I off[V];
+#pragma unroll
+            for (int v = 0; v < V; ++v) {
+                off[v] = idx[v];
+                if (!in.flat) {
+                    off[v] = 0;
+#pragma unroll
+                    for (int d = 0; d < LF_MAX_DIMS; ++d) off[v] += coord[d][v] * static_cast<I>(in.stride[d]);
+                }
+                if (!live[v]) off[v] = 0;
+            }
+            switch (in.dtype) {  // decoded once for the LF_V elements
+                case LF_F32: {
+                    const float* ptr = static_cast<const float*>(in.ptr);
+#pragma unroll
+                    for (int v = 0; v < V; ++v) slot[v * LF_THREADS] = static_cast<R>(__ldg(ptr + off[v]));
+                    break;
+                }
+                case LF_F64: {
+                    const double* ptr = static_cast<const double*>(in.ptr);
+#pragma unroll
+                    for (int v = 0; v < V; ++v) slot[v * LF_THREADS] = static_cast<R>(__ldg(ptr + off[v]));
+                    break;
+                }
+                default: {
+                    const unsigned char* ptr = static_cast<const unsigned char*>(in.ptr);
+#pragma unroll
+                    for (int v = 0; v < V; ++v) slot[v * LF_THREADS] = __ldg(ptr + off[v]) ? R(1) : R(0);
+                    break;
+                }
+            }
+        }
+    }
+    R acc[V];  // the previous instruction's result, kept in registers
+    for (int k = 0; k < p.n_instr; ++k) {
+        const LfInstr q = p.ins[k];
+        if (q.f64) {
+            double a[V], b[V], o[V];
+#pragma unroll
+            for (int v = 0; v < V; ++v) {
+                a[v] = (q.flags & LF_A_ACC) ? static_cast<double>(acc[v])
+                       : q.a >= 0 ? static_cast<double>(r[(q.a * V + v) * LF_THREADS]) : q.imm;
+                b[v] = (q.flags & LF_B_ACC) ? static_cast<double>(acc[v])
+                       : q.b >= 0 ? static_cast<double>(r[(q.b * V + v) * LF_THREADS]) : q.imm;
+            }
+            lf_apply64<V>(q.op, a, b, o);
+#pragma unroll
+            for (int v = 0; v < V; ++v) acc[v] = static_cast<R>(o[v]);
+        } else {
+            float a[V], b[V], o[V];
+#pragma unroll
+            for (int v = 0; v < V; ++v) {
+                a[v] = (q.flags & LF_A_ACC) ? static_cast<float>(acc[v])
+                       : q.a >= 0 ? static_cast<float>(r[(q.a * V + v) * LF_THREADS]) : static_cast<float>(q.imm);
+                b[v] = (q.flags & LF_B_ACC) ? static_cast<float>(acc[v])
+                       : q.b >= 0 ? static_cast<float>(r[(q.b * V + v) * LF_THREADS]) : static_cast<float>(q.imm);
+            }
+            lf_apply32<V>(q.op, a, b, o);
+#pragma unroll
+            for (int v = 0; v < V; ++v) acc[v] = static_cast<R>(o[v]);
+        }
+        if (q.flags & LF_KEEP) {
+#pragma unroll
+            for (int v = 0; v < V; ++v) r[(q.dst * V + v) * LF_THREADS] = acc[v];
+        }
+    }
+}
+
 template <typename R, typename I, bool VEC>
 __global__ void __launch_bounds__(LF_THREADS) lazy_fused_kernel(const LfPlan p) {
     constexpr int V = LF_V;
@@ -181,126 +317,13 @@ __global__ void __launch_bounds__(LF_THREADS) lazy_fused_kernel(const LfPlan p) 
     const I tile = static_cast<I>(LF_THREADS) * V;
     for (I base = static_cast<I>(blockIdx.x) * tile; base < n; base += static_cast<I>(gridDim.x) * tile) {
         I idx[V];
-        I coord[LF_MAX_DIMS][V];
         bool live[V];
 #pragma unroll
         for (int v = 0; v < V; ++v) {
             idx[v] = VEC ? base + static_cast<I>(threadIdx.x) * V + v : base + static_cast<I>(v) * LF_THREADS + threadIdx.x;
             live[v] = idx[v] < n;
         }
-        if (p.pad) {  // some input is strided: this step's coordinates, once for every input (VEC: of the quad)
-#pragma unroll
-            for (int v = 0; v < (VEC ? 1 : V); ++v) {
-                I rem = idx[v];
-#pragma unroll
-                for (int d = LF_MAX_DIMS - 1; d >= 0; --d) {
-                    const I ext = static_cast<I>(p.shape[d]);
-                    if (ext == 1) {
-                        coord[d][v] = 0;
-                    } else {
-                        coord[d][v] = rem % ext;
-                        rem /= ext;
-                    }
-                }
-            }
-        }
-        for (int k = 0; k < p.n_in; ++k) {
-            const LfInput in = p.in[k];
-            R* const slot = r + k * V * LF_THREADS;
-            if (in.flat == 2) {
-                const R val = lf_load<R>(in, 0);
-#pragma unroll
-                for (int v = 0; v < V; ++v) slot[v * LF_THREADS] = val;
-            } else if (VEC) {
-                // flat: the quad's float4; strided: the quad lies in one innermost row, its offset from the
-                // quad's coordinates: a float4 where the row is contiguous, one element where it broadcasts
-                float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
-                if (live[0]) {
-                    if (in.flat) {
-                        q = __ldg(static_cast<const float4*>(in.ptr) + (idx[0] >> 2));
-                    } else {
-                        I off = 0;
-#pragma unroll
-                        for (int d = 0; d < LF_MAX_DIMS; ++d) off += coord[d][0] * static_cast<I>(in.stride[d]);
-                        if (in.stride[LF_MAX_DIMS - 1]) {
-                            q = __ldg(reinterpret_cast<const float4*>(static_cast<const float*>(in.ptr) + off));
-                        } else {
-                            const float e = __ldg(static_cast<const float*>(in.ptr) + off);
-                            q = make_float4(e, e, e, e);
-                        }
-                    }
-                }
-                slot[0] = q.x;
-                slot[LF_THREADS] = q.y;
-                slot[2 * LF_THREADS] = q.z;
-                slot[3 * LF_THREADS] = q.w;
-            } else {
-                I off[V];
-#pragma unroll
-                for (int v = 0; v < V; ++v) {
-                    off[v] = idx[v];
-                    if (!in.flat) {
-                        off[v] = 0;
-#pragma unroll
-                        for (int d = 0; d < LF_MAX_DIMS; ++d) off[v] += coord[d][v] * static_cast<I>(in.stride[d]);
-                    }
-                    if (!live[v]) off[v] = 0;
-                }
-                switch (in.dtype) {  // decoded once for the LF_V elements
-                    case LF_F32: {
-                        const float* ptr = static_cast<const float*>(in.ptr);
-#pragma unroll
-                        for (int v = 0; v < V; ++v) slot[v * LF_THREADS] = static_cast<R>(__ldg(ptr + off[v]));
-                        break;
-                    }
-                    case LF_F64: {
-                        const double* ptr = static_cast<const double*>(in.ptr);
-#pragma unroll
-                        for (int v = 0; v < V; ++v) slot[v * LF_THREADS] = static_cast<R>(__ldg(ptr + off[v]));
-                        break;
-                    }
-                    default: {
-                        const unsigned char* ptr = static_cast<const unsigned char*>(in.ptr);
-#pragma unroll
-                        for (int v = 0; v < V; ++v) slot[v * LF_THREADS] = __ldg(ptr + off[v]) ? R(1) : R(0);
-                        break;
-                    }
-                }
-            }
-        }
-        R acc[V];  // the previous instruction's result, kept in registers
-        for (int k = 0; k < p.n_instr; ++k) {
-            const LfInstr q = p.ins[k];
-            if (q.f64) {
-                double a[V], b[V], o[V];
-#pragma unroll
-                for (int v = 0; v < V; ++v) {
-                    a[v] = (q.flags & LF_A_ACC) ? static_cast<double>(acc[v])
-                           : q.a >= 0 ? static_cast<double>(r[(q.a * V + v) * LF_THREADS]) : q.imm;
-                    b[v] = (q.flags & LF_B_ACC) ? static_cast<double>(acc[v])
-                           : q.b >= 0 ? static_cast<double>(r[(q.b * V + v) * LF_THREADS]) : q.imm;
-                }
-                lf_apply64<V>(q.op, a, b, o);
-#pragma unroll
-                for (int v = 0; v < V; ++v) acc[v] = static_cast<R>(o[v]);
-            } else {
-                float a[V], b[V], o[V];
-#pragma unroll
-                for (int v = 0; v < V; ++v) {
-                    a[v] = (q.flags & LF_A_ACC) ? static_cast<float>(acc[v])
-                           : q.a >= 0 ? static_cast<float>(r[(q.a * V + v) * LF_THREADS]) : static_cast<float>(q.imm);
-                    b[v] = (q.flags & LF_B_ACC) ? static_cast<float>(acc[v])
-                           : q.b >= 0 ? static_cast<float>(r[(q.b * V + v) * LF_THREADS]) : static_cast<float>(q.imm);
-                }
-                lf_apply32<V>(q.op, a, b, o);
-#pragma unroll
-                for (int v = 0; v < V; ++v) acc[v] = static_cast<R>(o[v]);
-            }
-            if (q.flags & LF_KEEP) {
-#pragma unroll
-                for (int v = 0; v < V; ++v) r[(q.dst * V + v) * LF_THREADS] = acc[v];
-            }
-        }
+        lf_step<R, I, VEC>(p, r, idx, live);
         for (int k = 0; k < p.n_out; ++k) {
             const LfOutput o = p.out[k];
             const R* const slot = r + o.slot * V * LF_THREADS;
@@ -332,6 +355,101 @@ __global__ void __launch_bounds__(LF_THREADS) lazy_fused_kernel(const LfPlan p) 
             }
         }
     }
+}
+
+// A terminal sum: the segment's one output, summed over one axis or all of them, is never stored. The
+// segment's shape is viewed as (outer, r, inner), r the summed axis (all axes: (1, n, 1)).
+struct LfReduce {
+    long long outer, r, inner;
+    long long rows;        // positions of r a block sums (a multiple of ty * LF_V)
+    long long chunks;      // blocks along r: ceil(r / rows)
+    long long lane_tiles;  // blocks across inner: ceil(inner / tx)
+    int tx, ty;            // a block's lanes (inner positions) and row groups, tx * ty <= LF_THREADS
+    int rows_mode;         // inner == 1 and r short: a thread sums a whole row (outer / LF_THREADS blocks)
+    int pad;
+};
+
+// Each element's output value, rounded to the output's type (as the stored tensor would hold it), is added in
+// double to its thread's sum; a block folds its threads' sums of one lane in row-group order, and writes one
+// partial per (chunk, lane). No atomics: the result does not depend on the blocks' order. A thread's LF_V
+// elements are positions of r ty apart in one lane (neighbouring threads on neighbouring lanes), or, in rows
+// mode, LF_V adjacent positions of its row.
+template <typename R, typename I>
+__global__ void __launch_bounds__(LF_THREADS) lazy_reduce_kernel(const LfPlan p, const LfReduce q,
+                                                                 double* __restrict__ partial) {
+    constexpr int V = LF_V;
+    extern __shared__ unsigned char lf_smem[];
+    __shared__ double red[LF_THREADS];
+    R* const r = reinterpret_cast<R*>(lf_smem) + threadIdx.x;
+    const R* const oslot = r + p.out[0].slot * V * LF_THREADS;
+    const bool f32 = p.out[0].dtype == LF_F32;
+    double acc = 0.0;
+    if (q.rows_mode) {
+        const long long o = static_cast<long long>(blockIdx.x) * LF_THREADS + threadIdx.x;
+        const bool row_live = o < q.outer;
+        for (long long j = 0; j < q.r; j += V) {
+            I idx[V];
+            bool live[V];
+#pragma unroll
+            for (int v = 0; v < V; ++v) {
+                live[v] = row_live && j + v < q.r;
+                idx[v] = live[v] ? static_cast<I>(o * q.r + j + v) : I(0);
+            }
+            lf_step<R, I, false>(p, r, idx, live);
+#pragma unroll
+            for (int v = 0; v < V; ++v) {
+                const R val = oslot[v * LF_THREADS];
+                if (live[v]) acc += f32 ? static_cast<double>(static_cast<float>(val)) : static_cast<double>(val);
+            }
+        }
+        if (row_live) partial[o] = acc;
+        return;
+    }
+    const long long b = blockIdx.x;
+    const long long lt = b % q.lane_tiles;
+    const long long rest = b / q.lane_tiles;
+    const long long o = rest % q.outer;
+    const long long ch = rest / q.outer;
+    const int tx = threadIdx.x % q.tx, ty = threadIdx.x / q.tx;
+    const long long c = lt * q.tx + tx;
+    const bool lane_live = ty < q.ty && c < q.inner;
+    const long long j0 = ch * q.rows;
+    const long long j1 = j0 + q.rows < q.r ? j0 + q.rows : q.r;
+    const long long step = static_cast<long long>(q.ty) * V;
+    for (long long jb = j0; jb < j1; jb += step) {
+        I idx[V];
+        bool live[V];
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+            const long long j = jb + ty + static_cast<long long>(v) * q.ty;
+            live[v] = lane_live && j < j1;
+            idx[v] = live[v] ? static_cast<I>((o * q.r + j) * q.inner + c) : I(0);
+        }
+        lf_step<R, I, false>(p, r, idx, live);
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+            const R val = oslot[v * LF_THREADS];
+            if (live[v]) acc += f32 ? static_cast<double>(static_cast<float>(val)) : static_cast<double>(val);
+        }
+    }
+    red[threadIdx.x] = acc;
+    __syncthreads();
+    if (ty == 0 && c < q.inner) {
+        double sum = 0.0;
+        for (int y = 0; y < q.ty; ++y) sum += red[y * q.tx + tx];
+        partial[(ch * q.outer + o) * q.inner + c] = sum;
+    }
+}
+
+// The partials (chunks, lanes) folded in chunk order, rounded once to the output's type
+__global__ void __launch_bounds__(LF_THREADS) lazy_reduce_fold(const double* __restrict__ partial, void* result,
+                                                               int f32, long long lanes, long long chunks) {
+    const long long l = static_cast<long long>(blockIdx.x) * LF_THREADS + threadIdx.x;
+    if (l >= lanes) return;
+    double s = 0.0;
+    for (long long ch = 0; ch < chunks; ++ch) s += partial[ch * lanes + l];
+    if (f32) static_cast<float*>(result)[l] = static_cast<float>(s);
+    else static_cast<double*>(result)[l] = s;
 }
 
 template <typename R, typename I, bool VEC>
@@ -369,6 +487,49 @@ extern "C" int lazy_fused(const LfPlan* plan, int reg64, int idx64, int vec, int
     if (err != cudaSuccess) return static_cast<int>(err);
     return static_cast<int>(cudaGetLastError());
 }
+
+template <typename R, typename I>
+static cudaError_t lf_reduce_launch(const LfPlan& plan, const LfReduce& q, int slots, long long blocks, double* partial,
+                                    cudaStream_t s) {
+    const size_t smem = static_cast<size_t>(slots) * LF_V * LF_THREADS * sizeof(R);
+    cudaError_t err = cudaFuncSetAttribute(lazy_reduce_kernel<R, I>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    lazy_reduce_kernel<R, I><<<static_cast<unsigned>(blocks), LF_THREADS, smem, s>>>(plan, q, partial);
+    return cudaSuccess;
+}
+
+// Launch one segment whose one output is summed (LfReduce) instead of stored: the partials into `partial`
+// ((chunks, outer * inner) doubles; (outer,) in rows mode), then their fold into `result` (outer * inner
+// elements of the output's type). Returns cudaGetLastError() (0 on success).
+extern "C" int lazy_fused_reduce(const LfPlan* plan, const LfReduce* red, int reg64, int idx64, long long blocks,
+                                 double* partial, void* result, int device, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (plan->n_in > LF_MAX_IN || plan->n_out != 1 || plan->n_instr > LF_MAX_INSTR || plan->out[0].dtype == LF_BOOL ||
+        blocks <= 0 || blocks > 0x7fffffffLL) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const int slots = plan->n_in + plan->n_instr;
+    if (reg64 && slots > LF_MAX_SLOTS64) return static_cast<int>(cudaErrorInvalidValue);
+    if (reg64) {
+        if (idx64) err = lf_reduce_launch<double, long long>(*plan, *red, slots, blocks, partial, s);
+        else err = lf_reduce_launch<double, unsigned int>(*plan, *red, slots, blocks, partial, s);
+    } else {
+        if (idx64) err = lf_reduce_launch<float, long long>(*plan, *red, slots, blocks, partial, s);
+        else err = lf_reduce_launch<float, unsigned int>(*plan, *red, slots, blocks, partial, s);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const long long lanes = red->outer * red->inner;
+    const long long chunks = red->rows_mode ? 1 : red->chunks;
+    lazy_reduce_fold<<<static_cast<unsigned>((lanes + LF_THREADS - 1) / LF_THREADS), LF_THREADS, 0, s>>>(
+        partial, result, plan->out[0].dtype == LF_F32, lanes, chunks);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// sizeof(LfReduce), for the binding's layout check
+extern "C" long long lazy_fused_reduce_bytes() { return static_cast<long long>(sizeof(LfReduce)); }
 
 // sizeof(LfPlan), for the binding's layout check
 extern "C" long long lazy_fused_plan_bytes() { return static_cast<long long>(sizeof(LfPlan)); }

@@ -15,9 +15,18 @@ A program is a short instruction list over slots: the inputs fill slots
 rounding in float64 where ``f64`` else float32; outputs read slots. The
 ops are ``OPS``' names; each input broadcasts to the segment's shape.
 
+A segment whose one output only a sum or a mean reads is run with
+``reduce=axis`` (an int, or None for every axis): the output is summed in
+the same pass and never stored, and the call returns this rank's sum with
+the summed axes kept (extent 1). The kernel adds each value, rounded to the
+output's type, in double, with a fixed-order fold of per-block partials
+(two launches: the segment, then the fold); the plain version sums the program's output with ``torch.sum``, as the
+eager ``sum`` does.
+
 Replaces no Pallas kernel: ``heat_tpu`` runs a captured chain as one XLA
 program, whose fusion this kernel stands in for. Bound on the card: the
-bytes of every input read once and every output written once.
+bytes of every input read once and every output written once (a summed
+output: its few partials).
 """
 from __future__ import annotations
 
@@ -29,7 +38,7 @@ import torch
 from ._dispatch import count_launch, dispatch_mode, record_dispatch, register_kernel
 
 __all__ = ["LAZY_KERNEL", "MAX_DIMS", "MAX_IN", "MAX_INSTR", "MAX_OUT", "MAX_SLOTS_F64", "OPS", "SegmentProgram",
-           "lazy_fused", "lazy_fused_plain", "max_slots", "segment_bytes"]
+           "lazy_fused", "lazy_fused_plain", "max_slots", "reduce_plan", "segment_bytes"]
 
 LAZY_KERNEL = register_kernel(
     "lazy_fused",
@@ -43,6 +52,9 @@ LAZY_KERNEL = register_kernel(
 # lives in shared memory
 MAX_DIMS, MAX_IN, MAX_OUT, MAX_INSTR, MAX_SLOTS_F64 = 4, 8, 8, 32, 28
 _THREADS, _PER_THREAD = 256, 4
+# a terminal sum: rows of the innermost axis shorter than this are summed a thread a row; otherwise blocks of
+# lanes x a chunk of the summed axis, about this many blocks an SM
+_SHORT_ROWS, _SUM_BLOCKS_PER_SM = 256, 8
 
 # opcode names in csrc/lazy_fused.cu's order, and the torch function the plain version runs
 OPS = ("add", "sub", "mul", "div", "pow", "neg", "abs", "exp", "log", "sqrt", "gt", "ge", "lt", "le", "eq", "ne")
@@ -74,10 +86,19 @@ def max_slots(prog: SegmentProgram, input_dtypes: Sequence[torch.dtype]) -> int:
     return MAX_SLOTS_F64 if f64 else MAX_IN + MAX_INSTR
 
 
-def lazy_fused_plain(prog: SegmentProgram, inputs: Sequence[torch.Tensor], shape) -> List[torch.Tensor]:
+def _sum_kept(t: torch.Tensor, axis) -> torch.Tensor:
+    """``t`` summed over ``axis`` (None: every axis), the summed axes kept,
+    as the eager ``sum`` reduces it."""
+    if axis is None:
+        return torch.sum(t).reshape((1,) * t.dim())
+    return torch.sum(t, dim=axis, keepdim=True)
+
+
+def lazy_fused_plain(prog: SegmentProgram, inputs: Sequence[torch.Tensor], shape, reduce=False) -> List[torch.Tensor]:
     """The program run one torch op per instruction: each operand is cast to
     the op's precision and meets the other at its own shape, as eager
-    execution computes it."""
+    execution computes it. With ``reduce`` (an axis, or None for every
+    axis; False: no sum) its one output summed with the axes kept."""
     dev = inputs[0].device
     slots: list = list(inputs) + [None] * len(prog.instrs)
     for op, dst, a, b, imm, f64 in prog.instrs:
@@ -93,6 +114,8 @@ def lazy_fused_plain(prog: SegmentProgram, inputs: Sequence[torch.Tensor], shape
     for slot, dt in prog.outputs:
         t = slots[slot].to(dt)
         out.append(t if tuple(t.shape) == shape else t.expand(shape).contiguous())
+    if reduce is not False:
+        return [_sum_kept(out[0], reduce)]
     return out
 
 
@@ -118,6 +141,42 @@ class _Output(ctypes.Structure):
 class _Instr(ctypes.Structure):
     _fields_ = [("imm", ctypes.c_double), ("op", ctypes.c_int), ("dst", ctypes.c_int), ("a", ctypes.c_int),
                 ("b", ctypes.c_int), ("f64", ctypes.c_int), ("flags", ctypes.c_int)]
+
+
+class _Reduce(ctypes.Structure):
+    _fields_ = [("outer", ctypes.c_longlong), ("r", ctypes.c_longlong), ("inner", ctypes.c_longlong),
+                ("rows", ctypes.c_longlong), ("chunks", ctypes.c_longlong), ("lane_tiles", ctypes.c_longlong),
+                ("tx", ctypes.c_int), ("ty", ctypes.c_int), ("rows_mode", ctypes.c_int), ("pad", ctypes.c_int)]
+
+
+def reduce_plan(shape, axis, sms: int) -> Tuple[Tuple[int, ...], int]:
+    """The terminal sum's launch plan for a segment of ``shape`` summed over
+    ``axis`` (None: every axis) on a card of ``sms`` SMs: ``((outer, r,
+    inner, rows, chunks, lane_tiles, tx, ty, rows_mode), blocks)``."""
+    shape = tuple(int(d) for d in shape)
+    n = 1
+    for d in shape:
+        n *= d
+    if axis is None:
+        outer, r, inner = 1, n, 1
+    else:
+        outer = inner = 1
+        for d in shape[:axis]:
+            outer *= d
+        for d in shape[axis + 1:]:
+            inner *= d
+        r = shape[axis]
+    if inner == 1 and outer > 1 and r < _SHORT_ROWS:
+        return (outer, r, inner, r, 1, 1, 1, 1, 1), -(-outer // _THREADS)
+    tx = min(inner, 32)
+    ty = _THREADS // tx
+    lane_tiles = -(-inner // tx)
+    step = ty * _PER_THREAD
+    other = lane_tiles * outer
+    chunks = max(1, min(-(-(_SUM_BLOCKS_PER_SM * sms) // other), -(-r // step)))
+    rows = -(-max(1, -(-r // chunks)) // step) * step
+    chunks = max(1, -(-r // rows))
+    return (outer, r, inner, rows, chunks, lane_tiles, tx, ty, 0), other * chunks
 
 
 class _Plan(ctypes.Structure):
@@ -162,6 +221,14 @@ def _library():
         lib.lazy_fused.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                    ctypes.c_int, ctypes.c_void_p]
         lib.lazy_fused.restype = ctypes.c_int
+        lib.lazy_fused_reduce.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                          ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                                          ctypes.c_void_p]
+        lib.lazy_fused_reduce.restype = ctypes.c_int
+        lib.lazy_fused_reduce_bytes.restype = ctypes.c_longlong
+        if lib.lazy_fused_reduce_bytes() != ctypes.sizeof(_Reduce):
+            raise RuntimeError(f"lazy_fused: the binding's reduce plan is {ctypes.sizeof(_Reduce)} bytes, "
+                               f"the kernel's {lib.lazy_fused_reduce_bytes()}")
         lib.lazy_fused_plan_bytes.restype = ctypes.c_longlong
         lib.lazy_fused_max_slots64.restype = ctypes.c_int
         if lib.lazy_fused_plan_bytes() != ctypes.sizeof(_Plan):
@@ -174,18 +241,57 @@ def _library():
     return _lib
 
 
-def _lazy_cuda(prog: SegmentProgram, inputs: Sequence[torch.Tensor], shape) -> List[torch.Tensor]:
+def _lazy_cuda(prog: SegmentProgram, inputs: Sequence[torch.Tensor], shape, reduce=False) -> List[torch.Tensor]:
     dev = inputs[0].device
+    n = 1
+    for d in shape:
+        n *= int(d)
+    if reduce is not False:
+        dt = prog.outputs[0][1]
+        kept = tuple(1 if reduce is None or d == reduce else s for d, s in enumerate(shape))
+        if n == 0:  # nothing to sum: zeros, no launch
+            return [torch.zeros(kept, dtype=dt, device=dev)]
+        result = torch.empty(kept, dtype=dt, device=dev)
+        plan, reg64, idx64, _ = _plan_struct(prog, inputs, shape, [0], n)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        fields, blocks = reduce_plan(shape, reduce, sms)
+        red = _Reduce(*fields, 0)
+        partial = torch.empty(fields[0] * (1 if fields[8] else fields[4] * fields[2]), dtype=torch.float64,
+                              device=dev)
+        err = _library().lazy_fused_reduce(ctypes.byref(plan), ctypes.byref(red), int(reg64), int(idx64), blocks,
+                                           partial.data_ptr(), result.data_ptr(), dev.index or 0,
+                                           torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"lazy_fused (terminal sum) kernel launch failed with CUDA error {err}")
+        count_launch(LAZY_KERNEL)  # the segment with its sums into the partials
+        count_launch(LAZY_KERNEL)  # the partials' fold
+        return [result]
     outs = [torch.empty(shape, dtype=dt, device=dev) for _, dt in prog.outputs]
-    n = outs[0].numel() if outs else 0
     if n == 0:
         return outs
+    plan, reg64, idx64, vec = _plan_struct(prog, inputs, shape, [o.data_ptr() for o in outs], n)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks = max(1, min(8 * sms, -(-n // (_THREADS * _PER_THREAD))))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    vec = vec and all(o.data_ptr() % 16 == 0 for o in outs)
+    err = _library().lazy_fused(ctypes.byref(plan), int(reg64), int(idx64), int(vec), blocks, dev.index or 0, stream)
+    if err != 0:
+        raise RuntimeError(f"lazy_fused kernel launch failed with CUDA error {err}")
+    count_launch(LAZY_KERNEL)
+    return outs
+
+
+def _plan_struct(prog: SegmentProgram, inputs: Sequence[torch.Tensor], shape, out_ptrs, n: int):
+    """The kernel's plan of a segment at ``shape`` (``n`` elements), with its
+    outputs at ``out_ptrs``: ``(plan, reg64, idx64, vec)``, vec before the
+    outputs' alignment is known."""
+    dev = inputs[0].device
     plan = _Plan()
     full = (1,) * (MAX_DIMS - len(shape)) + tuple(int(s) for s in shape)
     for d, s in enumerate(full):
         plan.shape[d] = s
     plan.n = n
-    plan.n_in, plan.n_out, plan.n_instr = len(inputs), len(outs), len(prog.instrs)
+    plan.n_in, plan.n_out, plan.n_instr = len(inputs), len(prog.outputs), len(prog.instrs)
     contiguous = torch.empty(full, device="meta").stride()
     reg64 = max_slots(prog, [t.dtype for t in inputs]) == MAX_SLOTS_F64
     max_off = n
@@ -204,29 +310,23 @@ def _lazy_cuda(prog: SegmentProgram, inputs: Sequence[torch.Tensor], shape) -> L
             plan.inp[k].flat = int(all(st == c for st, c, s in zip(strides, contiguous, full) if s > 1))
         plan.pad |= int(plan.inp[k].flat == 0)
         max_off = max(max_off, 1 + sum((s - 1) * st for s, st in zip(full, strides)))
-    for k, ((slot, dt), o) in enumerate(zip(prog.outputs, outs)):
-        plan.out[k].ptr, plan.out[k].slot, plan.out[k].dtype = o.data_ptr(), slot, _DTYPES[dt]
+    for k, ((slot, dt), ptr) in enumerate(zip(prog.outputs, out_ptrs)):
+        plan.out[k].ptr, plan.out[k].slot, plan.out[k].dtype = ptr, slot, _DTYPES[dt]
     for k, (op, dst, a, b, imm, f64) in enumerate(prog.instrs):
         q = plan.ins[k]
         q.imm, q.op, q.dst, q.a, q.b, q.f64 = float(imm), _OPCODE[op], dst, a, b, int(f64)
         q.flags = _flags(prog, k)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    blocks = max(1, min(8 * sms, -(-n // (_THREADS * _PER_THREAD))))
-    stream = torch.cuda.current_stream(dev).cuda_stream
     vec = (not reg64 and n % 4 == 0 and full[-1] % 4 == 0
            and all(_quad_ok(plan.inp[k], t) for k, t in enumerate(inputs))
-           and all(dt == torch.float32 and o.data_ptr() % 16 == 0 for (_, dt), o in zip(prog.outputs, outs)))
-    err = _library().lazy_fused(ctypes.byref(plan), int(reg64), int(max_off >= 2**31), int(vec), blocks,
-                                dev.index or 0, stream)
-    if err != 0:
-        raise RuntimeError(f"lazy_fused kernel launch failed with CUDA error {err}")
-    count_launch(LAZY_KERNEL)
-    return outs
+           and all(dt == torch.float32 for _, dt in prog.outputs))
+    return plan, reg64, max_off >= 2**31, vec
 
 
-def lazy_fused(prog: SegmentProgram, inputs: Sequence[torch.Tensor], shape) -> List[torch.Tensor]:
-    """The segment's outputs at ``shape`` (this rank's chunk), contiguous.
-    Inputs on a card run the hand-written kernel; inputs on the CPU run
+def lazy_fused(prog: SegmentProgram, inputs: Sequence[torch.Tensor], shape, reduce=False) -> List[torch.Tensor]:
+    """The segment's outputs at ``shape`` (this rank's chunk), contiguous;
+    with ``reduce`` (an axis of ``shape``, or None for every axis) its one
+    float output's sum over it instead, the summed axes kept. Inputs on a
+    card run the hand-written kernel; inputs on the CPU run
     :func:`lazy_fused_plain`."""
     if not inputs:
         raise ValueError("lazy_fused: a segment needs at least one input")
@@ -236,6 +336,11 @@ def lazy_fused(prog: SegmentProgram, inputs: Sequence[torch.Tensor], shape) -> L
     for t in inputs:
         if t.dtype not in _DTYPES:
             raise TypeError(f"lazy_fused: inputs are float32, float64 or bool, got {t.dtype}")
+    if reduce is not False:
+        if len(prog.outputs) != 1 or prog.outputs[0][1] not in (torch.float32, torch.float64):
+            raise ValueError("lazy_fused: a summed segment has one float32 or float64 output")
+        if reduce is not None and not 0 <= reduce < len(shape):
+            raise ValueError(f"lazy_fused: axis {reduce} out of range for {len(shape)} dimensions")
     limit = max_slots(prog, [t.dtype for t in inputs])
     if prog.n_in + len(prog.instrs) > limit:
         raise ValueError(f"lazy_fused: {prog.n_in} inputs and {len(prog.instrs)} instructions exceed the "
@@ -243,7 +348,7 @@ def lazy_fused(prog: SegmentProgram, inputs: Sequence[torch.Tensor], shape) -> L
     mode = dispatch_mode(LAZY_KERNEL, inputs[0])
     record_dispatch(LAZY_KERNEL, mode)
     if mode == "cuda":
-        return _lazy_cuda(prog, inputs, tuple(shape))
+        return _lazy_cuda(prog, inputs, tuple(shape), reduce)
     if inputs[0].device.type not in ("cpu", "cuda"):
         raise ValueError(f"lazy_fused supports CUDA and CPU tensors, got {inputs[0].device}")
-    return lazy_fused_plain(prog, inputs, shape)
+    return lazy_fused_plain(prog, inputs, shape, reduce)

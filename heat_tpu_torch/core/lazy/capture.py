@@ -320,10 +320,10 @@ def reduce(operation, x, axis, out, keepdims, out_dtype, kwargs):
                     ("r", _axis_key(axis), bool(keepdims), out_dtype, kwargs_key))
 
 
-def cum(operation, x, axis, out, dtype, combine):
+def cum(operation, x, axis, out, dtype):
     if out is not None or not isinstance(x, DNDarray):
         return _decline("out= / non-DNDarray input")
-    return _capture("cum", operation, (x,), (axis, dtype, combine), ("c", _axis_key(axis), dtype, combine))
+    return _capture("cum", operation, (x,), (axis, dtype), ("c", _axis_key(axis), dtype))
 
 
 def argreduce(operation, x, axis, out):

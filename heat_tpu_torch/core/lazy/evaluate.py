@@ -26,7 +26,13 @@ storing the inlined node nearest its middle, until every part fits.
 Everything else (reductions, cumulative ops, ``matmul``,
 ``argmax``/``argmin``, the moments, and elementwise ops outside the
 kernel's set, counted in ``KERNEL_STATS["lazy_fused.boundary"]``) is an
-ordinary node, run by the port's own op with its collectives. A node's
+ordinary node, run by the port's own op with its collectives, but for a
+*terminal sum*: a stored float node that is no result and that only a
+``sum`` or a ``mean`` (over every axis or one) reads is its own segment,
+launched with the sum as its epilogue (``lazy_fused(..., reduce=axis)``),
+so its values are never written; the partial sum then takes the
+``allgather`` ``_reduce_op`` runs across ranks, and a mean divides by the
+count, as XLA fuses a producer into its reduction in ``heat_tpu``. A node's
 level counts the ordinary nodes, and the stored results of another layout,
 on its longest path from the leaves; level by level, the segments run
 first, then the ordinary nodes in capture order. Levels and layouts are
@@ -104,8 +110,8 @@ def _replay_one(kind: str, op, statics, args) -> DNDarray:
     if kind == "moment":
         (kwargs,) = statics
         return op(args[0], **kwargs)
-    axis, dtype, combine = statics  # kind == "cum"
-    return ops._cum_op(op, args[0], axis, dtype=dtype, combine=combine)
+    axis, dtype = statics  # kind == "cum"
+    return ops._cum_op(op, args[0], axis, dtype=dtype)
 
 
 def infer_meta(kind: str, op, sig_statics, statics, operands, comm) -> NodeMeta:
@@ -242,14 +248,44 @@ def _elementwise(kind, op, statics, wiring, meta, metas_of, table) -> Optional[_
     return _Elementwise(name, promoted is types.float64, tuple(operands))
 
 
+def _terminal_sum(kind, op, statics, meta: NodeMeta):
+    """``(axis, mean)`` where the node is a ``sum`` or ``mean`` over every
+    axis (axis None) or one of an operand of layout ``meta`` that the
+    kernel's epilogue can take, else None."""
+    from .. import arithmetics, statistics
+    from ..stride_tricks import sanitize_axis
+
+    if kind == "reduce" and op is arithmetics._sum:
+        axis, _, out_dtype, kwargs = statics
+        if out_dtype is not None or kwargs:
+            return None
+        mean = False
+    elif kind == "moment" and op is statistics.mean:
+        (kwargs,) = statics
+        if set(kwargs) != {"axis"}:
+            return None
+        axis, mean = kwargs["axis"], True
+    else:
+        return None
+    if meta.dtype not in _FLOATS or not meta.gshape:
+        return None
+    axis = sanitize_axis(meta.gshape, axis)  # valid: the node's layout was inferred by running the op
+    if isinstance(axis, tuple):
+        if len(axis) != 1:
+            return None
+        (axis,) = axis
+    return axis, mean
+
+
 class _Segment:
     """One launch: its roots (stored nodes), its inputs ``(source, layout
-    or None)``, its program and the roots' layout."""
+    or None)``, its program and the roots' layout; ``reduce``: the terminal
+    sum ``(node, axis, mean)`` its one root feeds, or None."""
 
-    __slots__ = ("roots", "inputs", "program", "meta")
+    __slots__ = ("roots", "inputs", "program", "meta", "reduce")
 
     def __init__(self, roots, inputs, program, meta):
-        self.roots, self.inputs, self.program, self.meta = roots, inputs, program, meta
+        self.roots, self.inputs, self.program, self.meta, self.reduce = roots, inputs, program, meta, None
 
 
 class _Plan:
@@ -284,10 +320,34 @@ class _Plan:
                     inputs.append(d._raw)
                 else:
                     inputs.append(_prepare(d, layout))
+            if seg.reduce is not None:
+                node, axis, mean = seg.reduce
+                (part,) = lazy_fused(seg.program, inputs, seg.meta.lshape, reduce=axis)
+                env[node] = _terminal_result(seg.meta, self.node_metas[node], part, axis, mean)
+                continue
             outs = lazy_fused(seg.program, inputs, seg.meta.lshape)
             for root, t in zip(seg.roots, outs):
                 env[root] = _reconstruct(self.node_metas[root], t)
         return tuple(env[i]._raw for i in self.out_ids)
+
+
+def _terminal_result(xm: NodeMeta, rm: NodeMeta, part: torch.Tensor, axis, mean: bool) -> DNDarray:
+    """A terminal sum's (or mean's) result in layout ``rm`` from this rank's
+    partial sum ``part`` (the summed axes kept) of an operand of layout
+    ``xm``: across ranks where the split axis is summed, as ``_reduce_op``
+    gathers partials; a mean divided by the count."""
+    from .. import arithmetics
+    from .._operations import _gather_partials
+
+    axes = range(len(xm.gshape)) if axis is None else (axis,)
+    if xm.split is not None and xm.split in axes and xm.comm.is_distributed():
+        part = _gather_partials(arithmetics._sum, _meta_array(xm), part, lambda: part)
+    if mean:
+        count = 1
+        for a in axes:
+            count *= int(xm.gshape[a])
+        part = part / count
+    return _reconstruct(rm, part.reshape(rm.lshape))
 
 
 def _prepare(d: DNDarray, cm: NodeMeta) -> torch.Tensor:
@@ -323,21 +383,31 @@ def _build_program(spec, leaf_metas, node_metas, out_ids) -> _Plan:
                 if o[0] == "ref" and o[1][0] == "n":
                     consumers[o[1][1]].append((i, o[2]))
     outs = set(out_ids)
+    # terminal sums: a stored fused node that is no result, read only by a sum or mean the epilogue takes
+    terminal = {}
+    for i, (k, op, st, w) in enumerate(spec):
+        refs = [v for tag, v in w if tag == "n"]
+        if len(refs) != 1 or ew[refs[0]] is None or refs[0] in outs or consumers[refs[0]] != [(i, False)]:
+            continue
+        spec_sum = _terminal_sum(k, op, st, node_metas[refs[0]])
+        if spec_sum is not None:
+            terminal[refs[0]] = (i,) + spec_sum
     stored_only = set()  # fused nodes kept out of inlining: they cut expressions that outgrew the kernel
     while True:
         # a fused node is inlined where it is no result and only feeds fused nodes as their own tensor
         inlined = [ew[i] is not None and i not in outs and i not in stored_only and bool(consumers[i])
                    and all(ew[c] is not None and ident for c, ident in consumers[i]) for i in range(n)]
-        steps, too_big = _schedule(spec, ew, inlined, node_metas, metas_of)
+        steps, too_big = _schedule(spec, ew, inlined, node_metas, metas_of, terminal)
         if not too_big:
             return _Plan(spec, leaf_metas, node_metas, tuple(out_ids), steps, boundary)
         stored_only |= too_big
 
 
-def _schedule(spec, ew, inlined, node_metas, metas_of):
+def _schedule(spec, ew, inlined, node_metas, metas_of, terminal):
     """Levels and run order: ``(steps, set())``, or ``(None, {node})`` with
     the inlined node to store that cuts an expression too large for one
-    launch in two."""
+    launch in two. A root in ``terminal`` is a segment of its own with its
+    sum as the epilogue, and the sum's node runs in it."""
     n = len(spec)
     avail = [0] * n  # the level from which node i's value can be read
     run = [0] * n
@@ -376,7 +446,7 @@ def _schedule(spec, ew, inlined, node_metas, metas_of):
         for (lvl, _), roots in sorted(groups.items(), key=lambda kv: kv[1][0]):
             if lvl != level:
                 continue
-            pending = list(roots)
+            pending = [r for r in roots if r not in terminal]
             while pending:  # as many roots per launch as the kernel's limits take
                 take = min(len(pending), MAX_OUT)
                 seg = _program(pending[:take], ew, inlined, node_metas, metas_of)
@@ -387,7 +457,15 @@ def _schedule(spec, ew, inlined, node_metas, metas_of):
                     return None, {_cut_point(pending[0], ew, inlined)}
                 steps.append(("seg", seg))
                 pending = pending[take:]
-        steps += [("node", i) for i in range(n) if ew[i] is None and run[i] == level]
+            # after the level's other segments: a terminal root may read one of their roots as a stored input
+            for root in (r for r in roots if r in terminal):
+                seg = _program([root], ew, inlined, node_metas, metas_of)
+                if seg is None:
+                    return None, {_cut_point(root, ew, inlined)}
+                seg.reduce = terminal[root]
+                steps.append(("seg", seg))
+        fused_sums = {t[0] for t in terminal.values()}
+        steps += [("node", i) for i in range(n) if ew[i] is None and run[i] == level and i not in fused_sums]
     return steps, set()
 
 

@@ -31,8 +31,8 @@ one call: float sums, minima and maxima with ``torch.segment_reduce`` over
 the run lengths (on the card one thread walks a run and column in order;
 where runs are long, more than ``_SHORT_RUN`` rows on average, a column
 at a time, one block a run, in a fixed order), integer sums as
-differences of one wrapping ``cumsum`` (exact modulo 2^bits, as ``jnp``'s
-integer sums wrap), integer minima and maxima with ``scatter_reduce``
+differences of one wrapping ``cumsum`` (the ``scan_axis`` kernel on the
+card; exact modulo 2^bits, as ``jnp``'s integer sums wrap), integer minima and maxima with ``scatter_reduce``
 (whose result does not depend on the order). No float sum uses atomics.
 
 Keys order as ``torch.sort(stable=True)`` orders them: NaN last, ``-0.0``
@@ -70,6 +70,7 @@ import numpy as np
 import torch
 
 from ..core.dndarray import DNDarray
+from ..core.kernels.scan import scan_axis
 from ..parallel.flatmove import bucket_move
 
 __all__ = [
@@ -155,7 +156,7 @@ def _reduce_runs(combine: str, data: torch.Tensor, starts: torch.Tensor, lengths
         return torch.segment_reduce(data, combine, lengths=lengths, axis=0, unsafe=True)
     if combine == "sum":
         c = torch.zeros((data.shape[0] + 1,) + data.shape[1:], dtype=data.dtype, device=data.device)
-        c[1:] = torch.cumsum(data, dim=0, dtype=data.dtype)  # wraps, so the differences are exact
+        c[1:] = scan_axis(data, 0, "add")  # wraps, so the differences are exact
         return c[starts + lengths] - c[starts]
     seg = torch.repeat_interleave(torch.arange(lengths.shape[0], device=data.device), lengths)
     wide = data.to(torch.int8) if data.dtype == torch.bool else data

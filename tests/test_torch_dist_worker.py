@@ -1276,6 +1276,35 @@ def _ragged(ht, full, split, counts):
     return x
 
 
+# the scan with the ranks' carry: sums of small integers and products of signed powers of two are exact in
+# float32 in any order; float64 normals; int32 and int64 values whose sums and products wrap
+SCAN_F32 = _rng(30).integers(-8, 9, size=(37, 3)).astype(np.float32)
+SCAN_POW2 = (2.0 ** _rng(31).integers(-2, 3, size=(37, 3)) * _rng(32).choice([-1, 1], size=(37, 3))).astype(np.float32)
+SCAN_F64 = _rng(33).normal(size=(37, 3))
+SCAN_I32 = _rng(34).integers(-2 ** 30, 2 ** 30, size=(37, 3)).astype(np.int32)
+SCAN_I64 = _rng(35).integers(-2 ** 62, 2 ** 62, size=(37, 3)).astype(np.int64)
+SCAN_BOOL = _rng(36).random((37, 3)) > 0.5
+
+
+def case_scan_carry(ht):
+    """cumsum/cumprod along the split axis, where each rank gathers the
+    ranks' totals between the scan's two steps and takes the exclusive
+    prefix of the earlier ones as its carry: the ceil-div layout and the
+    ragged maps (all rows on one rank, an empty last rank, an empty rank
+    inside), split 0 and split 1, float32, float64, int32, int64 and bool."""
+    p = ht.get_comm().size
+    out = {}
+    for label, add, mul in (("f32", SCAN_F32, SCAN_POW2), ("f64", SCAN_F64, SCAN_F64), ("i32", SCAN_I32, SCAN_I32),
+                            ("i64", SCAN_I64, SCAN_I64), ("bool", SCAN_BOOL, SCAN_BOOL)):
+        for split in (0, 1):
+            for name, counts in {"ceil": None, **_maps(p, add.shape[0])}.items():
+                for op, data in (("cumsum", add), ("cumprod", mul)):
+                    full = data if split == 0 else np.ascontiguousarray(data.T)
+                    x = ht.array(full, split=split) if counts is None else _ragged(ht, full, split, counts)
+                    out[f"{op}:{label}:{split}:{name}"] = getattr(ht, op)(x, split)
+    return out
+
+
 def case_redistribute(ht):
     """Tail, head and empty-shard maps on split 0 and split 1, a chain of
     ragged-to-ragged moves, balance_, resplit_ of a ragged array, the

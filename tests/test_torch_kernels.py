@@ -17,6 +17,8 @@ fixture decides at run time and skips them here. On a card:
 heat_tpu only inside the ``ref`` fixture, so the gpu tests also run where
 JAX is not installed (add ``--noconftest``: tests/conftest.py imports JAX).
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -252,12 +254,12 @@ def test_chol_plain_nan_from_failing_pivot(n, jf):
 # ---------------------------------------------------------------- dispatch
 def test_registry_and_dispatch_modes():
     assert set(KERNELS) == {"moments_onepass", "lloyd_fused", "topk_distance", "chol_panel_fused", "threefry_bits",
-                            "lazy_fused"}
+                            "lazy_fused", "scan_axis"}
     for name, spec in KERNELS.items():
         assert spec["comparator"] and spec["roofline"]
-        # the port's own kernels (random bits, the lazy layer's fused segments) port no Pallas kernel; every
-        # other one names the one it replaces
-        own = name in ("threefry_bits", "lazy_fused")
+        # the port's own kernels (random bits, the lazy layer's fused segments, the scan) port no Pallas kernel;
+        # every other one names the one it replaces
+        own = name in ("threefry_bits", "lazy_fused", "scan_axis")
         assert spec["replaces"].startswith("none: " if own else "heat_tpu/core/kernels/")
     t = torch.zeros(3)
     assert dispatch_mode("lloyd_fused", t) == "torch"
@@ -283,7 +285,7 @@ def test_kernel_stats_and_launch_counters():
     # the plain versions are no launch
     threefry_plain((1, 2), (0, 0, 1, 8), "uniform32")
     assert LAUNCHES == {"moments_onepass": 0, "lloyd_fused": 0, "topk_distance": 0, "chol_panel_fused": 0,
-                        "threefry_bits": 0, "lazy_fused": 0}
+                        "threefry_bits": 0, "lazy_fused": 0, "scan_axis": 0}
     reset_kernel_stats()
     assert KERNEL_STATS == {"dispatches": 0}
 
@@ -303,7 +305,7 @@ def test_build_key_covers_sources_and_flags(monkeypatch):
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ["-lineinfo"])
     assert _build._digest() != key
     assert {p.stem for p in _build.CSRC.glob("*.cu")} == {"moments", "lloyd", "topk_distance", "panel_update", "threefry",
-                                                          "lazy_fused"}
+                                                          "lazy_fused", "scan"}
 
 
 def test_build_report_keeps_register_and_spill_lines():
@@ -616,3 +618,211 @@ def test_lazy_long_chain_on_a_card_equals_eager(cuda, steps, dtype):
     assert LAUNCHES["lazy_fused"] >= 1 and KERNEL_STATS["lazy_fused.cuda"] == LAUNCHES["lazy_fused"]
     assert "lazy_fused.torch" not in KERNEL_STATS
     assert torch.equal(got, eager)
+
+
+# ------------------------------------------------------ scan_axis (on a card)
+# Floats: a prefix of k terms added in any order lies within gamma_k sum_{j<=i} |x_j| of the exact prefix, and a
+# product of k factors within gamma_k |prefix| (Higham, 2nd ed., 3.1 and 4.2), gamma_k = k u / (1 - k u); the
+# references are float64 (float32 input) or long double (float64 input). Integers wrap, bit for bit.
+SCAN_SHAPES = [((1,), 0), ((5,), 0), ((1000,), 0), ((70_001,), 0), ((4099, 3), 0), ((4099, 3), 1), ((3, 5000), 1),
+               ((3, 5000), 0), ((37, 12, 8), 0), ((37, 12, 8), 1), ((37, 12, 8), 2), ((20_003, 32), 0),
+               ((20_003, 32), 1), ((9, 1), 0), ((1, 64), 1), ((6, 2500, 5), 1)]
+
+
+def _scan_input(shape, dtype, op, seed):
+    rng = np.random.default_rng(seed)
+    if dtype == torch.bool:
+        return torch.from_numpy(rng.random(shape) > 0.4)
+    if dtype in (torch.int32, torch.int64):
+        lo, hi = (-3, 4) if op == "mul" else (-(2 ** 30), 2 ** 30)  # sums wrap past 2^31 in int32
+        return torch.from_numpy(rng.integers(lo, hi, size=shape)).to(dtype)
+    x = rng.normal(size=shape) * 2.0 if op == "add" else 1.0 + 0.01 * rng.normal(size=shape)
+    return torch.from_numpy(x).to(dtype)
+
+
+def _scan_passes(x, axis):
+    """The kernels a scan of ``x`` along ``axis`` starts on its card: one
+    (a single tile, or a thread a row), or three (the tiles' totals, their
+    scan, the tiles' scan)."""
+    from heat_tpu_torch.core.kernels.scan import scan_plan
+
+    shape = tuple(x.shape)
+    plan = scan_plan(math.prod(shape[:axis]), shape[axis], math.prod(shape[axis + 1:]), x.dtype,
+                     torch.cuda.get_device_properties(x.device).multi_processor_count)
+    return 1 if plan.route == "rows" or plan.tiles == 1 else 3
+
+
+def _scan_bound_check(got, x, axis, op, what):
+    """``got`` (the scan of ``x`` along ``axis``) against an exact-enough
+    reference: bit for bit for integers, gamma_k bounds for floats."""
+    xn = x.cpu().numpy()
+    if not x.dtype.is_floating_point:
+        acc = np.int64 if x.dtype == torch.bool else xn.dtype
+        ref = (np.cumsum if op == "add" else np.cumprod)(xn.astype(acc), axis=axis, dtype=acc)
+        np.testing.assert_array_equal(got.cpu().numpy(), ref, err_msg=what)
+        return 0.0
+    wide = np.float64 if x.dtype == torch.float32 else np.longdouble
+    u = 2.0 ** -24 if x.dtype == torch.float32 else 2.0 ** -53
+    k = np.arange(1, xn.shape[axis] + 1, dtype=np.float64).reshape([-1 if d == axis else 1 for d in range(xn.ndim)])
+    gamma = k * u / (1 - k * u)
+    xw = xn.astype(wide)
+    if op == "add":
+        ref, scale = np.cumsum(xw, axis=axis), np.cumsum(np.abs(xw), axis=axis)
+    else:
+        ref = np.cumprod(xw, axis=axis)
+        scale = np.abs(ref)
+    gap = np.abs(got.cpu().numpy().astype(wide) - ref)
+    bound = gamma * scale
+    assert bool((gap <= bound).all()), f"{what}: {float(np.max(gap / np.maximum(bound, 1e-300)))} of the bound"
+    return float(np.max(gap / np.maximum(bound, np.finfo(np.float64).tiny))) if gap.size else 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.int32, torch.int64, torch.bool],
+                         ids=["f32", "f64", "i32", "i64", "bool"])
+@pytest.mark.parametrize("op", ["add", "mul"])
+@pytest.mark.parametrize("shape,axis", SCAN_SHAPES, ids=[f"{s}-{a}" for s, a in SCAN_SHAPES])
+def test_scan_kernel_matches_plain(cuda, shape, axis, op, dtype):
+    """scan_axis on a card launches a kernel a pass of its plan, is
+    bit-identical on a second run, equals its plain version bit for bit for integers and bools
+    (int64 out), and lies within the gamma_k bounds of the exact scan for
+    floats, as the plain version does."""
+    from heat_tpu_torch.core.kernels import scan_axis, scan_axis_plain
+
+    x = _scan_input(shape, dtype, op, seed=len(shape) * 7 + axis)
+    xd = x.to(cuda)
+    before = LAUNCHES["scan_axis"]
+    got = scan_axis(xd, axis, op)
+    assert LAUNCHES["scan_axis"] == before + _scan_passes(xd, axis)
+    assert got.dtype == (torch.int64 if dtype == torch.bool else dtype) and got.shape == x.shape
+    assert torch.equal(scan_axis(xd, axis, op), got), "not bit-identical from run to run"
+    plain = scan_axis_plain(xd, axis, op, rows_per_tile=97)
+    if not dtype.is_floating_point:
+        assert torch.equal(got, plain)
+    _scan_bound_check(got, x, axis, op, f"kernel {shape} axis {axis}")
+    _scan_bound_check(plain, x, axis, op, f"plain {shape} axis {axis}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int64], ids=["f32", "i64"])
+@pytest.mark.parametrize("shape,axis", [((20_003, 32), 0), ((70_001,), 0), ((9, 700), 1), ((37, 12, 8), 1)])
+def test_scan_kernel_two_steps_with_a_carry(cuda, shape, axis, dtype):
+    """scan_begin's total is the fold of the axis, and scan_finish with a
+    carry equals the plain version with the same carry (integers bit for
+    bit; floats within gamma_{k+1} of the exact scan of the carry and the
+    rows)."""
+    from heat_tpu_torch.core.kernels import scan_begin, scan_finish, scan_axis_plain
+
+    x = _scan_input(shape, dtype, "add", seed=3)
+    xd = x.to(cuda)
+    keep = tuple(1 if d == axis else s for d, s in enumerate(shape))
+    carry = _scan_input(keep, dtype, "add", seed=4).to(cuda)
+    st = scan_begin(xd, axis, "add")
+    total = st.total.clone()
+    got = scan_finish(st, carry)
+    want = scan_axis_plain(xd, axis, "add", carry=carry, rows_per_tile=101)
+    both = torch.cat([carry.cpu(), x], dim=axis)
+    if dtype == torch.int64:
+        assert torch.equal(got, want)
+        assert torch.equal(total.cpu(), x.sum(dim=axis, keepdim=True))
+    else:
+        full = scan_axis_plain(both.double(), axis).narrow(axis, 1, shape[axis])
+        k = torch.arange(2, shape[axis] + 2, dtype=torch.float64).reshape(
+            [-1 if d == axis else 1 for d in range(len(shape))]) * 2.0 ** -24
+        scale = scan_axis_plain(both.double().abs(), axis).narrow(axis, 1, shape[axis])
+        assert bool(((got.cpu().double() - full).abs() <= k / (1 - k) * scale).all())
+        n = shape[axis]
+        assert bool(((total.cpu().double() - x.double().sum(dim=axis, keepdim=True)).abs()
+                     <= n * 2.0 ** -24 / (1 - n * 2.0 ** -24) * x.double().abs().sum(dim=axis, keepdim=True)).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16, torch.complex64, torch.int8, torch.int16,
+                                   torch.uint8])
+def test_scan_declared_route_types(cuda, dtype):
+    """Types the kernel does not take run the plain version on the card,
+    decided by type before any launch and counted in
+    KERNEL_STATS["scan_axis.torch"]: torch.cumsum's values."""
+    from heat_tpu_torch.core.kernels import scan_axis
+
+    x = torch.from_numpy(np.random.default_rng(9).integers(0, 3, size=(300, 7))).to(cuda, dtype)
+    reset_kernel_stats()
+    got = scan_axis(x, 0, "add")
+    assert LAUNCHES["scan_axis"] == 0 and KERNEL_STATS.get("scan_axis.torch") == 1 and "scan_axis.cuda" not in KERNEL_STATS
+    assert torch.equal(got, torch.cumsum(x, 0, dtype=dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,axis", [((0,), 0), ((0, 5), 0), ((5, 0), 0), ((4, 0, 3), 2), ((3, 4, 0), 1)])
+def test_scan_kernel_with_no_elements(cuda, shape, axis):
+    """No element: an empty result of the scan's type, its total the
+    identity, and no launch."""
+    from heat_tpu_torch.core.kernels import scan_axis, scan_begin
+
+    reset_kernel_stats()
+    x = torch.zeros(shape, dtype=torch.bool, device=cuda)
+    got = scan_axis(x, axis)
+    st = scan_begin(x, axis, "mul")
+    assert got.shape == x.shape and got.dtype == torch.int64 and LAUNCHES["scan_axis"] == 0
+    assert bool((st.total == 1).all()) and st.total.shape == tuple(1 if d == axis else s for d, s in enumerate(shape))
+
+
+# ------------------------------------------------- the terminal sum (on a card)
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("shape,axis", [((4099, 33), None), ((4099, 33), 0), ((4099, 33), 1), ((37, 12, 8), 1),
+                                        ((5, 3000), 1), ((20_000, 32), 0), ((1, 7), None), ((3, 0), 0),
+                                        ((4096, 32), None), ((1000, 64), 1), ((999, 12), 0)])
+def test_lazy_fused_terminal_sum_matches_plain(cuda, shape, axis, dtype):
+    """A segment summed in its epilogue: two launches (the segment, the
+    partials' fold), the same bits on a second run, and within one ulp of
+    the output's type plus 2 gamma_n(2^-53) sum |v| of the plain version's
+    stored values summed in float64 (n the terms a sum adds): the kernel
+    adds the same rounded values in double and rounds once."""
+    from heat_tpu_torch.core.kernels import lazy_fused, lazy_fused_plain
+    from heat_tpu_torch.core.kernels.lazy_fused import SegmentProgram
+
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.normal(size=shape)).to(cuda, dtype)
+    row = torch.from_numpy(rng.normal(size=shape[-1:])).to(cuda, dtype)
+    f64 = dtype == torch.float64
+    prog = SegmentProgram(2, (("mul", 2, 0, 0, 0.0, f64), ("sub", 3, 2, 1, 0.0, f64), ("mul", 4, 3, -1, 0.5, f64)),
+                          ((4, dtype),))
+    before = LAUNCHES["lazy_fused"]
+    (got,) = lazy_fused(prog, [x, row], shape, reduce=axis)
+    n = int(np.prod(shape))
+    assert LAUNCHES["lazy_fused"] == before + (2 if n else 0)
+    (again,) = lazy_fused(prog, [x, row], shape, reduce=axis)
+    assert torch.equal(got, again)
+    (want,) = lazy_fused_plain(prog, [x, row], shape, reduce=axis)
+    (vals,) = lazy_fused_plain(prog, [x, row], shape)
+    assert got.shape == want.shape == tuple(1 if axis is None or d == axis else s for d, s in enumerate(shape))
+    terms = n if axis is None else shape[axis]
+    u = 2.0 ** -24 if dtype == torch.float32 else 2.0 ** -53
+    g64 = terms * 2.0 ** -53 / (1 - terms * 2.0 ** -53)
+    v = vals.double()
+    ref = (v.sum() if axis is None else v.sum(dim=axis, keepdim=True)).reshape(got.shape)
+    scale = (v.abs().sum() if axis is None else v.abs().sum(dim=axis, keepdim=True)).reshape(got.shape)
+    assert bool(((got.double() - ref).abs() <= 2 * u * ref.abs() + 2 * g64 * scale).all())
+
+
+@pytest.mark.gpu
+def test_lazy_score_chain_fuses_its_sum_on_a_card(cuda):
+    """The score chain sum((x*x - 1) * 0.5, axis=0) under ht.lazy() on a
+    card: one lazy_fused call whose epilogue is the sum (no stored
+    product; two launches, the segment and its partials' fold), within
+    gamma_n sum|v| of the eager chain."""
+    import heat_tpu_torch as ht
+
+    xt = torch.from_numpy(np.random.default_rng(21).normal(size=(40_003, 32))).to(cuda, torch.float32)
+    x = ht.array(xt, split=0, device="gpu")
+    eager = ht.sum((x * x - 1.0) * 0.5, axis=0).larray
+    reset_kernel_stats()
+    with ht.lazy():
+        got = ht.sum((x * x - 1.0) * 0.5, axis=0)
+    got = got.larray
+    assert LAUNCHES["lazy_fused"] == 2 and KERNEL_STATS["lazy_fused.cuda"] == 1
+    v = ((xt * xt - 1.0) * 0.5).double()
+    n = xt.shape[0]
+    bound = 2 * n * 2.0 ** -24 / (1 - n * 2.0 ** -24) * v.abs().sum(dim=0)
+    assert bool(((got.double() - eager.double()).abs() <= bound).all())
