@@ -186,7 +186,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``lazy_fused_plain``, fused against eager, cold and warm host seconds,
    the warm call's budget, launches per chain (``score``'s sum fused into
    its segment: two launches, the segment and its partials' fold;
-   ``cumsum``'s scan through ``scan_axis``, a launch a pass); see
+   ``cumsum``'s scan through ``scan_axis``, a launch a pass); a
+   ``[design] lazy_fused`` line a segment (each input's route: ``bulk``
+   copies, a ``tile`` filled once a block, or per-thread ``flat``/
+   ``strided`` loads; the tile, ring stages, shared memory, blocks per SM,
+   grid, and the kernel's ptxas registers and stack frame); the sweep of
+   1-32 add/mul instructions with 0-2 broadcast rows as ``[time]`` lines
+   (each program bit for bit at a tail size); the warm host microseconds
+   of one call at the 1- and 256-row serve buckets; see
    :func:`lazy_phase`. It appends the
    ``lazy_fused`` row to the kernels line, and the other rows carry
    ``launches_lazy``. ``[dist]`` runs :func:`_dist_lazy` before
@@ -5830,6 +5837,107 @@ def lazy_sum_ratio(got, prog, inputs, shape, reduce):
     return ((got.double() - ref.reshape(got.shape)).abs() / bound).max().item()
 
 
+def lazy_ptxas(kernel_lines, reg64):
+    """The ptxas report of csrc/lazy_fused.cu's kernel on a float (or double) register file: (registers, stack
+    frame bytes, spill store bytes, spill load bytes)."""
+    import re
+
+    entry = "lazy_fused_kernelIdE" if reg64 else "lazy_fused_kernelIfE"
+    regs = stack = stores = loads = None
+    seen = False
+    for line in kernel_lines:
+        if "Compiling entry function" in line:
+            seen = entry in line
+        elif seen and "stack frame" in line and stack is None:
+            stack, stores, loads = (int(v) for v in re.findall(r"(\d+) bytes", line)[:3])
+        elif seen and "Used" in line and regs is None:
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+    return regs, stack, stores, loads
+
+
+def lazy_sweep(dev, smi):
+    """The sweep of tools/lazy_fused_probe.py in [lazy]: programs of 1-32 add/mul instructions with immediates on
+    one flat 2^24 x 32 float32 input, with their first 0-2 instructions adding a broadcast row, each timed (CUDA
+    events) against the bytes bound and checked bit for bit against lazy_fused_plain at (2^20 + 7) x 32 (a tail
+    tile); the least-squares ms an instruction (all, and up to 8) and the ms a row. Returns the timed rows."""
+    import torch
+
+    from heat_tpu_torch.core.kernels import lazy_fused, lazy_fused_plain
+    from heat_tpu_torch.core.kernels.lazy_fused import SegmentProgram, describe
+    from tools.lazy_fused_probe import fit_slope, sweep_programs
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(LAZY_SEED_OFFSET + 19)
+    x = torch.randn(N_MAIN, F_MAIN, device=dev, generator=gen)
+    rows = [torch.randn(1, F_MAIN, device=dev, generator=gen), torch.randn(1, F_MAIN, device=dev, generator=gen)]
+    xt = torch.randn((1 << 20) + 7, F_MAIN, device=dev, generator=gen)
+    bound = 2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3
+    out = []
+    for k, r, prog in sweep_programs(SegmentProgram, torch):
+        tail = [xt] + rows[:r]
+        (got,) = lazy_fused(prog, tail, tuple(xt.shape))
+        (want,) = lazy_fused_plain(prog, tail, tuple(xt.shape))
+        check(torch.equal(got, want), f"[lazy] sweep {k} instructions, {r} rows: lazy_fused vs plain at the tail size")
+        del got, want
+        ins = [x] + rows[:r]
+        ms = time_ms(lambda: lazy_fused(prog, ins, (N_MAIN, F_MAIN)), reps=10, warm=2)
+        d = describe(prog, ins, (N_MAIN, F_MAIN))
+        out.append((k, r, ms))
+        print(f"[time] lazy_fused sweep: {k} instructions, {r} broadcast rows: kernel_ms {ms:.4f} bound_ms {bound:.4f} "
+              f"(share {bound / ms:.3f}); routes {d['routes']}, {d['blocks_per_sm']} blocks per SM; bit for bit at "
+              f"(2^20 + 7) x 32 ({smi})", flush=True)
+    fits = {r: (fit_slope([(k, ms) for k, rr, ms in out if rr == r]),
+                fit_slope([(k, ms) for k, rr, ms in out if rr == r and k <= 8])) for r in (0, 1, 2)}
+    per_row = sorted(m1 - m0 for k0, r0, m0 in out if r0 == 0 for k1, r1, m1 in out if r1 == 1 and k1 == k0)
+    print("[time] lazy_fused sweep fit: ms an instruction (1-32; up to 8) / intercept: " + "; ".join(
+        f"{r} rows {a[0]:.4f} ({b[0]:.4f}) / {a[1]:.4f}" for r, (a, b) in fits.items())
+        + f"; a broadcast row {per_row[len(per_row) // 2]:.4f} ms (median over k) ({smi})", flush=True)
+    del x, xt, rows
+    torch.cuda.empty_cache()
+    return out
+
+
+def lazy_host_us(ht, dev, mu, sd, smi):
+    """The warm host microseconds of one lazy_fused call (the median of 400, no synchronise inside) at the serve
+    buckets of 1 and 256 rows of (rows - mu) / sd, the endpoint's fused segment."""
+    import statistics
+
+    import torch
+
+    from heat_tpu_torch.core.kernels import lazy_fused
+    from heat_tpu_torch.core.lazy import evaluate as lev
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(LAZY_SEED_OFFSET + 256)
+    host = {}
+    for b in (1, 256):
+        rows_t = ht.array(torch.randn(b, F_MAIN, device=dev, generator=gen))
+        calls, orig = lazy_record(lev)
+        try:
+            with ht.lazy():
+                r = (rows_t - mu) / sd
+            r.larray
+        finally:
+            lev.lazy_fused = orig
+        (prog, inputs, shape, reduce, _), = calls
+        for _ in range(50):
+            lazy_fused(prog, inputs, shape, reduce)
+        torch.cuda.synchronize()
+        us = []
+        for i in range(400):
+            t0 = time.perf_counter()
+            lazy_fused(prog, inputs, shape, reduce)
+            us.append((time.perf_counter() - t0) * 1e6)
+            if i % 50 == 49:
+                torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        host[b] = statistics.median(us)
+    print(f"[lazy] host: one warm lazy_fused call at the serve buckets of 1 and 256 rows: {host[1]:.2f} and "
+          f"{host[256]:.2f} us (median of 400; the plan cached, its pointers and immediates patched) ({smi})",
+          flush=True)
+    return host
+
+
 def lazy_phase(dev, seed, smi):
     """[lazy]: the lazy layer on [main]'s 2^24 x 32 float32 blobs (2 GiB), split 0. heat_tpu's chains run captured
     (``ht.lazy()``) and eagerly; the standardized result goes into KMeans.fit (``lloyd_fused``); a ServeService
@@ -5847,11 +5955,18 @@ def lazy_phase(dev, seed, smi):
 
     import heat_tpu_torch as ht
     from heat_tpu_torch.analysis import Region
-    from heat_tpu_torch.core.kernels import lazy_fused, lazy_fused_plain
-    from heat_tpu_torch.core.kernels.lazy_fused import MAX_SLOTS_F64, segment_bytes
+    from heat_tpu_torch.core.kernels import _build, lazy_fused, lazy_fused_plain
+    from heat_tpu_torch.core.kernels.lazy_fused import MAX_SLOTS_F64, describe, segment_bytes
     from heat_tpu_torch.core.lazy import evaluate as lev
 
     ht.use_device("gpu")
+    report = _build.build_all()["lazy_fused"].ptxas
+    ptxas = {reg64: lazy_ptxas(report, reg64) for reg64 in (False, True)}
+    for reg64, (regs, stack, stores, loads) in ptxas.items():
+        print(f"[design] lazy_fused kernel on a {'double' if reg64 else 'float'} register file: ptxas {regs} registers, "
+              f"{stack} bytes stack frame, {stores} / {loads} bytes spill stores / loads", flush=True)
+        check(regs is not None and stack == 0 and stores == 0 and loads == 0,
+              f"[lazy] lazy_fused's ptxas report: stack frame {stack}, spills {stores} / {loads}")
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + LAZY_SEED_OFFSET)
     centres = torch.randn(K_MAIN, F_MAIN, device=dev, generator=gen) * 4.0
@@ -5972,6 +6087,13 @@ def lazy_phase(dev, seed, smi):
         eager_warm = time.perf_counter() - t0
         seg_ms = seg_plain = seg_bound = 0.0
         for prog, inputs, shape, reduce, outs in calls:
+            d = describe(prog, inputs, shape, reduce)
+            regs, stack, _, _ = ptxas[d["file"] == "double"]
+            print(f"[design] lazy_fused {name}: {len(prog.instrs)} instructions on a {d['file']} register file, "
+                  f"{d['mode']}; input routes {d['routes']}; tile {d['tile']} ({d['threads']} threads x "
+                  f"{d['per_thread']}), {d['stages']} ring stages, {d['out_bufs']} output staging tile(s), "
+                  f"{d['kept_slots']} kept slot(s), {d['smem']} B shared memory, {d['blocks_per_sm']} blocks per SM, "
+                  f"grid {d['grid']}; ptxas {regs} registers, {stack} bytes stack frame", flush=True)
             plain = lazy_fused_plain(prog, inputs, shape, reduce)
             for o, p in zip(outs, plain):
                 if reduce is not False:
@@ -6010,6 +6132,8 @@ def lazy_phase(dev, seed, smi):
     check(launches["lazy_fused"] == stats["lazy_fused.cuda"] + path_sums,
           f"[lazy] the path's lazy_fused launches {launches['lazy_fused']}: {stats['lazy_fused.cuda']} calls and "
           f"{path_sums} summed segments (a second launch each)")
+    lazy_host_us(ht, dev, mu, sd, smi)
+    lazy_sweep(dev, smi)
     # ---- float64 chains of 30 and 60 ops on 2^20 rows: the plan cuts them where the kernel's register file ends
     # (28 double slots), every segment fits and launches, and the result equals eager bit for bit
     x64 = ht.array(xa[: 1 << 20].double(), split=0)

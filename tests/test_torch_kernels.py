@@ -594,6 +594,71 @@ def test_lazy_fused_kernel_takes_its_largest_register_file(cuda, dtype, n_in, n_
         assert LAUNCHES["lazy_fused"] == before + 1
 
 
+def _lazy_case(case, dev):
+    """The inputs, shape and program of a layout the kernel routes apart."""
+    from heat_tpu_torch.core.kernels.lazy_fused import SegmentProgram
+
+    rng = np.random.default_rng(23)
+    if case == "bool_odd":  # a comparison stored as bool, 1001 elements: a tail of 1001 bytes
+        x = torch.from_numpy(rng.normal(size=(1001,))).to(dev, torch.float32)
+        prog = SegmentProgram(1, (("mul", 1, 0, -1, 3.0, False), ("gt", 2, 1, -1, 0.5, False)),
+                              ((2, torch.bool), (1, torch.float32)))
+        return [x], (1001,), prog
+    shape = (1037, 33) if case == "tail" else (4096, 32)
+    x = torch.from_numpy(rng.normal(size=shape)).to(dev, torch.float32)
+    if case == "offset":  # storage offset of one element: flat but unaligned, gathered by each thread
+        x = torch.from_numpy(rng.normal(size=(shape[0] * shape[1] + 1,))).to(dev, torch.float32)[1:].view(shape)
+    row = torch.from_numpy(rng.normal(size=(shape[1],))).to(dev, torch.float32)
+    prog = SegmentProgram(2, (("sub", 2, 0, 1, 0.0, False), ("mul", 3, 2, 2, 0.0, False),
+                              ("add", 4, 3, -1, 1.0, False), ("div", 5, 2, 4, 0.0, False)),
+                          ((5, torch.float32), (3, torch.float32)))
+    return [x, row], shape, prog
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["tail", "offset", "bool_odd"])
+def test_lazy_fused_kernel_routes_match_plain(cuda, case):
+    """On a card: a tail tile (1037 x 33 elements), an input at a storage
+    offset of one element (the per-thread route), and a bool output of odd
+    length each equal the plain version bit for bit, in one launch."""
+    from heat_tpu_torch.core.kernels import lazy_fused, lazy_fused_plain
+    from heat_tpu_torch.core.kernels.lazy_fused import describe
+
+    inputs, shape, prog = _lazy_case(case, cuda)
+    routes = describe(prog, inputs, shape)["routes"]
+    assert routes[0] == {"tail": "bulk", "offset": "flat", "bool_odd": "bulk"}[case]
+    before = LAUNCHES["lazy_fused"]
+    got = lazy_fused(prog, inputs, shape)
+    assert LAUNCHES["lazy_fused"] == before + 1
+    for g, w in zip(got, lazy_fused_plain(prog, inputs, shape)):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,rows", [(k, r) for r in (0, 1, 2) for k in (1, 2, 4, 8, 16, 32) if k >= r])
+def test_lazy_fused_kernel_sweep_programs_match_plain(cuda, k, rows):
+    """On a card: the sweep's programs (``tools/lazy_fused_probe.py``: k
+    add/mul instructions, the first ``rows`` adding a broadcast row) at a
+    tail size (4099 x 32) equal the plain version bit for bit."""
+    import importlib.util
+    import pathlib
+
+    from heat_tpu_torch.core.kernels import lazy_fused, lazy_fused_plain
+    from heat_tpu_torch.core.kernels.lazy_fused import SegmentProgram
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "tools" / "lazy_fused_probe.py"
+    spec = importlib.util.spec_from_file_location("lazy_fused_probe", path)
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    (prog,) = [p for kk, r, p in probe.sweep_programs(SegmentProgram, torch) if (kk, r) == (k, rows)]
+    rng = np.random.default_rng(29)
+    x = torch.from_numpy(rng.normal(size=(4099, 32))).to(cuda, torch.float32)
+    row_inputs = [torch.from_numpy(rng.normal(size=(1, 32))).to(cuda, torch.float32) for _ in range(rows)]
+    (got,) = lazy_fused(prog, [x] + row_inputs, (4099, 32))
+    (want,) = lazy_fused_plain(prog, [x] + row_inputs, (4099, 32))
+    assert torch.equal(got, want)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 @pytest.mark.parametrize("steps", [20, 40], ids=["30ops", "60ops"])

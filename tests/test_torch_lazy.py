@@ -379,15 +379,16 @@ def test_matmul_and_argmax_are_captured():
 # ----------------------------------------------------------- the kernel
 def test_register_flags_follow_the_chain():
     """The binding keeps the previous result in registers: an operand that is
-    it reads the register, and a result only the next instruction reads is
-    not stored (``csrc/lazy_fused.cu``'s LfFlags)."""
+    it reads the register, a result only the next instruction reads is not
+    stored, and the last result reaches its outputs from the register
+    (``csrc/lazy_fused.cu``'s operand sources)."""
     from heat_tpu_torch.core.kernels.lazy_fused import _A_ACC, _B_ACC, _KEEP, SegmentProgram, _flags
 
     # x * x - 1 then * 0.5, with t = x * x also an output; then u = t + t
     prog = SegmentProgram(1, (("mul", 1, 0, 0, 0.0, False), ("sub", 2, 1, -1, 1.0, False),
                               ("mul", 3, 2, -1, 0.5, False), ("add", 4, 1, 1, 0.0, False)),
                           ((1, torch.float32), (3, torch.float32), (4, torch.float32)))
-    assert [_flags(prog, k) for k in range(4)] == [_KEEP, _A_ACC, _A_ACC | _KEEP, _KEEP]
+    assert [_flags(prog, k) for k in range(4)] == [_KEEP, _A_ACC, _A_ACC | _KEEP, 0]
     chain = SegmentProgram(1, (("neg", 1, 0, -1, 0.0, False), ("exp", 2, 1, -1, 0.0, False)), ((2, torch.float32),))
-    assert [_flags(chain, k) for k in range(2)] == [0, _A_ACC | _KEEP]
+    assert [_flags(chain, k) for k in range(2)] == [0, _A_ACC]
     assert _B_ACC == 2

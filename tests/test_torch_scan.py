@@ -39,7 +39,7 @@ from heat_tpu.core.communication import SELF, comm_context
 
 import heat_tpu_torch as htt
 from heat_tpu_torch.core.kernels import KERNEL_STATS, LAUNCHES, scan_axis, scan_axis_plain, scan_begin, scan_finish
-from heat_tpu_torch.core.kernels.lazy_fused import reduce_plan
+from heat_tpu_torch.core.kernels.lazy_fused import reduce_plan, sum_route
 from heat_tpu_torch.core.kernels.scan import scan_plan
 from heat_tpu_torch.core.lazy import evaluate as tevaluate
 
@@ -312,20 +312,24 @@ def test_a_root_read_twice_or_kept_is_not_summed_in_its_segment(case):
 
 
 @pytest.mark.parametrize("shape,axis,rows_mode,tx", [
-    ((1 << 24, 32), 0, 0, 32),     # score's sum: a lane a column, 8 row groups a block
-    ((1 << 24, 32), None, 0, 1),   # every axis: one lane, 256 row groups
+    ((1 << 24, 32), 0, 0, 32),     # score's sum (the tiles route); as lanes, a lane a column, 2 row groups a block
+    ((1 << 24, 32), None, 0, 1),   # every axis (the tiles route); as lanes, one lane, 64 row groups
     ((1 << 24, 32), 1, 1, 1),      # rows of 32: a thread a row
     ((5, 3000), 1, 0, 1),          # long rows, few of them: blocks along each row
     ((37, 12, 8), 1, 0, 8),        # a middle axis: 8 lanes
 ])
 def test_terminal_sum_plan(shape, axis, rows_mode, tx):
-    """The terminal sum's plan at 132 SMs: the mapping, and chunks of whole
-    steps covering the summed axis with about eight blocks an SM."""
+    """The terminal sum's lanes plan at 132 SMs on a float register file (64
+    threads a block, 16 elements a thread a step): the mapping, and chunks
+    of whole steps covering the summed axis with about eight blocks an SM;
+    sums over every axis, or over the leading axis of rows of 32 columns,
+    take the tiles route instead."""
     (outer, r, inner, rows, chunks, lane_tiles, ptx, ty, prm), blocks = reduce_plan(shape, axis, 132)
     assert (prm, ptx) == (rows_mode, tx)
     assert outer * r * inner == int(np.prod(shape))
+    assert sum_route(shape, axis) == ("tiles" if shape == (1 << 24, 32) and axis in (0, None) else "lanes")
     if rows_mode:
-        assert blocks == -(-outer // 256)
+        assert blocks == -(-outer // 64)
         return
-    assert tx * ty <= 256 and rows % (ty * 4) == 0 and (chunks - 1) * rows < r <= chunks * rows
+    assert tx * ty <= 64 and rows % (ty * 16) == 0 and (chunks - 1) * rows < r <= chunks * rows
     assert blocks == lane_tiles * outer * chunks and (blocks <= 8 * 132 or chunks == 1)
